@@ -1,0 +1,148 @@
+"""Reference / HF torch state dict -> the port's parameter trees.
+
+Layout conventions handled here, once, at load time:
+- torch ``nn.Linear.weight`` is (out, in) -> transposed to (in, out)
+- the patch-embedding ``Conv2d.weight`` (d, C, p, p) -> (C*p*p, d), the
+  channel-major patch ordering of the uint8 wire rows
+
+Prefixes: the reference fusion checkpoint keeps the encoder under
+``backbone.*`` and the head modules at the top level.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from multimodal_content_moderation_tpu_torch.models.clip import CLIPConfig
+from multimodal_content_moderation_tpu_torch.models.params import map_leaves
+
+
+def _t(x) -> torch.Tensor:
+    """torch tensor or ndarray -> an owned CPU tensor (a copy, so a later
+    in-place update of the source cannot reach the converted tree)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return torch.from_numpy(np.array(x))
+
+
+def _linear(sd: Dict, name: str, bias: bool = True) -> dict:
+    p = {"w": _t(sd[f"{name}.weight"]).t().contiguous()}
+    if bias:
+        p["b"] = _t(sd[f"{name}.bias"])
+    return p
+
+
+def _ln(sd: Dict, name: str) -> dict:
+    return {"scale": _t(sd[f"{name}.weight"]), "bias": _t(sd[f"{name}.bias"])}
+
+
+def _encoder_layers(sd: Dict, prefix: str, num_layers: int) -> list:
+    layers = []
+    for i in range(num_layers):
+        b = f"{prefix}.layers.{i}"
+        layers.append(
+            {
+                "ln1": _ln(sd, f"{b}.layer_norm1"),
+                "attn": {
+                    "q": _linear(sd, f"{b}.self_attn.q_proj"),
+                    "k": _linear(sd, f"{b}.self_attn.k_proj"),
+                    "v": _linear(sd, f"{b}.self_attn.v_proj"),
+                    "o": _linear(sd, f"{b}.self_attn.out_proj"),
+                },
+                "ln2": _ln(sd, f"{b}.layer_norm2"),
+                "fc1": _linear(sd, f"{b}.mlp.fc1"),
+                "fc2": _linear(sd, f"{b}.mlp.fc2"),
+            }
+        )
+    return layers
+
+
+def _conv_patch_embed(sd: Dict, name: str, bias: bool) -> dict:
+    w = _t(sd[f"{name}.weight"])  # (d, C, p, p)
+    p = {"w": w.reshape(w.shape[0], -1).t().contiguous()}
+    if bias:
+        p["b"] = _t(sd[f"{name}.bias"])
+    return p
+
+
+def _strip_prefix(sd: Dict, prefix: str) -> Dict:
+    if not prefix:
+        return dict(sd)
+    n = len(prefix)
+    return {k[n:]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def clip_text_tower_from_torch(sd: Dict, cfg: CLIPConfig, prefix: str = "text_model.") -> dict:
+    t = _strip_prefix(sd, prefix)
+    return {
+        "token_embedding": _t(t["embeddings.token_embedding.weight"]),
+        "position_embedding": _t(t["embeddings.position_embedding.weight"]),
+        "layers": _encoder_layers(t, "encoder", cfg.text.num_layers),
+        "final_ln": _ln(t, "final_layer_norm"),
+    }
+
+
+def clip_vision_tower_from_torch(sd: Dict, cfg: CLIPConfig, prefix: str = "vision_model.") -> dict:
+    v = _strip_prefix(sd, prefix)
+    return {
+        "class_embedding": _t(v["embeddings.class_embedding"]),
+        "patch_embedding": _conv_patch_embed(v, "embeddings.patch_embedding", bias=False),
+        "position_embedding": _t(v["embeddings.position_embedding.weight"]),
+        # NB: HF spells it "pre_layrnorm"
+        "pre_ln": _ln(v, "pre_layrnorm"),
+        "layers": _encoder_layers(v, "encoder", cfg.vision.num_layers),
+        "post_ln": _ln(v, "post_layernorm"),
+    }
+
+
+def clip_params_from_torch(sd: Dict, cfg: CLIPConfig, prefix: str = "") -> dict:
+    """Full CLIPModel state dict -> parameter tree (with projections)."""
+    s = _strip_prefix(sd, prefix)
+    out = {
+        "text_model": clip_text_tower_from_torch(s, cfg),
+        "vision_model": clip_vision_tower_from_torch(s, cfg),
+        "text_projection": _linear(s, "text_projection", bias=False),
+        "visual_projection": _linear(s, "visual_projection", bias=False),
+    }
+    if "logit_scale" in s:
+        out["logit_scale"] = _t(s["logit_scale"]).reshape(())
+    return out
+
+
+def fusion_head_from_torch(sd: Dict) -> dict:
+    """Reference MultiModalFusionClassifier head; ``cls`` Sequential indices:
+    0=LayerNorm, 1=Linear, 4=Linear."""
+    return {
+        "proj_t": _linear(sd, "proj_t"),
+        "proj_i": _linear(sd, "proj_i"),
+        "g_t": _linear(sd, "g_t"),
+        "g_i": _linear(sd, "g_i"),
+        "gate": _linear(sd, "gate"),
+        "ln_fused": _ln(sd, "ln_fused"),
+        "cls_ln": _ln(sd, "cls.0"),
+        "cls_fc1": _linear(sd, "cls.1"),
+        "cls_fc2": _linear(sd, "cls.4"),
+    }
+
+
+def fusion_model_from_torch(sd: Dict, backend: str, clip_cfg: Optional[CLIPConfig] = None) -> dict:
+    """Full reference fusion checkpoint (backbone.* + head)."""
+    if backend != "clip":
+        raise NotImplementedError(f"backend {backend!r} is not ported yet")
+    backbone = clip_params_from_torch(sd, clip_cfg, prefix="backbone.")
+    return {"backbone": backbone, "head": fusion_head_from_torch(sd)}
+
+
+def load_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """Load a .safetensors file into a numpy state dict."""
+    from safetensors.numpy import load_file
+
+    return load_file(path)
+
+
+def to_dtype(tree, dtype: torch.dtype):
+    """Cast every floating leaf of a nested dict/list of tensors."""
+    return map_leaves(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)

@@ -1,0 +1,94 @@
+"""The port stands alone: no file of it (or chip_smoke.py) imports JAX or
+the JAX package, and the modules on the card's path import with only the
+packages the card machine has (no pandas, PIL, sklearn, yaml, safetensors,
+regex or transformers)."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "multimodal_content_moderation_tpu_torch"
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
+
+# modules 1-11 of the slice: what chip_smoke.py drives on the card
+CARD_PATH_MODULES = [
+    "multimodal_content_moderation_tpu_torch.ops._build",
+    "multimodal_content_moderation_tpu_torch.ops.cuda_image",
+    "multimodal_content_moderation_tpu_torch.ops.cuda_attention",
+    "multimodal_content_moderation_tpu_torch.ops.layers",
+    "multimodal_content_moderation_tpu_torch.models.clip",
+    "multimodal_content_moderation_tpu_torch.models.fusion",
+    "multimodal_content_moderation_tpu_torch.models.u8wire",
+    "multimodal_content_moderation_tpu_torch.models.bridge",
+    "multimodal_content_moderation_tpu_torch.models.convert",
+    "multimodal_content_moderation_tpu_torch.models.model_io",
+    "multimodal_content_moderation_tpu_torch.models.fast_infer",
+    "multimodal_content_moderation_tpu_torch.data.pipeline",
+    "chip_smoke",
+]
+MISSING_ON_CARD_MACHINE = [
+    "jax", "jaxlib", "multimodal_content_moderation_tpu", "pandas", "PIL", "sklearn",
+    "yaml", "safetensors", "regex", "transformers",
+]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_jax_import(path):
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN_ROOTS, f"{path.name} imports {name}"
+
+
+BLOCKER = """
+import importlib.abc, sys
+BLOCKED = set({blocked!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{{name}} is blocked")
+        return None
+
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, {repo!r})
+import importlib
+for mod in {mods!r}:
+    importlib.import_module(mod)
+print("ok")
+"""
+
+
+def test_card_path_imports_without_missing_packages():
+    code = BLOCKER.format(
+        blocked=MISSING_ON_CARD_MACHINE, repo=str(REPO), mods=CARD_PATH_MODULES
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=str(REPO),
+        env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
