@@ -32,12 +32,15 @@ class CSVDataset:
         preprocessor: ImagePreprocessor,
         max_text_length: int = 77,
         class_names: Optional[List[str]] = None,
+        is_train: bool = False,
     ):
         import pandas as pd
 
         self.df = pd.read_csv(csv_path)
         self.image_root = image_root
         self.preproc = preprocessor
+        self.max_len = max_text_length
+        self.is_train = is_train
 
         has_binary = "label" in self.df.columns
         has_multilabel = "labels" in self.df.columns
@@ -73,8 +76,25 @@ class CSVDataset:
             self.texts, max_text_length
         )
 
+    def truncate_text(self, width: int) -> None:
+        """Shrink the static text width to ``width`` tokens (in place), for
+        ``training.text_fit``: with a causal text tower pooled at the first
+        EOS (CLIP), features and gradients are the same at the smaller width
+        when every row's EOS sits before it. Refuses to drop real tokens."""
+        if width >= self.input_ids.shape[1]:
+            return
+        if int(self.attention_mask[:, width:].sum()) != 0:
+            raise ValueError(
+                f"truncate_text({width}) would drop real tokens (longest row "
+                f"is {int(self.attention_mask.sum(axis=1).max())} tokens)"
+            )
+        self.input_ids = np.ascontiguousarray(self.input_ids[:, :width])
+        self.attention_mask = np.ascontiguousarray(self.attention_mask[:, :width])
+        self.max_len = width
+
     def __len__(self) -> int:
         return len(self.texts)
+
 
     def load_image(self, i: int):
         return self.preproc.load_relative(self.paths[i], self.image_root)
@@ -82,19 +102,24 @@ class CSVDataset:
     def batches(
         self,
         batch_size: int,
+        drop_last: bool = False,
         pad_to_batch: bool = False,
         num_workers: int = 8,
         indices: Optional[Sequence[int]] = None,
     ) -> Iterator[Dict[str, np.ndarray]]:
         """Yield fixed-shape dict-of-numpy batches with threaded image decode.
 
-        ``indices`` overrides the natural order. With ``pad_to_batch`` the
-        last batch is zero-padded to ``batch_size`` and carries ``_valid``.
+        ``indices`` overrides the natural order (the weighted sampler's
+        draw). ``drop_last`` drops a short last batch (training); with
+        ``pad_to_batch`` the last batch is zero-padded to ``batch_size`` and
+        carries ``_valid`` (evaluation).
         """
         order = np.arange(len(self)) if indices is None else np.asarray(indices)
+        n = len(order)
+        starts = range(0, n - batch_size + 1, batch_size) if drop_last else range(0, n, batch_size)
         pool = cf.ThreadPoolExecutor(max_workers=num_workers)
         try:
-            for s in range(0, len(order), batch_size):
+            for s in starts:
                 idx = order[s : s + batch_size]
                 valid = len(idx)
                 results = list(pool.map(self.load_image, idx))

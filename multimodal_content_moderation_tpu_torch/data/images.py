@@ -1,16 +1,21 @@
-"""Host-side image decode + geometric preprocessing (eval path).
+"""Host-side image decode + geometric preprocessing.
 
-Reproduces the reference's torchvision eval pipeline on PIL inputs exactly:
+The eval path reproduces the reference's torchvision pipeline on PIL inputs
+exactly:
 
     Resize(shortest_edge=H, bilinear antialias) -> CenterCrop(H, W)
     -> ToTensor -> Normalize(mean, std)
+
+The train path (``augment``) is torchvision's RandomResizedCrop, horizontal
+flip and ColorJitter, drawn from a numpy ``Generator`` in the same order as
+the JAX package's ``data/images.py``, so one seed gives the same crops.
 
 The host produces raw uint8 HWC crops; on the uint8 wire the normalisation
 is folded into the patch embed on the card (``models/u8wire.py``). Missing
 or corrupt images degrade to zeros with presence flag 0.0.
 
-Not ported yet: the normalised float32 NCHW output (the pixel path), the
-native libjpeg backend and the training augmentations.
+Not ported yet: the normalised float32 NCHW output (the pixel path) and the
+native libjpeg backend.
 
 PIL is imported where an image is decoded, so this module (and the stats
 below) import on a machine without it.
@@ -19,6 +24,7 @@ below) import on a machine without it.
 from __future__ import annotations
 
 import io
+import math
 import os
 from typing import Sequence, Tuple
 
@@ -58,10 +64,53 @@ def center_crop(arr: np.ndarray, H: int, W: int) -> np.ndarray:
     return arr[top : top + H, left : left + W]
 
 
+def _sample_rrc_box(
+    rng: np.random.Generator,
+    h: int,
+    w: int,
+    scale: Tuple[float, float],
+    ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0),
+) -> Tuple[int, int, int, int]:
+    """torchvision RandomResizedCrop.get_params: (top, left, ch, cw)."""
+    area = h * w
+    log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+    for _ in range(10):
+        target_area = area * rng.uniform(scale[0], scale[1])
+        aspect = math.exp(rng.uniform(*log_ratio))
+        cw = int(round(math.sqrt(target_area * aspect)))
+        ch = int(round(math.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            top = int(rng.integers(0, h - ch + 1))
+            left = int(rng.integers(0, w - cw + 1))
+            return top, left, ch, cw
+    # fallback: center crop at the closest valid aspect ratio
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        ch, cw = h, int(round(h * ratio[1]))
+    else:
+        cw, ch = w, h
+    return (h - ch) // 2, (w - cw) // 2, ch, cw
+
+
+def _adjust_hue(im, factor: float):
+    """Shift hue by ``factor`` in [-0.5, 0.5] via an HSV roll (torchvision's
+    algorithm)."""
+    from PIL import Image
+
+    if abs(factor) < 1e-8:
+        return im
+    hsv = np.array(im.convert("HSV"), dtype=np.uint8)
+    shift = np.uint8(int(factor * 255)) if factor >= 0 else np.uint8(256 + int(factor * 255))
+    hsv[..., 0] = hsv[..., 0] + shift  # uint8 wraparound == hue circle
+    return Image.fromarray(hsv, "HSV").convert("RGB")
+
+
 class ImagePreprocessor:
-    """Decode + resize + crop one image to a fixed-shape uint8 HWC crop.
-    ``mean``/``std`` (the encoder's stats) are applied on the card, folded
-    into the patch embed; they are accepted here for the JAX signature."""
+    """Decode + resize + crop (+ augment) one image to a fixed-shape uint8
+    HWC crop. ``mean``/``std`` (the encoder's stats) are applied on the
+    card, folded into the patch embed; they are kept for the model."""
 
     def __init__(
         self,
@@ -69,7 +118,12 @@ class ImagePreprocessor:
         width: int = 224,
         mean: Sequence[float] = CLIP_MEAN,
         std: Sequence[float] = CLIP_STD,
+        is_train: bool = False,
+        augment: bool = False,
+        aug_scale: Tuple[float, float] = (0.8, 1.0),
+        color_jitter: Tuple[float, float, float, float] = (0.1, 0.1, 0.1, 0.05),
         output: str = "uint8_hwc",
+        seed: int = 0,
         backend: str = "pil",
     ):
         if output != "uint8_hwc":
@@ -83,12 +137,43 @@ class ImagePreprocessor:
                 "backend comes in a later slice); use 'pil'"
             )
         self.H, self.W = height, width
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.is_train = is_train
+        self.augment = augment and is_train
+        self.aug_scale = aug_scale
+        self.jitter = color_jitter
+        self.rng = np.random.default_rng(seed)
+
+    def _train_transform(self, im) -> np.ndarray:
+        from PIL import Image, ImageEnhance
+
+        w, h = im.size
+        top, left, ch, cw = _sample_rrc_box(self.rng, h, w, self.aug_scale)
+        im = im.crop((left, top, left + cw, top + ch))
+        im = im.resize((self.W, self.H), Image.BILINEAR)
+        if self.rng.random() < 0.5:
+            im = im.transpose(Image.FLIP_LEFT_RIGHT)
+        b, c, s, hue = self.jitter
+        for op in self.rng.permutation(4):
+            if op == 0 and b > 0:
+                im = ImageEnhance.Brightness(im).enhance(self.rng.uniform(1 - b, 1 + b))
+            elif op == 1 and c > 0:
+                im = ImageEnhance.Contrast(im).enhance(self.rng.uniform(1 - c, 1 + c))
+            elif op == 2 and s > 0:
+                im = ImageEnhance.Color(im).enhance(self.rng.uniform(1 - s, 1 + s))
+            elif op == 3 and hue > 0:
+                im = _adjust_hue(im, self.rng.uniform(-hue, hue))
+        return np.asarray(im, np.uint8)
 
     def zero_output(self) -> np.ndarray:
         return np.zeros((self.H, self.W, 3), np.uint8)
 
     def process_pil(self, im) -> np.ndarray:
-        im = resize_shortest_edge(im.convert("RGB"), self.H)
+        im = im.convert("RGB")
+        if self.augment:
+            return self._train_transform(im)
+        im = resize_shortest_edge(im, self.H)
         return center_crop(np.asarray(im, np.uint8), self.H, self.W)
 
     def process_bytes(self, data: bytes) -> Tuple[np.ndarray, float]:

@@ -30,8 +30,9 @@ class CLIPTextConfig:
     hidden_act: str = "quick_gelu"
     layer_norm_eps: float = 1e-5
     compute_dtype: str = "float32"  # "float32" | "bfloat16"
-    attention_impl: str = "xla"  # "xla" | "pallas" (the attention_nhd kernel)
+    attention_impl: str = "xla"  # "xla" | "pallas" (the attention_nhd kernels)
     scores_dtype: str = "float32"
+    remat: bool = False  # recompute each block in the backward pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +49,7 @@ class CLIPVisionConfig:
     compute_dtype: str = "float32"
     attention_impl: str = "xla"
     scores_dtype: str = "float32"
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +204,7 @@ def clip_text_hidden(
     for layer in p["layers"]:
         x = transformer_block(
             x, layer, cfg.num_heads, cfg.hidden_act, mask, cfg.layer_norm_eps,
+            remat=cfg.remat,
             attention_impl=cfg.attention_impl,
             scores_dtype=cfg.scores_dtype,
             causal=causal,
@@ -236,6 +239,7 @@ def clip_vision_encoder(params, tokens: torch.Tensor, cfg: CLIPVisionConfig) -> 
     for layer in p["layers"]:
         x = transformer_block(
             x, layer, cfg.num_heads, cfg.hidden_act, None, cfg.layer_norm_eps,
+            remat=cfg.remat,
             attention_impl=cfg.attention_impl,
             scores_dtype=cfg.scores_dtype,
         )

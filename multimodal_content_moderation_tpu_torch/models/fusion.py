@@ -4,9 +4,9 @@ Same math as the JAX package's ``models/fusion.py`` (the reference
 ``MultiModalFusionClassifier``): L2-normalised encoder features masked by
 presence flags, projected, tanh-gated fusion with a sigmoid gate that sees
 both projections and the flags, a three-way fallback when a modality is
-absent, and ``[fused, t, v, |t-v|, t*v] -> LN -> Linear -> GELU -> Linear``.
-Only the CLIP backend is ported so far; no losses (the fast engine never
-passes labels).
+absent, and ``[fused, t, v, |t-v|, t*v] -> LN -> Linear -> GELU -> Dropout(0.2) ->
+Linear``, and the in-model BCE (``pos_weight``) or focal loss when the
+batch carries labels. Only the CLIP backend is ported so far.
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ from torch import nn
 
 from multimodal_content_moderation_tpu_torch.models import clip as clip_mod
 from multimodal_content_moderation_tpu_torch.models.params import ParamTree
-from multimodal_content_moderation_tpu_torch.ops.layers import dense, gelu_exact, layer_norm
+from multimodal_content_moderation_tpu_torch.ops.layers import dense, dropout, gelu_exact, layer_norm
+from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits, focal_with_logits
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
 
 
@@ -65,8 +66,12 @@ def fusion_head_init(
     }
 
 
-def fusion_head_apply(params, tfeat, vfeat, text_present, image_present) -> torch.Tensor:
-    """Fusion head forward (eval): encoder features -> logits."""
+def fusion_head_apply(
+    params, tfeat, vfeat, text_present, image_present,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Fusion head forward: encoder features -> logits. A ``generator``
+    turns on the classifier's dropout (training)."""
     tfeat = l2_normalize(tfeat) * text_present[:, None].to(tfeat.dtype)
     vfeat = l2_normalize(vfeat) * image_present[:, None].to(vfeat.dtype)
 
@@ -88,13 +93,15 @@ def fusion_head_apply(params, tfeat, vfeat, text_present, image_present) -> torc
     feat = torch.cat([fused, tp, vp, torch.abs(tp - vp), tp * vp], dim=1)
     y = layer_norm(feat, params["cls_ln"])
     y = gelu_exact(dense(y, params["cls_fc1"]))
+    y = dropout(y, 0.2, generator)
     return dense(y, params["cls_fc2"])
 
 
 class FusionModel(nn.Module):
-    """Backbone + fusion head. ``forward(batch) -> {"logits"}`` where batch
-    holds input_ids, attention_mask, patches_u8 ([B, N, C*p*p] uint8),
-    text_present and image_present.
+    """Backbone + fusion head. ``forward(batch) -> {"logits"}`` (and
+    ``"loss"`` when the batch holds ``labels``) where batch holds input_ids,
+    attention_mask, patches_u8 ([B, N, C*p*p] uint8), text_present and
+    image_present.
 
     Parameters live in ``backbone`` and ``head`` (``ParamTree``s), so the
     ``state_dict`` keys are the JAX pytree paths
@@ -109,6 +116,8 @@ class FusionModel(nn.Module):
         fusion_dim: int = 512,
         image_mean: Optional[tuple] = None,
         image_std: Optional[tuple] = None,
+        loss_type: str = "bce",
+        focal_gamma: float = 1.5,
     ):
         super().__init__()
         if backend != "clip":
@@ -122,6 +131,8 @@ class FusionModel(nn.Module):
         self.fusion_dim = fusion_dim
         self.image_mean = image_mean
         self.image_std = image_std
+        self.loss_type = loss_type  # "bce" | "focal"
+        self.focal_gamma = focal_gamma
         self.backbone = ParamTree(params["backbone"])
         self.head = ParamTree(params["head"])
 
@@ -134,6 +145,8 @@ class FusionModel(nn.Module):
         seed: int = 0,
         device="cuda",
         dtype=torch.float32,
+        loss_type: str = "bce",
+        focal_gamma: float = 1.5,
     ) -> "FusionModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
         if backend.lower() != "clip":
@@ -146,7 +159,10 @@ class FusionModel(nn.Module):
                 g, clip_config.projection_dim, num_labels, fusion_dim, dtype
             ),
         }
-        return FusionModel(params, "clip", clip_config, num_labels, fusion_dim)
+        return FusionModel(
+            params, "clip", clip_config, num_labels, fusion_dim,
+            loss_type=loss_type, focal_gamma=focal_gamma,
+        )
 
     def replace(self, **fields) -> "FusionModel":
         """A copy with other config fields that shares these parameters."""
@@ -184,15 +200,30 @@ class FusionModel(nn.Module):
         v = clip_mod.clip_image_features_from_tokens(bp, tokens, self.clip_config)
         return t, v
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(
+        self,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        pos_weight: Optional[torch.Tensor] = None,
+        alpha_focal: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """``generator`` turns on the head's dropout (training); the loss
+        is computed when the batch carries ``labels``."""
         if "patches_u8" not in batch:
             raise NotImplementedError(
                 "the pixel_values path is not ported yet; pass patches_u8"
             )
-        if batch.get("labels") is not None:
-            raise NotImplementedError("losses come with the training slice")
         tfeat, vfeat = self.encode(batch)
         logits = fusion_head_apply(
-            self.head, tfeat, vfeat, batch["text_present"], batch["image_present"]
+            self.head, tfeat, vfeat, batch["text_present"], batch["image_present"], generator
         )
-        return {"logits": logits}
+        out = {"logits": logits}
+        labels = batch.get("labels")
+        if labels is not None:
+            if self.loss_type == "focal":
+                out["loss"] = focal_with_logits(
+                    logits, labels, gamma=self.focal_gamma, alpha=alpha_focal
+                )
+            else:
+                out["loss"] = bce_with_logits(logits, labels, pos_weight=pos_weight)
+        return out

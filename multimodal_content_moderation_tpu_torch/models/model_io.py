@@ -1,11 +1,18 @@
 """Model construction + checkpoint resolution (fully offline).
 
-Loads a reference-format run checkpoint (``model.safetensors`` or
-``pytorch_model.bin`` with ``backbone.*`` and head keys, plus
-``inference_config.json`` in the directory or its parent) into a
-``FusionModel`` on the chosen device. Config JSONs are parsed directly. The
-framework's own Orbax run directories come with the training slice; the
-SigLIP, generic and multi-task models with theirs.
+Resolves two checkpoint layouts into a ``FusionModel`` on the chosen device,
+with ``inference_config.json`` in the directory or its parent:
+
+1. a reference-format run checkpoint (``model.safetensors`` or
+   ``pytorch_model.bin`` with ``backbone.*`` and head keys);
+2. the port's own run directories (``checkpoint-N/params.pt``, written by
+   ``training/checkpoints.py``, with ``"format": "torch"``).
+
+A local HF encoder directory (``config.json`` + weights) seeds the backbone
+of a new model (``init_from_encoder_dir``); the head starts from the seeded
+random init. The JAX package's Orbax run directories are its own format
+(``mmharm-export`` converts them); the SigLIP, generic and multi-task models
+come with their slices. Config JSONs are parsed directly.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from multimodal_content_moderation_tpu_torch.models.clip import (
     CLIPVisionConfig,
 )
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+from multimodal_content_moderation_tpu_torch.models.params import flatten
 from multimodal_content_moderation_tpu_torch.utils.config import load_json
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
 
@@ -62,6 +70,28 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (a later slice brings it)")
 
 
+def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
+    """Resolve ``backend: auto`` from the local encoder's ``config.json``
+    ``model_type``, as the JAX package does; only CLIP is ported, so any
+    other answer raises."""
+    resolved = backend
+    if backend == "auto":
+        resolved = "siglip"
+        cfg_path = os.path.join(encoder_dir or "", "config.json")
+        if os.path.exists(cfg_path):
+            d = load_json(cfg_path)
+            model_type = d.get("model_type", "")
+            if model_type == "clip":
+                resolved = "clip"
+            elif model_type and not model_type.startswith("siglip") and (
+                "text_config" in d or "vision_config" in d
+            ):
+                resolved = "generic"
+    if resolved != "clip":
+        raise _not_ported(f"backend {resolved!r}")
+    return resolved
+
+
 def load_encoder_config(encoder_dir: str, backend: str) -> CLIPConfig:
     """Parse a local HF ``config.json`` into the CLIP config dataclasses."""
     if backend != "clip":
@@ -89,12 +119,14 @@ def build_model(
     backend: str,
     class_names,
     fusion_dim: int = 512,
+    loss_type: str = "bce",
+    focal_gamma: float = 1.5,
     clip_config: Optional[CLIPConfig] = None,
     seed: int = 0,
     device="cuda",
 ) -> FusionModel:
     """A randomly initialised fusion model (scripts/train.py's contract;
-    the loss options come with the training slice)."""
+    the multi-task head is not ported)."""
     if head != "fusion":
         raise _not_ported(f"head {head!r}")
     return FusionModel.create(
@@ -104,7 +136,31 @@ def build_model(
         clip_config=clip_config,
         seed=seed,
         device=device,
+        loss_type=loss_type,
+        focal_gamma=focal_gamma,
     )
+
+
+def init_from_encoder_dir(model: FusionModel, encoder_dir: Optional[str]) -> FusionModel:
+    """Copy the HF encoder weights of ``encoder_dir`` (a local
+    ``openai/clip-vit-base-patch32``-layout directory) into the model's
+    backbone, in place; the head keeps its seeded random init. Without
+    weights there, the model is returned as it is."""
+    sd = _find_state_dict(encoder_dir) if encoder_dir else None
+    if sd is None:
+        return model
+    if model.backend != "clip":
+        raise _not_ported(f"backend {model.backend!r}")
+    backbone = convert.clip_params_from_torch(sd, model.clip_config)
+    flat = flatten(backbone)
+    own = model.backbone.state_dict()
+    missing = sorted(set(own) - set(flat))
+    if missing:
+        raise KeyError(f"{encoder_dir}: no weights for backbone {missing[:3]}")
+    with torch.no_grad():
+        for name, t in own.items():
+            t.copy_(flat[name].to(t.dtype))
+    return model
 
 
 def with_performance_options(
@@ -155,7 +211,9 @@ def load_checkpoint(
     dtype: Optional[torch.dtype] = None,
     device="cuda",
 ) -> Tuple[FusionModel, Dict[str, Any]]:
-    """Reference-format checkpoint -> (model on ``device``, inference_config).
+    """Checkpoint -> (model on ``device``, inference_config): a
+    reference-format checkpoint, or a ``checkpoint-N`` of the port's own run
+    directory (``"format": "torch"``).
 
     ``encoder_dir`` supplies the encoder ``config.json`` when the checkpoint
     does not carry one."""
@@ -166,10 +224,25 @@ def load_checkpoint(
     if head != "fusion":
         raise _not_ported(f"head {head!r}")
     if cfg.get("format") == "orbax":
-        raise _not_ported("loading an Orbax run directory (the training slice)")
+        raise NotImplementedError(
+            "an Orbax run directory is the JAX package's own format: convert it "
+            "with mmharm-export (model.safetensors) to load it here"
+        )
     class_names = cfg.get("class_names", ["harmful"])
     enc_src = encoder_dir or cfg.get("encoder_dir") or checkpoint_dir
     enc_cfg = load_encoder_config(enc_src, backend)
+
+    if cfg.get("format") == "torch":
+        from multimodal_content_moderation_tpu_torch.training.checkpoints import load_params
+
+        model = build_model(
+            head, backend, class_names, cfg.get("fusion_dim", 512),
+            clip_config=enc_cfg, device="cpu",
+        )
+        model.load_state_dict(load_params(checkpoint_dir), strict=True)
+        if dtype is not None:
+            model = model.to(dtype)
+        return model.to(dev), cfg
 
     sd = _find_state_dict(checkpoint_dir)
     if sd is None:

@@ -34,7 +34,8 @@ def _wrap(value):
         return ParamTree(value)
     if isinstance(value, (list, tuple)):
         return nn.ModuleList([_wrap(v) for v in value])
-    return nn.Parameter(torch.as_tensor(value), requires_grad=False)
+    t = torch.as_tensor(value)
+    return nn.Parameter(t, requires_grad=t.is_floating_point())
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:

@@ -1,6 +1,9 @@
 """uint8 wire-format glue: fold the normalisation into the patch embed and
 embed the patch rows (``ops/cuda_image.patch_embed_u8``: the kernel on the
-card, its plain version on the CPU)."""
+card, its plain version on the CPU, through the autograd Function
+``patch_embed_u8_train``). The fold runs inside the autograd graph, so
+when gradients are recorded they reach the embedding weight and bias
+themselves: the u8 wire trains as well as it evaluates."""
 
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import torch
 from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import (
     fold_norm_into_embed,
-    patch_embed_u8,
+    patch_embed_u8_train,
 )
 
 
@@ -52,6 +55,6 @@ def embed_patches_u8(
         vision_cfg.patch_size,
         vision_cfg.num_channels,
     )
-    return patch_embed_u8(
+    return patch_embed_u8_train(
         patches_u8, wf.contiguous(), bf.contiguous(), getattr(torch, vision_cfg.compute_dtype)
     )

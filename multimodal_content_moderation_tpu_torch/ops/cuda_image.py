@@ -8,7 +8,8 @@ kernel is one product over widened uint8 rows plus a bias.
 
 ``patch_embed_u8`` launches the CUDA kernel (``csrc/patch_embed_u8.cu``)
 for tensors on the card and runs ``patch_embed_reference``, its plain
-version, for tensors on the CPU.
+version, for tensors on the CPU. ``patch_embed_u8_train`` makes it
+differentiable in the folded weight and bias.
 """
 
 from __future__ import annotations
@@ -123,6 +124,36 @@ def patch_embed_u8(
 
 
 patch_embed_u8.launches = 0
+
+
+class _PatchEmbedU8(torch.autograd.Function):
+    """``patch_embed_u8`` forward; the backward is the JAX package's
+    ``_embed_train_bwd``, plain products outside any kernel:
+    dW = x^T g and db = sum(g) in fp32, no gradient for the uint8 rows."""
+
+    @staticmethod
+    def forward(ctx, patches_u8, w_folded, b_folded, out_dtype):
+        ctx.save_for_backward(patches_u8)
+        return patch_embed_u8(patches_u8, w_folded, b_folded, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (patches_u8,) = ctx.saved_tensors
+        K = patches_u8.shape[-1]
+        x = patches_u8.reshape(-1, K).float()  # widened before any product
+        g32 = g.reshape(-1, g.shape[-1]).float()
+        return None, x.t() @ g32, g32.sum(dim=0), None
+
+
+def patch_embed_u8_train(
+    patches_u8: torch.Tensor,
+    w_folded: torch.Tensor,
+    b_folded: torch.Tensor,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Differentiable ``patch_embed_u8``: gradients reach ``w_folded`` and
+    ``b_folded`` (and through the fold, the embedding weight)."""
+    return _PatchEmbedU8.apply(patches_u8, w_folded, b_folded, out_dtype)
 
 
 def _lib() -> ctypes.CDLL:

@@ -18,7 +18,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ, attention_nhd
+from torch.utils.checkpoint import checkpoint
+
+from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ, attention_nhd_diff
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -34,17 +36,48 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu_exact}
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """``x @ w`` of two low-precision CUDA tensors with an fp32 result (one
+    cuBLAS call, fp32 accumulation, no rounding of the product). Its
+    gradients are low-precision products, as JAX's transpose of
+    ``jnp.dot(..., preferred_element_type=float32)`` gives them."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        # g is the fp32 image of a low-precision cotangent: the cast is exact
+        g = g.to(x2.dtype)
+        return torch.mm(g, w.t()), torch.mm(x2.t(), g)
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated and returned in fp32 (x [..., in], w [in, out])."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.device.type == "cuda":
+        y = _MatmulF32Out.apply(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    # a product of two bf16 numbers is exact in fp32: the same function
+    return torch.matmul(x.float(), w.float())
+
+
 def dense(x: torch.Tensor, p) -> torch.Tensor:
     """Affine layer: ``p = {"w": (in, out), "b": (out,)}`` (b optional).
 
     The weight is cast to the activation dtype; the product accumulates in
-    fp32, the bias is added in fp32 and the result has x's dtype."""
+    fp32 and stays fp32, the bias is added in fp32 and the result is rounded
+    once to x's dtype (JAX's ``preferred_element_type=float32`` dense)."""
     w = p["w"]
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
-    y = torch.matmul(x, w)
+    y = _matmul_f32(x, w)
     if "b" in p and p["b"] is not None:
-        y = y.float() + p["b"].float()
+        y = y + p["b"].float()
     return y.to(x.dtype)
 
 
@@ -55,6 +88,18 @@ def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
         x.float(), (x.shape[-1],), p["scale"].float(), p["bias"].float(), eps
     )
     return y.to(x.dtype)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """Inverted dropout from an explicit generator's stream. Identity when
+    ``generator is None`` (eval) or ``rate == 0``."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def mha(
@@ -95,7 +140,7 @@ def mha(
                 f"attention impl 'pallas' at sequence {max(Tq, Tk)} > {MAX_SEQ} needs "
                 "the flash_attention kernel, which is not ported yet"
             )
-        out = attention_nhd(q3, k3, v3, h, key_mask, causal)
+        out = attention_nhd_diff(q3, k3, v3, key_mask, h, causal)
         return dense(out, p["o"])
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -128,20 +173,29 @@ def transformer_block(
     act: str,
     mask: Optional[torch.Tensor] = None,
     eps: float = 1e-5,
+    remat: bool = False,
     attention_impl: str = "xla",
     scores_dtype: str = "float32",
     causal: bool = False,
     key_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Pre-LN transformer block (HF CLIPEncoderLayer semantics).
-    ``p = {"ln1", "attn", "ln2", "fc1", "fc2"}``."""
+    ``p = {"ln1", "attn", "ln2", "fc1", "fc2"}``. With ``remat`` the block's
+    activations are recomputed in the backward pass
+    (``torch.utils.checkpoint``), trading operations for memory."""
     activation = ACTIVATIONS[act]
-    y = layer_norm(x, p["ln1"], eps)
-    x = x + mha(
-        y, y, p["attn"], num_heads, mask,
-        impl=attention_impl, scores_dtype=scores_dtype,
-        causal=causal, key_mask=key_mask,
-    )
-    y = layer_norm(x, p["ln2"], eps)
-    y = activation(dense(y, p["fc1"]))
-    return x + dense(y, p["fc2"])
+
+    def block(x):
+        y = layer_norm(x, p["ln1"], eps)
+        x = x + mha(
+            y, y, p["attn"], num_heads, mask,
+            impl=attention_impl, scores_dtype=scores_dtype,
+            causal=causal, key_mask=key_mask,
+        )
+        y = layer_norm(x, p["ln2"], eps)
+        y = activation(dense(y, p["fc1"]))
+        return x + dense(y, p["fc2"])
+
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, x, use_reentrant=False)
+    return block(x)

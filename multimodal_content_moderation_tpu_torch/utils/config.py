@@ -1,12 +1,15 @@
-"""Small IO utilities: label-list parsing, image-size inference and JSON
-artifacts (the reference's src/utils/helpers.py surface)."""
+"""Config and small IO utilities (the reference's src/utils/helpers.py
+surface): YAML configs with ``_base_`` single inheritance and deep merge,
+label-list parsing, image-size inference and JSON artifacts. ``yaml`` is
+imported where a config is read."""
 
 from __future__ import annotations
 
 import ast
 import json
 import os
-from typing import Any, List, Tuple
+from pathlib import Path
+from typing import Any, Dict, List, Tuple
 
 
 def ensure_dir(p: str) -> None:
@@ -57,6 +60,32 @@ def infer_size(proc: Any) -> Tuple[int, int]:
         elif isinstance(sz, (tuple, list)) and len(sz) == 2:
             H, W = int(sz[0]), int(sz[1])
     return H, W
+
+
+def load_config(config_path: str) -> Dict[str, Any]:
+    """Load a YAML config, resolving ``_base_`` single inheritance
+    recursively (reference src/utils/helpers.py:87-110)."""
+    import yaml
+
+    config_path = Path(config_path)
+    with open(config_path, "r", encoding="utf-8") as f:
+        config = yaml.safe_load(f) or {}
+    if "_base_" in config:
+        base = load_config(str(config_path.parent / config.pop("_base_")))
+        config = merge_configs(base, config)
+    return config
+
+
+def merge_configs(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
+    """Deep-merge ``override`` into ``base`` (override wins; dicts merge
+    recursively)."""
+    result = dict(base)
+    for key, value in override.items():
+        if key in result and isinstance(result[key], dict) and isinstance(value, dict):
+            result[key] = merge_configs(result[key], value)
+        else:
+            result[key] = value
+    return result
 
 
 def save_json(data: Any, path: str, indent: int = 2) -> None:

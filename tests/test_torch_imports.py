@@ -15,7 +15,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "multimodal_content_moderation_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 
-# modules 1-11 of the slice: what chip_smoke.py drives on the card
+# what chip_smoke.py drives on the card: the eval path and the training path
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.ops._build",
     "multimodal_content_moderation_tpu_torch.ops.cuda_image",
@@ -29,6 +29,13 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.models.model_io",
     "multimodal_content_moderation_tpu_torch.models.fast_infer",
     "multimodal_content_moderation_tpu_torch.data.pipeline",
+    "multimodal_content_moderation_tpu_torch.ops.losses",
+    "multimodal_content_moderation_tpu_torch.training.optim",
+    "multimodal_content_moderation_tpu_torch.training.sampling",
+    "multimodal_content_moderation_tpu_torch.training.checkpoints",
+    "multimodal_content_moderation_tpu_torch.training.metrics",
+    "multimodal_content_moderation_tpu_torch.training.loop",
+    "multimodal_content_moderation_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
 MISSING_ON_CARD_MACHINE = [

@@ -153,3 +153,54 @@ def test_transformer_block(impl, kind, dtype):
         key_mask=None if km is None else torch.from_numpy(km), **kw,
     )
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", ["rounding", "random"])
+def test_dense_bf16_rounds_once_as_jax(case):
+    """bf16 ``dense`` adds the bias to the fp32 product and rounds once, as
+    JAX's ``preferred_element_type=float32`` dot does. For x = [1, 2^-10],
+    w = [1, 1]^T, b = -1 a product rounded to bf16 first loses the 2^-10
+    (1 + 2^-10 rounds to 1). Tolerance: equal, or one bf16 ulp apart where
+    the fp32 sums differ in order (rtol 2^-8, atol 0)."""
+    if case == "rounding":
+        x = np.array([[1.0, 2.0**-10]], np.float32)
+        p = {"w": np.ones((2, 1), np.float32), "b": np.array([-1.0], np.float32)}
+    else:
+        g = np.random.default_rng(4)
+        x = g.normal(size=(6, 48)).astype(np.float32)
+        p = _dense_p(g, 48, 24)
+    jp, tp = _both(p, "bfloat16")
+    want = np.asarray(jl.dense(jnp.asarray(x, jnp.bfloat16), jp)).astype(np.float32)
+    got = tl.dense(torch.from_numpy(x).bfloat16(), tp)
+    assert got.dtype == torch.bfloat16
+    if case == "rounding":
+        assert want[0, 0] == 2.0**-10
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0**-8, atol=0)
+
+
+def test_dense_bf16_gradients():
+    """Gradients of the bf16 ``dense`` reach x (bf16), w and b (fp32 master
+    weights) as JAX's do: atol 1e-2 + rtol 2^-7 (bf16 products summed in
+    another order and rounded once)."""
+    import jax
+
+    g = np.random.default_rng(5)
+    x = g.normal(size=(3, 5, 16)).astype(np.float32)
+    p = _dense_p(g, 16, 8)
+    gy = g.normal(size=(3, 5, 8)).astype(np.float32)
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    y = tl.dense(xt, tp)
+    (y.float() * torch.from_numpy(gy)).sum().backward()
+
+    def f(xj, pj):
+        return jnp.sum(jl.dense(xj, pj).astype(jnp.float32) * gy)
+
+    gx, gp = jax.grad(f, argnums=(0, 1))(jnp.asarray(x, jnp.bfloat16),
+                                          {k: jnp.asarray(v) for k, v in p.items()})
+    assert xt.grad.dtype == torch.bfloat16 and tp["w"].grad.dtype == torch.float32
+    for got, want in ((xt.grad, gx), (tp["w"].grad, gp["w"]), (tp["b"].grad, gp["b"])):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want).astype(np.float32),
+                                   atol=1e-2, rtol=2.0**-7)
