@@ -6,16 +6,16 @@
 Phases, each of which fails the run (non-zero exit) on a miss:
 
 1. Device and build: the card's name and power limit, the torch and CUDA
-   versions, and the three kernels built from ``csrc/`` with nvcc (one
+   versions, and the five kernels built from ``csrc/`` with nvcc (one
    process per source, started together), with their ``-Xptxas -v`` lines.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
-   fp32, at the shapes of the eval and training paths and a few edge
-   shapes, each held to a stated tolerance, and timed with CUDA events
+   fp32, at the shapes of the eval, training and SigLIP-384 paths and a few
+   edge shapes, each held to a stated tolerance, and timed with CUDA events
    (kernel, plain version, one PyTorch library call as a yardstick the port
    never calls) beside the card's bound for the same work. The attention
-   backward's yardstick is the backward of
-   ``F.scaled_dot_product_attention`` (forward + backward through autograd,
-   less the forward).
+   kernels' yardstick is ``F.scaled_dot_product_attention`` on the same
+   [B, H, T, dh] inputs; the backward's is SDPA's backward (forward +
+   backward through autograd, less the forward).
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
    written as a reference-format checkpoint, loaded with ``load_checkpoint``,
    run through ``FastInferenceEngine`` + ``evaluate_logits_u8`` in bf16 with
@@ -36,6 +36,17 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    towers' MLP shapes; the loss on a fixed batch must fall over 10
    optimizer steps; then training samples/s, the time of forward, backward
    and optimizer, and a profiler breakdown of one optimizer step.
+5. The full-width SigLIP2-B/16 fusion model at 384 px
+   (``google/siglip2-base-patch16-384``'s dimensions, random weights from a
+   seed): a reference-format checkpoint through ``load_checkpoint`` ->
+   ``FastInferenceEngine`` -> ``evaluate_logits_u8`` in bf16 with the
+   kernels, B=64, text buckets off and on (the carry column); the counters
+   must show 1 ``patch_embed_u8``, 12 ``attention_nhd`` (text, key mask) and
+   12 ``flash_attention`` (vision, T=576) launches per batch; fp32 logits
+   on the card must match the CPU's, bucketed logits the unbucketed ones;
+   staged-batch samples/s and a profiler breakdown. Then
+   ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
+   ``attention_small`` once per call, against the "xla" core.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -64,6 +75,9 @@ TRAIN_BATCH = 32  # config/clip_fusion.yaml: batch 32, gradient accumulation 2
 TRAIN_ACCUM = 2
 TRAIN_SEQ = 48  # text_fit of the in-memory rows (EOS by position 40)
 TIMED_ITERS = 50
+SIGLIP_BATCH = 64  # config/default.yaml per_device_eval_batch_size
+N_SIGLIP_BATCHES = 4
+SIGLIP_T = 576  # (384 / 16)^2 patch tokens, no class token
 
 
 class SmokeFailure(RuntimeError):
@@ -107,10 +121,28 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 
 def _path(label: str, dtype: str):
-    """Which main path a bf16 case times: "eval" (B=144), "train" (B=32)."""
+    """Which path a bf16 case times: "evaluate" (CLIP, B=144), "train"
+    (CLIP, B=32), "siglip384" (SigLIP2-B/16-384, B=64), "mha_dense_mask"."""
     if dtype != "bfloat16":
         return None
-    return {"main path": "eval", "train path": "train"}.get(label.split(":")[0])
+    return {"main path": "evaluate", "train path": "train", "siglip384 path": "siglip384",
+            "mha dense mask": "mha_dense_mask"}.get(label.split(":")[0])
+
+
+def _sdpa_mask(torch, keep, causal, T, S):
+    """SDPA's boolean attn_mask for a key-keep row [B, S] and/or causal."""
+    mask = None if keep is None else keep[:, None, None, :]
+    if causal:
+        tril = torch.ones(T, S, dtype=torch.bool, device="cuda").tril()
+        mask = tril if mask is None else mask & tril
+    return mask
+
+
+def _keep_rows(torch, g, B, S):
+    """Right padding of varied lengths; batch row 0 has every key masked."""
+    lengths = torch.randint(1, S + 1, (B,), generator=g, device="cuda")
+    lengths[0] = 0
+    return torch.arange(S, device="cuda")[None, :] < lengths[:, None]
 
 
 def max_err_within(got, want, atol: float, rtol: float):
@@ -136,6 +168,7 @@ def patch_embed_cases(torch, g):
         (TRAIN_BATCH * 49, 3072, 768, "train path: ViT-B/32, B=32"),
         (1000, 3072, 768, "ragged rows"),
         (BATCH * 49, 768, 768, "K=768 with a checkpoint bias"),
+        (SIGLIP_BATCH * SIGLIP_T, 768, 768, "siglip384 path: SigLIP2-B/16-384 with its bias, B=64"),
     ]:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
@@ -181,17 +214,17 @@ def attention_cases(torch, g):
     specs += [(TRAIN_BATCH, 50, 768, 12, False, False, "train path: vision tower"),
               (TRAIN_BATCH, TRAIN_SEQ, 512, 8, True, True,
                f"train path: text tower, seq {TRAIN_SEQ}")]
+    specs += [(SIGLIP_BATCH, 64, 768, 12, False, True,
+               "siglip384 path: text tower, seq 64, key mask, not causal"),
+              (SIGLIP_BATCH, 196, 768, 12, False, False, "SigLIP-224 vision tower")]
     cases = []
     for B, T, D, h, causal, with_km, label in specs:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q, k, v = (torch.randn(B, T, D, generator=g, device="cuda").to(dt) for _ in range(3))
-            km = None
+            km = keep = None
             if with_km:
-                # right padding of varied lengths; row 0 has every key masked
-                lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
-                lengths[0] = 0
-                keep = torch.arange(T, device="cuda")[None, :] < lengths[:, None]
+                keep = _keep_rows(torch, g, B, T)
                 km = (1.0 - keep.float()) * ca.NEG_INF
             got = ca.attention_nhd(q, k, v, h, km, causal)
             want = ca.attention_nhd_reference(q, k, v, h, km, causal)
@@ -204,24 +237,146 @@ def attention_cases(torch, g):
             nbytes = 4 * B * T * D * dt.itemsize + (B * T * 4 if with_km else 0)
             bms, by = bound_ms(nbytes, 4.0 * pairs * (D // h), dtype)
             qh, kh, vh = (t.view(B, T, h, D // h).transpose(1, 2) for t in (q, k, v))
-            mask = None
-            if with_km:
-                mask = keep[:, None, None, :]
-                if causal:
-                    mask = mask & torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+            mask = _sdpa_mask(torch, keep, causal, T, T)
             cases.append({
                 "kernel": "attention_nhd", "case": f"{label}: B={B} T={T} D={D} heads={h}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
                 # the eval path's unit is the vision tower + the seq-77 text tower
-                "path": None if (_path(label, dtype) == "eval" and T not in (50, 77))
+                "path": None if (_path(label, dtype) == "evaluate" and T not in (50, 77))
                 else _path(label, dtype),
                 "ms": time_ms(lambda: ca.attention_nhd(q, k, v, h, km, causal)),
                 "plain_ms": time_ms(lambda: ca.attention_nhd_reference(q, k, v, h, km, causal)),
                 "library_ms": time_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None
-                    )
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
                 ),
+                "bound_ms": bms, "bound_by": by,
+            })
+    return cases
+
+
+def flash_cases(torch, g):
+    """``flash_attention`` on [B, T, D] memory viewed as [B, H, T, dh], the
+    view ``ops.layers.mha`` passes it."""
+    import torch.nn.functional as F
+
+    from multimodal_content_moderation_tpu_torch.ops import cuda_attention as ca
+    from multimodal_content_moderation_tpu_torch.ops import cuda_flash as cf
+
+    # fp32: the same fp32 math, an online softmax against one softmax;
+    # bf16: one rounding of the output (1 ulp is 2^-7 of |x| at most)
+    tol = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)}
+    B = SIGLIP_BATCH
+    specs = [  # B, T, S, D, heads, mask kind, causal, label
+        (B, SIGLIP_T, SIGLIP_T, 768, 12, None, False, "siglip384 path: vision tower, no mask"),
+        (B, SIGLIP_T, SIGLIP_T, 768, 12, "key", False, "key mask, seq 576"),
+        (16, 300, 300, 768, 12, "key", True, "causal + key mask, ragged seq 300"),
+        (16, 384, 384, 768, 12, "dense", False, "dense mask, seq 384"),
+        (B, 128, SIGLIP_T, 768, 12, None, False, "cross attention, Tq 128, S 576"),
+    ]
+    cases = []
+    for B, T, S, D, h, kind, causal, label in specs:
+        dh = D // h
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q3 = torch.randn(B, T, D, generator=g, device="cuda").to(dt)
+            k3, v3 = (torch.randn(B, S, D, generator=g, device="cuda").to(dt) for _ in range(2))
+            q, k, v = (t.view(B, t.shape[1], h, dh).transpose(1, 2) for t in (q3, k3, v3))
+            mask = km = keep = None
+            extra_bytes = 0
+            if kind == "key":
+                keep = _keep_rows(torch, g, B, S)
+                km = (1.0 - keep.float()) * ca.NEG_INF
+                extra_bytes = B * S * 4
+            elif kind == "dense":
+                drop = torch.rand(B, 1, T, S, generator=g, device="cuda") < 0.2
+                drop[..., 0] = False
+                mask = torch.where(drop, ca.NEG_INF, 0.0)
+                extra_bytes = B * T * S * 4
+            got = cf.flash_attention(q, k, v, mask, km, causal)
+            want = cf.flash_attention_reference(q, k, v, mask, km, causal)
+            torch.cuda.synchronize()
+            atol, rtol = tol[dtype]
+            err, ok = max_err_within(got, want, atol, rtol)
+            check(ok, f"flash_attention {label} {dtype}: max abs err {err} beyond "
+                      f"atol {atol} + rtol {rtol}")
+            # the pairs this run computes: a causal row t needs keys 0..t
+            pairs = sum(min(t + 1, S) for t in range(T)) if causal else T * S
+            nbytes = 2 * (B * T * D + B * S * D) * dt.itemsize + extra_bytes
+            bms, by = bound_ms(nbytes, 4.0 * B * h * pairs * dh, dtype)
+            sdpa_mask = (~drop) if kind == "dense" else _sdpa_mask(torch, keep, causal, T, S)
+            cases.append({
+                "kernel": "flash_attention",
+                "case": f"{label}: B={B} T={T} S={S} D={D} heads={h}",
+                "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
+                "path": _path(label, dtype),
+                "ms": time_ms(lambda: cf.flash_attention(q, k, v, mask, km, causal)),
+                "plain_ms": time_ms(
+                    lambda: cf.flash_attention_reference(q, k, v, mask, km, causal), iters=10),
+                "library_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)),
+                "bound_ms": bms, "bound_by": by,
+            })
+    return cases
+
+
+def small_cases(torch, g):
+    """``attention_small`` on [B*H, T, dh] with the mask forms fused_mha
+    gives it: a dense mask, none, and causal + key padding folded into one."""
+    import torch.nn.functional as F
+
+    from multimodal_content_moderation_tpu_torch.ops import cuda_attention as ca
+    from multimodal_content_moderation_tpu_torch.ops import cuda_flash as cf
+
+    tol = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)}
+    B = SIGLIP_BATCH
+    specs = [  # B, H, T, dh, mask kind, label
+        (B, 8, 77, 64, "dense", "mha dense mask: CLIP text shape, seq 77"),
+        (B, 12, 50, 64, None, "no mask, seq 50"),
+        (B, 8, 77, 64, "folded", "folded causal + key mask, seq 77"),
+    ]
+    cases = []
+    for B, H, T, dh, kind, label in specs:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.randn(B * H, T, dh, generator=g, device="cuda").to(dt)
+                       for _ in range(3))
+            mask = keep4 = None
+            if kind is not None:
+                keep = _keep_rows(torch, g, B, T)
+                # batch row 0 keeps key 0: no row is -inf throughout (that
+                # gives NaN, in the kernel as in its plain version)
+                keep[0, 0] = True
+                if kind == "dense":
+                    keep4 = keep[:, None, None, :] & (
+                        torch.rand(B, 1, T, T, generator=g, device="cuda") < 0.8)
+                    keep4[..., 0] = True
+                    base = torch.where(keep4, 0.0, ca.NEG_INF)
+                else:  # fused_mha's fold: zeros + causal + the key row
+                    causal = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
+                    base = (torch.zeros(B, 1, T, T, device="cuda")
+                            + torch.where(causal, 0.0, ca.NEG_INF)
+                            + ((1.0 - keep.float()) * ca.NEG_INF)[:, None, None, :])
+                    keep4 = keep[:, None, None, :] & causal
+                mask = base.expand(B, H, T, T).reshape(B * H, T, T).contiguous()
+            got = cf.attention_small(q, k, v, mask)
+            want = cf.attention_small_reference(q, k, v, mask)
+            torch.cuda.synchronize()
+            atol, rtol = tol[dtype]
+            err, ok = max_err_within(got, want, atol, rtol)
+            check(ok, f"attention_small {label} {dtype}: max abs err {err} beyond "
+                      f"atol {atol} + rtol {rtol}")
+            # the JAX cost estimate (pallas_attention.py:95-101)
+            nbytes = 4 * B * H * T * dh * dt.itemsize + (B * H * T * T * 4 if kind else 0)
+            bms, by = bound_ms(nbytes, 4.0 * B * H * T * T * dh, dtype)
+            q4, k4, v4 = (t.view(B, H, T, dh) for t in (q, k, v))
+            cases.append({
+                "kernel": "attention_small", "case": f"{label}: BH={B * H} T={T} dh={dh}",
+                "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
+                "path": _path(label, dtype),
+                "ms": time_ms(lambda: cf.attention_small(q, k, v, mask)),
+                "plain_ms": time_ms(lambda: cf.attention_small_reference(q, k, v, mask)),
+                "library_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep4)),
                 "bound_ms": bms, "bound_by": by,
             })
     return cases
@@ -318,9 +473,28 @@ HF_CLIP_B32 = {  # openai/clip-vit-base-patch32 config.json (the dimensions)
 CLASSES = ["racist", "sexist", "homophobe", "religion", "otherhate"]
 
 
+HF_SIGLIP2_B16_384 = {  # google/siglip2-base-patch16-384 config.json (the dimensions)
+    "model_type": "siglip",
+    "text_config": {
+        "vocab_size": 256000, "hidden_size": 768, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "intermediate_size": 3072,
+        "max_position_embeddings": 64, "projection_size": 768,
+        "hidden_act": "gelu_pytorch_tanh", "layer_norm_eps": 1e-6,
+    },
+    "vision_config": {
+        "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+        "intermediate_size": 3072, "image_size": 384, "patch_size": 16,
+        "num_channels": 3, "hidden_act": "gelu_pytorch_tanh", "layer_norm_eps": 1e-6,
+    },
+}
+
+
 def reference_state_dict(model) -> dict:
     """The port's parameter tree -> reference fusion checkpoint keys
-    (``backbone.*`` + head), the layout ``models/convert.py`` reads."""
+    (``backbone.*`` in the HF CLIPModel or SiglipModel layout + head), the
+    layout ``models/convert.py`` reads."""
+    import torch
+
     bb, hd = model.backbone, model.head
     sd = {}
 
@@ -343,24 +517,41 @@ def reference_state_dict(model) -> dict:
             lin(f"{b}.mlp.fc2", lp["fc2"])
 
     t, v = bb["text_model"], bb["vision_model"]
+    vc = model.encoder_config.vision
     sd["backbone.text_model.embeddings.token_embedding.weight"] = t["token_embedding"]
     sd["backbone.text_model.embeddings.position_embedding.weight"] = t["position_embedding"]
     layers("backbone.text_model", t["layers"])
     ln("backbone.text_model.final_layer_norm", t["final_ln"])
-    vc = model.clip_config.vision
-    sd["backbone.vision_model.embeddings.class_embedding"] = v["class_embedding"]
-    sd["backbone.vision_model.embeddings.patch_embedding.weight"] = (
-        v["patch_embedding"]["w"].t().reshape(
-            vc.hidden_size, vc.num_channels, vc.patch_size, vc.patch_size
-        )
+    pe = v["patch_embedding"]
+    sd["backbone.vision_model.embeddings.patch_embedding.weight"] = pe["w"].t().reshape(
+        vc.hidden_size, vc.num_channels, vc.patch_size, vc.patch_size
     )
+    if "b" in pe:
+        sd["backbone.vision_model.embeddings.patch_embedding.bias"] = pe["b"]
     sd["backbone.vision_model.embeddings.position_embedding.weight"] = v["position_embedding"]
-    ln("backbone.vision_model.pre_layrnorm", v["pre_ln"])
     layers("backbone.vision_model", v["layers"])
     ln("backbone.vision_model.post_layernorm", v["post_ln"])
-    lin("backbone.text_projection", bb["text_projection"])
-    lin("backbone.visual_projection", bb["visual_projection"])
-    sd["backbone.logit_scale"] = bb["logit_scale"]
+    if model.backend == "clip":
+        sd["backbone.vision_model.embeddings.class_embedding"] = v["class_embedding"]
+        ln("backbone.vision_model.pre_layrnorm", v["pre_ln"])
+        lin("backbone.text_projection", bb["text_projection"])
+        lin("backbone.visual_projection", bb["visual_projection"])
+        sd["backbone.logit_scale"] = bb["logit_scale"]
+    else:
+        lin("backbone.text_model.head", t["head"])
+        mh = v["map_head"]
+        sd["backbone.vision_model.head.probe"] = mh["probe"]
+        attn = mh["attn"]
+        sd["backbone.vision_model.head.attention.in_proj_weight"] = torch.cat(
+            [attn[n]["w"].t() for n in ("q", "k", "v")])
+        sd["backbone.vision_model.head.attention.in_proj_bias"] = torch.cat(
+            [attn[n]["b"] for n in ("q", "k", "v")])
+        lin("backbone.vision_model.head.attention.out_proj", attn["o"])
+        ln("backbone.vision_model.head.layernorm", mh["ln"])
+        lin("backbone.vision_model.head.mlp.fc1", mh["fc1"])
+        lin("backbone.vision_model.head.mlp.fc2", mh["fc2"])
+        for name in ("logit_scale", "logit_bias"):  # HF keeps shape (1,)
+            sd[f"backbone.{name}"] = bb[name].reshape(1)
     for n in ("proj_t", "proj_i", "g_t", "g_i", "gate"):
         lin(n, hd[n])
     ln("ln_fused", hd["ln_fused"])
@@ -371,22 +562,32 @@ def reference_state_dict(model) -> dict:
 
 
 class InMemoryDataset:
-    """Seeded uint8 224x224 crops and CLIP-style token ids (BOS, random
-    tokens, EOS at a position between 8 and 40, EOS padding), with the
-    ``.batches()`` contract of ``data.dataset.CSVDataset``."""
+    """Seeded uint8 crops and token ids with the ``.batches()`` contract of
+    ``data.dataset.CSVDataset``. CLIP-style ids (the default): BOS, random
+    tokens, EOS at a position between 8 and 40, EOS padding, 224x224 crops.
+    SigLIP-style (``siglip=True``): 8 to 60 random tokens then PAD (id 0)
+    padding, so the rows fall in the 32, 48 and 64 text buckets, and
+    ``image_size`` crops."""
 
-    def __init__(self, n: int, seed: int, T: int = 77):
+    def __init__(self, n: int, seed: int, T: int = 77, siglip: bool = False,
+                 image_size: int = 224):
         import numpy as np
 
         g = np.random.default_rng(seed)
-        self.input_ids = np.full((n, T), 49407, np.int32)
         self.attention_mask = np.zeros((n, T), np.int32)
-        eos = g.integers(8, 41, size=n)
-        for i, e in enumerate(eos):
-            self.input_ids[i, 0] = 49406
-            self.input_ids[i, 1:e] = g.integers(1, 49406, size=e - 1)
-            self.attention_mask[i, : e + 1] = 1
-        self.images = g.integers(0, 256, size=(n, 224, 224, 3), dtype=np.uint8)
+        if siglip:
+            self.input_ids = np.zeros((n, T), np.int32)
+            for i, length in enumerate(g.integers(8, 61, size=n)):
+                self.input_ids[i, :length] = g.integers(2, 256000, size=length)
+                self.attention_mask[i, :length] = 1
+        else:
+            self.input_ids = np.full((n, T), 49407, np.int32)
+            eos = g.integers(8, 41, size=n)
+            for i, e in enumerate(eos):
+                self.input_ids[i, 0] = 49406
+                self.input_ids[i, 1:e] = g.integers(1, 49406, size=e - 1)
+                self.attention_mask[i, : e + 1] = 1
+        self.images = g.integers(0, 256, size=(n, image_size, image_size, 3), dtype=np.uint8)
         self.labels = (g.random((n, len(CLASSES))) < 0.3).astype(np.float32)
         self.text_present = np.ones((n,), np.float32)
         self.image_present = np.ones((n,), np.float32)
@@ -435,8 +636,6 @@ def full_model_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
-    from multimodal_content_moderation_tpu_torch.ops.cuda_attention import attention_nhd
-    from multimodal_content_moderation_tpu_torch.ops.cuda_image import patch_embed_u8
 
     report = {}
     ckpt = os.path.join(REPO, "build", "chip_smoke_checkpoint")
@@ -491,16 +690,14 @@ def full_model_phase(torch, card: str):
     n_batches = -(-len(data) // BATCH)
     runs = {}
     for name, spec in (("seq_buckets_off", "off"), ("seq_buckets_auto", "auto")):
-        patch_embed_u8.launches = 0
-        attention_nhd.launches = 0
+        counts = _reset_counts()
         t0 = time.perf_counter()
         logits, labels = fi.evaluate_logits_u8(
             engine, data, BATCH, num_workers=4, seq_buckets=fi.parse_seq_buckets(spec)
         )
         wall = time.perf_counter() - t0
-        launches = {"patch_embed_u8": patch_embed_u8.launches,
-                    "attention_nhd": attention_nhd.launches}
-        check(launches == {"patch_embed_u8": n_batches, "attention_nhd": 24 * n_batches},
+        launches = counts()
+        check(launches == _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches),
               f"{name}: launches {launches} for {n_batches} batches (want 1 and 24 per batch)")
         check(logits.shape == (len(data), len(CLASSES)) and np.isfinite(logits).all(),
               f"{name}: logits {logits.shape}, finite={np.isfinite(logits).all()}")
@@ -557,16 +754,29 @@ N_TRAIN_ROWS = 16 * TRAIN_BATCH  # 16 micro-steps (8 optimizer steps) an epoch
 N_VAL_ROWS = 2 * 64 - 7  # two eval batches, the last one padded
 
 
-def _reset_counts():
+def _wrappers():
     from multimodal_content_moderation_tpu_torch.ops.cuda_attention import (
         attention_nhd, attention_nhd_bwd)
+    from multimodal_content_moderation_tpu_torch.ops.cuda_flash import (
+        attention_small, flash_attention)
     from multimodal_content_moderation_tpu_torch.ops.cuda_image import patch_embed_u8
 
-    for fn in (patch_embed_u8, attention_nhd, attention_nhd_bwd):
+    return {"patch_embed_u8": patch_embed_u8, "attention_nhd": attention_nhd,
+            "attention_nhd_bwd": attention_nhd_bwd, "flash_attention": flash_attention,
+            "attention_small": attention_small}
+
+
+def _reset_counts():
+    """Set every kernel's launch count to 0; returns a reader of the counts."""
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
-    return lambda: {"patch_embed_u8": patch_embed_u8.launches,
-                    "attention_nhd": attention_nhd.launches,
-                    "attention_nhd_bwd": attention_nhd_bwd.launches}
+    return lambda: {name: fn.launches for name, fn in wrappers.items()}
+
+
+def _counts(**nonzero):
+    """The expected counts: the given kernels, every other kernel 0."""
+    return {name: nonzero.get(name, 0) for name in KERNELS}
 
 
 def _device_batch(torch, data, idx, patch_size):
@@ -679,9 +889,9 @@ def train_phase(torch, card: str):
     torch.cuda.synchronize()
     report["train_wall_s"] = time.perf_counter() - t0
     launches = counts()
-    want = {"patch_embed_u8": n_micro + eval_batches,
-            "attention_nhd": 24 * (n_micro + eval_batches),
-            "attention_nhd_bwd": 24 * n_micro}
+    want = _counts(patch_embed_u8=n_micro + eval_batches,
+                   attention_nhd=24 * (n_micro + eval_batches),
+                   attention_nhd_bwd=24 * n_micro)
     check(launches == want, f"training launches {launches}, want {want} for {n_micro} "
                             f"micro-steps + {eval_batches} eval batches")
     check(result["global_step"] == n_micro and trainer.optimizer.count == n_micro // TRAIN_ACCUM,
@@ -734,7 +944,7 @@ def train_phase(torch, card: str):
         counts = _reset_counts()
         grads[device] = _leaf_grads(m, batch)
         if device == "cuda":
-            check(counts() == {"patch_embed_u8": 1, "attention_nhd": 24, "attention_nhd_bwd": 24},
+            check(counts() == _counts(patch_embed_u8=1, attention_nhd=24, attention_nhd_bwd=24),
                   f"gradient check launches {counts()}")
         del m
     (loss_card, g_card), (loss_cpu, g_cpu) = grads["cuda"], grads["cpu"]
@@ -833,10 +1043,186 @@ def step_parts_ms(torch, model, opt, gen, staged, n: int = 8):
     return parts
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: SigLIP2-B/16 at 384 px, and attention_small through mha
+# ---------------------------------------------------------------------------
+
+
+def siglip_phase(torch, card: str):
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+
+    report = {}
+    ckpt = os.path.join(REPO, "build", "chip_smoke_siglip")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    os.makedirs(ckpt)
+    cfg = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_384)
+    src = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=0,
+                             device="cuda")
+    torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(HF_SIGLIP2_B16_384, f)
+    with open(os.path.join(ckpt, "inference_config.json"), "w") as f:
+        json.dump({"backend": "siglip", "head": "fusion", "fusion_dim": 512,
+                   "class_names": CLASSES, "max_text_length": 64}, f)
+
+    t0 = time.perf_counter()
+    model, _ = model_io.load_checkpoint(ckpt, device="cuda")
+    report["load_checkpoint_s"] = time.perf_counter() - t0
+    check(model.backend == "siglip" and model.image_size == 384
+          and model.text_max_positions == 64, "load_checkpoint: not the SigLIP-384 config")
+    src_sd, got_sd = src.state_dict(), model.state_dict()
+    check(src_sd.keys() == got_sd.keys(), "load_checkpoint: parameter names differ")
+    for name, x in src_sd.items():
+        check(torch.equal(x, got_sd[name]), f"load_checkpoint: {name} differs")
+    del src, src_sd, got_sd
+    report["parameters"] = sum(p.numel() for p in model.parameters())
+
+    data = InMemoryDataset(N_SIGLIP_BATCHES * SIGLIP_BATCH - 5, seed=5, T=64, siglip=True,
+                           image_size=384)  # a padded last batch
+
+    # fp32 on the card (kernels, TF32 off) against the same checkpoint on
+    # the CPU (plain versions), 4 rows: the logits differ by summation order
+    # only (atol 2e-3)
+    cpu_model, _ = model_io.load_checkpoint(ckpt, device="cpu")
+    rows = next(data.batches(4))
+    outs = []
+    for m in (model, cpu_model):
+        eng = fi.FastInferenceEngine(
+            model_io.with_performance_options(m, attention_impl="pallas"), SIGLIP_MEAN, SIGLIP_STD
+        )
+        counts = _reset_counts()
+        outs.append(eng(rows["input_ids"], rows["attention_mask"],
+                        eng.patches_from_hwc(rows["pixel_values"]),
+                        rows["text_present"], rows["image_present"]).cpu())
+        if m is model:
+            check(counts() == _counts(patch_embed_u8=1, attention_nhd=12, flash_attention=12),
+                  f"fp32 card launches {counts()}")
+    err = float((outs[0] - outs[1]).abs().max())
+    report["fp32_card_vs_cpu_max_abs_err"] = err
+    check(err <= 2e-3 and bool(outs[0].isfinite().all()),
+          f"fp32 logits on the card differ from the CPU's by {err} (atol 2e-3)")
+    del cpu_model
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # the path: bf16 towers with the kernels, text buckets off and on
+    bf16 = model_io.with_performance_options(
+        model, compute_dtype="bfloat16", attention_impl="pallas"
+    ).to(torch.bfloat16)
+    del model
+    engine = fi.FastInferenceEngine(bf16, SIGLIP_MEAN, SIGLIP_STD)
+    n_batches = -(-len(data) // SIGLIP_BATCH)
+    runs = {}
+    for name, spec in (("seq_buckets_off", "off"), ("seq_buckets_auto", "auto")):
+        counts = _reset_counts()
+        t0 = time.perf_counter()
+        logits, labels = fi.evaluate_logits_u8(
+            engine, data, SIGLIP_BATCH, num_workers=4, seq_buckets=fi.parse_seq_buckets(spec)
+        )
+        wall = time.perf_counter() - t0
+        launches = counts()
+        want = _counts(patch_embed_u8=n_batches, attention_nhd=12 * n_batches,
+                       flash_attention=12 * n_batches)
+        check(launches == want, f"siglip {name}: launches {launches}, want {want}")
+        check(logits.shape == (len(data), len(CLASSES)) and np.isfinite(logits).all(),
+              f"siglip {name}: logits {logits.shape}, finite={np.isfinite(logits).all()}")
+        np.testing.assert_array_equal(labels, data.labels)
+        runs[name] = {"logits": logits, "launches": launches, "wall_s": wall}
+    # the widths the auto ladder gave each batch (rows sorted by length)
+    ladder = fi.bucket_ladder(fi.parse_seq_buckets("auto"), 64)
+    order = np.argsort(data.attention_mask.sum(axis=1), kind="stable")
+    report["bucket_widths"] = [
+        fi.bucket_for(data.attention_mask[order[i : i + SIGLIP_BATCH]], ladder, extra=1)
+        for i in range(0, len(data), SIGLIP_BATCH)
+    ]
+    err = float(np.abs(runs["seq_buckets_auto"]["logits"] - runs["seq_buckets_off"]["logits"]).max())
+    report["buckets_vs_full_max_abs_err"] = err
+    # bf16 towers: another text width changes the GEMM shapes and so the
+    # bf16 roundings; the carry column itself is exact (the CPU tests)
+    check(err <= 3e-2, f"siglip bucketed logits differ from unbucketed by {err} (bf16 atol 3e-2)")
+    report["main_path_launches"] = runs["seq_buckets_off"]["launches"]
+    report["main_path_batches"] = n_batches
+    for name, r in runs.items():
+        report[f"evaluate_{name}_samples_per_s_incl_host_prep"] = len(data) / r["wall_s"]
+
+    # staged batches: inputs already on the card, one synchronise per pass
+    g = np.random.default_rng(6)
+    patches = [torch.from_numpy(engine.patches_from_hwc(
+        g.integers(0, 256, size=(SIGLIP_BATCH, 384, 384, 3), dtype=np.uint8))).cuda()
+        for _ in range(2)]
+    ones = torch.ones(SIGLIP_BATCH, device="cuda")
+    for width, carry in ((64, None), (32, 63)):
+        ids = [torch.from_numpy(g.integers(2, 256000, size=(SIGLIP_BATCH, width)).astype(np.int32)
+                                ).cuda() for _ in range(8)]
+        mask = torch.ones(SIGLIP_BATCH, width, dtype=torch.int32, device="cuda")
+        if carry is not None:
+            mask[:, -1] = 0
+        engine(ids[0], mask, patches[0], ones, ones, carry_pos=carry)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for i, x in enumerate(ids):
+                engine(x, mask, patches[i % 2], ones, ones, carry_pos=carry)
+            torch.cuda.synchronize()
+            rates.append(len(ids) * SIGLIP_BATCH / (time.perf_counter() - t0))
+        report[f"staged_samples_per_s_seq{width}"] = {
+            "median": sorted(rates)[1], "passes": rates, "card": card,
+        }
+        report[f"device_time_seq{width}"] = device_time_breakdown(
+            torch, lambda: [engine(x, mask, patches[i % 2], ones, ones, carry_pos=carry)
+                            for i, x in enumerate(ids[:2])], 2,
+        )
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return report
+
+
+def mha_dense_mask_phase(torch):
+    """``ops.layers.mha(impl="pallas")`` with a dense mask (CLIP's causal +
+    padding mask, as its "xla" text path builds it) at the CLIP text shape:
+    the route to ``attention_small``, once per call, against the "xla"
+    core. fp32 (TF32 off): atol 1e-4, the same math in another order; bf16:
+    two bf16 ulps (rtol 2^-6) + atol 1e-2, as the "xla" core rounds the
+    softmax weights to bf16 before the product with v and the kernel does
+    not, and both round the output projection once."""
+    from multimodal_content_moderation_tpu_torch.models.clip import _text_masks
+    from multimodal_content_moderation_tpu_torch.ops import layers
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    B, T, D, h = SIGLIP_BATCH, 77, 512, 8
+    p = {n: {"w": torch.randn(D, D, generator=g, device="cuda") * D ** -0.5,
+             "b": torch.randn(D, generator=g, device="cuda") * 0.1} for n in "qkvo"}
+    x = torch.randn(B, T, D, generator=g, device="cuda")
+    lengths = torch.randint(2, T + 1, (B,), generator=g, device="cuda")
+    attention_mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).int()
+    mask = _text_masks(attention_mask, attention_mask)  # [B, 1, T, T] fp32
+    report = {"case": f"x [{B}, {T}, {D}], {h} heads, dense causal + padding mask"}
+    counts = _reset_counts()
+    for dtype, atol, rtol in (("float32", 1e-4, 0.0), ("bfloat16", 1e-2, 2.0**-6)):
+        dt = getattr(torch, dtype)
+        pd = {n: {k: t.to(dt) for k, t in d.items()} for n, d in p.items()}
+        got = layers.mha(x.to(dt), x.to(dt), pd, h, mask, impl="pallas")
+        want = layers.mha(x.to(dt), x.to(dt), pd, h, mask, impl="xla")
+        err, ok = max_err_within(got, want, atol, rtol)
+        check(ok, f"mha pallas with a dense mask {dtype}: err {err} vs the xla core "
+                  f"(atol {atol} + rtol {rtol})")
+        report[f"{dtype}_max_abs_err_vs_xla"] = err
+    report["launches"] = counts()
+    check(report["launches"] == _counts(attention_small=2),
+          f"mha with a dense mask launches {report['launches']}, want 1 attention_small a call")
+    return report
+
+
 # device-kernel name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = [
     ("attention_nhd_bwd", ("attention_nhd_bwd",)),
     ("attention_nhd", ("attention_nhd",)),
+    ("flash_attention", ("flash_attention",)),
+    ("attention_small", ("attention_small",)),
     ("patch_embed_u8", ("patch_embed_u8",)),
     ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "cublas")),
     ("layer_norm", ("layer_norm",)),
@@ -884,26 +1270,50 @@ def device_time_breakdown(torch, run, n_batches: int):
     }
 
 
-KERNELS = ["patch_embed_u8", "attention_nhd", "attention_nhd_bwd"]
+KERNELS = ["patch_embed_u8", "attention_nhd", "attention_nhd_bwd", "flash_attention",
+           "attention_small"]
 REPLACES = {
     "patch_embed_u8": "multimodal_content_moderation_tpu/ops/pallas_image.py:93",
     "attention_nhd": "multimodal_content_moderation_tpu/ops/pallas_attention.py:318",
     "attention_nhd_bwd": "multimodal_content_moderation_tpu/ops/pallas_attention.py:468",
+    "flash_attention": "multimodal_content_moderation_tpu/ops/pallas_attention.py:663",
+    "attention_small": "multimodal_content_moderation_tpu/ops/pallas_attention.py:90",
 }
-# launches of each kernel in one unit of a path's work (a training
-# micro-step; an eval batch)
-PER_UNIT = {"patch_embed_u8": 1, "attention_nhd": 24, "attention_nhd_bwd": 24}
+# each path's unit of work, and each kernel's launches in one unit
+UNITS = {
+    "siglip384": "one SigLIP2-B/16-384 eval batch, bf16, B=64",
+    "evaluate": "one CLIP ViT-B/32 eval batch, bf16, B=144",
+    "train": "one CLIP ViT-B/32 training micro-step, bf16, B=32",
+    "mha_dense_mask": "one mha(impl='pallas') call with a dense mask, bf16",
+}
+PER_UNIT = {
+    "siglip384": {"patch_embed_u8": 1, "attention_nhd": 12, "flash_attention": 12},
+    "evaluate": {"patch_embed_u8": 1, "attention_nhd": 24},
+    "train": {"patch_embed_u8": 1, "attention_nhd": 24, "attention_nhd_bwd": 24},
+    "mha_dense_mask": {"attention_small": 1},
+}
 WORK = {
+    "siglip384": {
+        "patch_embed_u8": "[36864, 768] x [768, 768] + bias",
+        "attention_nhd": "12 text [64,64,768]/12 heads, key mask",
+        "flash_attention": "12 vision [64,576,768]/12 heads, no mask",
+    },
+    "evaluate": {
+        "patch_embed_u8": "[7056, 3072] x [3072, 768]",
+        "attention_nhd": "12 vision [144,50,768]/12 heads + 12 text [144,77,512]/8 heads",
+    },
     "train": {
         "patch_embed_u8": "[1568, 3072] x [3072, 768]",
         "attention_nhd": "12 vision [32,50,768]/12 heads + 12 text [32,48,512]/8 heads",
         "attention_nhd_bwd": "12 vision [32,50,768]/12 heads + 12 text [32,48,512]/8 heads",
     },
-    "eval": {
-        "patch_embed_u8": "[7056, 3072] x [3072, 768]",
-        "attention_nhd": "12 vision [144,50,768]/12 heads + 12 text [144,77,512]/8 heads",
-    },
+    "mha_dense_mask": {"attention_small": "[512, 77, 64] + a dense [512, 77, 77] fp32 mask"},
 }
+# the path whose numbers head each kernel's entry: this slice's path where
+# the kernel runs on it
+PRIMARY = {"patch_embed_u8": "siglip384", "attention_nhd": "siglip384",
+           "flash_attention": "siglip384", "attention_nhd_bwd": "train",
+           "attention_small": "mha_dense_mask"}
 
 
 def _per_unit(name, cases, path):
@@ -912,56 +1322,36 @@ def _per_unit(name, cases, path):
     main = [c for c in cases if c["kernel"] == name and c["path"] == path]
     if not main:
         return None
-    each = PER_UNIT[name] // len(main)
+    each = PER_UNIT[path][name] // len(main)
     out = {k: each * sum(c[k] for c in main) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     out["bound_by"] = max(main, key=lambda c: c["bound_ms"])["bound_by"]
-    out["work"] = WORK[path][name]
+    out["work"] = f"{UNITS[path]}: {WORK[path][name]}"
     return out
 
 
-def unported_bounds():
-    """The card's bound for the two TPU kernels not yet ported, at a stated
-    representative shape (bf16): ``flash_attention`` from its work (q, k, v
-    read and o written once; 4 T S dh operations per head, there is no cost
-    estimate in its ``pallas_call``) and ``attention_small`` from its cost
-    estimate (pallas_attention.py:95-101)."""
-    out = {}
-    bh, t, dh = 32 * 12, 512, 64  # a BERT-base text tower at seq 512, key padding
-    ms, by = bound_ms(4 * bh * t * dh * 2 + bh * t * 4, 4.0 * bh * t * t * dh, "bfloat16")
-    out["flash_attention"] = {"shape": f"[{bh}, {t}, {dh}] bf16 + key mask [{bh}, {t}]",
-                              "bound_ms": ms, "bound_by": by}
-    bh, t = BATCH * 8, 77  # the CLIP text tower of an eval batch with a dense mask
-    ms, by = bound_ms(bh * t * dh * 3 * 2 + bh * t * t * 4, 4.0 * bh * t * t * dh, "bfloat16")
-    out["attention_small"] = {"shape": f"[{bh}, {t}, {dh}] bf16 + dense mask [{bh}, {t}, {t}]",
-                              "bound_ms": ms, "bound_by": by}
-    return out
-
-
-def kernel_entry(name, cases, train_launches, eval_launches):
-    """One kernel of the ``{"kernels": ...}`` line: the training path
-    (this slice's main path, per micro-step) with its launches, and the
-    eval path's numbers beside it."""
-    train = _per_unit(name, cases, "train")
-    entry = {
+def kernel_entry(name, cases, launches_by_path):
+    """One kernel of the ``{"kernels": ...}`` line: the numbers of its
+    primary path's unit of work with that path's launches, and every other
+    path's numbers and launches beside them."""
+    primary = PRIMARY[name]
+    main = _per_unit(name, cases, primary)
+    return {
         "name": name,
         "route": "cuda",
         "source": f"{PKG}/csrc/{name}.cu",
         "replaces": REPLACES[name],
-        "launches": train_launches[name],
+        "launches": launches_by_path[primary][name],
         "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
-        "ms": train["ms"],
-        "plain_ms": train["plain_ms"],
-        "bound_ms": train["bound_ms"],
-        "bound_by": train["bound_by"],
-        "library_ms": train["library_ms"],
-        "work": "one training micro-step, bf16, B=32: " + train["work"],
-        "launches_by_path": {"train": train_launches[name],
-                             "evaluate": eval_launches.get(name, 0)},
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "work": main["work"],
+        "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
+        "other_paths": {path: _per_unit(name, cases, path) for path in PER_UNIT
+                        if path != primary and name in PER_UNIT[path]},
     }
-    ev = _per_unit(name, cases, "eval")
-    if ev is not None:
-        entry["eval_batch"] = dict(ev, work="one eval batch, bf16, B=144: " + ev["work"])
-    return entry
 
 
 def main() -> int:
@@ -993,8 +1383,10 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions
+    t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = patch_embed_cases(torch, g) + attention_cases(torch, g) + attention_bwd_cases(torch, g)
+    cases = (patch_embed_cases(torch, g) + attention_cases(torch, g) + flash_cases(torch, g)
+             + small_cases(torch, g) + attention_bwd_cases(torch, g))
     for c in cases:
         print(
             f"{c['kernel']:17s} {c['dtype']:8s} {c['case']:60s} err {c['max_abs_err']:.3g} "
@@ -1002,29 +1394,41 @@ def main() -> int:
             f"plain {c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
             f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
         )
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
-    # phase 3: the eval path through the entry points
+    # phase 3: the CLIP eval path through the entry points
+    t0 = time.perf_counter()
     report = full_model_phase(torch, card)
     for k, v in report.items():
         print(f"model {k}: {v}")
+    print(f"phase 3: {time.perf_counter() - t0:.1f} s")
 
     # phase 4: the training path through the entry points
+    t0 = time.perf_counter()
     train = train_phase(torch, card)
     for k, v in train.items():
         print(f"train {k}: {v}")
+    print(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
-    kernels = [
-        kernel_entry(name, cases, train["main_path_launches"], report["main_path_launches"])
-        for name in KERNELS
-    ]
-    unported = unported_bounds()
-    for name, b in unported.items():
-        print(f"not ported yet: {name} at {b['shape']}: bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    # phase 5: the SigLIP-384 eval path, and attention_small through mha
+    t0 = time.perf_counter()
+    siglip = siglip_phase(torch, card)
+    for k, v in siglip.items():
+        print(f"siglip {k}: {v}")
+    mha = mha_dense_mask_phase(torch)
+    print(f"mha dense mask: {mha}")
+    print(f"phase 5: {time.perf_counter() - t0:.1f} s")
+
+    launches_by_path = {"siglip384": siglip["main_path_launches"],
+                        "evaluate": report["main_path_launches"],
+                        "train": train["main_path_launches"],
+                        "mha_dense_mask": mha["launches"]}
+    kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "cases": cases, "model": report, "train": train, "kernels": kernels,
-                   "unported_bounds": unported},
+                   "cases": cases, "model": report, "train": train, "siglip": siglip,
+                   "mha_dense_mask": mha, "kernels": kernels},
                   f, indent=1)
 
     print(card)

@@ -9,6 +9,8 @@ from typing import Any, Dict, Optional, Tuple
 from multimodal_content_moderation_tpu_torch.data.images import (
     CLIP_MEAN,
     CLIP_STD,
+    SIGLIP_MEAN,
+    SIGLIP_STD,
     ImagePreprocessor,
 )
 from multimodal_content_moderation_tpu_torch.utils.config import infer_size, load_json
@@ -29,12 +31,10 @@ def resolve_encoder_dir(model_cfg: Dict[str, Any]) -> Optional[str]:
 def image_stats_from_dir(
     encoder_dir: Optional[str], backend: str
 ) -> Tuple[Tuple[int, int], tuple, tuple]:
-    """((H, W), mean, std) from preprocessor_config.json, with the CLIP
-    defaults."""
-    if backend != "clip":
-        raise NotImplementedError(f"backend {backend!r} is not ported yet")
+    """((H, W), mean, std) from preprocessor_config.json, with per-backend
+    defaults (CLIP's stats, SigLIP's 0.5 / 0.5)."""
     size = (224, 224)
-    mean, std = CLIP_MEAN, CLIP_STD
+    mean, std = (CLIP_MEAN, CLIP_STD) if backend == "clip" else (SIGLIP_MEAN, SIGLIP_STD)
     if encoder_dir:
         p = os.path.join(encoder_dir, "preprocessor_config.json")
         if os.path.exists(p):

@@ -55,15 +55,17 @@ def parse_args(argv=None):
         "--attention",
         choices=["xla", "pallas"],
         default="xla",
-        help="attention core: pallas = the attention_nhd kernel over the "
-        "[B,T,D] layout (plain version on the CPU); xla = plain products",
+        help="attention core in both towers: pallas = the hand-written kernels "
+        "(attention_nhd over the [B,T,D] layout up to 256 positions, "
+        "flash_attention beyond; plain versions on the CPU); xla = plain products",
     )
     parser.add_argument(
         "--seq_buckets",
         type=str,
         default="auto",
         help="length-sorted bucketed evaluation: comma-separated ladder of "
-        "text widths, e.g. '32,48,64'; exact for CLIP. 'auto' = 32,48,64; "
+        "text widths, e.g. '32,48,64'; exact for CLIP and SigLIP (its carry "
+        "column). 'auto' = 32,48,64; "
         "'off' disables",
     )
     parser.add_argument(

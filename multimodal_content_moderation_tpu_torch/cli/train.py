@@ -110,6 +110,11 @@ def _refuse_unported(config, model_cfg, train_cfg, data_cfg) -> None:
         )
     if (model_cfg.get("head") or "fusion") != "fusion":
         raise NotImplementedError("model.head mtl is not ported yet (the multi-task slice)")
+    if model_cfg["backend"] != "clip":
+        raise NotImplementedError(
+            f"training the {model_cfg['backend']} backend is not ported yet (the port "
+            "evaluates SigLIP; its training slice comes later)"
+        )
     wire = train_cfg.get("wire", "f32") or "f32"
     if wire != "u8":
         raise NotImplementedError(

@@ -11,7 +11,9 @@ every CLIP checkpoint — no network, no torch, no Rust required.
 ``load_tokenizer`` resolves a local checkpoint/encoder directory to the best
 available backend:
 1. ``vocab.json`` + ``merges.txt``  -> native ClipBPETokenizer
-2. ``tokenizer.json``               -> not ported yet (SigLIP/BERT slices)
+2. ``tokenizer.json``               -> the pure-Python ``JSONTokenizer``
+   (``data/tokenizer_json.py``), else the Rust ``tokenizers`` wheel
+   (``RustTokenizer``, imported only then) for components outside its subset
 
 It exposes ``encode_batch(texts, max_length) -> (ids, mask)`` producing the
 fixed-shape int32 arrays the batch pipeline uses.
@@ -23,7 +25,7 @@ import functools
 import json
 import os
 import unicodedata
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -161,12 +163,49 @@ class ClipBPETokenizer:
         return " ".join(words).strip()
 
 
-def load_tokenizer(path: str):
+class RustTokenizer:
+    """An HF ``tokenizers`` (Rust) tokenizer.json, for components outside
+    ``JSONTokenizer``'s subset. The wheel is imported here, not at module
+    import: the card machine does not have it."""
+
+    def __init__(self, tokenizer_json: str, pad_token_id: Optional[int] = None):
+        from tokenizers import Tokenizer
+
+        self.tk = Tokenizer.from_file(tokenizer_json)
+        cfg_path = os.path.join(os.path.dirname(tokenizer_json), "tokenizer_config.json")
+        pad = pad_token_id
+        if pad is None and os.path.exists(cfg_path):
+            with open(cfg_path, encoding="utf-8") as f:
+                cfg = json.load(f)
+            pad_tok = cfg.get("pad_token")
+            if isinstance(pad_tok, dict):
+                pad_tok = pad_tok.get("content")
+            if pad_tok is not None:
+                pad = self.tk.token_to_id(pad_tok)
+        self.pad_token_id = pad if pad is not None else 0
+
+    @property
+    def vocab_size(self) -> int:
+        return self.tk.get_vocab_size()
+
+    def encode_batch(
+        self, texts: Sequence[str], max_length: int = 64
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        self.tk.enable_truncation(max_length)
+        self.tk.enable_padding(length=max_length, pad_id=self.pad_token_id)
+        encs = self.tk.encode_batch([t or "" for t in texts])
+        ids = np.asarray([e.ids for e in encs], np.int32)
+        mask = np.asarray([e.attention_mask for e in encs], np.int32)
+        return ids, mask
+
+
+def load_tokenizer(path: str, pad_token_id: Optional[int] = None):
     """Resolve a local checkpoint / encoder-asset directory to a tokenizer.
 
-    Native CLIP BPE (vocab.json+merges.txt); a tokenizer.json directory
-    raises until its engine is ported. Raises with a clear message if
-    neither is present (no network access is ever attempted).
+    Native CLIP BPE (vocab.json+merges.txt) first, then a tokenizer.json
+    through ``JSONTokenizer``, or ``RustTokenizer`` for components outside
+    its subset. Raises with a clear message if neither is present (no
+    network access is ever attempted).
     """
     vocab = os.path.join(path, "vocab.json")
     merges = os.path.join(path, "merges.txt")
@@ -174,10 +213,15 @@ def load_tokenizer(path: str):
     if os.path.exists(vocab) and os.path.exists(merges):
         return ClipBPETokenizer(vocab, merges)
     if os.path.exists(tok_json):
-        raise NotImplementedError(
-            f"{tok_json}: the tokenizer.json engine (SigLIP and BERT-family "
-            "vocabularies) is not ported yet; it comes with those backends"
+        from multimodal_content_moderation_tpu_torch.data.tokenizer_json import (
+            JSONTokenizer,
+            UnsupportedTokenizerJSON,
         )
+
+        try:
+            return JSONTokenizer(tok_json, pad_token_id)
+        except UnsupportedTokenizerJSON:
+            return RustTokenizer(tok_json, pad_token_id)
     raise FileNotFoundError(
         f"No tokenizer assets found in {path!r}: expected vocab.json+merges.txt "
         "(CLIP) or tokenizer.json (SigLIP/other). This framework runs fully "

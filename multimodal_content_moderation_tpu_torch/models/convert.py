@@ -4,6 +4,8 @@ Layout conventions handled here, once, at load time:
 - torch ``nn.Linear.weight`` is (out, in) -> transposed to (in, out)
 - the patch-embedding ``Conv2d.weight`` (d, C, p, p) -> (C*p*p, d), the
   channel-major patch ordering of the uint8 wire rows
+- the SigLIP MAP head's ``nn.MultiheadAttention.in_proj_weight`` (3d, d)
+  -> q/k/v dense params
 
 Prefixes: the reference fusion checkpoint keeps the encoder under
 ``backbone.*`` and the head modules at the top level.
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from multimodal_content_moderation_tpu_torch.models.clip import CLIPConfig
+from multimodal_content_moderation_tpu_torch.models.siglip import SigLIPConfig
 from multimodal_content_moderation_tpu_torch.models.params import map_leaves
 
 
@@ -112,6 +115,49 @@ def clip_params_from_torch(sd: Dict, cfg: CLIPConfig, prefix: str = "") -> dict:
     return out
 
 
+def siglip_params_from_torch(sd: Dict, cfg: SigLIPConfig, prefix: str = "") -> dict:
+    """Full SiglipModel state dict -> parameter tree."""
+    s = _strip_prefix(sd, prefix)
+    t = _strip_prefix(s, "text_model.")
+    v = _strip_prefix(s, "vision_model.")
+
+    in_w = _t(v["head.attention.in_proj_weight"])  # (3d, d)
+    in_b = _t(v["head.attention.in_proj_bias"])  # (3d,)
+    d = in_w.shape[1]
+    attn = {
+        n: {"w": in_w[i * d : (i + 1) * d].t().contiguous(), "b": in_b[i * d : (i + 1) * d].clone()}
+        for i, n in enumerate(("q", "k", "v"))
+    }
+    attn["o"] = _linear(v, "head.attention.out_proj")
+    out = {
+        "text_model": {
+            "token_embedding": _t(t["embeddings.token_embedding.weight"]),
+            "position_embedding": _t(t["embeddings.position_embedding.weight"]),
+            "layers": _encoder_layers(t, "encoder", cfg.text.num_layers),
+            "final_ln": _ln(t, "final_layer_norm"),
+            "head": _linear(t, "head"),
+        },
+        "vision_model": {
+            "patch_embedding": _conv_patch_embed(v, "embeddings.patch_embedding", bias=True),
+            "position_embedding": _t(v["embeddings.position_embedding.weight"]),
+            "layers": _encoder_layers(v, "encoder", cfg.vision.num_layers),
+            "post_ln": _ln(v, "post_layernorm"),
+            "map_head": {
+                "probe": _t(v["head.probe"]),
+                "attn": attn,
+                "ln": _ln(v, "head.layernorm"),
+                "fc1": _linear(v, "head.mlp.fc1"),
+                "fc2": _linear(v, "head.mlp.fc2"),
+            },
+        },
+    }
+    # HF SigLIP stores these as shape-(1,) parameters: scalars here
+    for name in ("logit_scale", "logit_bias"):
+        if name in s:
+            out[name] = _t(s[name]).reshape(())
+    return out
+
+
 def fusion_head_from_torch(sd: Dict) -> dict:
     """Reference MultiModalFusionClassifier head; ``cls`` Sequential indices:
     0=LayerNorm, 1=Linear, 4=Linear."""
@@ -128,11 +174,16 @@ def fusion_head_from_torch(sd: Dict) -> dict:
     }
 
 
-def fusion_model_from_torch(sd: Dict, backend: str, clip_cfg: Optional[CLIPConfig] = None) -> dict:
-    """Full reference fusion checkpoint (backbone.* + head)."""
-    if backend != "clip":
-        raise NotImplementedError(f"backend {backend!r} is not ported yet")
-    backbone = clip_params_from_torch(sd, clip_cfg, prefix="backbone.")
+def fusion_model_from_torch(
+    sd: Dict, backend: str, clip_cfg: Optional[CLIPConfig] = None,
+    siglip_cfg: Optional[SigLIPConfig] = None,
+) -> dict:
+    """Full reference fusion checkpoint (backbone.* + head); any backend
+    other than CLIP is the SigLIP family, as in the JAX package."""
+    if backend == "clip":
+        backbone = clip_params_from_torch(sd, clip_cfg, prefix="backbone.")
+    else:
+        backbone = siglip_params_from_torch(sd, siglip_cfg, prefix="backbone.")
     return {"backbone": backbone, "head": fusion_head_from_torch(sd)}
 
 

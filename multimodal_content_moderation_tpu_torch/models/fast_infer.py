@@ -5,7 +5,7 @@ pixels); the fused normalise + patch-embed kernel embeds them and the rest
 of the towers run as usual. ``evaluate_logits_u8`` streams a dataset
 through the engine with host preparation on a background thread, pinned
 host buffers, non-blocking copies and at most two batches in flight, with
-optional exact text-length buckets.
+optional exact text-length buckets (with the SigLIP carry column).
 
 Single device. The multi-GPU engine comes with its own slice.
 """
@@ -32,7 +32,7 @@ class FastInferenceEngine:
             image_std=tuple(float(s) for s in std),
         )
         self.device = model.device
-        self.patch_size = self.model.clip_config.vision.patch_size
+        self.patch_size = self.model.encoder_config.vision.patch_size
 
     def patches_from_hwc(self, images_hwc: np.ndarray) -> np.ndarray:
         """[B, H, W, C] uint8 crops -> wire-format patch rows."""
@@ -49,11 +49,12 @@ class FastInferenceEngine:
         self, ids, mask, patches_u8, text_present, image_present,
         carry_pos: Optional[int] = None,
     ) -> torch.Tensor:
-        """Logits [B, C] in fp32, on the engine's device."""
-        if carry_pos is not None:
-            raise NotImplementedError(
-                "the bucket carry column is SigLIP's, which is not ported yet"
-            )
+        """Logits [B, C] in fp32, on the engine's device.
+
+        ``carry_pos`` (an int) marks the last ids/mask column as the SigLIP
+        bucket carry slot: a PAD token embedded at position ``carry_pos``,
+        the position the unbucketed run pools (the full text width - 1).
+        ``bucket_batch_text`` returns it."""
         batch = {
             "input_ids": self.to_device(ids),
             "attention_mask": self.to_device(mask),
@@ -61,6 +62,11 @@ class FastInferenceEngine:
             "text_present": self.to_device(text_present),
             "image_present": self.to_device(image_present),
         }
+        if carry_pos is not None:
+            T = batch["input_ids"].shape[1]
+            pos = torch.arange(T, device=self.device)
+            pos[-1] = carry_pos
+            batch["position_ids"] = pos
         return self.model(batch)["logits"].float()
 
 
@@ -88,10 +94,11 @@ def bucket_ladder(buckets: Sequence[int], full_T: int) -> Optional[List[int]]:
     return ladder + [full_T] if ladder else None
 
 
-def bucket_for(mask, ladder: Sequence[int]) -> int:
-    """Smallest ladder width covering the batch's longest row (the SigLIP
-    carry column's extra slot comes with that backend)."""
-    L = int(np.asarray(mask).sum(axis=1).max(initial=1))
+def bucket_for(mask, ladder: Sequence[int], extra: int = 0) -> int:
+    """Smallest ladder width covering the batch's longest row plus ``extra``
+    reserved columns (SigLIP passes 1 for its carry column); the terminal
+    rung is the full width."""
+    L = int(np.asarray(mask).sum(axis=1).max(initial=1)) + extra
     for b in ladder:
         if b >= L:
             return b
@@ -102,14 +109,21 @@ def bucket_batch_text(
     ids: np.ndarray, mask: np.ndarray, b: int, backend: str
 ) -> Tuple[np.ndarray, np.ndarray, Optional[int]]:
     """Shrink a right-padded [B, T] ids/mask pair to bucket width ``b``:
-    (ids_b, mask_b, carry_pos). CLIP: plain truncation (the causal tower
-    pooled at the first EOS never sees the dropped columns), carry_pos None.
-    """
+    (ids_b, mask_b, carry_pos).
+
+    CLIP: plain truncation (the causal tower pooled at the first EOS never
+    sees the dropped columns), carry_pos None. SigLIP: b-1 real columns plus
+    a carry column, the row's last column (a PAD, since ``bucket_for(...,
+    extra=1)`` fits every row in b-1) with mask 0, embedded at position T-1
+    (carry_pos): the tower pools the last column and masked keys are inert
+    at any width, so this is exact."""
     if b >= ids.shape[1]:
         return ids, mask, None
-    if backend != "clip":
-        raise NotImplementedError(f"text buckets for backend {backend!r} are not ported yet")
-    return np.ascontiguousarray(ids[:, :b]), np.ascontiguousarray(mask[:, :b]), None
+    if backend == "clip":
+        return np.ascontiguousarray(ids[:, :b]), np.ascontiguousarray(mask[:, :b]), None
+    ids_b = np.concatenate([ids[:, : b - 1], ids[:, -1:]], axis=1)
+    mask_b = np.concatenate([mask[:, : b - 1], np.zeros((mask.shape[0], 1), mask.dtype)], axis=1)
+    return ids_b, mask_b, ids.shape[1] - 1
 
 
 def evaluate_logits_u8(
@@ -126,8 +140,9 @@ def evaluate_logits_u8(
     ``seq_buckets`` enables length-sorted bucketed evaluation: rows are
     visited in token-length order and each batch's ids/mask shrink to the
     smallest bucket covering its longest row. Exact for CLIP (causal text
-    tower, first-EOS pooling). (The JAX engine also refuses buckets for its
-    mean-pooling generic backend; the port's models are CLIP only so far.)"""
+    tower, first-EOS pooling) and SigLIP (masked keys, the carry column).
+    (The JAX engine also turns buckets off for its mean-pooling generic
+    backend, which is not ported.)"""
     from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_producer
 
     indices = None
@@ -149,16 +164,17 @@ def evaluate_logits_u8(
             valid = int(batch.pop("_valid"))
             labels = batch.pop("labels")[:valid]
             patches = engine.patches_from_hwc(batch.pop("pixel_values"))
+            carry = None
             if indices is not None:
-                b = bucket_for(batch["attention_mask"], ladder)
-                batch["input_ids"], batch["attention_mask"], _ = bucket_batch_text(
+                b = bucket_for(batch["attention_mask"], ladder, extra=0 if backend == "clip" else 1)
+                batch["input_ids"], batch["attention_mask"], carry = bucket_batch_text(
                     batch["input_ids"], batch["attention_mask"], b, backend
                 )
             host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
             host["patches_u8"] = torch.from_numpy(patches)
             if pin:
                 host = {k: v.pin_memory() for k, v in host.items()}
-            yield valid, labels, host
+            yield valid, labels, host, carry
 
     q, _END, err, cancel = bounded_producer(prep, size=2)
 
@@ -170,12 +186,12 @@ def evaluate_logits_u8(
                 if err:
                     raise err[0]
                 break
-            valid, labels, host = item
+            valid, labels, host, carry = item
             valids.append(valid)
             all_labels.append(labels)
             logits = engine(
                 host["input_ids"], host["attention_mask"], host["patches_u8"],
-                host["text_present"], host["image_present"],
+                host["text_present"], host["image_present"], carry_pos=carry,
             )
             # the pinned host buffers stay referenced until their batch is read
             outs.append((logits, host))

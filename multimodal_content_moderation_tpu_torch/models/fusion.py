@@ -1,4 +1,5 @@
-"""Gated late-fusion multi-label classifier over the CLIP dual encoder.
+"""Gated late-fusion multi-label classifier over the CLIP or SigLIP dual
+encoder.
 
 Same math as the JAX package's ``models/fusion.py`` (the reference
 ``MultiModalFusionClassifier``): L2-normalised encoder features masked by
@@ -6,7 +7,8 @@ presence flags, projected, tanh-gated fusion with a sigmoid gate that sees
 both projections and the flags, a three-way fallback when a modality is
 absent, and ``[fused, t, v, |t-v|, t*v] -> LN -> Linear -> GELU -> Dropout(0.2) ->
 Linear``, and the in-model BCE (``pos_weight``) or focal loss when the
-batch carries labels. Only the CLIP backend is ported so far.
+batch carries labels. The generic (BERT-family + ViT) backend is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from multimodal_content_moderation_tpu_torch.models import clip as clip_mod
+from multimodal_content_moderation_tpu_torch.models import siglip as siglip_mod
 from multimodal_content_moderation_tpu_torch.models.params import ParamTree
 from multimodal_content_moderation_tpu_torch.ops.layers import dense, dropout, gelu_exact, layer_norm
 from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits, focal_with_logits
@@ -97,11 +100,25 @@ def fusion_head_apply(
     return dense(y, params["cls_fc2"])
 
 
+def _check_backend(backend: str) -> str:
+    backend = backend.lower()
+    if backend not in ("clip", "siglip", "auto"):
+        raise NotImplementedError(
+            f"backend {backend!r} is not ported yet (the generic backend comes in a "
+            "later slice)"
+        )
+    return backend
+
+
 class FusionModel(nn.Module):
     """Backbone + fusion head. ``forward(batch) -> {"logits"}`` (and
     ``"loss"`` when the batch holds ``labels``) where batch holds input_ids,
     attention_mask, patches_u8 ([B, N, C*p*p] uint8), text_present and
-    image_present.
+    image_present (and, for SigLIP, optionally the text ``position_ids`` of
+    a bucket's carry column).
+
+    ``backend`` is "clip" or "siglip" ("auto" is SigLIP, as in the JAX
+    package, for a checkpoint whose inference config kept it).
 
     Parameters live in ``backbone`` and ``head`` (``ParamTree``s), so the
     ``state_dict`` keys are the JAX pytree paths
@@ -118,15 +135,16 @@ class FusionModel(nn.Module):
         image_std: Optional[tuple] = None,
         loss_type: str = "bce",
         focal_gamma: float = 1.5,
+        siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
     ):
         super().__init__()
-        if backend != "clip":
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported yet (siglip and generic come "
-                "in later slices)"
-            )
+        backend = _check_backend(backend)
         self.backend = backend
-        self.clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
+        self.clip_config = self.siglip_config = None
+        if backend == "clip":
+            self.clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
+        else:
+            self.siglip_config = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
         self.num_labels = num_labels
         self.fusion_dim = fusion_dim
         self.image_mean = image_mean
@@ -147,21 +165,26 @@ class FusionModel(nn.Module):
         dtype=torch.float32,
         loss_type: str = "bce",
         focal_gamma: float = 1.5,
+        siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
     ) -> "FusionModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
-        if backend.lower() != "clip":
-            raise NotImplementedError(f"backend {backend!r} is not ported yet")
-        clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
+        backend = _check_backend(backend)
         g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        if backend == "clip":
+            clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
+            backbone = clip_mod.clip_init(g, clip_config, dtype)
+            feature_dim = clip_config.projection_dim
+        else:
+            siglip_config = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
+            backbone = siglip_mod.siglip_init(g, siglip_config, dtype)
+            feature_dim = siglip_config.text.projection_size
         params = {
-            "backbone": clip_mod.clip_init(g, clip_config, dtype),
-            "head": fusion_head_init(
-                g, clip_config.projection_dim, num_labels, fusion_dim, dtype
-            ),
+            "backbone": backbone,
+            "head": fusion_head_init(g, feature_dim, num_labels, fusion_dim, dtype),
         }
         return FusionModel(
-            params, "clip", clip_config, num_labels, fusion_dim,
-            loss_type=loss_type, focal_gamma=focal_gamma,
+            params, backend, clip_config, num_labels, fusion_dim,
+            loss_type=loss_type, focal_gamma=focal_gamma, siglip_config=siglip_config,
         )
 
     def replace(self, **fields) -> "FusionModel":
@@ -174,16 +197,24 @@ class FusionModel(nn.Module):
         return new
 
     @property
+    def encoder_config(self):
+        """The backbone's config: a ``CLIPConfig`` or a ``SigLIPConfig``."""
+        return self.clip_config if self.backend == "clip" else self.siglip_config
+
+    @property
     def feature_dim(self) -> int:
-        return self.clip_config.projection_dim
+        if self.backend == "clip":
+            return self.clip_config.projection_dim
+        # SigLIP: the text head's projection_size == the vision hidden size
+        return self.siglip_config.text.projection_size
 
     @property
     def image_size(self) -> int:
-        return self.clip_config.vision.image_size
+        return self.encoder_config.vision.image_size
 
     @property
     def text_max_positions(self) -> int:
-        return self.clip_config.text.max_positions
+        return self.encoder_config.text.max_positions
 
     @property
     def device(self) -> torch.device:
@@ -193,11 +224,19 @@ class FusionModel(nn.Module):
         from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
 
         bp = self.backbone
-        t = clip_mod.clip_text_features(
-            bp, batch["input_ids"], batch.get("attention_mask"), self.clip_config
+        if self.backend == "clip":
+            t = clip_mod.clip_text_features(
+                bp, batch["input_ids"], batch.get("attention_mask"), self.clip_config
+            )
+            tokens = embed_for_model(self, bp, batch["patches_u8"])
+            v = clip_mod.clip_image_features_from_tokens(bp, tokens, self.clip_config)
+            return t, v
+        t = siglip_mod.siglip_text_features(
+            bp, batch["input_ids"], batch.get("attention_mask"), self.siglip_config,
+            position_ids=batch.get("position_ids"),
         )
         tokens = embed_for_model(self, bp, batch["patches_u8"])
-        v = clip_mod.clip_image_features_from_tokens(bp, tokens, self.clip_config)
+        v = siglip_mod.siglip_image_features_from_tokens(bp, tokens, self.siglip_config)
         return t, v
 
     def forward(

@@ -10,9 +10,11 @@ with ``inference_config.json`` in the directory or its parent:
 
 A local HF encoder directory (``config.json`` + weights) seeds the backbone
 of a new model (``init_from_encoder_dir``); the head starts from the seeded
-random init. The JAX package's Orbax run directories are its own format
-(``mmharm-export`` converts them); the SigLIP, generic and multi-task models
-come with their slices. Config JSONs are parsed directly.
+random init. Both backbones load: CLIP and SigLIP (a SigLIP2 checkpoint's
+``image_size`` sizes its position table, so SigLIP2-B/16 at 384 px loads as
+it is). The JAX package's Orbax run directories are its own format
+(``mmharm-export`` converts them); the generic and multi-task models come
+with their slices. Config JSONs are parsed directly.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ from multimodal_content_moderation_tpu_torch.models.clip import (
 )
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
 from multimodal_content_moderation_tpu_torch.models.params import flatten
+from multimodal_content_moderation_tpu_torch.models.siglip import (
+    SigLIPConfig,
+    SigLIPTextConfig,
+    SigLIPVisionConfig,
+)
 from multimodal_content_moderation_tpu_torch.utils.config import load_json
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
 
@@ -66,14 +73,44 @@ def clip_config_from_dict(d: Dict[str, Any]) -> CLIPConfig:
     )
 
 
+def siglip_config_from_dict(d: Dict[str, Any]) -> SigLIPConfig:
+    t = d.get("text_config", {})
+    v = d.get("vision_config", {})
+    return SigLIPConfig(
+        text=SigLIPTextConfig(
+            vocab_size=t.get("vocab_size", 256000),
+            hidden_size=t.get("hidden_size", 768),
+            num_layers=t.get("num_hidden_layers", 12),
+            num_heads=t.get("num_attention_heads", 12),
+            intermediate_size=t.get("intermediate_size", 3072),
+            max_positions=t.get("max_position_embeddings", 64),
+            projection_size=t.get("projection_size", t.get("hidden_size", 768)),
+            hidden_act=t.get("hidden_act", "gelu_pytorch_tanh"),
+            layer_norm_eps=t.get("layer_norm_eps", 1e-6),
+        ),
+        vision=SigLIPVisionConfig(
+            hidden_size=v.get("hidden_size", 768),
+            num_layers=v.get("num_hidden_layers", 12),
+            num_heads=v.get("num_attention_heads", 12),
+            intermediate_size=v.get("intermediate_size", 3072),
+            image_size=v.get("image_size", 224),
+            patch_size=v.get("patch_size", 16),
+            num_channels=v.get("num_channels", 3),
+            hidden_act=v.get("hidden_act", "gelu_pytorch_tanh"),
+            layer_norm_eps=v.get("layer_norm_eps", 1e-6),
+        ),
+    )
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (a later slice brings it)")
 
 
 def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
     """Resolve ``backend: auto`` from the local encoder's ``config.json``
-    ``model_type``, as the JAX package does; only CLIP is ported, so any
-    other answer raises."""
+    ``model_type``, as the JAX package does (clip -> clip, siglip-family or
+    none -> siglip, another dual-encoder config -> generic); the generic
+    backend is not ported, so that answer raises."""
     resolved = backend
     if backend == "auto":
         resolved = "siglip"
@@ -87,19 +124,25 @@ def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
                 "text_config" in d or "vision_config" in d
             ):
                 resolved = "generic"
-    if resolved != "clip":
+    if resolved not in ("clip", "siglip"):
         raise _not_ported(f"backend {resolved!r}")
     return resolved
 
 
-def load_encoder_config(encoder_dir: str, backend: str) -> CLIPConfig:
-    """Parse a local HF ``config.json`` into the CLIP config dataclasses."""
-    if backend != "clip":
+def load_encoder_config(encoder_dir: str, backend: str):
+    """Parse a local HF ``config.json`` into the backend's config
+    dataclasses (``CLIPConfig`` for clip, ``SigLIPConfig`` for the SigLIP
+    family), or the backend's canonical architecture without one."""
+    if backend == "generic":
         raise _not_ported(f"backend {backend!r}")
     cfg_path = os.path.join(encoder_dir, "config.json")
+    if backend == "clip":
+        if os.path.exists(cfg_path):
+            return clip_config_from_dict(load_json(cfg_path))
+        return CLIPConfig.base_patch32()
     if os.path.exists(cfg_path):
-        return clip_config_from_dict(load_json(cfg_path))
-    return CLIPConfig.base_patch32()
+        return siglip_config_from_dict(load_json(cfg_path))
+    return SigLIPConfig.base_patch16_224()
 
 
 def _find_state_dict(directory: str) -> Optional[Dict]:
@@ -124,6 +167,7 @@ def build_model(
     clip_config: Optional[CLIPConfig] = None,
     seed: int = 0,
     device="cuda",
+    siglip_config: Optional[SigLIPConfig] = None,
 ) -> FusionModel:
     """A randomly initialised fusion model (scripts/train.py's contract;
     the multi-task head is not ported)."""
@@ -138,20 +182,22 @@ def build_model(
         device=device,
         loss_type=loss_type,
         focal_gamma=focal_gamma,
+        siglip_config=siglip_config,
     )
 
 
 def init_from_encoder_dir(model: FusionModel, encoder_dir: Optional[str]) -> FusionModel:
-    """Copy the HF encoder weights of ``encoder_dir`` (a local
-    ``openai/clip-vit-base-patch32``-layout directory) into the model's
-    backbone, in place; the head keeps its seeded random init. Without
-    weights there, the model is returned as it is."""
+    """Copy the HF encoder weights of ``encoder_dir`` (a local CLIP or
+    SigLIP checkpoint directory) into the model's backbone, in place; the
+    head keeps its seeded random init. Without weights there, the model is
+    returned as it is."""
     sd = _find_state_dict(encoder_dir) if encoder_dir else None
     if sd is None:
         return model
-    if model.backend != "clip":
-        raise _not_ported(f"backend {model.backend!r}")
-    backbone = convert.clip_params_from_torch(sd, model.clip_config)
+    if model.backend == "clip":
+        backbone = convert.clip_params_from_torch(sd, model.clip_config)
+    else:
+        backbone = convert.siglip_params_from_torch(sd, model.siglip_config)
     flat = flatten(backbone)
     own = model.backbone.state_dict()
     missing = sorted(set(own) - set(flat))
@@ -172,7 +218,7 @@ def with_performance_options(
     """A copy of the model (sharing its parameters) with the towers'
     performance knobs set: ``compute_dtype="bfloat16"`` = mixed precision,
     ``scores_dtype`` = the "xla" core's score dtype, ``attention_impl``
-    "pallas" = the attention_nhd kernel."""
+    "pallas" = the attention kernels, in both towers."""
     overrides = {
         k: v
         for k, v in (
@@ -184,13 +230,14 @@ def with_performance_options(
     }
     if not overrides:
         return model
-    cfg = model.clip_config
+    cfg = model.encoder_config
     new_cfg = dataclasses.replace(
         cfg,
         text=dataclasses.replace(cfg.text, **overrides),
         vision=dataclasses.replace(cfg.vision, **overrides),
     )
-    return model.replace(clip_config=new_cfg)
+    field = "clip_config" if model.backend == "clip" else "siglip_config"
+    return model.replace(**{field: new_cfg})
 
 
 def find_inference_config(checkpoint_dir: str) -> Tuple[Dict[str, Any], str]:
@@ -223,6 +270,8 @@ def load_checkpoint(
     head = cfg.get("head", "fusion")
     if head != "fusion":
         raise _not_ported(f"head {head!r}")
+    if backend not in ("clip", "siglip", "auto"):
+        raise _not_ported(f"backend {backend!r}")
     if cfg.get("format") == "orbax":
         raise NotImplementedError(
             "an Orbax run directory is the JAX package's own format: convert it "
@@ -230,14 +279,14 @@ def load_checkpoint(
         )
     class_names = cfg.get("class_names", ["harmful"])
     enc_src = encoder_dir or cfg.get("encoder_dir") or checkpoint_dir
-    enc_cfg = load_encoder_config(enc_src, backend)
+    enc_cfg = load_encoder_config(enc_src, "clip" if backend == "clip" else "siglip")
+    cfg_kw = {"clip_config" if backend == "clip" else "siglip_config": enc_cfg}
 
     if cfg.get("format") == "torch":
         from multimodal_content_moderation_tpu_torch.training.checkpoints import load_params
 
         model = build_model(
-            head, backend, class_names, cfg.get("fusion_dim", 512),
-            clip_config=enc_cfg, device="cpu",
+            head, backend, class_names, cfg.get("fusion_dim", 512), device="cpu", **cfg_kw,
         )
         model.load_state_dict(load_params(checkpoint_dir), strict=True)
         if dtype is not None:
@@ -247,14 +296,16 @@ def load_checkpoint(
     sd = _find_state_dict(checkpoint_dir)
     if sd is None:
         raise FileNotFoundError(f"No model weights found in {checkpoint_dir}")
-    params = convert.fusion_model_from_torch(sd, backend, clip_cfg=enc_cfg)
+    params = convert.fusion_model_from_torch(
+        sd, backend, **{"clip_cfg" if backend == "clip" else "siglip_cfg": enc_cfg}
+    )
     if dtype is not None:
         params = convert.to_dtype(params, dtype)
     model = FusionModel(
         params,
         backend,
-        enc_cfg,
         num_labels=len(class_names),
         fusion_dim=cfg.get("fusion_dim", 512),
+        **cfg_kw,
     ).to(dev)
     return model, cfg

@@ -11,7 +11,12 @@ from typing import Optional, Sequence
 
 import torch
 
-from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+from multimodal_content_moderation_tpu_torch.data.images import (
+    CLIP_MEAN,
+    CLIP_STD,
+    SIGLIP_MEAN,
+    SIGLIP_STD,
+)
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import (
     fold_norm_into_embed,
     patch_embed_u8_train,
@@ -19,9 +24,8 @@ from multimodal_content_moderation_tpu_torch.ops.cuda_image import (
 
 
 def default_stats(backend: str):
-    if backend != "clip":
-        raise NotImplementedError(f"backend {backend!r} is not ported yet")
-    return CLIP_MEAN, CLIP_STD
+    """The backend's normalisation stats: CLIP's, else SigLIP's 0.5 / 0.5."""
+    return (CLIP_MEAN, CLIP_STD) if backend == "clip" else (SIGLIP_MEAN, SIGLIP_STD)
 
 
 def embed_for_model(model, backbone, patches_u8: torch.Tensor) -> torch.Tensor:
@@ -31,7 +35,7 @@ def embed_for_model(model, backbone, patches_u8: torch.Tensor) -> torch.Tensor:
     return embed_patches_u8(
         backbone,
         patches_u8,
-        model.clip_config.vision,
+        model.encoder_config.vision,
         model.image_mean or dmean,
         model.image_std or dstd,
     )

@@ -21,7 +21,7 @@ import torch
 from multimodal_content_moderation_tpu_torch.ops import _build
 
 NEG_INF = torch.finfo(torch.float32).min  # -3.4028235e38, the JAX package's NEG_INF
-MAX_SEQ = 256  # longer sequences are flash_attention's, not yet ported
+MAX_SEQ = 256  # longer sequences are flash_attention's (ops/cuda_flash.py)
 MAX_HEAD_DIM = 128
 
 

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ, attention_nhd_diff
+from multimodal_content_moderation_tpu_torch.ops.cuda_flash import fused_mha
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -28,12 +29,22 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """SigLIP's tanh-approximate GELU (torch ``gelu_pytorch_tanh``)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)
 
 
-ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu_exact}
+ACTIVATIONS = {
+    "quick_gelu": quick_gelu,
+    "gelu_pytorch_tanh": gelu_tanh,
+    "gelu_tanh": gelu_tanh,
+    "gelu": gelu_exact,
+}
 
 
 class _MatmulF32Out(torch.autograd.Function):
@@ -118,8 +129,12 @@ def mha(
     ``mask`` is an additive fp32 bias broadcastable to [B, heads, Tq, Tk];
     ``causal`` and ``key_mask`` ([B, Tk] additive fp32) are the structured
     form. ``impl`` selects the core: "xla" (plain products around an fp32
-    softmax, scores in ``scores_dtype``) or "pallas" (the ``attention_nhd``
-    kernel on the [B, T, D] layout; its plain version on the CPU)."""
+    softmax, scores in ``scores_dtype``) or "pallas" (the kernels, as the
+    JAX package dispatches them: ``attention_nhd`` on the [B, T, D] layout
+    when there is no dense mask and both lengths are at most 256, else
+    ``fused_mha``; their plain versions on the CPU). A single query with no
+    mask (the SigLIP MAP head) takes neither: fp32 products over the
+    [B, Tk, h, dh] view."""
     B, Tq, D = x_q.shape
     Tk = x_kv.shape[1]
     h = num_heads
@@ -129,18 +144,27 @@ def mha(
     k3 = dense(x_kv, p["k"])
     v3 = dense(x_kv, p["v"])
 
+    if Tq == 1 and mask is None and key_mask is None and not causal:
+        qh = q3.float().reshape(B, 1, h, dh)
+        kh = k3.float().reshape(B, Tk, h, dh)
+        logits = (kh * qh).sum(-1) * (1.0 / float(dh) ** 0.5)  # [B, Tk, h]
+        w = torch.softmax(logits, dim=1)
+        vh = v3.float().reshape(B, Tk, h, dh)
+        out = (vh * w[..., None]).sum(1)  # [B, h, dh]
+        return dense(out.to(x_q.dtype).reshape(B, 1, D), p["o"])
+
     if impl == "pallas":
-        if mask is not None:
-            raise NotImplementedError(
-                "attention impl 'pallas' with a dense mask needs the attention_small "
-                "kernel, which is not ported yet"
+        if mask is None and max(Tq, Tk) <= MAX_SEQ:
+            out = attention_nhd_diff(q3, k3, v3, key_mask, h, causal)
+        else:
+            # [B, T, D] memory seen as [B, h, T, dh]: no copy on the card
+            out = fused_mha(
+                q3.view(B, Tq, h, dh).transpose(1, 2),
+                k3.view(B, Tk, h, dh).transpose(1, 2),
+                v3.view(B, Tk, h, dh).transpose(1, 2),
+                mask, causal=causal, key_mask=key_mask,
             )
-        if max(Tq, Tk) > MAX_SEQ:
-            raise NotImplementedError(
-                f"attention impl 'pallas' at sequence {max(Tq, Tk)} > {MAX_SEQ} needs "
-                "the flash_attention kernel, which is not ported yet"
-            )
-        out = attention_nhd_diff(q3, k3, v3, key_mask, h, causal)
+            out = out.transpose(1, 2).reshape(B, Tq, D)
         return dense(out, p["o"])
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")

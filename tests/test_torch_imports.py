@@ -15,13 +15,16 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "multimodal_content_moderation_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 
-# what chip_smoke.py drives on the card: the eval path and the training path
+# what chip_smoke.py drives on the card: the CLIP and SigLIP eval paths and
+# the training path
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.ops._build",
     "multimodal_content_moderation_tpu_torch.ops.cuda_image",
     "multimodal_content_moderation_tpu_torch.ops.cuda_attention",
+    "multimodal_content_moderation_tpu_torch.ops.cuda_flash",
     "multimodal_content_moderation_tpu_torch.ops.layers",
     "multimodal_content_moderation_tpu_torch.models.clip",
+    "multimodal_content_moderation_tpu_torch.models.siglip",
     "multimodal_content_moderation_tpu_torch.models.fusion",
     "multimodal_content_moderation_tpu_torch.models.u8wire",
     "multimodal_content_moderation_tpu_torch.models.bridge",
@@ -29,6 +32,8 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.models.model_io",
     "multimodal_content_moderation_tpu_torch.models.fast_infer",
     "multimodal_content_moderation_tpu_torch.data.pipeline",
+    "multimodal_content_moderation_tpu_torch.data.images",
+    "multimodal_content_moderation_tpu_torch.data.tokenizer_json",
     "multimodal_content_moderation_tpu_torch.ops.losses",
     "multimodal_content_moderation_tpu_torch.training.optim",
     "multimodal_content_moderation_tpu_torch.training.sampling",

@@ -11,12 +11,15 @@ through the autograd Functions against torch autograd of the plain
 versions in fp32 (TF32 off): atol 1e-4, rtol 1e-4 (sums over up to 3,072
 products in another order). The bf16 ``dense`` and its gradients against
 autograd of its plain definition: rtol 2^-7 + atol 1e-3 (one rounding of
-each side from an fp32 sum)."""
+each side from an fp32 sum). ``flash_attention`` and ``attention_small``
+against their plain versions: fp32 atol 1e-4, bf16 rtol 2^-7 + atol 1e-3
+(an online softmax on the card, one softmax in the plain version)."""
 
 import pytest
 import torch
 
 from multimodal_content_moderation_tpu_torch.ops import cuda_attention as ca
+from multimodal_content_moderation_tpu_torch.ops import cuda_flash as cf
 from multimodal_content_moderation_tpu_torch.ops import cuda_image as ci
 from multimodal_content_moderation_tpu_torch.ops import layers
 
@@ -169,6 +172,100 @@ def test_dense_bf16_rounds_once_and_differentiates(B, T, d_in, d_out):
         torch.testing.assert_close(a.float(), c.float(), atol=1e-3, rtol=2.0**-7)
 
 
+FLASH_SHAPES = [
+    # B, H, T, S, dh, mask kind, causal
+    (2, 12, 576, 576, 64, None, False),  # SigLIP2-B/16-384 vision, no mask
+    (2, 4, 300, 300, 64, "key", True),  # ragged, causal + key mask
+    (2, 2, 384, 384, 32, "dense", False),
+    (2, 2, 128, 576, 64, "key", False),  # cross attention, T != S
+    (1, 2, 257, 257, 128, "dense_key", True),
+    (3, 1, 70, 70, 8, "key", False),
+]
+
+
+def _flash_inputs(B, H, T, S, dh, kind, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, H, T, dh, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, H, S, dh, generator=g, device="cuda").to(dtype) for _ in range(2))
+    mask = km = None
+    if kind in ("key", "dense_key"):
+        km = _key_mask(g, B, S)  # batch row 0: every key masked
+    if kind in ("dense", "dense_key"):
+        mask = torch.where(torch.rand(B, 1, T, S, generator=g, device="cuda") < 0.2,
+                           ca.NEG_INF, 0.0)
+        mask[..., 0] = 0.0
+    return q, k, v, mask, km
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,S,dh,kind,causal", FLASH_SHAPES)
+def test_flash_attention_kernel(B, H, T, S, dh, kind, causal, dtype):
+    _need_card()
+    q, k, v, mask, km = _flash_inputs(B, H, T, S, dh, kind, dtype, T + dh)
+    before = cf.flash_attention.launches
+    got = cf.flash_attention(q, k, v, mask, km, causal)
+    assert cf.flash_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, cf.flash_attention_reference(q, k, v, mask, km, causal))
+
+
+def test_flash_attention_reads_the_projection_layout():
+    """[B, T, D] memory viewed as [B, H, T, dh] (the view mha passes): the
+    same result as contiguous inputs, and an output whose [B, T, D] view is
+    free."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, T, H, dh = 3, 300, 12, 64
+    q3, k3, v3 = (torch.randn(B, T, H * dh, generator=g, device="cuda") for _ in range(3))
+    views = [t.view(B, T, H, dh).transpose(1, 2) for t in (q3, k3, v3)]
+    got = cf.flash_attention(*views)
+    _assert_close(got, cf.flash_attention(*(t.contiguous() for t in views)))
+    assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "BH,T,S,dh,with_mask", [(64, 77, 77, 64, True), (32, 50, 50, 64, False),
+                            (8, 256, 256, 128, True), (6, 20, 130, 16, True), (4, 5, 5, 8, False)]
+)
+def test_attention_small_kernel(BH, T, S, dh, with_mask, dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T + S)
+    q = torch.randn(BH, T, dh, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(BH, S, dh, generator=g, device="cuda").to(dtype) for _ in range(2))
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.rand(BH, T, S, generator=g, device="cuda") < 0.3, ca.NEG_INF, 0.0)
+        mask[0] = ca.NEG_INF  # slice 0: every key masked, a uniform average
+    before = cf.attention_small.launches
+    got = cf.attention_small(q, k, v, mask)
+    assert cf.attention_small.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    _assert_close(got, cf.attention_small_reference(q, k, v, mask))
+
+
+@pytest.mark.parametrize("T,dense", [(289, False), (289, True), (77, True)])
+def test_mha_pallas_kernels_match_xla_core(T, dense):
+    """``mha(impl="pallas")`` through fused_mha on the card (flash_attention
+    at T=289, attention_small for a dense mask at T=77) against the "xla"
+    core, in fp32."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T)
+    B, D, h = 4, 256, 4
+    p = {n: {"w": torch.randn(D, D, generator=g, device="cuda") * D ** -0.5,
+             "b": torch.randn(D, generator=g, device="cuda") * 0.1} for n in "qkvo"}
+    x = torch.randn(B, T, D, generator=g, device="cuda")
+    mask = None
+    if dense:
+        mask = torch.where(torch.rand(B, 1, T, T, generator=g, device="cuda") < 0.2, ca.NEG_INF, 0.0)
+        mask[..., 0] = 0.0
+    kernel = cf.attention_small if dense and T <= 256 else cf.flash_attention
+    before = kernel.launches
+    got = layers.mha(x, x, p, h, mask, impl="pallas")
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(got, layers.mha(x, x, p, h, mask, impl="xla"), atol=1e-4, rtol=1e-4)
+
+
 def test_wrappers_refuse_bad_inputs():
     _need_card()
     x = torch.zeros(1, 4, 48, dtype=torch.uint8, device="cuda")
@@ -183,3 +280,12 @@ def test_wrappers_refuse_bad_inputs():
     q = torch.zeros(2, 8, 64, device="cuda")
     with pytest.raises(ValueError):
         ca.attention_nhd_bwd(q, q, q, q.bfloat16(), 1)
+    with pytest.raises(ValueError):  # attention_small is for T <= 256
+        cf.attention_small(torch.zeros(2, 300, 64, device="cuda"),
+                           torch.zeros(2, 300, 64, device="cuda"),
+                           torch.zeros(2, 300, 64, device="cuda"))
+    q4 = torch.zeros(1, 2, 300, 64, device="cuda")
+    with pytest.raises(ValueError):  # the key row is fp32
+        cf.flash_attention(q4, q4, q4, key_mask=torch.zeros(1, 300, device="cuda").bfloat16())
+    with pytest.raises(ValueError):  # the last axis is contiguous
+        cf.flash_attention(q4.transpose(2, 3), q4.transpose(2, 3), q4.transpose(2, 3))

@@ -77,6 +77,8 @@ def test_dense_and_layer_norm(dtype):
     _close(tl.layer_norm(y, tp["ln"]), jl.layer_norm(jy, jp["ln"]), dtype)
     _close(tl.quick_gelu(y), jl.quick_gelu(jy), dtype)
     _close(tl.gelu_exact(y), jl.gelu_exact(jy), dtype)
+    for name in ("gelu_pytorch_tanh", "gelu_tanh"):
+        _close(tl.ACTIVATIONS[name](y), jl.ACTIVATIONS[name](jy), dtype)
 
 
 def _masks(g, B, T, kind):
@@ -126,13 +128,21 @@ def test_mha(impl, kind, scores, dtype):
 
 
 def test_mha_pallas_refuses_what_is_not_ported():
+    """Both fused_mha routes run forward (a sequence over 256: flash_attention;
+    a dense mask: attention_small) and equal JAX's; what stays unported is a
+    backward through them, which JAX does not define either."""
     g = np.random.default_rng(2)
-    _, tp = _both(_block_p(g, 16, 32)["attn"], "float32")
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tl.mha(torch.zeros(1, 257, 16), torch.zeros(1, 257, 16), tp, 2, impl="pallas")
-    with pytest.raises(NotImplementedError, match="attention_small"):
-        tl.mha(torch.zeros(1, 4, 16), torch.zeros(1, 4, 16), tp, 2,
-               torch.zeros(1, 1, 4, 4), impl="pallas")
+    jp, tp = _both(_block_p(g, 16, 32)["attn"], "float32")
+    for T, mask in ((257, None), (4, np.triu(np.full((4, 4), NEG_INF, np.float32), k=1))):
+        jx, tx = _x(g, (1, T, 16), "float32")
+        jm = None if mask is None else jnp.asarray(mask)[None, None]
+        tm = None if mask is None else torch.from_numpy(mask)[None, None]
+        _close(tl.mha(tx, tx, tp, 2, tm, impl="pallas"), jl.mha(jx, jx, jp, 2, jm, impl="pallas"),
+               "float32")
+        x = tx.clone().requires_grad_()
+        name = "flash_attention" if mask is None else "attention_small"
+        with pytest.raises(NotImplementedError, match=name):
+            tl.mha(x, x, tp, 2, tm, impl="pallas")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -35,6 +35,11 @@ from multimodal_content_moderation_tpu_torch.models import model_io
 from multimodal_content_moderation_tpu_torch.models.bridge import load_jax_params
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
 from multimodal_content_moderation_tpu_torch.models.params import flatten
+from multimodal_content_moderation_tpu_torch.models.siglip import (
+    SigLIPConfig,
+    SigLIPTextConfig,
+    SigLIPVisionConfig,
+)
 from multimodal_content_moderation_tpu_torch.ops import cuda_image as ci
 from multimodal_content_moderation_tpu_torch.ops.layers import dropout
 from multimodal_content_moderation_tpu_torch.training import checkpoints as ckpt_lib
@@ -342,9 +347,23 @@ def test_debug_nans_stops_the_step_before_the_update(tmp_path):
                                    msg=name)
 
 
+def _tiny_siglip():
+    return SigLIPConfig(
+        text=SigLIPTextConfig(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+                              intermediate_size=64, max_positions=12, projection_size=32),
+        vision=SigLIPVisionConfig(hidden_size=32, num_layers=1, num_heads=2,
+                                  intermediate_size=64, image_size=32, patch_size=16),
+    )
+
+
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="patchify"):
         Trainer(_port_model(), _args(tmp_path, wire="f32"), TinyDataset(4, 0),
                 TinyDataset(4, 0), make_compute_metrics_multi(3), device="cpu")
+    siglip = FusionModel.create("siglip", num_labels=3, fusion_dim=16, device="cpu",
+                                siglip_config=_tiny_siglip())
     with pytest.raises(NotImplementedError, match="backend"):
-        model_io.resolve_backend(None, "siglip")
+        Trainer(siglip, _args(tmp_path), TinyDataset(4, 0), TinyDataset(4, 0),
+                make_compute_metrics_multi(3), device="cpu")
+    with pytest.raises(NotImplementedError, match="backend"):
+        model_io.resolve_backend(None, "generic")
