@@ -9,18 +9,24 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    versions, and the five kernels built from ``csrc/`` with nvcc (one
    process per source, started together), with their ``-Xptxas -v`` lines.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
-   fp32, at the shapes of the eval, training and SigLIP-384 paths and a few
-   edge shapes, each held to a stated tolerance, and timed with CUDA events
-   (kernel, plain version, one PyTorch library call as a yardstick the port
-   never calls) beside the card's bound for the same work. The attention
-   kernels' yardstick is ``F.scaled_dot_product_attention`` on the same
-   [B, H, T, dh] inputs; the backward's is SDPA's backward (forward +
-   backward through autograd, less the forward).
+   fp32, at the shapes of the eval, training, SigLIP-384 and SigLIP-224
+   paths and a few edge shapes, each held to a stated tolerance, and timed
+   with CUDA events (kernel, plain version, one PyTorch library call as a
+   yardstick the port never calls) beside the card's bound for the same
+   work. The attention kernels' yardstick is
+   ``F.scaled_dot_product_attention`` on the same [B, H, T, dh] inputs;
+   the backward's is SDPA's backward (forward + backward through autograd,
+   less the forward). bf16 ``attention_nhd``
+   and ``flash_attention`` run on the tensor cores; at the CLIP eval
+   shapes, the SigLIP-224 vision shape and the SigLIP-384 vision shape the
+   earlier SIMT kernel (still built, for fp32) is timed beside them on the
+   same bf16 inputs, in the order SIMT, tensor cores, tensor cores, SIMT.
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
    written as a reference-format checkpoint, loaded with ``load_checkpoint``,
    run through ``FastInferenceEngine`` + ``evaluate_logits_u8`` in bf16 with
    the kernels, with text buckets off and on; the launch counters must show
-   1 patch_embed_u8 and 24 attention_nhd launches per batch; fp32 logits on
+   1 patch_embed_u8 and 24 attention_nhd launches per batch, every one of
+   them on the tensor cores (``tensor_core_launches``); fp32 logits on
    the card must match the same model's CPU logits; staged-batch samples/s
    at seq 77 and at the seq-32 bucket.
 4. Fine-tuning at full width: ``Trainer`` on the same model (fp32 master
@@ -28,10 +34,10 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    gradient accumulation 2, ``text_fit`` width 48) for a few optimizer
    steps, an eval and a checkpoint, then a resume from ``trainstate-*`` and
    one more optimizer step. The launch counters must show 1
-   ``patch_embed_u8``, 24 ``attention_nhd`` and 24 ``attention_nhd_bwd``
-   launches per micro-step (eval batches counted apart). Leafwise fp32
-   gradients on the card (kernels, TF32 off) must match the CPU's (plain
-   versions) on every leaf; the bf16 ``dense`` and its gradients must
+   ``patch_embed_u8``, 24 ``attention_nhd`` (all on the tensor cores) and
+   24 ``attention_nhd_bwd`` launches per micro-step (eval batches counted
+   apart). Leafwise fp32 gradients on the card (kernels, TF32 off) must
+   match the CPU's (plain versions) on every leaf; the bf16 ``dense`` and its gradients must
    match autograd of its plain definition within one bf16 rounding at the
    towers' MLP shapes; the loss on a fixed batch must fall over 10
    optimizer steps; then training samples/s, the time of forward, backward
@@ -42,9 +48,15 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``FastInferenceEngine`` -> ``evaluate_logits_u8`` in bf16 with the
    kernels, B=64, text buckets off and on (the carry column); the counters
    must show 1 ``patch_embed_u8``, 12 ``attention_nhd`` (text, key mask) and
-   12 ``flash_attention`` (vision, T=576) launches per batch; fp32 logits
-   on the card must match the CPU's, bucketed logits the unbucketed ones;
-   staged-batch samples/s and a profiler breakdown. Then
+   12 ``flash_attention`` (vision, T=576) launches per batch, the bf16
+   ones all on the tensor cores; fp32 logits on the card must match the
+   CPU's, bucketed logits the unbucketed ones; staged-batch samples/s and
+   a profiler breakdown. Then the shipped SigLIP2-B/16-224
+   (``config/siglip_fusion.yaml``: ``google/siglip2-base-patch16-224``'s
+   dimensions) through ``load_checkpoint`` -> ``FastInferenceEngine``, B=64,
+   text seq 64, 2 staged passes: 1 ``patch_embed_u8``, 24 ``attention_nhd``
+   (vision T=196 and text, all on the tensor cores) and no
+   ``flash_attention`` per batch, samples/s and a profiler breakdown. Then
    ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
    ``attention_small`` once per call, against the "xla" core.
 
@@ -78,6 +90,8 @@ TIMED_ITERS = 50
 SIGLIP_BATCH = 64  # config/default.yaml per_device_eval_batch_size
 N_SIGLIP_BATCHES = 4
 SIGLIP_T = 576  # (384 / 16)^2 patch tokens, no class token
+SIGLIP224_T = 196  # (224 / 16)^2: config/siglip_fusion.yaml's google/siglip2-base-patch16-224
+N_SIGLIP224_BATCHES = 8  # staged batches per pass
 
 
 class SmokeFailure(RuntimeError):
@@ -120,13 +134,29 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _path(label: str, dtype: str):
-    """Which path a bf16 case times: "evaluate" (CLIP, B=144), "train"
-    (CLIP, B=32), "siglip384" (SigLIP2-B/16-384, B=64), "mha_dense_mask"."""
+def _paths(label: str, dtype: str):
+    """The paths whose unit of work a bf16 case times: "evaluate" (CLIP,
+    B=144), "train" (CLIP, B=32), "siglip384" and "siglip224" (SigLIP2-B/16
+    at 384 and 224 px, B=64; "siglip text" is the text tower of both),
+    "mha_dense_mask"."""
     if dtype != "bfloat16":
-        return None
-    return {"main path": "evaluate", "train path": "train", "siglip384 path": "siglip384",
-            "mha dense mask": "mha_dense_mask"}.get(label.split(":")[0])
+        return []
+    return {"main path": ["evaluate"], "train path": ["train"],
+            "siglip384 path": ["siglip384"], "siglip224 path": ["siglip224"],
+            "siglip text": ["siglip384", "siglip224"],
+            "mha dense mask": ["mha_dense_mask"]}.get(label.split(":")[0], [])
+
+
+def simt_beside(case, new_fn, simt_fn, want, atol, rtol):
+    """Times the earlier SIMT kernel beside the tensor-core one on the same
+    bf16 inputs, in the order SIMT, new, new, SIMT, and checks the SIMT
+    output against the plain version too. Sets ``ms`` to the mean of the
+    two new timings."""
+    err, ok = max_err_within(simt_fn(), want, atol, rtol)
+    check(ok, f"SIMT {case['kernel']} {case['case']}: max abs err {err}")
+    order = [time_ms(simt_fn), time_ms(new_fn), time_ms(new_fn), time_ms(simt_fn)]
+    case.update(ms=(order[1] + order[2]) / 2, simt_ms=(order[0] + order[3]) / 2,
+                simt_new_new_simt_ms=order, simt_max_abs_err=err)
 
 
 def _sdpa_mask(torch, keep, causal, T, S):
@@ -169,6 +199,8 @@ def patch_embed_cases(torch, g):
         (1000, 3072, 768, "ragged rows"),
         (BATCH * 49, 768, 768, "K=768 with a checkpoint bias"),
         (SIGLIP_BATCH * SIGLIP_T, 768, 768, "siglip384 path: SigLIP2-B/16-384 with its bias, B=64"),
+        (SIGLIP_BATCH * SIGLIP224_T, 768, 768,
+         "siglip224 path: SigLIP2-B/16-224 with its bias, B=64"),
     ]:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
@@ -190,7 +222,7 @@ def patch_embed_cases(torch, g):
             cases.append({
                 "kernel": "patch_embed_u8", "case": f"{label}: R={R} K={K} D={D}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "path": _path(label, dtype),
+                "paths": _paths(label, dtype),
                 "ms": time_ms(lambda: ci.patch_embed_u8(x, wf, bf, dt)),
                 "plain_ms": time_ms(lambda: ci.patch_embed_reference(x, wf, bf, dt)),
                 "library_ms": time_ms(lambda: torch.matmul(x.float(), wf)),
@@ -215,8 +247,11 @@ def attention_cases(torch, g):
               (TRAIN_BATCH, TRAIN_SEQ, 512, 8, True, True,
                f"train path: text tower, seq {TRAIN_SEQ}")]
     specs += [(SIGLIP_BATCH, 64, 768, 12, False, True,
-               "siglip384 path: text tower, seq 64, key mask, not causal"),
-              (SIGLIP_BATCH, 196, 768, 12, False, False, "SigLIP-224 vision tower")]
+               "siglip text: text tower, seq 64, key mask, not causal"),
+              (SIGLIP_BATCH, SIGLIP224_T, 768, 12, False, False, "siglip224 path: vision tower")]
+    # the shapes at which the earlier SIMT kernel is timed beside the new one
+    simt_at = {"main path: vision tower", "main path: text tower, seq 77",
+               "siglip224 path: vision tower"}
     cases = []
     for B, T, D, h, causal, with_km, label in specs:
         for dtype in ("bfloat16", "float32"):
@@ -238,19 +273,24 @@ def attention_cases(torch, g):
             bms, by = bound_ms(nbytes, 4.0 * pairs * (D // h), dtype)
             qh, kh, vh = (t.view(B, T, h, D // h).transpose(1, 2) for t in (q, k, v))
             mask = _sdpa_mask(torch, keep, causal, T, T)
-            cases.append({
+            paths = _paths(label, dtype)
+            case = {
                 "kernel": "attention_nhd", "case": f"{label}: B={B} T={T} D={D} heads={h}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
                 # the eval path's unit is the vision tower + the seq-77 text tower
-                "path": None if (_path(label, dtype) == "evaluate" and T not in (50, 77))
-                else _path(label, dtype),
+                "paths": [] if ("evaluate" in paths and T not in (50, 77)) else paths,
                 "ms": time_ms(lambda: ca.attention_nhd(q, k, v, h, km, causal)),
                 "plain_ms": time_ms(lambda: ca.attention_nhd_reference(q, k, v, h, km, causal)),
                 "library_ms": time_ms(
                     lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
                 ),
                 "bound_ms": bms, "bound_by": by,
-            })
+            }
+            if dtype == "bfloat16" and label in simt_at:
+                simt_beside(case, lambda: ca.attention_nhd(q, k, v, h, km, causal),
+                            lambda: ca.attention_nhd_simt(q, k, v, h, km, causal),
+                            want, atol, rtol)
+            cases.append(case)
     return cases
 
 
@@ -304,18 +344,23 @@ def flash_cases(torch, g):
             nbytes = 2 * (B * T * D + B * S * D) * dt.itemsize + extra_bytes
             bms, by = bound_ms(nbytes, 4.0 * B * h * pairs * dh, dtype)
             sdpa_mask = (~drop) if kind == "dense" else _sdpa_mask(torch, keep, causal, T, S)
-            cases.append({
+            case = {
                 "kernel": "flash_attention",
                 "case": f"{label}: B={B} T={T} S={S} D={D} heads={h}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "path": _path(label, dtype),
+                "paths": _paths(label, dtype),
                 "ms": time_ms(lambda: cf.flash_attention(q, k, v, mask, km, causal)),
                 "plain_ms": time_ms(
                     lambda: cf.flash_attention_reference(q, k, v, mask, km, causal), iters=10),
                 "library_ms": time_ms(
                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)),
                 "bound_ms": bms, "bound_by": by,
-            })
+            }
+            if dtype == "bfloat16" and label.startswith("siglip384 path"):
+                simt_beside(case, lambda: cf.flash_attention(q, k, v, mask, km, causal),
+                            lambda: cf.flash_attention_simt(q, k, v, mask, km, causal),
+                            want, atol, rtol)
+            cases.append(case)
     return cases
 
 
@@ -372,7 +417,7 @@ def small_cases(torch, g):
             cases.append({
                 "kernel": "attention_small", "case": f"{label}: BH={B * H} T={T} dh={dh}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "path": _path(label, dtype),
+                "paths": _paths(label, dtype),
                 "ms": time_ms(lambda: cf.attention_small(q, k, v, mask)),
                 "plain_ms": time_ms(lambda: cf.attention_small_reference(q, k, v, mask)),
                 "library_ms": time_ms(
@@ -441,7 +486,7 @@ def attention_bwd_cases(torch, g):
             cases.append({
                 "kernel": "attention_nhd_bwd", "case": f"{label}: B={B} T={T} D={D} heads={h}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "path": _path(label, dtype),
+                "paths": _paths(label, dtype),
                 "ms": time_ms(lambda: ca.attention_nhd_bwd(q, k, v, do, h, km, causal)),
                 "plain_ms": time_ms(
                     lambda: ca.attention_nhd_bwd_reference(q, k, v, do, h, km, causal), iters=10),
@@ -486,6 +531,14 @@ HF_SIGLIP2_B16_384 = {  # google/siglip2-base-patch16-384 config.json (the dimen
         "intermediate_size": 3072, "image_size": 384, "patch_size": 16,
         "num_channels": 3, "hidden_act": "gelu_pytorch_tanh", "layer_norm_eps": 1e-6,
     },
+}
+
+
+# google/siglip2-base-patch16-224 (config/siglip_fusion.yaml): the same towers
+# at 224 px, 196 patches
+HF_SIGLIP2_B16_224 = {
+    **HF_SIGLIP2_B16_384,
+    "vision_config": {**HF_SIGLIP2_B16_384["vision_config"], "image_size": 224},
 }
 
 
@@ -766,17 +819,34 @@ def _wrappers():
             "attention_small": attention_small}
 
 
+TENSOR_CORE = ["attention_nhd", "flash_attention"]  # kernels with a tensor_core_launches count
+
+
 def _reset_counts():
-    """Set every kernel's launch count to 0; returns a reader of the counts."""
+    """Set every kernel's launch count (and tensor-core launch count) to 0;
+    returns a reader of the counts."""
     wrappers = _wrappers()
-    for fn in wrappers.values():
+    for name, fn in wrappers.items():
         fn.launches = 0
-    return lambda: {name: fn.launches for name, fn in wrappers.items()}
+        if name in TENSOR_CORE:
+            fn.tensor_core_launches = 0
+
+    def read():
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        counts.update({f"{name}_tensor_core": wrappers[name].tensor_core_launches
+                       for name in TENSOR_CORE})
+        return counts
+
+    return read
 
 
-def _counts(**nonzero):
-    """The expected counts: the given kernels, every other kernel 0."""
-    return {name: nonzero.get(name, 0) for name in KERNELS}
+def _counts(tensor_cores: bool = True, **nonzero):
+    """The expected counts: the given kernels, every other kernel 0; the
+    tensor-core counts equal to the launches (a bf16 run) or 0 (fp32)."""
+    counts = {name: nonzero.get(name, 0) for name in KERNELS}
+    counts.update({f"{name}_tensor_core": counts[name] if tensor_cores else 0
+                   for name in TENSOR_CORE})
+    return counts
 
 
 def _device_batch(torch, data, idx, patch_size):
@@ -944,7 +1014,8 @@ def train_phase(torch, card: str):
         counts = _reset_counts()
         grads[device] = _leaf_grads(m, batch)
         if device == "cuda":
-            check(counts() == _counts(patch_embed_u8=1, attention_nhd=24, attention_nhd_bwd=24),
+            check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=24,
+                                      attention_nhd_bwd=24),
                   f"gradient check launches {counts()}")
         del m
     (loss_card, g_card), (loss_cpu, g_cpu) = grads["cuda"], grads["cpu"]
@@ -1100,7 +1171,8 @@ def siglip_phase(torch, card: str):
                         eng.patches_from_hwc(rows["pixel_values"]),
                         rows["text_present"], rows["image_present"]).cpu())
         if m is model:
-            check(counts() == _counts(patch_embed_u8=1, attention_nhd=12, flash_attention=12),
+            check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=12,
+                                      flash_attention=12),
                   f"fp32 card launches {counts()}")
     err = float((outs[0] - outs[1]).abs().max())
     report["fp32_card_vs_cpu_max_abs_err"] = err
@@ -1178,6 +1250,102 @@ def siglip_phase(torch, card: str):
                             for i, x in enumerate(ids[:2])], 2,
         )
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return report
+
+
+def siglip224_phase(torch, card: str):
+    """The shipped SigLIP2-B/16-224 (``config/siglip_fusion.yaml``) through
+    ``load_checkpoint`` -> ``FastInferenceEngine`` in bf16, B=64, text seq
+    64: both towers on ``attention_nhd`` (vision T=196, no flash). First
+    its fp32 logits on the card are held against the CPU's."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+
+    report = {}
+    ckpt = os.path.join(REPO, "build", "chip_smoke_siglip224")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    os.makedirs(ckpt)
+    cfg = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224)
+    src = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=0,
+                             device="cuda")
+    torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
+    del src
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(HF_SIGLIP2_B16_224, f)
+    with open(os.path.join(ckpt, "inference_config.json"), "w") as f:
+        json.dump({"backend": "siglip", "head": "fusion", "fusion_dim": 512,
+                   "class_names": CLASSES, "max_text_length": 64}, f)
+    model, _ = model_io.load_checkpoint(ckpt, device="cuda")
+    check(model.backend == "siglip" and model.image_size == 224
+          and model.text_max_positions == 64, "load_checkpoint: not the SigLIP-224 config")
+
+    # fp32 on the card (kernels, TF32 off) against the same checkpoint on
+    # the CPU (plain versions), 4 rows, as at 384 px (atol 2e-3)
+    cpu_model, _ = model_io.load_checkpoint(ckpt, device="cpu")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rows = next(InMemoryDataset(4, seed=9, T=64, siglip=True, image_size=224).batches(4))
+    outs = []
+    for m in (model, cpu_model):
+        eng = fi.FastInferenceEngine(
+            model_io.with_performance_options(m, attention_impl="pallas"), SIGLIP_MEAN, SIGLIP_STD
+        )
+        counts = _reset_counts()
+        outs.append(eng(rows["input_ids"], rows["attention_mask"],
+                        eng.patches_from_hwc(rows["pixel_values"]),
+                        rows["text_present"], rows["image_present"]).cpu())
+        if m is model:
+            check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=24),
+                  f"siglip224 fp32 card launches {counts()}")
+    err = float((outs[0] - outs[1]).abs().max())
+    report["fp32_card_vs_cpu_max_abs_err"] = err
+    check(err <= 2e-3 and bool(outs[0].isfinite().all()),
+          f"siglip224 fp32 logits on the card differ from the CPU's by {err} (atol 2e-3)")
+    del cpu_model
+
+    bf16 = model_io.with_performance_options(
+        model, compute_dtype="bfloat16", attention_impl="pallas"
+    ).to(torch.bfloat16)
+    del model
+    engine = fi.FastInferenceEngine(bf16, SIGLIP_MEAN, SIGLIP_STD)
+
+    g = np.random.default_rng(8)
+    patches = [torch.from_numpy(engine.patches_from_hwc(
+        g.integers(0, 256, size=(SIGLIP_BATCH, 224, 224, 3), dtype=np.uint8))).cuda()
+        for _ in range(2)]
+    ids = [torch.from_numpy(g.integers(2, 256000, size=(SIGLIP_BATCH, 64)).astype(np.int32)
+                            ).cuda() for _ in range(N_SIGLIP224_BATCHES)]
+    mask = torch.ones(SIGLIP_BATCH, 64, dtype=torch.int32, device="cuda")
+    ones = torch.ones(SIGLIP_BATCH, device="cuda")
+    logits = engine(ids[0], mask, patches[0], ones, ones)
+    torch.cuda.synchronize()
+    check(tuple(logits.shape) == (SIGLIP_BATCH, len(CLASSES))
+          and bool(logits.float().isfinite().all()),
+          f"siglip224 logits {tuple(logits.shape)}, finite={bool(logits.float().isfinite().all())}")
+    # the path: 2 staged passes, counted from 0
+    counts = _reset_counts()
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for i, x in enumerate(ids):
+            engine(x, mask, patches[i % 2], ones, ones)
+        torch.cuda.synchronize()
+        rates.append(len(ids) * SIGLIP_BATCH / (time.perf_counter() - t0))
+    launches = counts()
+    n_batches = 2 * len(ids)
+    want = _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches)
+    check(launches == want, f"siglip224: launches {launches}, want {want}")
+    report["main_path_launches"] = launches
+    report["main_path_batches"] = n_batches
+    report["staged_samples_per_s_seq64"] = {"mean_of_2": sum(rates) / 2, "passes": rates,
+                                            "card": card}
+    report["device_time_seq64"] = device_time_breakdown(
+        torch, lambda: [engine(x, mask, patches[i % 2], ones, ones)
+                        for i, x in enumerate(ids[:2])], 2,
+    )
     return report
 
 
@@ -1282,12 +1450,14 @@ REPLACES = {
 # each path's unit of work, and each kernel's launches in one unit
 UNITS = {
     "siglip384": "one SigLIP2-B/16-384 eval batch, bf16, B=64",
+    "siglip224": "one SigLIP2-B/16-224 eval batch, bf16, B=64, text seq 64",
     "evaluate": "one CLIP ViT-B/32 eval batch, bf16, B=144",
     "train": "one CLIP ViT-B/32 training micro-step, bf16, B=32",
     "mha_dense_mask": "one mha(impl='pallas') call with a dense mask, bf16",
 }
 PER_UNIT = {
     "siglip384": {"patch_embed_u8": 1, "attention_nhd": 12, "flash_attention": 12},
+    "siglip224": {"patch_embed_u8": 1, "attention_nhd": 24},
     "evaluate": {"patch_embed_u8": 1, "attention_nhd": 24},
     "train": {"patch_embed_u8": 1, "attention_nhd": 24, "attention_nhd_bwd": 24},
     "mha_dense_mask": {"attention_small": 1},
@@ -1297,6 +1467,11 @@ WORK = {
         "patch_embed_u8": "[36864, 768] x [768, 768] + bias",
         "attention_nhd": "12 text [64,64,768]/12 heads, key mask",
         "flash_attention": "12 vision [64,576,768]/12 heads, no mask",
+    },
+    "siglip224": {
+        "patch_embed_u8": "[12544, 768] x [768, 768] + bias",
+        "attention_nhd": "12 vision [64,196,768]/12 heads + 12 text [64,64,768]/12 heads, "
+                         "key mask",
     },
     "evaluate": {
         "patch_embed_u8": "[7056, 3072] x [3072, 768]",
@@ -1309,8 +1484,8 @@ WORK = {
     },
     "mha_dense_mask": {"attention_small": "[512, 77, 64] + a dense [512, 77, 77] fp32 mask"},
 }
-# the path whose numbers head each kernel's entry: this slice's path where
-# the kernel runs on it
+# the path whose numbers head each kernel's entry, fixed so that entries
+# compare from one run to the next; other_paths carries the rest
 PRIMARY = {"patch_embed_u8": "siglip384", "attention_nhd": "siglip384",
            "flash_attention": "siglip384", "attention_nhd_bwd": "train",
            "attention_small": "mha_dense_mask"}
@@ -1319,11 +1494,14 @@ PRIMARY = {"patch_embed_u8": "siglip384", "attention_nhd": "siglip384",
 def _per_unit(name, cases, path):
     """Sums over the launches of one unit of a path's work, from the bf16
     cases timed at that path's shapes."""
-    main = [c for c in cases if c["kernel"] == name and c["path"] == path]
+    main = [c for c in cases if c["kernel"] == name and path in c["paths"]]
     if not main:
         return None
     each = PER_UNIT[path][name] // len(main)
-    out = {k: each * sum(c[k] for c in main) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+    if all("simt_ms" in c for c in main):  # the earlier SIMT kernel, timed beside
+        keys.append("simt_ms")
+    out = {k: each * sum(c[k] for c in main) for k in keys}
     out["bound_by"] = max(main, key=lambda c: c["bound_ms"])["bound_by"]
     out["work"] = f"{UNITS[path]}: {WORK[path][name]}"
     return out
@@ -1339,14 +1517,18 @@ def kernel_entry(name, cases, launches_by_path):
         "name": name,
         "route": "cuda",
         "source": f"{PKG}/csrc/{name}.cu",
+        # the bf16 kernels' warp routine, compiled into both sources
+        "header": f"{PKG}/csrc/attention_mma.cuh" if name in TENSOR_CORE else None,
         "replaces": REPLACES[name],
         "launches": launches_by_path[primary][name],
+        "tensor_core_launches": launches_by_path[primary].get(f"{name}_tensor_core"),
         "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == name),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "simt_ms": main.get("simt_ms"),
         "work": main["work"],
         "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
         "other_paths": {path: _per_unit(name, cases, path) for path in PER_UNIT
@@ -1393,6 +1575,9 @@ def main() -> int:
             f"(atol {c['atol']:g} rtol {c['rtol']:.3g}) kernel {c['ms']:.4f} ms "
             f"plain {c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
             f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+            + (f" SIMT {c['simt_ms']:.4f} ms (SIMT new new SIMT "
+               f"{', '.join(f'{t:.4f}' for t in c['simt_new_new_simt_ms'])})"
+               if "simt_ms" in c else "")
         )
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -1410,16 +1595,21 @@ def main() -> int:
         print(f"train {k}: {v}")
     print(f"phase 4: {time.perf_counter() - t0:.1f} s")
 
-    # phase 5: the SigLIP-384 eval path, and attention_small through mha
+    # phase 5: the SigLIP-384 and SigLIP-224 eval paths, and attention_small
+    # through mha
     t0 = time.perf_counter()
     siglip = siglip_phase(torch, card)
     for k, v in siglip.items():
         print(f"siglip {k}: {v}")
+    siglip224 = siglip224_phase(torch, card)
+    for k, v in siglip224.items():
+        print(f"siglip224 {k}: {v}")
     mha = mha_dense_mask_phase(torch)
     print(f"mha dense mask: {mha}")
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     launches_by_path = {"siglip384": siglip["main_path_launches"],
+                        "siglip224": siglip224["main_path_launches"],
                         "evaluate": report["main_path_launches"],
                         "train": train["main_path_launches"],
                         "mha_dense_mask": mha["launches"]}
@@ -1428,6 +1618,7 @@ def main() -> int:
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,
+                   "siglip224": siglip224,
                    "mha_dense_mask": mha, "kernels": kernels},
                   f, indent=1)
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one is never loaded. Builds go to
+``ctypes``. The library's file name carries a hash of its source and of
+every shared header (``csrc/*.cuh``), so an edited kernel or header is
+rebuilt and a stale library is never loaded. Builds go to
 ``build/torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``). A failed build raises; nothing falls back.
 
@@ -52,8 +53,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

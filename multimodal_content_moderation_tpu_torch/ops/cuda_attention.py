@@ -1,9 +1,10 @@
 """Short-sequence attention over the projections' natural [B, T, D] layout.
 
 ``attention_nhd`` reads q/k/v as [B, T, D] (D = heads * dh), splits the
-heads inside the kernel (``csrc/attention_nhd.cu``), applies an additive
-fp32 key mask and an in-kernel causal mask, runs an fp32 softmax and writes
-[B, T, D] back in q's dtype. ``attention_nhd_bwd`` is its recompute
+heads inside the kernel (``csrc/attention_nhd.cu``: bf16 on the tensor
+cores, fp32 on the SIMT units), applies an additive fp32 key mask and an
+in-kernel causal mask, runs an fp32 softmax and writes [B, T, D] back in
+q's dtype. ``attention_nhd_bwd`` is its recompute
 backward (``csrc/attention_nhd_bwd.cu``), and ``attention_nhd_diff`` joins
 the two into a ``torch.autograd.Function``. For tensors on the CPU each
 wrapper runs its plain version (``attention_nhd_reference``,
@@ -146,6 +147,38 @@ def _check(name: str, q, k, v, num_heads: int, key_mask, extra=()) -> None:
             raise ValueError(f"{name}: {tname} is not contiguous")
 
 
+def _attention_nhd_launch(q, k, v, num_heads, key_mask, causal, tensor_cores: bool):
+    """Check the inputs and launch one forward kernel: the tensor-core one
+    (bf16 only) or the SIMT one (fp32 or bf16). Returns the output and
+    whether a kernel was launched (none is for an empty output)."""
+    _check("attention_nhd", q, k, v, num_heads, key_mask)
+    B, Tq, D = q.shape
+    S = k.shape[1]
+    dh = D // num_heads
+    out = torch.empty_like(q)
+    if B * Tq == 0:
+        return out, False
+    km = None if key_mask is None else key_mask.data_ptr()
+    stream = _build.stream_ptr(q.device)
+    if tensor_cores:
+        lib = _lib("attention_nhd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p], entry="mma_launch")
+        err = lib.attention_nhd_mma_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), km, out.data_ptr(), B, Tq, S,
+            num_heads, dh, int(causal), float(dh) ** -0.5, stream,
+        )
+    else:
+        lib = _lib("attention_nhd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        err = lib.attention_nhd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), km, out.data_ptr(), B, Tq, S,
+            num_heads, dh, int(causal), float(dh) ** -0.5, int(q.dtype == torch.bfloat16),
+            stream,
+        )
+    _build.check(lib, "attention_nhd", err)
+    return out, True
+
+
 def attention_nhd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -157,31 +190,36 @@ def attention_nhd(
     """Multi-head attention: q [B, Tq, D], k/v [B, S, D], key_mask [B, S]
     additive fp32 -> [B, Tq, D] in q's dtype.
 
-    On the card: the CUDA kernel (counted in ``attention_nhd.launches``).
-    On the CPU: the plain version."""
+    On the card: bf16 runs the tensor-core kernel, fp32 the SIMT kernel,
+    chosen by dtype before the launch (both counted in
+    ``attention_nhd.launches``, the bf16 ones also in
+    ``attention_nhd.tensor_core_launches``). On the CPU: the plain version."""
     if q.device.type == "cpu":
         return attention_nhd_reference(q, k, v, num_heads, key_mask, causal)
-    _check("attention_nhd", q, k, v, num_heads, key_mask)
-    B, Tq, D = q.shape
-    S = k.shape[1]
-    dh = D // num_heads
-    out = torch.empty_like(q)
-    if B * Tq == 0:
-        return out
-    lib = _lib("attention_nhd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = lib.attention_nhd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if key_mask is None else key_mask.data_ptr(),
-        out.data_ptr(), B, Tq, S, num_heads, dh, int(causal),
-        float(dh) ** -0.5, int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
-    )
-    _build.check(lib, "attention_nhd", err)
-    attention_nhd.launches += 1
+    tensor_cores = q.dtype == torch.bfloat16
+    out, launched = _attention_nhd_launch(q, k, v, num_heads, key_mask, causal, tensor_cores)
+    if launched:
+        attention_nhd.launches += 1
+        attention_nhd.tensor_core_launches += int(tensor_cores)
     return out
 
 
 attention_nhd.launches = 0
+attention_nhd.tensor_core_launches = 0
+
+
+def attention_nhd_simt(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """The SIMT forward kernel for either dtype, on the card only and not
+    counted: the earlier bf16 design, kept as a yardstick for the
+    tensor-core kernel (``chip_smoke.py`` times the two in one process)."""
+    return _attention_nhd_launch(q, k, v, num_heads, key_mask, causal, False)[0]
 
 
 def attention_nhd_bwd(
@@ -260,9 +298,10 @@ def attention_nhd_diff(
     return _AttentionNHD.apply(q, k, v, key_mask, num_heads, causal)
 
 
-def _lib(name: str, argtypes) -> ctypes.CDLL:
+def _lib(name: str, argtypes, entry: str = "launch") -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with ``<name>_<entry>``'s types set."""
     lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{name}_{entry}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes

@@ -151,24 +151,10 @@ def attention_small(
 attention_small.launches = 0
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    mask: Optional[torch.Tensor] = None,
-    key_mask: Optional[torch.Tensor] = None,
-    causal: bool = False,
-) -> torch.Tensor:
-    """Blockwise attention: q [B, H, T, dh], k/v [B, H, S, dh] (any strides
-    with a contiguous last axis), ``mask`` additive fp32 broadcastable to
-    [B, H, T, S], ``key_mask`` [B, S] additive fp32 -> [B, H, T, dh] in q's
-    dtype (on the card a view of [B, T, H, dh] memory).
-
-    On the card: the CUDA kernel (counted in ``flash_attention.launches``).
-    On the CPU: the plain version."""
-    _forward_only("flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, mask, key_mask, causal)
+def _flash_launch(q, k, v, mask, key_mask, causal, tensor_cores: bool):
+    """Check the inputs and launch one kernel: the tensor-core one (bf16
+    only) or the SIMT one (fp32 or bf16). Returns the output and whether a
+    kernel was launched (none is for an empty output)."""
     _check_common("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, H, T, dh]")
@@ -195,27 +181,72 @@ def flash_attention(
                              f"{q.device}, got {key_mask.dtype} {tuple(key_mask.shape)}")
     out = torch.empty((B, T, H, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     if B * H * T == 0:
-        return out
+        return out, False
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *(m.stride() if m is not None else (0, 0, 0, 0)),
         *((key_mask.stride(0), 0) if key_mask is not None else (0, 0)),
     )
-    lib = _lib("flash_attention", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-               + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if m is None else m.data_ptr(),
-        None if key_mask is None else key_mask.data_ptr(),
-        out.data_ptr(), B, H, T, S, dh, int(causal), float(dh) ** -0.5, strides,
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
-    )
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None if m is None else m.data_ptr(),
+            None if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
+            B, H, T, S, dh, int(causal), float(dh) ** -0.5, strides)
+    head = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    if tensor_cores:
+        lib = _lib("flash_attention", head + [ctypes.c_void_p], entry="mma_launch")
+        err = lib.flash_attention_mma_launch(*args, _build.stream_ptr(q.device))
+    else:
+        lib = _lib("flash_attention", head + [ctypes.c_int, ctypes.c_void_p])
+        err = lib.flash_attention_launch(*args, int(q.dtype == torch.bfloat16),
+                                         _build.stream_ptr(q.device))
     _build.check(lib, "flash_attention", err)
-    flash_attention.launches += 1
+    return out, True
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Blockwise attention: q [B, H, T, dh], k/v [B, H, S, dh] (any strides
+    with a contiguous last axis), ``mask`` additive fp32 broadcastable to
+    [B, H, T, S], ``key_mask`` [B, S] additive fp32 -> [B, H, T, dh] in q's
+    dtype (on the card a view of [B, T, H, dh] memory).
+
+    On the card: bf16 runs the tensor-core kernel, fp32 the SIMT kernel,
+    chosen by dtype before the launch (both counted in
+    ``flash_attention.launches``, the bf16 ones also in
+    ``flash_attention.tensor_core_launches``). On the CPU: the plain
+    version."""
+    _forward_only("flash_attention", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, mask, key_mask, causal)
+    tensor_cores = q.dtype == torch.bfloat16
+    out, launched = _flash_launch(q, k, v, mask, key_mask, causal, tensor_cores)
+    if launched:
+        flash_attention.launches += 1
+        flash_attention.tensor_core_launches += int(tensor_cores)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tensor_core_launches = 0
+
+
+def flash_attention_simt(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """The SIMT kernel for either dtype, on the card only and not counted:
+    the earlier bf16 design, kept as a yardstick for the tensor-core kernel
+    (``chip_smoke.py`` times the two in one process)."""
+    return _flash_launch(q, k, v, mask, key_mask, causal, False)[0]
 
 
 def fused_mha(

@@ -13,7 +13,12 @@ products in another order). The bf16 ``dense`` and its gradients against
 autograd of its plain definition: rtol 2^-7 + atol 1e-3 (one rounding of
 each side from an fp32 sum). ``flash_attention`` and ``attention_small``
 against their plain versions: fp32 atol 1e-4, bf16 rtol 2^-7 + atol 1e-3
-(an online softmax on the card, one softmax in the plain version)."""
+(an online softmax on the card, one softmax in the plain version).
+
+bf16 ``attention_nhd`` and ``flash_attention`` calls run the tensor-core
+kernels (``csrc/attention_mma.cuh``) and fp32 calls the SIMT ones: every
+call adds one to the wrapper's ``launches``, and a bf16 call one to its
+``tensor_core_launches`` too."""
 
 import pytest
 import torch
@@ -37,6 +42,16 @@ def _need_card():
 def _assert_close(got, want):
     atol, rtol = TOL[want.dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def _launch_counted(kernel, dtype, call):
+    """``call()`` through ``kernel``'s wrapper: one launch, on the tensor
+    cores exactly when the inputs are bf16."""
+    before = kernel.launches, kernel.tensor_core_launches
+    out = call()
+    assert kernel.launches == before[0] + 1
+    assert kernel.tensor_core_launches == before[1] + int(dtype == torch.bfloat16)
+    return out
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -74,7 +89,7 @@ def test_attention_nhd_kernel(B, T, D, h, causal, with_km, dtype):
         lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
         lengths[0] = 0  # every key masked: a uniform average
         km = (1.0 - (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()) * ca.NEG_INF
-    got = ca.attention_nhd(q, k, v, h, km, causal)
+    got = _launch_counted(ca.attention_nhd, dtype, lambda: ca.attention_nhd(q, k, v, h, km, causal))
     assert torch.isfinite(got.float()).all()
     _assert_close(got, ca.attention_nhd_reference(q, k, v, h, km, causal))
 
@@ -202,11 +217,114 @@ def _flash_inputs(B, H, T, S, dh, kind, dtype, seed):
 def test_flash_attention_kernel(B, H, T, S, dh, kind, causal, dtype):
     _need_card()
     q, k, v, mask, km = _flash_inputs(B, H, T, S, dh, kind, dtype, T + dh)
-    before = cf.flash_attention.launches
-    got = cf.flash_attention(q, k, v, mask, km, causal)
-    assert cf.flash_attention.launches == before + 1
+    got = _launch_counted(cf.flash_attention, dtype,
+                          lambda: cf.flash_attention(q, k, v, mask, km, causal))
     assert torch.isfinite(got.float()).all()
     _assert_close(got, cf.flash_attention_reference(q, k, v, mask, km, causal))
+
+
+NHD_TC_SHAPES = [
+    # B, Tq, S, D, heads, causal, key mask, storage offset (elements)
+    (3, 77, 77, 32, 2, True, True, 0),  # dh = 16
+    (2, 256, 256, 256, 2, True, True, 0),  # dh = 128: 8 warps of two row groups
+    (2, 200, 200, 256, 2, False, True, 0),  # dh = 128, ragged against 64 keys
+    (3, 40, 133, 128, 2, False, True, 0),  # ragged S != Tq
+    (2, 50, 50, 768, 12, False, False, 1),  # 2 bytes off 16-byte alignment: element loads
+    (2, 33, 33, 36, 3, True, True, 0),  # dh = 12: element K/V rows, paired q and out
+    (2, 17, 17, 15, 3, False, True, 0),  # dh = 5 (odd): element loads and stores
+]
+
+
+def _simt_fits(S, dh):
+    """The fp32 SIMT kernel keeps a head's K and V as fp32 in shared memory:
+    at S = 256, dh = 128 that is 264 KB, past the card's 227 KB (it raises)."""
+    return 4 * (S * (2 * dh + 1) + 5 * S + 4 * dh) <= 232448
+
+
+def _offset_randn(g, shape, offset, dtype):
+    """A contiguous tensor whose storage starts ``offset`` elements in."""
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.randn(n + offset, generator=g, device="cuda").to(dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("B,Tq,S,D,h,causal,with_km,offset", NHD_TC_SHAPES)
+def test_attention_nhd_tensor_core_edge_shapes(B, Tq, S, D, h, causal, with_km, offset):
+    """bf16 through the tensor-core kernel at head widths 16, 128 and off
+    the MMA widths, ragged S, and rows off 16-byte alignment; the same
+    inputs in fp32 through the SIMT kernel."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(Tq + S + D)
+    dtypes = (torch.bfloat16, torch.float32) if _simt_fits(S, D // h) else (torch.bfloat16,)
+    for dtype in dtypes:
+        q = _offset_randn(g, (B, Tq, D), offset, dtype)
+        k, v = (_offset_randn(g, (B, S, D), offset, dtype) for _ in range(2))
+        km = _key_mask(g, B, S) if with_km else None
+        got = _launch_counted(ca.attention_nhd, dtype,
+                              lambda: ca.attention_nhd(q, k, v, h, km, causal))
+        assert torch.isfinite(got.float()).all()
+        _assert_close(got, ca.attention_nhd_reference(q, k, v, h, km, causal))
+
+
+FLASH_TC_SHAPES = [
+    # B, H, T, S, dh, mask kind, causal
+    (2, 3, 300, 300, 16, "key", True),  # dh = 16
+    (1, 2, 300, 700, 128, "dense_key", False),  # dh = 128, S != T
+    (2, 2, 100, 333, 64, "key", False),  # ragged S, one query tile
+    (2, 2, 290, 290, 40, None, True),  # dh = 40: zero columns up to 64
+]
+
+
+@pytest.mark.parametrize("B,H,T,S,dh,kind,causal", FLASH_TC_SHAPES)
+def test_flash_attention_tensor_core_edge_shapes(B, H, T, S, dh, kind, causal):
+    _need_card()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, mask, km = _flash_inputs(B, H, T, S, dh, kind, dtype, T + S + dh)
+        got = _launch_counted(cf.flash_attention, dtype,
+                              lambda: cf.flash_attention(q, k, v, mask, km, causal))
+        assert torch.isfinite(got.float()).all()
+        _assert_close(got, cf.flash_attention_reference(q, k, v, mask, km, causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_strided_unaligned_view(dtype):
+    """q, k, v as views that start 2 bytes into rows of an odd stride: no
+    16-byte copies and no paired loads, the element path of both kernels."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B, H, T, dh = 2, 3, 280, 64
+    base = [torch.randn(B, H, T, dh + 3, generator=g, device="cuda").to(dtype) for _ in range(3)]
+    q, k, v = (t[..., 1:dh + 1] for t in base)
+    assert q.stride(2) % 2 == 1 and q.data_ptr() % 16 != 0
+    km = _key_mask(g, B, T)
+    got = _launch_counted(cf.flash_attention, dtype,
+                          lambda: cf.flash_attention(q, k, v, None, km, True))
+    _assert_close(got, cf.flash_attention_reference(q, k, v, None, km, True))
+
+
+@pytest.mark.parametrize("kernel", ["attention_nhd", "flash_attention"])
+def test_simt_kernel_stays_the_earlier_bf16_design(kernel):
+    """The uncounted SIMT entry (the yardstick chip_smoke.py times) agrees
+    with the tensor-core kernel on the same bf16 inputs, and neither count
+    moves."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    if kernel == "attention_nhd":
+        q, k, v = (torch.randn(4, 77, 512, generator=g, device="cuda").bfloat16() for _ in range(3))
+        km = _key_mask(g, 4, 77)
+        wrapper = ca.attention_nhd
+        before = wrapper.launches, wrapper.tensor_core_launches
+        got = ca.attention_nhd_simt(q, k, v, 8, km, True)
+        want = ca.attention_nhd_reference(q, k, v, 8, km, True)
+    else:
+        q, k, v, mask, km = _flash_inputs(2, 4, 300, 300, 64, "key", torch.bfloat16, 3)
+        wrapper = cf.flash_attention
+        before = wrapper.launches, wrapper.tensor_core_launches
+        got = cf.flash_attention_simt(q, k, v, mask, km, True)
+        want = cf.flash_attention_reference(q, k, v, mask, km, True)
+    assert (wrapper.launches, wrapper.tensor_core_launches) == before
+    _assert_close(got, want)
 
 
 def test_flash_attention_reads_the_projection_layout():
