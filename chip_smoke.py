@@ -11,16 +11,19 @@ Phases, each of which fails the run (non-zero exit) on a miss:
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at the shapes of the eval, training, SigLIP-384 and SigLIP-224
    paths and a few edge shapes, each held to a stated tolerance, and timed
-   with CUDA events (kernel, plain version, one PyTorch library call as a
-   yardstick the port never calls) beside the card's bound for the same
-   work. The attention kernels' yardstick is
-   ``F.scaled_dot_product_attention`` on the same [B, H, T, dh] inputs;
-   the backward's is SDPA's backward (forward + backward through autograd,
-   less the forward). bf16 ``attention_nhd``
-   and ``flash_attention`` run on the tensor cores; at the CLIP eval
-   shapes, the SigLIP-224 vision shape and the SigLIP-384 vision shape the
-   earlier SIMT kernel (still built, for fp32) is timed beside them on the
-   same bf16 inputs, in the order SIMT, tensor cores, tensor cores, SIMT.
+   (kernel, plain version, one PyTorch library call as a yardstick the port
+   never calls) beside the card's bound for the same work. Each time is the
+   device's: 50 calls captured in a CUDA graph and timed over one replay
+   with CUDA events (``timed_by`` "graph"), or, for a call that cannot be
+   captured, CUDA events around 50 eager calls ("events"). The attention
+   kernels' yardstick is ``F.scaled_dot_product_attention`` on the same
+   [B, H, T, dh] inputs; the backward's is SDPA's backward (forward +
+   backward through autograd, less the forward); the embed's an fp32
+   ``matmul``. Every bf16 call of ``patch_embed_u8``, ``attention_nhd``,
+   ``attention_nhd_bwd`` and ``flash_attention`` runs on the tensor cores;
+   at the paths' shapes the earlier SIMT kernel (still built, for fp32) is
+   timed beside it on the same bf16 inputs, in the order SIMT, tensor
+   cores, tensor cores, SIMT.
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
    written as a reference-format checkpoint, loaded with ``load_checkpoint``,
    run through ``FastInferenceEngine`` + ``evaluate_logits_u8`` in bf16 with
@@ -34,9 +37,9 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    gradient accumulation 2, ``text_fit`` width 48) for a few optimizer
    steps, an eval and a checkpoint, then a resume from ``trainstate-*`` and
    one more optimizer step. The launch counters must show 1
-   ``patch_embed_u8``, 24 ``attention_nhd`` (all on the tensor cores) and
-   24 ``attention_nhd_bwd`` launches per micro-step (eval batches counted
-   apart). Leafwise fp32 gradients on the card (kernels, TF32 off) must
+   ``patch_embed_u8``, 24 ``attention_nhd`` and 24 ``attention_nhd_bwd``
+   launches per micro-step (eval batches counted apart), all on the tensor
+   cores. Leafwise fp32 gradients on the card (kernels, TF32 off) must
    match the CPU's (plain versions) on every leaf; the bf16 ``dense`` and its gradients must
    match autograd of its plain definition within one bf16 rounding at the
    towers' MLP shapes; the loss on a fixed batch must fall over 10
@@ -48,14 +51,14 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``FastInferenceEngine`` -> ``evaluate_logits_u8`` in bf16 with the
    kernels, B=64, text buckets off and on (the carry column); the counters
    must show 1 ``patch_embed_u8``, 12 ``attention_nhd`` (text, key mask) and
-   12 ``flash_attention`` (vision, T=576) launches per batch, the bf16
-   ones all on the tensor cores; fp32 logits on the card must match the
+   12 ``flash_attention`` (vision, T=576) launches per batch, all on the
+   tensor cores; fp32 logits on the card must match the
    CPU's, bucketed logits the unbucketed ones; staged-batch samples/s and
    a profiler breakdown. Then the shipped SigLIP2-B/16-224
    (``config/siglip_fusion.yaml``: ``google/siglip2-base-patch16-224``'s
    dimensions) through ``load_checkpoint`` -> ``FastInferenceEngine``, B=64,
-   text seq 64, 2 staged passes: 1 ``patch_embed_u8``, 24 ``attention_nhd``
-   (vision T=196 and text, all on the tensor cores) and no
+   text seq 64, 2 staged passes: 1 ``patch_embed_u8`` and 24
+   ``attention_nhd`` (vision T=196 and text), all on the tensor cores, and no
    ``flash_attention`` per batch, samples/s and a profiler breakdown. Then
    ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
    ``attention_small`` once per call, against the "xla" core.
@@ -111,21 +114,51 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, iters: int = TIMED_ITERS) -> float:
-    """Mean device time of ``fn`` over ``iters`` warm launches (CUDA events)."""
+def time_ms(fn, iters: int = TIMED_ITERS):
+    """Mean device ms of one call of ``fn``, and how it was read. "graph":
+    after 3 warm calls on a side stream, ``iters`` calls are captured in one
+    CUDA graph, which is replayed once and then timed with CUDA events
+    around one replay: the device's time alone, even for calls shorter than
+    the host's launch overhead. "events": where ``fn`` cannot be captured
+    (the capture raised), CUDA events around ``iters`` eager calls."""
     import torch
 
-    for _ in range(3):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except Exception:  # noqa: BLE001 - not capturable: timed eagerly below
+        graph = None
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if graph is not None:
+        graph.replay()
+        start.record()
+        graph.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, "graph" if graph is not None else "events"
+
+
+def timed(case: dict, key: str, fn, iters: int = TIMED_ITERS) -> float:
+    """``case[key]`` = ``time_ms(fn)``; how it was read goes to
+    ``case["timed_by"][key]``."""
+    case[key], case.setdefault("timed_by", {})[key] = time_ms(fn, iters)
+    return case[key]
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -150,13 +183,23 @@ def _paths(label: str, dtype: str):
 def simt_beside(case, new_fn, simt_fn, want, atol, rtol):
     """Times the earlier SIMT kernel beside the tensor-core one on the same
     bf16 inputs, in the order SIMT, new, new, SIMT, and checks the SIMT
-    output against the plain version too. Sets ``ms`` to the mean of the
-    two new timings."""
-    err, ok = max_err_within(simt_fn(), want, atol, rtol)
-    check(ok, f"SIMT {case['kernel']} {case['case']}: max abs err {err}")
+    output (one tensor or a tuple of them) against the plain version too.
+    Sets ``ms`` to the mean of the two new timings."""
+    got = simt_fn()
+    pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+    errs = [max_err_within(a, b, atol, rtol) for a, b in pairs]
+    err = max(e for e, _ in errs)
+    check(all(ok for _, ok in errs), f"SIMT {case['kernel']} {case['case']}: max abs err {err}")
     order = [time_ms(simt_fn), time_ms(new_fn), time_ms(new_fn), time_ms(simt_fn)]
-    case.update(ms=(order[1] + order[2]) / 2, simt_ms=(order[0] + order[3]) / 2,
-                simt_new_new_simt_ms=order, simt_max_abs_err=err)
+    case.update(ms=(order[1][0] + order[2][0]) / 2, simt_ms=(order[0][0] + order[3][0]) / 2,
+                simt_new_new_simt_ms=[t for t, _ in order], simt_max_abs_err=err)
+    case["timed_by"].update(ms=_how(order[1][1], order[2][1]),
+                            simt_ms=_how(order[0][1], order[3][1]))
+
+
+def _how(*reads: str) -> str:
+    """"graph" where every reading came from a CUDA graph, else "events"."""
+    return "graph" if all(r == "graph" for r in reads) else "events"
 
 
 def _sdpa_mask(torch, keep, causal, T, S):
@@ -218,16 +261,22 @@ def patch_embed_cases(torch, g):
             check(ok, f"patch_embed_u8 {label} {dtype}: max abs err {err} beyond "
                       f"atol {atol} + rtol {rtol}")
             nbytes = R * K + K * D * 4 + D * 4 + R * D * dt.itemsize
-            bms, by = bound_ms(nbytes, 2.0 * R * K * D, "float32")
-            cases.append({
+            # the JAX cost estimate's 2 R K D: at the bf16 tensor-core rate for
+            # the bf16 output (the hi/lo split's doubling is the design's own
+            # cost), at the fp32 SIMT rate for the fp32 one
+            bms, by = bound_ms(nbytes, 2.0 * R * K * D, dtype)
+            case = {
                 "kernel": "patch_embed_u8", "case": f"{label}: R={R} K={K} D={D}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "paths": _paths(label, dtype),
-                "ms": time_ms(lambda: ci.patch_embed_u8(x, wf, bf, dt)),
-                "plain_ms": time_ms(lambda: ci.patch_embed_reference(x, wf, bf, dt)),
-                "library_ms": time_ms(lambda: torch.matmul(x.float(), wf)),
-                "bound_ms": bms, "bound_by": by,
-            })
+                "paths": _paths(label, dtype), "bound_ms": bms, "bound_by": by,
+            }
+            timed(case, "ms", lambda: ci.patch_embed_u8(x, wf, bf, dt))
+            timed(case, "plain_ms", lambda: ci.patch_embed_reference(x, wf, bf, dt))
+            timed(case, "library_ms", lambda: torch.matmul(x.float(), wf))
+            if case["paths"]:  # a path's shape: the earlier SIMT kernel beside
+                simt_beside(case, lambda: ci.patch_embed_u8(x, wf, bf, dt),
+                            lambda: ci.patch_embed_u8_simt(x, wf, bf, dt), want, atol, rtol)
+            cases.append(case)
     return cases
 
 
@@ -279,13 +328,12 @@ def attention_cases(torch, g):
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
                 # the eval path's unit is the vision tower + the seq-77 text tower
                 "paths": [] if ("evaluate" in paths and T not in (50, 77)) else paths,
-                "ms": time_ms(lambda: ca.attention_nhd(q, k, v, h, km, causal)),
-                "plain_ms": time_ms(lambda: ca.attention_nhd_reference(q, k, v, h, km, causal)),
-                "library_ms": time_ms(
-                    lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
-                ),
                 "bound_ms": bms, "bound_by": by,
             }
+            timed(case, "ms", lambda: ca.attention_nhd(q, k, v, h, km, causal))
+            timed(case, "plain_ms", lambda: ca.attention_nhd_reference(q, k, v, h, km, causal))
+            timed(case, "library_ms",
+                  lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask))
             if dtype == "bfloat16" and label in simt_at:
                 simt_beside(case, lambda: ca.attention_nhd(q, k, v, h, km, causal),
                             lambda: ca.attention_nhd_simt(q, k, v, h, km, causal),
@@ -348,14 +396,13 @@ def flash_cases(torch, g):
                 "kernel": "flash_attention",
                 "case": f"{label}: B={B} T={T} S={S} D={D} heads={h}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "paths": _paths(label, dtype),
-                "ms": time_ms(lambda: cf.flash_attention(q, k, v, mask, km, causal)),
-                "plain_ms": time_ms(
-                    lambda: cf.flash_attention_reference(q, k, v, mask, km, causal), iters=10),
-                "library_ms": time_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask)),
-                "bound_ms": bms, "bound_by": by,
+                "paths": _paths(label, dtype), "bound_ms": bms, "bound_by": by,
             }
+            timed(case, "ms", lambda: cf.flash_attention(q, k, v, mask, km, causal))
+            timed(case, "plain_ms",
+                  lambda: cf.flash_attention_reference(q, k, v, mask, km, causal), iters=10)
+            timed(case, "library_ms",
+                  lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=sdpa_mask))
             if dtype == "bfloat16" and label.startswith("siglip384 path"):
                 simt_beside(case, lambda: cf.flash_attention(q, k, v, mask, km, causal),
                             lambda: cf.flash_attention_simt(q, k, v, mask, km, causal),
@@ -414,16 +461,16 @@ def small_cases(torch, g):
             nbytes = 4 * B * H * T * dh * dt.itemsize + (B * H * T * T * 4 if kind else 0)
             bms, by = bound_ms(nbytes, 4.0 * B * H * T * T * dh, dtype)
             q4, k4, v4 = (t.view(B, H, T, dh) for t in (q, k, v))
-            cases.append({
+            case = {
                 "kernel": "attention_small", "case": f"{label}: BH={B * H} T={T} dh={dh}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "paths": _paths(label, dtype),
-                "ms": time_ms(lambda: cf.attention_small(q, k, v, mask)),
-                "plain_ms": time_ms(lambda: cf.attention_small_reference(q, k, v, mask)),
-                "library_ms": time_ms(
-                    lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep4)),
-                "bound_ms": bms, "bound_by": by,
-            })
+                "paths": _paths(label, dtype), "bound_ms": bms, "bound_by": by,
+            }
+            timed(case, "ms", lambda: cf.attention_small(q, k, v, mask))
+            timed(case, "plain_ms", lambda: cf.attention_small_reference(q, k, v, mask))
+            timed(case, "library_ms",
+                  lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep4))
+            cases.append(case)
     return cases
 
 
@@ -481,18 +528,25 @@ def attention_bwd_cases(torch, g):
                 return F.scaled_dot_product_attention(
                     *heads, attn_mask=mask, is_causal=causal and mask is None)
 
-            fwd_ms = time_ms(lambda: sdpa().detach())
-            fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa(), heads, doh))
-            cases.append({
+            case = {
                 "kernel": "attention_nhd_bwd", "case": f"{label}: B={B} T={T} D={D} heads={h}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "paths": _paths(label, dtype),
-                "ms": time_ms(lambda: ca.attention_nhd_bwd(q, k, v, do, h, km, causal)),
-                "plain_ms": time_ms(
-                    lambda: ca.attention_nhd_bwd_reference(q, k, v, do, h, km, causal), iters=10),
-                "library_ms": max(fwd_bwd_ms - fwd_ms, 0.0),
-                "bound_ms": bms, "bound_by": by,
-            })
+                "paths": _paths(label, dtype), "bound_ms": bms, "bound_by": by,
+            }
+            timed(case, "ms", lambda: ca.attention_nhd_bwd(q, k, v, do, h, km, causal))
+            timed(case, "plain_ms",
+                  lambda: ca.attention_nhd_bwd_reference(q, k, v, do, h, km, causal), iters=10)
+            fwd_ms = timed(case, "library_fwd_ms", lambda: sdpa().detach())
+            both_ms = timed(case, "library_fwd_bwd_ms",
+                            lambda: torch.autograd.grad(sdpa(), heads, doh))
+            case["library_ms"] = max(both_ms - fwd_ms, 0.0)
+            case["timed_by"]["library_ms"] = _how(case["timed_by"]["library_fwd_ms"],
+                                                  case["timed_by"]["library_fwd_bwd_ms"])
+            if case["paths"]:  # a path's shape: the earlier SIMT kernels beside
+                simt_beside(case, lambda: ca.attention_nhd_bwd(q, k, v, do, h, km, causal),
+                            lambda: ca.attention_nhd_bwd_simt(q, k, v, do, h, km, causal),
+                            want, atol, rtol)
+            cases.append(case)
     return cases
 
 
@@ -819,7 +873,8 @@ def _wrappers():
             "attention_small": attention_small}
 
 
-TENSOR_CORE = ["attention_nhd", "flash_attention"]  # kernels with a tensor_core_launches count
+# kernels with a tensor_core_launches count: every bf16 launch goes there
+TENSOR_CORE = ["patch_embed_u8", "attention_nhd", "attention_nhd_bwd", "flash_attention"]
 
 
 def _reset_counts():
@@ -1455,6 +1510,14 @@ UNITS = {
     "train": "one CLIP ViT-B/32 training micro-step, bf16, B=32",
     "mha_dense_mask": "one mha(impl='pallas') call with a dense mask, bf16",
 }
+# the shared headers each kernel's source includes
+HEADERS = {
+    "patch_embed_u8": ["mma_common.cuh"],
+    "attention_nhd": ["attention_mma.cuh", "mma_common.cuh"],
+    "attention_nhd_bwd": ["attention_mma.cuh", "mma_common.cuh"],
+    "flash_attention": ["attention_mma.cuh", "mma_common.cuh"],
+    "attention_small": [],
+}
 PER_UNIT = {
     "siglip384": {"patch_embed_u8": 1, "attention_nhd": 12, "flash_attention": 12},
     "siglip224": {"patch_embed_u8": 1, "attention_nhd": 24},
@@ -1503,6 +1566,8 @@ def _per_unit(name, cases, path):
         keys.append("simt_ms")
     out = {k: each * sum(c[k] for c in main) for k in keys}
     out["bound_by"] = max(main, key=lambda c: c["bound_ms"])["bound_by"]
+    out["timed_by"] = {k: _how(*(c["timed_by"][k] for c in main))
+                       for k in keys if k != "bound_ms"}
     out["work"] = f"{UNITS[path]}: {WORK[path][name]}"
     return out
 
@@ -1517,8 +1582,7 @@ def kernel_entry(name, cases, launches_by_path):
         "name": name,
         "route": "cuda",
         "source": f"{PKG}/csrc/{name}.cu",
-        # the bf16 kernels' warp routine, compiled into both sources
-        "header": f"{PKG}/csrc/attention_mma.cuh" if name in TENSOR_CORE else None,
+        "headers": [f"{PKG}/csrc/{h}" for h in HEADERS[name]],
         "replaces": REPLACES[name],
         "launches": launches_by_path[primary][name],
         "tensor_core_launches": launches_by_path[primary].get(f"{name}_tensor_core"),
@@ -1529,6 +1593,7 @@ def kernel_entry(name, cases, launches_by_path):
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "simt_ms": main.get("simt_ms"),
+        "timed_by": main["timed_by"],
         "work": main["work"],
         "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
         "other_paths": {path: _per_unit(name, cases, path) for path in PER_UNIT
@@ -1578,6 +1643,7 @@ def main() -> int:
             + (f" SIMT {c['simt_ms']:.4f} ms (SIMT new new SIMT "
                f"{', '.join(f'{t:.4f}' for t in c['simt_new_new_simt_ms'])})"
                if "simt_ms" in c else "")
+            + "".join(f" [{k} by events]" for k, how in c["timed_by"].items() if how != "graph")
         )
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 

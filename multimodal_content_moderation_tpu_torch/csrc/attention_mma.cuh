@@ -1,7 +1,10 @@
 // The warp-level attention routine that the bf16 forms of flash_attention.cu
 // and attention_nhd.cu share: one warp owns 16 query rows and walks the keys
 // in chunks of 64 that its block has staged in shared memory, on Hopper's
-// tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+// tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; the generic
+// pieces are in mma_common.cuh). Its two products per chunk, qk_chunk (S =
+// Q K^T) and pv_chunk (O += P V, P as bf16 hi + lo), also carry the bf16
+// backward (attention_nhd_bwd.cu).
 //
 // Per chunk, for the warp's rows (thread layout of the m16n8 C fragment:
 // lane / 4 owns rows g and g + 8, lane % 4 owns columns 2 (lane % 4) + {0, 1}
@@ -37,6 +40,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace attention_mma {
 
 constexpr int CHUNK = 64;                   // keys per step
@@ -48,33 +53,13 @@ __host__ __device__ constexpr int row_stride(int dhp) { return dhp + 8; }
 // the template width for a head width dh <= 128
 inline int padded_width(int dh) { return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; with valid false the 16 bytes are
-// zero-filled and nothing is read (src must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
+using mma::cp_async16;
+using mma::cp_async_commit;
+using mma::cp_async_wait;
+using mma::ldmatrix_x4;
+using mma::ldmatrix_x4_trans;
+using mma::mma_bf16;
+using mma::split_pair;
 
 // e^x as 2^(x log2 e) on the SFU (ex2.approx, relative error ~2^-22; a
 // result below 2^-126 flushes to 0): e^-inf = 0, e^0 = 1 exactly
@@ -94,27 +79,15 @@ struct ScaleOnly {
   }
 };
 
-// d += a b: a 16x16 bf16 (row), b 16x8 bf16 (col), d 16x8 fp32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(v.x)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(v.y)) << 16);
-}
-
-// (a, b) -> hi = bf16(a), bf16(b) and lo = bf16(a - hi_a), bf16(b - hi_b),
-// packed with a in the low half (the lower column of an A fragment)
-__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(a - hf.x, b - hf.y));
+// The masked fp32 score of query t and key j of attention over the [B, T, D]
+// layout from the raw dot, in the TPU kernel's order: a key past S scores
+// -inf (it weighs 0 even in a row whose keys are all masked), a masked one
+// -FLT_MAX; mask is the key's additive fp32 mask (0 without one).
+__device__ __forceinline__ float key_score(float acc, float scale, float mask, int t, int j,
+                                           int S, int causal) {
+  if (j >= S) return -INFINITY;
+  const float s = __fmul_rn(acc, scale) + mask;  // scale after the dot, no FMA contraction
+  return causal && j > t ? NEG_INF : s;
 }
 
 // columns c, c + 1 of a bf16 row as one A-fragment register; zeros past dh or
@@ -137,6 +110,71 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int dh, bo
   }
   row[c] = __float2bfloat16_rn(a);
   if (c + 1 < dh) row[c + 1] = __float2bfloat16_rn(b);
+}
+
+// The A fragments of 16 staged rows of a chunk (row stride row_stride(DHP)),
+// the first of which is at rows: a[ks] holds columns 16 ks .. 16 ks + 15.
+template <int DHP>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[DHP / 16][4],
+                                            const __nv_bfloat16* rows) {
+  const __nv_bfloat16* p = rows + mma::a_frag_offset(threadIdx.x & 31, row_stride(DHP));
+#pragma unroll
+  for (int ks = 0; ks < DHP / 16; ++ks) ldmatrix_x4(a[ks], p + ks * 16);
+}
+
+// s = A B^T for one chunk: A the warp's 16 rows x DHP as fragments, B the
+// chunk's 64 staged rows x DHP (s[n] holds B rows 8 n .. 8 n + 7). Products
+// of bf16 values are exact in fp32, so this is an fp32 dot in another order.
+template <int DHP>
+__device__ __forceinline__ void qk_chunk(float (&s)[8][4], const uint32_t (&a)[DHP / 16][4],
+                                         const __nv_bfloat16* Bs) {
+  constexpr int STR = row_stride(DHP);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  // the four 8x8 matrices of one ldmatrix: (rows 0-7, columns 0-7), (0-7,
+  // 8-15), (8-15, 0-7), (8-15, 8-15) of a 16x16 block of B
+  const __nv_bfloat16* bp = Bs + mma::b_frag_offset_nk(threadIdx.x & 31, STR);
+#pragma unroll
+  for (int ks = 0; ks < DHP / 16; ++ks) {
+#pragma unroll
+    for (int n2 = 0; n2 < 4; ++n2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, bp + n2 * 16 * STR + ks * 16);
+      mma_bf16(s[2 * n2], a[ks], b[0], b[1]);
+      mma_bf16(s[2 * n2 + 1], a[ks], b[2], b[3]);
+    }
+  }
+}
+
+// o += p V for one chunk: p the fp32 C fragments of the warp's 16 rows x 64
+// (as qk_chunk leaves them), split into bf16 hi + lo halves (two MMAs each:
+// p kept to ~2^-17, where one bf16 rounding would cost 2^-9); V the chunk's
+// 64 staged rows x DHP, transposed on the load.
+template <int DHP>
+__device__ __forceinline__ void pv_chunk(float (&o)[DHP / 8][4], const float (&p)[8][4],
+                                         const __nv_bfloat16* Vs) {
+  constexpr int STR = row_stride(DHP);
+  // (rows 0-7, columns 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+  const __nv_bfloat16* vp = Vs + mma::b_frag_offset_kn(threadIdx.x & 31, STR);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t ph[4], pl[4];
+    split_pair(p[2 * kk][0], p[2 * kk][1], ph[0], pl[0]);
+    split_pair(p[2 * kk][2], p[2 * kk][3], ph[1], pl[1]);
+    split_pair(p[2 * kk + 1][0], p[2 * kk + 1][1], ph[2], pl[2]);
+    split_pair(p[2 * kk + 1][2], p[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int d2 = 0; d2 < DHP / 16; ++d2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vp + kk * 16 * STR + d2 * 16);
+      mma_bf16(o[2 * d2], ph, b[0], b[1]);
+      mma_bf16(o[2 * d2], pl, b[0], b[1]);
+      mma_bf16(o[2 * d2 + 1], ph, b[2], b[3]);
+      mma_bf16(o[2 * d2 + 1], pl, b[2], b[3]);
+    }
+  }
 }
 
 // One warp's 16 query rows: Q fragments, the output accumulator, and the
@@ -184,31 +222,12 @@ struct WarpRows {
   template <typename Score>
   __device__ __forceinline__ void attend(const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
                                          int k0, const Score& score) {
-    constexpr int STR = row_stride(DHP);
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
     const int tg = lane & 3;
 
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    // B fragments of K^T for key tiles 2 n2 and 2 n2 + 1 (keys 16 n2 ..): the
-    // four 8x8 matrices are (keys 0-7, dh 0-7), (0-7, 8-15), (8-15, 0-7),
-    // (8-15, 8-15) of the 16x16 block
-    const int krow = ((lane >> 4) << 3) + (lane & 7);
-    const int kcol = ((lane >> 3) & 1) << 3;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-      for (int n2 = 0; n2 < 4; ++n2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, Ks + (n2 * 16 + krow) * STR + ks * 16 + kcol);
-        mma_bf16(s[2 * n2], qa[ks], b[0], b[1]);
-        mma_bf16(s[2 * n2 + 1], qa[ks], b[2], b[3]);
-      }
-    }
+    qk_chunk<DHP>(s, qa, Ks);
 
     float mn[2] = {m[0], m[1]};
 #pragma unroll
@@ -245,27 +264,7 @@ struct WarpRows {
         l[e >> 1] += p;
       }
 
-    // B fragments of V for output tiles 2 d2 and 2 d2 + 1: (keys 0-7, dh
-    // 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15), transposed on the load
-    const int vrow = (((lane >> 3) & 1) << 3) + (lane & 7);
-    const int vcol = (lane >> 4) << 3;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ph[4], pl[4];
-      split_pair(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_pair(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_pair(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_pair(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int d2 = 0; d2 < DHP / 16; ++d2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, Vs + (kk * 16 + vrow) * STR + d2 * 16 + vcol);
-        mma_bf16(o[2 * d2], ph, b[0], b[1]);
-        mma_bf16(o[2 * d2], pl, b[0], b[1]);
-        mma_bf16(o[2 * d2 + 1], ph, b[2], b[3]);
-        mma_bf16(o[2 * d2 + 1], pl, b[2], b[3]);
-      }
-    }
+    pv_chunk<DHP>(o, s, Vs);
   }
 
   // out_g, out_g8: rows g and g + 8 of the output (null: not stored). Every

@@ -197,17 +197,13 @@ using bf16 = __nv_bfloat16;
 // the registers of 16 warps would spill, so 8 warps take two row groups
 __host__ __device__ constexpr int max_warps(int dhp) { return dhp <= 64 ? 16 : 8; }
 
-// The score of the warp's row r and key j from the raw dot, in the TPU
-// kernel's order: a key past S scores -inf (it weighs 0 even in a row whose
-// keys are all masked), a masked one -FLT_MAX.
+// The score of the warp's row r and key j from the raw dot (am::key_score)
 struct NhdScore {
   const float* Ms;  // the staged key mask (zeros without one)
   int t0, S, causal;
   float scale;
   __device__ __forceinline__ float operator()(float acc, int r, int j) const {
-    if (j >= S) return -INFINITY;
-    const float s = __fmul_rn(acc, scale) + Ms[j];  // scale after the dot, no FMA contraction
-    return causal && j > t0 + r ? am::NEG_INF : s;
+    return am::key_score(acc, scale, Ms[j], t0 + r, j, S, causal);
   }
 };
 

@@ -1,5 +1,7 @@
 // Backward of the short-sequence multi-head attention over the [B, T, D]
-// layout, for Hopper (sm_90a).
+// layout, for Hopper (sm_90a). Two kernel pairs: a bf16 one on the tensor
+// cores (attention_nhd_bwd_mma_launch), and an fp32 SIMT one
+// (attention_nhd_bwd_launch) for fp32 inputs, the parity path.
 //
 // Replaces: multimodal_content_moderation_tpu/ops/pallas_attention.py,
 //   _attention_nhd_bwd_call (body _nhd_bwd_body), the recompute backward of
@@ -29,7 +31,37 @@
 // 5.1 us of bytes at 3.35 TB/s against 0.6 us at the bf16 tensor-core rate,
 // so the kernel is bound by bytes.
 //
-// Design (simple and right; fast is later work): one wrapper call runs two
+// bf16 design (tensor cores: mma.sync m16n8k16, bf16 in, fp32 accumulate,
+// through the chunk products qk_chunk / pv_chunk of attention_mma.cuh). Two
+// launches, FlashAttention-2's split of the work: every output row is
+// owned by one warp, so nothing is summed across blocks (no atomics, the
+// same result on every run). One block per (batch row, head) holding the
+// whole head instead would need q, k, v and dO of 256 rows at dh = 128 as
+// bf16, 278 KB, past the 227 KB a block may use; the split costs a round
+// trip of 12 bytes of statistics per query row.
+//  A. grid (64 query rows, head, batch row), 4 warps of 16 rows: stages the
+//     rows' q and dO and the head's k and v (all S keys, zero-padded to a
+//     multiple of 64) as bf16 with 16-byte cp.async. Pass 1 walks the keys
+//     in chunks of 64: s = q k^T and dp = dO v^T on the tensor cores, the
+//     scores masked in the reference's order, and in registers an online
+//     row max m, sum l of exp(s - m) and sum of dp exp(s - m) (both rescaled
+//     when m grows), so rowsum(dp * p) = that sum / l. Pass 2 recomputes s
+//     and dp per chunk, forms p = exp(s - m) / l and dz = p (dp - rowsum)
+//     scale in registers, and accumulates dq += dz k with dz split into
+//     bf16 hi + lo (as the forward splits P: one bf16 rounding of dz, 2^-9,
+//     would reach the output's tolerance). It writes dq and each row's
+//     (m, 1/l, rowsum) to an fp32 [B, H, Tq, 3] scratch buffer.
+//  B. grid (64 keys, head, batch row), 4 warps of 16 keys: stages its keys'
+//     k and v and all Tq rows of q and dO with their statistics, and per
+//     chunk of 64 query rows forms s^T = k q^T and dp^T = v dO^T, rebuilds
+//     p^T and dz^T from A's statistics (a query row past Tq weighs 0), and
+//     accumulates dv += p^T dO and dk += dz^T q, both split hi + lo.
+// exp is one SFU ex2 (relative error ~2^-22). Head widths are padded to
+// 16, 32, 64 or 128 with zero columns; rows off 16-byte alignment are
+// staged element by element. Shared memory is dynamic: at most ~175 KB
+// per block (S = 256, dh = 128), ~37 KB at the training shapes.
+//
+// fp32 design (SIMT, the parity path): one wrapper call runs two
 // __global__ functions on the caller's stream.
 //  A. grid (query tile of 32 rows, head, batch row): stages the tile's q and
 //     dO rows in shared memory, streams k and v in chunks of 64 keys through
@@ -45,10 +77,16 @@
 // split dh for the accumulations. Chunked rows are padded to dh+1 floats so
 // a warp's per-row dot products hit distinct banks. Shared memory is
 // dynamic (up to ~132 KB at S=256, dh=128), raised past 48 KB with
-// cudaFuncSetAttribute. The wrapper counts one launch per call.
+// cudaFuncSetAttribute. It is templated on the element type; the bf16
+// instance is reachable only through attention_nhd_bwd_launch with
+// is_bf16 = 1, which the port's wrapper asks for only as the uncounted
+// yardstick (chip_smoke.py times it as the earlier design). The wrapper
+// counts one launch per call of either pair.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -380,7 +418,305 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace am = attention_mma;
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int MMA_ROWS = MMA_WARPS * 16;  // query rows (A) or keys (B) per block
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Launch A: dq and the per-row statistics (m, 1/l, rowsum(dp * p)).
+template <int DHP>
+__global__ void __launch_bounds__(MMA_THREADS)
+attention_nhd_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                const float* __restrict__ key_mask, bf16* __restrict__ dq,
+                                float* __restrict__ stats, int Tq, int S, int H, int dh,
+                                int causal, float scale, int vec, int pairs) {
+  constexpr int STR = am::row_stride(DHP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunks = (S + am::CHUNK - 1) / am::CHUNK;  // <= 4: S <= 256
+  const int Sp = chunks * am::CHUNK;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);         // [Sp][STR]
+  bf16* Vs = Ks + Sp * STR;                             // [Sp][STR]
+  bf16* Qs = Vs + Sp * STR;                             // [64][STR] this block's q rows
+  bf16* Gs = Qs + MMA_ROWS * STR;                       // [64][STR] and dO rows
+  float* Ms = reinterpret_cast<float*>(Gs + MMA_ROWS * STR);  // [Sp] key mask
+
+  const int D = H * dh;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tb = blockIdx.x * MMA_ROWS;
+  const size_t q_base = (size_t)b * Tq * D + (size_t)h * dh;
+  const size_t kv_base = (size_t)b * S * D + (size_t)h * dh;
+  am::stage_rows<DHP>(Qs, q + q_base, D, tb, MMA_ROWS, Tq, dh, vec);
+  am::stage_rows<DHP>(Gs, dout + q_base, D, tb, MMA_ROWS, Tq, dh, vec);
+  am::stage_rows<DHP>(Ks, k + kv_base, D, 0, Sp, S, dh, vec);
+  am::stage_rows<DHP>(Vs, v + kv_base, D, 0, Sp, S, dh, vec);
+  am::cp_async_commit();
+  for (int j = threadIdx.x; j < Sp; j += blockDim.x)
+    Ms[j] = key_mask != nullptr && j < S ? key_mask[(size_t)b * S + j] : 0.f;
+  am::cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int t0 = tb + warp * 16;  // the warp's first row
+  if (t0 >= Tq) return;           // no barrier follows
+  const bf16* Qw = Qs + warp * 16 * STR;
+  const bf16* Gw = Gs + warp * 16 * STR;
+
+  uint32_t fa[DHP / 16][4];
+  float s[8][4], dp[8][4];
+  // s = q k^T (masked) and dp = dO v^T of chunk c
+  auto products = [&](int c) {
+    const int k0 = c * am::CHUNK;
+    am::load_a_rows<DHP>(fa, Qw);
+    am::qk_chunk<DHP>(s, fa, Ks + k0 * STR);
+    am::load_a_rows<DHP>(fa, Gw);
+    am::qk_chunk<DHP>(dp, fa, Vs + k0 * STR);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = k0 + n * 8 + 2 * tg + (e & 1);
+        s[n][e] = am::key_score(s[n][e], scale, Ms[j], t0 + g + ((e >> 1) << 3), j, S, causal);
+      }
+  };
+
+  // pass 1: the row max m, l = sum exp(s - m) and a = sum dp exp(s - m),
+  // online (the thread's partial sums, rescaled when m grows)
+  float m[2] = {am::NEG_INF, am::NEG_INF}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+  for (int c = 0; c < chunks; ++c) {
+    products(c);
+    float mn[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mn[e >> 1] = fmaxf(mn[e >> 1], s[n][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mn[i] = quad_max(mn[i]);
+      const float corr = am::exp_sfu(m[i] - mn[i]);
+      l[i] *= corr;
+      a[i] *= corr;
+      m[i] = mn[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = am::exp_sfu(s[n][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        a[e >> 1] = fmaf(dp[n][e], p, a[e >> 1]);
+      }
+  }
+  float inv[2], rs[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    inv[i] = 1.f / quad_sum(l[i]);
+    rs[i] = quad_sum(a[i]) * inv[i];
+  }
+
+  // pass 2: dz = p (dp - rowsum) scale and dq += dz k
+  float o[DHP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DHP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    products(c);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = am::exp_sfu(s[n][e] - m[i]) * inv[i];
+        s[n][e] = __fmul_rn(p * (dp[n][e] - rs[i]), scale);
+      }
+    am::pv_chunk<DHP>(o, s, Ks + c * am::CHUNK * STR);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + g + 8 * i;
+    if (t >= Tq) continue;
+    bf16* row = dq + q_base + (size_t)t * D;
+#pragma unroll
+    for (int n = 0; n < DHP / 8; ++n)
+      am::store_pair(row, n * 8 + 2 * tg, dh, pairs, o[n][2 * i], o[n][2 * i + 1]);
+    if (tg == 0) {
+      float* st = stats + (((size_t)b * H + h) * Tq + t) * 3;
+      st[0] = m[i];
+      st[1] = inv[i];
+      st[2] = rs[i];
+    }
+  }
+}
+
+// Launch B: dk and dv from the statistics of launch A.
+template <int DHP>
+__global__ void __launch_bounds__(MMA_THREADS)
+attention_nhd_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                  const float* __restrict__ key_mask, bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, const float* __restrict__ stats,
+                                  int Tq, int S, int H, int dh, int causal, float scale, int vec,
+                                  int pairs) {
+  constexpr int STR = am::row_stride(DHP);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunks = (Tq + am::CHUNK - 1) / am::CHUNK;  // <= 4: Tq <= 256
+  const int Tp = chunks * am::CHUNK;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);         // [Tp][STR] every q row
+  bf16* Gs = Qs + Tp * STR;                             // [Tp][STR] every dO row
+  bf16* Kt = Gs + Tp * STR;                             // [64][STR] this block's k rows
+  bf16* Vt = Kt + MMA_ROWS * STR;                       // [64][STR] and v rows
+  float* St = reinterpret_cast<float*>(Vt + MMA_ROWS * STR);  // [Tp][3] statistics
+  float* Mk = St + 3 * Tp;                              // [64] key mask of this block's keys
+
+  const int D = H * dh;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int jb = blockIdx.x * MMA_ROWS;
+  const size_t q_base = (size_t)b * Tq * D + (size_t)h * dh;
+  const size_t kv_base = (size_t)b * S * D + (size_t)h * dh;
+  am::stage_rows<DHP>(Kt, k + kv_base, D, jb, MMA_ROWS, S, dh, vec);
+  am::stage_rows<DHP>(Vt, v + kv_base, D, jb, MMA_ROWS, S, dh, vec);
+  am::stage_rows<DHP>(Qs, q + q_base, D, 0, Tp, Tq, dh, vec);
+  am::stage_rows<DHP>(Gs, dout + q_base, D, 0, Tp, Tq, dh, vec);
+  am::cp_async_commit();
+  const float* st_base = stats + ((size_t)b * H + h) * Tq * 3;
+  for (int i = threadIdx.x; i < 3 * Tp; i += blockDim.x) St[i] = i < 3 * Tq ? st_base[i] : 0.f;
+  for (int i = threadIdx.x; i < MMA_ROWS; i += blockDim.x)
+    Mk[i] = key_mask != nullptr && jb + i < S ? key_mask[(size_t)b * S + jb + i] : 0.f;
+  am::cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
+  const int j0 = jb + warp * 16;  // the warp's first key
+  if (j0 >= S) return;            // no barrier follows
+
+  float ak[DHP / 8][4], av[DHP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DHP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+  uint32_t fa[DHP / 16][4];
+  float pt[8][4], zt[8][4];
+  for (int c = 0; c < chunks; ++c) {
+    const int c0 = c * am::CHUNK;
+    am::load_a_rows<DHP>(fa, Kt + warp * 16 * STR);
+    am::qk_chunk<DHP>(pt, fa, Qs + c0 * STR);  // s^T = k q^T
+    am::load_a_rows<DHP>(fa, Vt + warp * 16 * STR);
+    am::qk_chunk<DHP>(zt, fa, Gs + c0 * STR);  // dp^T = v dO^T
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + ((e >> 1) << 3);  // the key within the warp's 16
+        const int t = c0 + n * 8 + 2 * tg + (e & 1);
+        float p = 0.f, z = 0.f;
+        if (t < Tq) {
+          const float* st = St + 3 * t;
+          const float sc =
+              am::key_score(pt[n][e], scale, Mk[warp * 16 + r], t, j0 + r, S, causal);
+          p = am::exp_sfu(sc - st[0]) * st[1];
+          z = __fmul_rn(p * (zt[n][e] - st[2]), scale);
+        }
+        pt[n][e] = p;
+        zt[n][e] = z;
+      }
+    am::pv_chunk<DHP>(av, pt, Gs + c0 * STR);  // dv += p^T dO
+    am::pv_chunk<DHP>(ak, zt, Qs + c0 * STR);  // dk += dz^T q
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = j0 + g + 8 * i;
+    if (j >= S) continue;
+    const size_t off = kv_base + (size_t)j * D;
+#pragma unroll
+    for (int n = 0; n < DHP / 8; ++n) {
+      am::store_pair(dk + off, n * 8 + 2 * tg, dh, pairs, ak[n][2 * i], ak[n][2 * i + 1]);
+      am::store_pair(dv + off, n * 8 + 2 * tg, dh, pairs, av[n][2 * i], av[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int DHP>
+int launch_mma(const void* q, const void* k, const void* v, const void* dout,
+               const float* key_mask, void* dq, void* dk, void* dv, float* stats, int B, int Tq,
+               int S, int H, int dh, int causal, float scale, int vec, int pairs,
+               cudaStream_t stream) {
+  constexpr int STR = am::row_stride(DHP);
+  const size_t sp = (S + am::CHUNK - 1) / am::CHUNK * am::CHUNK;
+  const size_t tp = (Tq + am::CHUNK - 1) / am::CHUNK * am::CHUNK;
+  const size_t bytes_a = sizeof(bf16) * (2 * sp + 2 * MMA_ROWS) * STR + sizeof(float) * sp;
+  const size_t bytes_b =
+      sizeof(bf16) * (2 * tp + 2 * MMA_ROWS) * STR + sizeof(float) * (3 * tp + MMA_ROWS);
+  cudaError_t e = allow_smem(attention_nhd_bwd_dq_mma_kernel<DHP>, bytes_a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = allow_smem(attention_nhd_bwd_dkdv_mma_kernel<DHP>, bytes_b);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(dout);
+  dim3 grid_a((Tq + MMA_ROWS - 1) / MMA_ROWS, H, B);
+  attention_nhd_bwd_dq_mma_kernel<DHP><<<grid_a, MMA_THREADS, bytes_a, stream>>>(
+      qt, kt, vt, gt, key_mask, static_cast<bf16*>(dq), stats, Tq, S, H, dh, causal, scale, vec,
+      pairs);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid_b((S + MMA_ROWS - 1) / MMA_ROWS, H, B);
+  attention_nhd_bwd_dkdv_mma_kernel<DHP><<<grid_b, MMA_THREADS, bytes_b, stream>>>(
+      qt, kt, vt, gt, key_mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), stats, Tq, S, H,
+      dh, causal, scale, vec, pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// bf16 q, k, v, dout, dq, dk, dv on the tensor cores; the other arguments as
+// attention_nhd_bwd_launch's below. Rows are staged 16 bytes at a time where
+// q, k, v and dout are 16-byte aligned and dh is a multiple of 8; dq, dk and
+// dv are written in pairs where they are 4-byte aligned and dh is even.
+extern "C" int attention_nhd_bwd_mma_launch(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* key_mask, void* dq,
+                                            void* dk, void* dv, void* stats, int B, int Tq,
+                                            int S, int H, int dh, int causal, float scale,
+                                            void* stream) {
+  if (dh > MAX_DH || dh < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto aligned = [](const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
+  const int vec = dh % 8 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+                  aligned(dout, 16);
+  const int pairs = dh % 2 == 0 && aligned(dq, 4) && aligned(dk, 4) && aligned(dv, 4);
+  const float* km = static_cast<const float*>(key_mask);
+  float* st = static_cast<float*>(stats);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dhp = am::padded_width(dh);
+  const auto run = dhp == 16 ? launch_mma<16> : dhp == 32 ? launch_mma<32>
+                 : dhp == 64 ? launch_mma<64> : launch_mma<128>;
+  return run(q, k, v, dout, km, dq, dk, dv, st, B, Tq, S, H, dh, causal, scale, vec, pairs, s);
+}
 
 // is_bf16: 0 -> q, k, v, dout, dq, dk, dv are float*; 1 -> __nv_bfloat16*.
 // key_mask: fp32 [B, S] or null. stats: fp32 scratch of B*H*Tq*3 floats.

@@ -5,7 +5,8 @@ heads inside the kernel (``csrc/attention_nhd.cu``: bf16 on the tensor
 cores, fp32 on the SIMT units), applies an additive fp32 key mask and an
 in-kernel causal mask, runs an fp32 softmax and writes [B, T, D] back in
 q's dtype. ``attention_nhd_bwd`` is its recompute
-backward (``csrc/attention_nhd_bwd.cu``), and ``attention_nhd_diff`` joins
+backward (``csrc/attention_nhd_bwd.cu``, bf16 on the tensor cores, fp32 on
+the SIMT units), and ``attention_nhd_diff`` joins
 the two into a ``torch.autograd.Function``. For tensors on the CPU each
 wrapper runs its plain version (``attention_nhd_reference``,
 ``attention_nhd_bwd_reference``); for CUDA tensors it launches its kernel
@@ -222,6 +223,38 @@ def attention_nhd_simt(
     return _attention_nhd_launch(q, k, v, num_heads, key_mask, causal, False)[0]
 
 
+def _attention_nhd_bwd_launch(q, k, v, do, num_heads, key_mask, causal, tensor_cores: bool):
+    """Check the inputs and launch one backward kernel pair: the tensor-core
+    one (bf16 only) or the SIMT one (fp32 or bf16). Returns (dq, dk, dv) and
+    whether a kernel was launched (none is for an empty shape)."""
+    _check("attention_nhd_bwd", q, k, v, num_heads, key_mask, extra=[("do", do)])
+    B, Tq, D = q.shape
+    S = k.shape[1]
+    dh = D // num_heads
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B * Tq * S == 0:
+        return (dq.zero_(), dk.zero_(), dv.zero_()), False
+    # per-row max, 1/sum and rowsum(dp * p), from the first launch to the second
+    stats = torch.empty((B, num_heads, Tq, 3), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            None if key_mask is None else key_mask.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr())
+    stream = _build.stream_ptr(q.device)
+    if tensor_cores:
+        lib = _lib("attention_nhd_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p], entry="mma_launch")
+        err = lib.attention_nhd_bwd_mma_launch(
+            *ptrs, B, Tq, S, num_heads, dh, int(causal), float(dh) ** -0.5, stream)
+    else:
+        lib = _lib("attention_nhd_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        err = lib.attention_nhd_bwd_launch(
+            *ptrs, B, Tq, S, num_heads, dh, int(causal), float(dh) ** -0.5,
+            int(q.dtype == torch.bfloat16), stream)
+    _build.check(lib, "attention_nhd_bwd", err)
+    return (dq, dk, dv), True
+
+
 def attention_nhd_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -235,34 +268,39 @@ def attention_nhd_bwd(
     [B, Tq, D] (q's dtype): (dq [B, Tq, D], dk [B, S, D], dv [B, S, D]) in
     q's dtype. The key mask gets no gradient.
 
-    On the card: the CUDA kernel, two launches counted as one call in
-    ``attention_nhd_bwd.launches``. On the CPU: the plain version."""
+    On the card: bf16 runs the tensor-core kernels, fp32 the SIMT kernels,
+    chosen by dtype before the launch; each pair of launches counts as one
+    call in ``attention_nhd_bwd.launches``, a bf16 one also in
+    ``attention_nhd_bwd.tensor_core_launches``. On the CPU: the plain
+    version."""
     if q.device.type == "cpu":
         return attention_nhd_bwd_reference(q, k, v, do, num_heads, key_mask, causal)
-    _check("attention_nhd_bwd", q, k, v, num_heads, key_mask, extra=[("do", do)])
-    B, Tq, D = q.shape
-    S = k.shape[1]
-    dh = D // num_heads
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if B * Tq * S == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    # per-row max, 1/sum and rowsum(dp * p), from the first launch to the second
-    stats = torch.empty((B, num_heads, Tq, 3), dtype=torch.float32, device=q.device)
-    lib = _lib("attention_nhd_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    err = lib.attention_nhd_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        None if key_mask is None else key_mask.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        B, Tq, S, num_heads, dh, int(causal),
-        float(dh) ** -0.5, int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device),
-    )
-    _build.check(lib, "attention_nhd_bwd", err)
-    attention_nhd_bwd.launches += 1
-    return dq, dk, dv
+    tensor_cores = q.dtype == torch.bfloat16
+    grads, launched = _attention_nhd_bwd_launch(q, k, v, do, num_heads, key_mask, causal,
+                                                tensor_cores)
+    if launched:
+        attention_nhd_bwd.launches += 1
+        attention_nhd_bwd.tensor_core_launches += int(tensor_cores)
+    return grads
 
 
 attention_nhd_bwd.launches = 0
+attention_nhd_bwd.tensor_core_launches = 0
+
+
+def attention_nhd_bwd_simt(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The SIMT backward kernels for either dtype, on the card only and not
+    counted: the earlier bf16 design, kept as a yardstick for the
+    tensor-core kernels (``chip_smoke.py`` times the two in one process)."""
+    return _attention_nhd_bwd_launch(q, k, v, do, num_heads, key_mask, causal, False)[0]
 
 
 class _AttentionNHD(torch.autograd.Function):

@@ -6,10 +6,11 @@ The normalisation is folded into the GEMM (``fold_norm_into_embed``):
 ``((x/255 - mean)/std) @ W == x @ (W/(255*std)) - (mean/std) @ W``, so the
 kernel is one product over widened uint8 rows plus a bias.
 
-``patch_embed_u8`` launches the CUDA kernel (``csrc/patch_embed_u8.cu``)
-for tensors on the card and runs ``patch_embed_reference``, its plain
-version, for tensors on the CPU. ``patch_embed_u8_train`` makes it
-differentiable in the folded weight and bias.
+``patch_embed_u8`` launches the CUDA kernel (``csrc/patch_embed_u8.cu``:
+a bf16 output on the tensor cores, fp32 on the SIMT units) for tensors on
+the card and runs ``patch_embed_reference``, its plain version, for
+tensors on the CPU. ``patch_embed_u8_train`` makes it differentiable in the
+folded weight and bias.
 """
 
 from __future__ import annotations
@@ -72,18 +73,10 @@ def patch_embed_reference(
     return (torch.matmul(x, w_folded.float()) + b_folded.float()).to(out_dtype)
 
 
-def patch_embed_u8(
-    patches_u8: torch.Tensor,
-    w_folded: torch.Tensor,
-    b_folded: torch.Tensor,
-    out_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """[B, N, K] uint8 patch rows -> [B, N, D] embedded tokens.
-
-    On the card: the CUDA kernel (counted in ``patch_embed_u8.launches``).
-    On the CPU: the plain version."""
-    if patches_u8.device.type == "cpu":
-        return patch_embed_reference(patches_u8, w_folded, b_folded, out_dtype)
+def _patch_embed_launch(patches_u8, w_folded, b_folded, out_dtype, tensor_cores: bool):
+    """Check the inputs and launch one kernel: the tensor-core one (bf16
+    output only) or the SIMT one (fp32 or bf16). Returns the output and
+    whether a kernel was launched (none is for an empty output)."""
     if patches_u8.device.type != "cuda":
         raise ValueError(f"patch_embed_u8: unsupported device {patches_u8.device}")
     if patches_u8.dtype != torch.uint8 or patches_u8.dim() != 3:
@@ -112,18 +105,56 @@ def patch_embed_u8(
             raise ValueError(f"patch_embed_u8: {name} is not contiguous")
     out = torch.empty((B, N, D), dtype=out_dtype, device=patches_u8.device)
     if B * N == 0:
-        return out
-    lib = _lib()
-    err = lib.patch_embed_u8_launch(
-        patches_u8.data_ptr(), w_folded.data_ptr(), b_folded.data_ptr(), out.data_ptr(),
-        B * N, K, D, int(out_dtype == torch.bfloat16), _build.stream_ptr(patches_u8.device),
-    )
+        return out, False
+    ptrs = (patches_u8.data_ptr(), w_folded.data_ptr(), b_folded.data_ptr(), out.data_ptr())
+    stream = _build.stream_ptr(patches_u8.device)
+    if tensor_cores:
+        lib = _lib("mma_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        err = lib.patch_embed_u8_mma_launch(*ptrs, B * N, K, D, stream)
+    else:
+        lib = _lib("launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        err = lib.patch_embed_u8_launch(*ptrs, B * N, K, D, int(out_dtype == torch.bfloat16),
+                                        stream)
     _build.check(lib, "patch_embed_u8", err)
-    patch_embed_u8.launches += 1
+    return out, True
+
+
+def patch_embed_u8(
+    patches_u8: torch.Tensor,
+    w_folded: torch.Tensor,
+    b_folded: torch.Tensor,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """[B, N, K] uint8 patch rows -> [B, N, D] embedded tokens.
+
+    On the card: a bf16 output runs the tensor-core kernel, an fp32 output
+    the SIMT kernel, chosen by dtype before the launch (both counted in
+    ``patch_embed_u8.launches``, the bf16 ones also in
+    ``patch_embed_u8.tensor_core_launches``). On the CPU: the plain version."""
+    if patches_u8.device.type == "cpu":
+        return patch_embed_reference(patches_u8, w_folded, b_folded, out_dtype)
+    tensor_cores = out_dtype == torch.bfloat16
+    out, launched = _patch_embed_launch(patches_u8, w_folded, b_folded, out_dtype, tensor_cores)
+    if launched:
+        patch_embed_u8.launches += 1
+        patch_embed_u8.tensor_core_launches += int(tensor_cores)
     return out
 
 
 patch_embed_u8.launches = 0
+patch_embed_u8.tensor_core_launches = 0
+
+
+def patch_embed_u8_simt(
+    patches_u8: torch.Tensor,
+    w_folded: torch.Tensor,
+    b_folded: torch.Tensor,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The SIMT kernel for either output dtype, on the card only and not
+    counted: the earlier bf16 design, kept as a yardstick for the
+    tensor-core kernel (``chip_smoke.py`` times the two in one process)."""
+    return _patch_embed_launch(patches_u8, w_folded, b_folded, out_dtype, False)[0]
 
 
 class _PatchEmbedU8(torch.autograd.Function):
@@ -156,10 +187,12 @@ def patch_embed_u8_train(
     return _PatchEmbedU8.apply(patches_u8, w_folded, b_folded, out_dtype)
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(entry: str, argtypes) -> ctypes.CDLL:
+    """The library of ``csrc/patch_embed_u8.cu`` with ``patch_embed_u8_<entry>``'s
+    types set."""
     lib = _build.load("patch_embed_u8")
-    fn = lib.patch_embed_u8_launch
+    fn = getattr(lib, f"patch_embed_u8_{entry}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = argtypes
     return lib

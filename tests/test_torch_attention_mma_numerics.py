@@ -14,7 +14,23 @@ rounding of o / l. (The kernels take exp as the SFU's 2^(x log2 e), within
 card, atol 1e-3 + rtol 2^-7 (one rounding of the output).
 
 A row whose keys are all masked is held against the port's plain version
-only: JAX pads such rows' keys (ROADMAP queue 3, faults 6 and 8)."""
+only: JAX pads such rows' keys (ROADMAP queue 3, faults 6 and 8).
+
+The backward (``csrc/attention_nhd_bwd.cu``, ``attention_nhd_bwd_mma_launch``)
+is modelled in its two launches:
+
+- A (query rows): fp32 scores as above; over 64-key chunks an online row max
+  m, sum l of exp(s - m) and sum a of dp exp(s - m), rescaled by
+  exp(m_old - m_new), so rowsum(dp * p) = a / l; then p = exp(s - m) / l,
+  dz = p (dp - rowsum) scale, and dq = dz k with dz split into bf16 hi + lo.
+- B (keys): s^T = k q^T recomputed, p^T and dz^T rebuilt from A's per-row
+  statistics (m, 1/l, rowsum), and dv = p^T dO, dk = dz^T q with p and dz
+  split hi + lo.
+
+One bf16 rounding of each gradient, held against JAX's
+``_attention_nhd_bwd_call`` in interpret mode at lengths it does not pad
+(not 131 or 197), so a fully masked row compares with JAX too; same
+tolerance."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -234,3 +250,141 @@ def test_split_p_keeps_the_fp32_product():
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * (float(dh) ** -0.5)
     want = torch.matmul(torch.softmax(s, dim=-1), v.float())
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+def _hi_lo_matmul(a, b):
+    """a @ b with a (fp32) split into bf16 hi + lo, b bf16-exact."""
+    hi = a.bfloat16().float()
+    lo = (a - hi).bfloat16().float()
+    return torch.matmul(hi, b) + torch.matmul(lo, b)
+
+
+def _scores(a, b, scale, key, causal, transpose=False):
+    """Masked fp32 scores [N, Tq, S] of rows a against rows b (or their
+    transpose [N, S, Tq], formed as b a^T, as launch B forms them)."""
+    s = torch.matmul(b, a.transpose(1, 2)).transpose(1, 2) if transpose else \
+        torch.matmul(a, b.transpose(1, 2))
+    s = s * scale
+    if key is not None:
+        s = s + key[:, None, :]
+    if causal:
+        Tq, S = s.shape[1:]
+        keep = torch.arange(S)[None, :] <= torch.arange(Tq)[:, None]
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def bwd_model(q, k, v, do, key=None, causal=False, round_output=True):
+    """q, do [N, Tq, dh], k, v [N, S, dh] bf16; key [N, S] additive fp32 ->
+    (dq, dk, dv) in bf16 (fp32 with ``round_output=False``), with the
+    tensor-core kernels' roundings."""
+    dh = q.shape[2]
+    S = k.shape[1]
+    scale = float(dh) ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+
+    # launch A
+    s = _scores(qf, kf, scale, key, causal)
+    dp = torch.matmul(gf, vf.transpose(1, 2))
+    m = torch.full(s.shape[:2], NEG_INF)
+    l = torch.zeros(s.shape[:2])
+    a = torch.zeros(s.shape[:2])
+    for c0 in range(0, S, CHUNK):
+        sc, dpc = s[..., c0 : c0 + CHUNK], dp[..., c0 : c0 + CHUNK]
+        mn = torch.maximum(m, sc.amax(dim=-1))
+        corr = torch.exp(m - mn)
+        e = torch.exp(sc - mn[..., None])
+        l = l * corr + e.sum(dim=-1)
+        a = a * corr + (dpc * e).sum(dim=-1)
+        m = mn
+    inv = 1.0 / l
+    rs = a * inv
+    p = torch.exp(s - m[..., None]) * inv[..., None]
+    dq = _hi_lo_matmul((p * (dp - rs[..., None])) * scale, kf)
+
+    # launch B: the same products transposed, p and dz from A's statistics
+    st = _scores(qf, kf, scale, key, causal, transpose=True)
+    dpt = torch.matmul(vf, gf.transpose(1, 2)).transpose(1, 2)
+    pt = torch.exp(st - m[..., None]) * inv[..., None]
+    zt = (pt * (dpt - rs[..., None])) * scale
+    dv = _hi_lo_matmul(pt.transpose(1, 2), gf)
+    dk = _hi_lo_matmul(zt.transpose(1, 2), qf)
+    out = (dq, dk, dv)
+    return tuple(t.bfloat16() for t in out) if round_output else out
+
+
+BWD_CASES = [  # Tq, S, heads, dh, mask kind
+    (50, 50, 2, 64, "none"),  # the vision tower's length
+    (48, 48, 2, 64, "causal_key_fully_masked"),  # the text tower's, one row with no key
+    (40, 70, 2, 64, "key"),  # Tq < S, two 64-key chunks
+    (70, 40, 3, 8, "causal_key"),  # Tq > S
+    (136, 136, 2, 16, "key"),  # three 64-key chunks, the last one of 8 keys
+    (32, 32, 3, 8, "causal"),
+]
+
+
+@pytest.mark.parametrize("Tq,S,h,dh,kind", BWD_CASES)
+def test_bwd_model_matches_jax_attention_nhd_bwd(Tq, S, h, dh, kind):
+    """``_attention_nhd_bwd_call`` in bf16: JAX's kernel (interpret mode),
+    the port's plain version and the model of the tensor-core kernels agree
+    on dq, dk and dv."""
+    g = np.random.default_rng(Tq + S + dh)
+    B, D = 3, h * dh
+    q, do = _bf16(g, (B, Tq, D)), _bf16(g, (B, Tq, D))
+    k, v = _bf16(g, (B, S, D)), _bf16(g, (B, S, D))
+    km = _key_row(g, B, S, "fully_masked" in kind) if "key" in kind else None
+    causal = "causal" in kind
+    assert jattn._padded_seq_len(Tq) == Tq and jattn._padded_seq_len(S) == S  # JAX pads nothing
+    want = jattn._attention_nhd_bwd_call(
+        _j(q), _j(k), _j(v), _j(do), None if km is None else jnp.asarray(km), h,
+        causal=causal, interpret=True,
+    )
+    key = None if km is None else torch.from_numpy(km).repeat_interleave(h, dim=0)
+    got = [_unheads(t, B, h) for t in bwd_model(_heads(q, h), _heads(k, h), _heads(v, h),
+                                                _heads(do, h), key=key, causal=causal)]
+    plain = ca.attention_nhd_bwd(q, k, v, do, h, None if km is None else torch.from_numpy(km),
+                                 causal)
+    for name, a, w, p in zip(("dq", "dk", "dv"), got, want, plain):
+        assert torch.isfinite(a.float()).all(), name
+        _close(a, w)
+        _close(a, p)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_model_fully_masked_row_is_uniform(causal):
+    """A batch row whose keys are all masked at -FLT_MAX: the running max
+    stays -FLT_MAX, every key weighs 1 / S, and the model's gradients are the
+    plain version's (finite), with and without the causal mask."""
+    g = np.random.default_rng(int(causal))
+    B, T, h, dh = 2, 70, 2, 8
+    q, k, v, do = (_bf16(g, (B, T, h * dh)) for _ in range(4))
+    km = _key_row(g, B, T, True)
+    key = torch.from_numpy(km).repeat_interleave(h, dim=0)
+    got = [_unheads(t, B, h) for t in bwd_model(_heads(q, h), _heads(k, h), _heads(v, h),
+                                                _heads(do, h), key=key, causal=causal)]
+    plain = ca.attention_nhd_bwd_reference(q, k, v, do, h, torch.from_numpy(km), causal)
+    for name, a, p in zip(("dq", "dk", "dv"), got, plain):
+        assert torch.isfinite(a.float()).all(), name
+        _close(a, p)
+
+
+def test_bwd_split_keeps_the_fp32_gradients():
+    """Before the outputs' rounding, the hi/lo split of p and dz and the
+    statistics round trip leave the model within 3e-5 of the plain fp32
+    backward on the same bf16 inputs (p and dz kept to ~2^-17; the rest is
+    fp32 sums of dp ~ 10 in another order), a hundredth of a bf16 ulp of
+    gradients of ~1-4."""
+    g = np.random.default_rng(0)
+    B, T, h, dh = 2, 100, 2, 64
+    q, k, v, do = (_bf16(g, (B, T, h * dh)) for _ in range(4))
+    got = bwd_model(_heads(q, h), _heads(k, h), _heads(v, h), _heads(do, h), causal=True,
+                    round_output=False)
+    want = ca.attention_nhd_bwd_reference(q.float(), k.float(), v.float(), do.float(), h,
+                                          None, True)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(_unheads(a, B, h), w, atol=3e-5, rtol=0, msg=name)

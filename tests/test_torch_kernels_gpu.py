@@ -15,9 +15,10 @@ each side from an fp32 sum). ``flash_attention`` and ``attention_small``
 against their plain versions: fp32 atol 1e-4, bf16 rtol 2^-7 + atol 1e-3
 (an online softmax on the card, one softmax in the plain version).
 
-bf16 ``attention_nhd`` and ``flash_attention`` calls run the tensor-core
-kernels (``csrc/attention_mma.cuh``) and fp32 calls the SIMT ones: every
-call adds one to the wrapper's ``launches``, and a bf16 call one to its
+bf16 ``patch_embed_u8``, ``attention_nhd``, ``attention_nhd_bwd`` and
+``flash_attention`` calls run the tensor-core kernels (``csrc/mma_common.cuh``,
+``csrc/attention_mma.cuh``) and fp32 calls the SIMT ones: every call adds
+one to the wrapper's ``launches``, and a bf16 call one to its
 ``tensor_core_launches`` too."""
 
 import pytest
@@ -54,17 +55,31 @@ def _launch_counted(kernel, dtype, call):
     return out
 
 
+EMBED_SHAPES = [
+    # R, K, D, x's storage offset (bytes)
+    (144 * 49, 3072, 768, 0),
+    (1000, 3072, 768, 0),
+    (37, 768, 72, 0),
+    (1, 588, 72, 0),  # K = 3 * 14 * 14: not a multiple of 16, element staging, a k tail
+    (1000, 588, 72, 0),
+    (1568, 3072, 768, 0),  # 128-row tiles would leave SMs idle: 64-row tiles
+    (300, 48, 70, 0),  # D not a multiple of 4: element weight staging
+    (129, 768, 33, 0),  # odd D: element stores
+    (64, 768, 128, 1),  # rows 1 byte off 16-byte alignment
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,K,D", [(144 * 49, 3072, 768), (1000, 3072, 768), (37, 768, 72)])
-def test_patch_embed_u8_kernel(R, K, D, dtype):
+@pytest.mark.parametrize("R,K,D,offset", EMBED_SHAPES)
+def test_patch_embed_u8_kernel(R, K, D, offset, dtype):
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(R)
-    x = torch.randint(0, 256, (1, R, K), generator=g, device="cuda", dtype=torch.uint8)
+    g = torch.Generator(device="cuda").manual_seed(R + K + D)
+    x = torch.randint(0, 256, (R * K + offset,), generator=g, device="cuda",
+                      dtype=torch.uint8)[offset:].view(1, R, K)
     w = torch.randn(K, D, generator=g, device="cuda") * 3e-4
     b = torch.randn(D, generator=g, device="cuda")
-    before = ci.patch_embed_u8.launches
-    got = ci.patch_embed_u8(x, w, b, dtype)
-    assert ci.patch_embed_u8.launches == before + 1
+    got = _launch_counted(ci.patch_embed_u8, dtype, lambda: ci.patch_embed_u8(x, w, b, dtype))
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
     _assert_close(got, ci.patch_embed_reference(x, w, b, dtype))
 
 
@@ -119,13 +134,46 @@ def test_attention_nhd_bwd_kernel(B, T, D, h, causal, with_km, dtype):
     g = torch.Generator(device="cuda").manual_seed(T + 1)
     q, k, v, do = (torch.randn(B, T, D, generator=g, device="cuda").to(dtype) for _ in range(4))
     km = _key_mask(g, B, T) if with_km else None
-    before = ca.attention_nhd_bwd.launches
-    got = ca.attention_nhd_bwd(q, k, v, do, h, km, causal)
-    assert ca.attention_nhd_bwd.launches == before + 1
+    got = _launch_counted(ca.attention_nhd_bwd, dtype,
+                          lambda: ca.attention_nhd_bwd(q, k, v, do, h, km, causal))
     want = ca.attention_nhd_bwd_reference(q, k, v, do, h, km, causal)
     for a, b in zip(got, want):
         assert torch.isfinite(a.float()).all()
         _assert_close(a, b)
+
+
+BWD_TC_SHAPES = [
+    # B, Tq, S, D, heads, causal, key mask, storage offset (elements)
+    (3, 1, 1, 64, 1, False, True, 0),  # S = 1; batch row 0 fully masked
+    (2, 5, 5, 32, 2, True, True, 0),  # dh = 16
+    (2, 50, 50, 768, 12, False, False, 1),  # 2 bytes off 16-byte alignment: element staging
+    (2, 77, 77, 512, 8, True, True, 0),
+    (2, 131, 131, 256, 2, True, True, 0),  # dh = 128, three 64-row chunks
+    (2, 256, 256, 256, 2, True, True, 0),  # dh = 128 at the largest S
+    (2, 40, 133, 128, 2, False, True, 0),  # Tq < S, ragged
+    (2, 100, 30, 256, 4, True, True, 0),  # Tq > S, causal
+    (2, 33, 33, 36, 3, True, True, 0),  # dh = 12: zero columns, paired stores
+    (2, 17, 17, 15, 3, False, True, 0),  # dh = 5 (odd): element stores
+]
+
+
+@pytest.mark.parametrize("B,Tq,S,D,h,causal,with_km,offset", BWD_TC_SHAPES)
+def test_attention_nhd_bwd_tensor_core_edge_shapes(B, Tq, S, D, h, causal, with_km, offset):
+    """bf16 through the tensor-core kernels at head widths 16-128 and off the
+    MMA widths, S from 1 to 256, Tq != S, a fully masked row and rows off
+    16-byte alignment; the same inputs in fp32 through the SIMT kernels."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(Tq + S + D)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, do = (_offset_randn(g, (B, Tq, D), offset, dtype) for _ in range(2))
+        k, v = (_offset_randn(g, (B, S, D), offset, dtype) for _ in range(2))
+        km = _key_mask(g, B, S) if with_km else None
+        got = _launch_counted(ca.attention_nhd_bwd, dtype,
+                              lambda: ca.attention_nhd_bwd(q, k, v, do, h, km, causal))
+        want = ca.attention_nhd_bwd_reference(q, k, v, do, h, km, causal)
+        for a, b in zip(got, want):
+            assert torch.isfinite(a.float()).all()
+            _assert_close(a, b)
 
 
 @pytest.mark.parametrize("B,T,D,h,causal,with_km", BWD_SHAPES[:3])
@@ -155,9 +203,8 @@ def test_patch_embed_u8_train_grads():
     w = (torch.randn(3072, 768, generator=g, device="cuda") * 3e-4).requires_grad_()
     b = torch.randn(768, generator=g, device="cuda").requires_grad_()
     gy = torch.randn(4, 49, 768, generator=g, device="cuda")
-    before = ci.patch_embed_u8.launches
-    got = torch.autograd.grad(ci.patch_embed_u8_train(x, w, b, torch.float32), (w, b), gy)
-    assert ci.patch_embed_u8.launches == before + 1
+    got = _launch_counted(ci.patch_embed_u8, torch.float32, lambda: torch.autograd.grad(
+        ci.patch_embed_u8_train(x, w, b, torch.float32), (w, b), gy))
     want = torch.autograd.grad(ci.patch_embed_reference(x, w, b, torch.float32), (w, b), gy)
     for a, c in zip(got, want):
         torch.testing.assert_close(a, c, atol=1e-2, rtol=1e-4)
@@ -303,10 +350,11 @@ def test_flash_attention_strided_unaligned_view(dtype):
     _assert_close(got, cf.flash_attention_reference(q, k, v, None, km, True))
 
 
-@pytest.mark.parametrize("kernel", ["attention_nhd", "flash_attention"])
+@pytest.mark.parametrize(
+    "kernel", ["attention_nhd", "flash_attention", "patch_embed_u8", "attention_nhd_bwd"])
 def test_simt_kernel_stays_the_earlier_bf16_design(kernel):
     """The uncounted SIMT entry (the yardstick chip_smoke.py times) agrees
-    with the tensor-core kernel on the same bf16 inputs, and neither count
+    with the plain version on the same bf16 inputs, and neither count
     moves."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -315,16 +363,33 @@ def test_simt_kernel_stays_the_earlier_bf16_design(kernel):
         km = _key_mask(g, 4, 77)
         wrapper = ca.attention_nhd
         before = wrapper.launches, wrapper.tensor_core_launches
-        got = ca.attention_nhd_simt(q, k, v, 8, km, True)
-        want = ca.attention_nhd_reference(q, k, v, 8, km, True)
-    else:
+        got = [ca.attention_nhd_simt(q, k, v, 8, km, True)]
+        want = [ca.attention_nhd_reference(q, k, v, 8, km, True)]
+    elif kernel == "flash_attention":
         q, k, v, mask, km = _flash_inputs(2, 4, 300, 300, 64, "key", torch.bfloat16, 3)
         wrapper = cf.flash_attention
         before = wrapper.launches, wrapper.tensor_core_launches
-        got = cf.flash_attention_simt(q, k, v, mask, km, True)
-        want = cf.flash_attention_reference(q, k, v, mask, km, True)
+        got = [cf.flash_attention_simt(q, k, v, mask, km, True)]
+        want = [cf.flash_attention_reference(q, k, v, mask, km, True)]
+    elif kernel == "patch_embed_u8":
+        x = torch.randint(0, 256, (2, 49, 3072), generator=g, device="cuda", dtype=torch.uint8)
+        w = torch.randn(3072, 768, generator=g, device="cuda") * 3e-4
+        b = torch.randn(768, generator=g, device="cuda")
+        wrapper = ci.patch_embed_u8
+        before = wrapper.launches, wrapper.tensor_core_launches
+        got = [ci.patch_embed_u8_simt(x, w, b, torch.bfloat16)]
+        want = [ci.patch_embed_reference(x, w, b, torch.bfloat16)]
+    else:
+        q, k, v, do = (torch.randn(4, 48, 512, generator=g, device="cuda").bfloat16()
+                       for _ in range(4))
+        km = _key_mask(g, 4, 48)
+        wrapper = ca.attention_nhd_bwd
+        before = wrapper.launches, wrapper.tensor_core_launches
+        got = ca.attention_nhd_bwd_simt(q, k, v, do, 8, km, True)
+        want = ca.attention_nhd_bwd_reference(q, k, v, do, 8, km, True)
     assert (wrapper.launches, wrapper.tensor_core_launches) == before
-    _assert_close(got, want)
+    for a, c in zip(got, want):
+        _assert_close(a, c)
 
 
 def test_flash_attention_reads_the_projection_layout():
