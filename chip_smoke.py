@@ -9,29 +9,37 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    versions, and the five kernels built from ``csrc/`` with nvcc (one
    process per source, started together), with their ``-Xptxas -v`` lines.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
-   fp32, at the shapes of the eval, training, SigLIP-384 and SigLIP-224
-   paths and a few edge shapes, each held to a stated tolerance, and timed
-   (kernel, plain version, one PyTorch library call as a yardstick the port
-   never calls) beside the card's bound for the same work. Each time is the
-   device's: 50 calls captured in a CUDA graph and timed over one replay
-   with CUDA events (``timed_by`` "graph"), or, for a call that cannot be
-   captured, CUDA events around 50 eager calls ("events"). The attention
-   kernels' yardstick is ``F.scaled_dot_product_attention`` on the same
-   [B, H, T, dh] inputs; the backward's is SDPA's backward (forward +
-   backward through autograd, less the forward); the embed's an fp32
-   ``matmul``. Every bf16 call of ``patch_embed_u8``, ``attention_nhd``,
-   ``attention_nhd_bwd`` and ``flash_attention`` runs on the tensor cores;
-   at the paths' shapes the earlier SIMT kernel (still built, for fp32) is
-   timed beside it on the same bf16 inputs, in the order SIMT, tensor
-   cores, tensor cores, SIMT.
+   fp32, at the shapes of the eval, training, SigLIP-384, SigLIP-224 and
+   SigLIP-224 training paths and a few edge shapes, each held to a stated
+   tolerance, and timed (kernel, plain version, one PyTorch library call as
+   a yardstick the port never calls) beside the card's bound for the same
+   work. Each time is the device's: 50 calls captured in a CUDA graph and
+   timed over one replay with CUDA events (``timed_by`` "graph"), or, for a
+   call that cannot be captured, CUDA events around 50 eager calls
+   ("events"). The attention kernels' yardstick is
+   ``F.scaled_dot_product_attention`` on the same [B, H, T, dh] inputs; the
+   backward's is SDPA's backward (forward + backward through autograd, less
+   the forward); the embed's an fp32 ``matmul``. Every bf16 call of the
+   five kernels runs on the tensor cores; at the paths' shapes (for
+   ``attention_small`` at every shape: [B, H, T, dh] views with a broadcast
+   [B, 1, T, S] mask, and the contiguous [B*H, T, S] form of the JAX
+   contract) the earlier SIMT kernel (still built, for fp32) is timed
+   beside it on the same bf16 inputs, in the order SIMT, tensor cores,
+   tensor cores, SIMT.
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
    written as a reference-format checkpoint, loaded with ``load_checkpoint``,
    run through ``FastInferenceEngine`` + ``evaluate_logits_u8`` in bf16 with
    the kernels, with text buckets off and on; the launch counters must show
    1 patch_embed_u8 and 24 attention_nhd launches per batch, every one of
    them on the tensor cores (``tensor_core_launches``); fp32 logits on
-   the card must match the same model's CPU logits; staged-batch samples/s
-   at seq 77 and at the seq-32 bucket.
+   the card must match the same model's CPU logits; the checkpoint written
+   again as ``model.safetensors`` (a writer in this script) must load
+   through ``load_checkpoint`` without the ``safetensors`` package, with
+   logits equal to the ``.bin``'s (difference 0.0); ``--engine standard``
+   (``evaluate_logits_standard`` over float_nchw pixels made from the same
+   uint8 crops with ``normalize_crop``, no PIL) must match the fast engine in
+   fp32 (atol 1e-4); ``compute_detailed_metrics`` runs on the card's
+   logits; staged-batch samples/s at seq 77 and at the seq-32 bucket.
 4. Fine-tuning at full width: ``Trainer`` on the same model (fp32 master
    weights, bf16 towers, the kernels in both passes, u8 wire, batch 32,
    gradient accumulation 2, ``text_fit`` width 48) for a few optimizer
@@ -61,7 +69,19 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``attention_nhd`` (vision T=196 and text), all on the tensor cores, and no
    ``flash_attention`` per batch, samples/s and a profiler breakdown. Then
    ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
-   ``attention_small`` once per call, against the "xla" core.
+   ``attention_small`` once per call (the bf16 call on the tensor cores),
+   against the "xla" core.
+6. The shipped fine-tuning configs on the f32 wire through ``Trainer``:
+   CLIP as ``config/clip_fusion.yaml`` ships it (attention "xla", bf16,
+   B=32 x 2; no kernel runs), with the f32 wire's micro-step loss held
+   against the u8 wire's on the same rows and dropout draw; and
+   SigLIP2-B/16-224 at ``config/siglip_fusion.yaml`` settings (full width
+   and depth, B=24 x 2, text seq 64), once as shipped (attention "xla") and
+   once with attention "pallas" (``attention_nhd`` and
+   ``attention_nhd_bwd`` at vision T=196 and on the text key mask, counted
+   exactly, all on the tensor cores), each with a falling loss on a fixed
+   batch and CUDA-event forward / backward / optimizer ms per micro-step;
+   then fp32 card-vs-CPU SigLIP gradients on every leaf.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -73,6 +93,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -95,6 +116,14 @@ N_SIGLIP_BATCHES = 4
 SIGLIP_T = 576  # (384 / 16)^2 patch tokens, no class token
 SIGLIP224_T = 196  # (224 / 16)^2: config/siglip_fusion.yaml's google/siglip2-base-patch16-224
 N_SIGLIP224_BATCHES = 8  # staged batches per pass
+SIGLIP_TRAIN_BATCH = 24  # config/siglip_fusion.yaml: batch 24, gradient accumulation 2
+# the attention shapes of one SigLIP2-B/16-224 training micro-step (both
+# passes): B, T, D, heads, causal, key mask, label
+SIGLIP224_TRAIN_SPECS = [
+    (SIGLIP_TRAIN_BATCH, SIGLIP224_T, 768, 12, False, False, "siglip224 train path: vision tower"),
+    (SIGLIP_TRAIN_BATCH, 64, 768, 12, False, True,
+     "siglip224 train path: text tower, seq 64, key mask"),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -171,12 +200,13 @@ def _paths(label: str, dtype: str):
     """The paths whose unit of work a bf16 case times: "evaluate" (CLIP,
     B=144), "train" (CLIP, B=32), "siglip384" and "siglip224" (SigLIP2-B/16
     at 384 and 224 px, B=64; "siglip text" is the text tower of both),
-    "mha_dense_mask"."""
+    "siglip224_train" (SigLIP2-B/16-224 training, B=24), "mha_dense_mask"."""
     if dtype != "bfloat16":
         return []
     return {"main path": ["evaluate"], "train path": ["train"],
             "siglip384 path": ["siglip384"], "siglip224 path": ["siglip224"],
             "siglip text": ["siglip384", "siglip224"],
+            "siglip224 train path": ["siglip224_train"],
             "mha dense mask": ["mha_dense_mask"]}.get(label.split(":")[0], [])
 
 
@@ -298,6 +328,7 @@ def attention_cases(torch, g):
     specs += [(SIGLIP_BATCH, 64, 768, 12, False, True,
                "siglip text: text tower, seq 64, key mask, not causal"),
               (SIGLIP_BATCH, SIGLIP224_T, 768, 12, False, False, "siglip224 path: vision tower")]
+    specs += SIGLIP224_TRAIN_SPECS
     # the shapes at which the earlier SIMT kernel is timed beside the new one
     simt_at = {"main path: vision tower", "main path: text tower, seq 77",
                "siglip224 path: vision tower"}
@@ -412,8 +443,11 @@ def flash_cases(torch, g):
 
 
 def small_cases(torch, g):
-    """``attention_small`` on [B*H, T, dh] with the mask forms fused_mha
-    gives it: a dense mask, none, and causal + key padding folded into one."""
+    """``attention_small`` with the mask forms fused_mha gives it (a dense
+    mask, none, and causal + key padding folded into one), in the two
+    layouts: [B, H, T, dh] views of [B, T, D] memory with the mask read
+    broadcast ([B, 1, T, S], the layout ``mha`` passes), and contiguous
+    [B*H, T, dh] with a [B*H, T, S] mask (the JAX contract)."""
     import torch.nn.functional as F
 
     from multimodal_content_moderation_tpu_torch.ops import cuda_attention as ca
@@ -421,17 +455,19 @@ def small_cases(torch, g):
 
     tol = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)}
     B = SIGLIP_BATCH
-    specs = [  # B, H, T, dh, mask kind, label
-        (B, 8, 77, 64, "dense", "mha dense mask: CLIP text shape, seq 77"),
-        (B, 12, 50, 64, None, "no mask, seq 50"),
-        (B, 8, 77, 64, "folded", "folded causal + key mask, seq 77"),
+    specs = [  # B, H, T, dh, mask kind, layout, label
+        (B, 8, 77, 64, "dense", "views", "mha dense mask: CLIP text shape, seq 77"),
+        (B, 8, 77, 64, "dense", "contiguous", "contiguous [BH, T, S] dense mask, seq 77"),
+        (B, 12, 50, 64, None, "views", "no mask, seq 50"),
+        (B, 8, 77, 64, "folded", "views", "folded causal + key mask, seq 77"),
     ]
     cases = []
-    for B, H, T, dh, kind, label in specs:
+    for B, H, T, dh, kind, layout, label in specs:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
-            q, k, v = (torch.randn(B * H, T, dh, generator=g, device="cuda").to(dt)
-                       for _ in range(3))
+            q3, k3, v3 = (torch.randn(B, T, H * dh, generator=g, device="cuda").to(dt)
+                          for _ in range(3))
+            q, k, v = (t.view(B, T, H, dh).transpose(1, 2) for t in (q3, k3, v3))
             mask = keep4 = None
             if kind is not None:
                 keep = _keep_rows(torch, g, B, T)
@@ -442,34 +478,55 @@ def small_cases(torch, g):
                     keep4 = keep[:, None, None, :] & (
                         torch.rand(B, 1, T, T, generator=g, device="cuda") < 0.8)
                     keep4[..., 0] = True
-                    base = torch.where(keep4, 0.0, ca.NEG_INF)
+                    mask = torch.where(keep4, 0.0, ca.NEG_INF)
                 else:  # fused_mha's fold: zeros + causal + the key row
                     causal = torch.ones(T, T, dtype=torch.bool, device="cuda").tril()
-                    base = (torch.zeros(B, 1, T, T, device="cuda")
+                    mask = (torch.zeros(1, 1, T, T, device="cuda")
                             + torch.where(causal, 0.0, ca.NEG_INF)
                             + ((1.0 - keep.float()) * ca.NEG_INF)[:, None, None, :])
                     keep4 = keep[:, None, None, :] & causal
-                mask = base.expand(B, H, T, T).reshape(B * H, T, T).contiguous()
+            if layout == "contiguous":
+                q, k, v = (t.reshape(B * H, T, dh) for t in (q, k, v))
+                if mask is not None:
+                    mask = mask.expand(B, H, T, T).reshape(B * H, T, T).contiguous()
+            before = (cf.attention_small.launches, cf.attention_small.tensor_core_launches)
             got = cf.attention_small(q, k, v, mask)
+            launched = (cf.attention_small.launches - before[0],
+                        cf.attention_small.tensor_core_launches - before[1])
+            # one launch, on the tensor cores exactly when bf16
+            check(launched == (1, int(dtype == "bfloat16")),
+                  f"attention_small {label} {dtype}: (launches, tensor-core launches) {launched}")
             want = cf.attention_small_reference(q, k, v, mask)
             torch.cuda.synchronize()
             atol, rtol = tol[dtype]
             err, ok = max_err_within(got, want, atol, rtol)
             check(ok, f"attention_small {label} {dtype}: max abs err {err} beyond "
                       f"atol {atol} + rtol {rtol}")
-            # the JAX cost estimate (pallas_attention.py:95-101)
-            nbytes = 4 * B * H * T * dh * dt.itemsize + (B * H * T * T * 4 if kind else 0)
-            bms, by = bound_ms(nbytes, 4.0 * B * H * T * T * dh, dtype)
+            # q, k, v and out once each, and the fp32 mask as passed: [B, 1,
+            # T, S] read through a head stride of 0 in the views layout,
+            # [B*H, T, S] in the contiguous one
+            qkvo = 4 * B * H * T * dh * dt.itemsize
+            flops = 4.0 * B * H * T * T * dh
+            bms, by = bound_ms(qkvo + (4 * mask.numel() if kind else 0), flops, dtype)
+            # the JAX cost estimate (pallas_attention.py:95-101) counts an
+            # expanded [B*H, T, S] mask whatever the layout
+            jax_ms, _ = bound_ms(qkvo + (4 * B * H * T * T if kind else 0), flops, dtype)
             q4, k4, v4 = (t.view(B, H, T, dh) for t in (q, k, v))
             case = {
-                "kernel": "attention_small", "case": f"{label}: BH={B * H} T={T} dh={dh}",
+                "kernel": "attention_small",
+                "case": f"{label}: {layout}, BH={B * H} T={T} dh={dh}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
+                "tensor_core": bool(launched[1]),
                 "paths": _paths(label, dtype), "bound_ms": bms, "bound_by": by,
+                "jax_estimate_ms": jax_ms,
             }
             timed(case, "ms", lambda: cf.attention_small(q, k, v, mask))
             timed(case, "plain_ms", lambda: cf.attention_small_reference(q, k, v, mask))
             timed(case, "library_ms",
                   lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep4))
+            if dtype == "bfloat16":  # the earlier SIMT kernel beside, every layout
+                simt_beside(case, lambda: cf.attention_small(q, k, v, mask),
+                            lambda: cf.attention_small_simt(q, k, v, mask), want, atol, rtol)
             cases.append(case)
     return cases
 
@@ -489,6 +546,7 @@ def attention_bwd_cases(torch, g):
     ]
     specs += [(16, T, 768, 12, False, True, f"key mask, seq {T}") for T in (131, 196, 197)]
     specs += [(4, 256, 256, 2, True, True, "seq 256, head dim 128")]
+    specs += SIGLIP224_TRAIN_SPECS
     cases = []
     for B, T, D, h, causal, with_km, label in specs:
         for dtype in ("bfloat16", "float32"):
@@ -668,18 +726,46 @@ def reference_state_dict(model) -> dict:
     return {k: x.detach().cpu().contiguous().clone() for k, x in sd.items()}
 
 
+def save_safetensors(sd: dict, path: str) -> None:
+    """{name: tensor} -> a ``model.safetensors`` of fp32 tensors (what the
+    JAX package's export writes), with the standard library and numpy: an
+    8-byte little-endian header length, a JSON header of each tensor's
+    dtype, shape and data offsets, padded with spaces to 8 bytes, then the
+    raw little-endian data."""
+    import numpy as np
+
+    header, blobs, offset = {}, [], 0
+    for name in sorted(sd):
+        raw = np.ascontiguousarray(sd[name].detach().cpu().float().numpy(), "<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(sd[name].shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
 class InMemoryDataset:
     """Seeded uint8 crops and token ids with the ``.batches()`` contract of
     ``data.dataset.CSVDataset``. CLIP-style ids (the default): BOS, random
     tokens, EOS at a position between 8 and 40, EOS padding, 224x224 crops.
     SigLIP-style (``siglip=True``): 8 to 60 random tokens then PAD (id 0)
     padding, so the rows fall in the 32, 48 and 64 text buckets, and
-    ``image_size`` crops."""
+    ``image_size`` crops. With ``stats`` (mean, std) the batches carry the
+    crops as normalised float32 CHW pixels (a float_nchw preprocessor's
+    output, through ``data.images.normalize_crop``), else as the uint8
+    crops."""
 
     def __init__(self, n: int, seed: int, T: int = 77, siglip: bool = False,
-                 image_size: int = 224):
+                 image_size: int = 224, stats=None):
         import numpy as np
 
+        self.stats = stats
         g = np.random.default_rng(seed)
         self.attention_mask = np.zeros((n, T), np.int32)
         if siglip:
@@ -709,6 +795,16 @@ class InMemoryDataset:
         self.input_ids = self.input_ids[:, :width].copy()
         self.attention_mask = self.attention_mask[:, :width].copy()
 
+    def pixels(self, idx):
+        """The rows' images as the batches carry them."""
+        import numpy as np
+
+        from multimodal_content_moderation_tpu_torch.data.images import normalize_crop
+
+        if self.stats is None:
+            return self.images[idx]
+        return np.stack([normalize_crop(c, *self.stats) for c in self.images[idx]])
+
     def batches(self, batch_size, drop_last=False, pad_to_batch=False, num_workers=0,
                 indices=None):
         import numpy as np
@@ -720,7 +816,7 @@ class InMemoryDataset:
             batch = {
                 "input_ids": self.input_ids[idx],
                 "attention_mask": self.attention_mask[idx],
-                "pixel_values": self.images[idx],
+                "pixel_values": self.pixels(idx),
                 "text_present": self.text_present[idx],
                 "image_present": self.image_present[idx],
                 "labels": self.labels[idx],
@@ -743,6 +839,7 @@ def full_model_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.training.metrics import compute_detailed_metrics
 
     report = {}
     ckpt = os.path.join(REPO, "build", "chip_smoke_checkpoint")
@@ -787,7 +884,9 @@ def full_model_phase(torch, card: str):
     check(err <= 2e-3 and bool(outs[0].isfinite().all()),
           f"fp32 logits on the card differ from the CPU's by {err} (atol 2e-3)")
     del cpu_model
+    report["safetensors_checkpoint"] = safetensors_checkpoint_check(torch, model, ckpt, rows)
     shutil.rmtree(ckpt, ignore_errors=True)
+    report["standard_vs_fast_engine"] = standard_engine_check(torch, model)
 
     # the main path: bf16 towers with the attention_nhd kernel
     bf16 = model_io.with_performance_options(
@@ -817,6 +916,14 @@ def full_model_phase(torch, card: str):
     report["main_path_batches"] = n_batches
     for name, r in runs.items():
         report[f"evaluate_{name}_samples_per_s_incl_host_prep"] = len(data) / r["wall_s"]
+    # the evaluate CLI's report on the card's results: numpy, no sklearn
+    probs = 1.0 / (1.0 + np.exp(-runs["seq_buckets_off"]["logits"]))
+    detailed = compute_detailed_metrics(probs, data.labels, 0.5, CLASSES)
+    check(set(detailed["per_class"]) == set(CLASSES)
+          and all(np.isfinite(v) for k, v in detailed.items() if k != "per_class")
+          and all(np.isfinite(x) for cm in detailed["per_class"].values() for x in cm.values()),
+          f"compute_detailed_metrics on the card's logits: {detailed}")
+    report["detailed_metrics"] = {k: v for k, v in detailed.items() if k != "per_class"}
 
     # staged-batch throughput, as bench.py measures it: inputs already on
     # the card, distinct ids per batch, one synchronise per pass
@@ -853,6 +960,111 @@ def full_model_phase(torch, card: str):
     return report
 
 
+def safetensors_checkpoint_check(torch, model, ckpt, rows):
+    """The checkpoint of ``ckpt`` (``pytorch_model.bin``) written again as a
+    reference-format ``model.safetensors`` (the JAX package's export format)
+    and read by ``load_checkpoint`` on the card with the ``safetensors``
+    package hidden from imports, so through the port's own reader
+    (``convert.read_safetensors``): the same parameters, and fp32 logits
+    equal to the ``.bin`` model's (difference 0.0). Where the package is
+    installed, the reader's arrays must also equal its ``load_file``'s."""
+    import importlib.util
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import convert
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+
+    st_dir = ckpt + "_safetensors"
+    shutil.rmtree(st_dir, ignore_errors=True)
+    os.makedirs(st_dir)
+    sd = torch.load(os.path.join(ckpt, "pytorch_model.bin"), map_location="cpu", weights_only=True)
+    st_file = os.path.join(st_dir, "model.safetensors")
+    t0 = time.perf_counter()
+    save_safetensors(sd, st_file)
+    write_s = time.perf_counter() - t0
+    del sd
+    for name in ("config.json", "inference_config.json"):
+        shutil.copy(os.path.join(ckpt, name), st_dir)
+    installed = importlib.util.find_spec("safetensors") is not None
+    if installed:
+        from safetensors.numpy import load_file
+
+        want, got = load_file(st_file), convert.read_safetensors(st_file)
+        check(want.keys() == got.keys()
+              and all(want[k].dtype == got[k].dtype and np.array_equal(want[k], got[k])
+                      for k in want),
+              "read_safetensors differs from safetensors.numpy.load_file")
+        del want, got
+    # None in sys.modules makes an import raise ImportError: load_safetensors
+    # then takes the port's reader, as on a machine without the package
+    names = ("safetensors", "safetensors.numpy")
+    saved = {n: sys.modules.get(n) for n in names}
+    sys.modules.update(dict.fromkeys(names))
+    try:
+        t0 = time.perf_counter()
+        st_model, _ = model_io.load_checkpoint(st_dir, device="cuda")
+        load_s = time.perf_counter() - t0
+    finally:
+        for n, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = mod
+    shutil.rmtree(st_dir, ignore_errors=True)
+    want_sd = model.state_dict()
+    for name, x in st_model.state_dict().items():
+        check(torch.equal(x, want_sd[name]), f"model.safetensors: {name} differs from the .bin's")
+    outs = []
+    for m in (model, st_model):
+        eng = fi.FastInferenceEngine(
+            model_io.with_performance_options(m, attention_impl="pallas"), CLIP_MEAN, CLIP_STD)
+        outs.append(eng(rows["input_ids"], rows["attention_mask"],
+                        eng.patches_from_hwc(rows["pixel_values"]),
+                        rows["text_present"], rows["image_present"]))
+    diff = float((outs[0] - outs[1]).abs().max())
+    check(diff == 0.0, f"model.safetensors logits differ from the .bin's by {diff}")
+    return {"safetensors_package_installed": installed,
+            "reader_equals_package": installed or "not checked (no package)",
+            "loaded_with_package_hidden": True,
+            "write_s": write_s, "load_checkpoint_s": load_s, "logits_max_abs_diff": diff}
+
+
+def standard_engine_check(torch, model):
+    """``--engine standard`` against ``--engine fast`` on the card, fp32 with
+    the kernels (TF32 off), 2 batches of 64 rows: ``evaluate_logits_standard`` over
+    float_nchw pixels built from the crops with ``normalize_crop`` (no PIL)
+    against ``evaluate_logits_u8`` over the same uint8 crops, buckets off.
+    atol 1e-4: the u8 wire folds the normalisation into the embed weight,
+    the standard engine normalises then embeds, so the two round apart."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.training.loop import evaluate_logits_standard
+
+    fp32 = model_io.with_performance_options(model, attention_impl="pallas")
+    n = 2 * 64 - 3  # a padded last batch
+    u8_data = InMemoryDataset(n, seed=12)
+    float_data = InMemoryDataset(n, seed=12, stats=(CLIP_MEAN, CLIP_STD))
+    fast, labels = fi.evaluate_logits_u8(fi.FastInferenceEngine(fp32, CLIP_MEAN, CLIP_STD),
+                                         u8_data, 64, num_workers=2)
+    counts = _reset_counts()
+    standard, labels_std = evaluate_logits_standard(fp32, float_data, 64, num_workers=2)
+    launches = counts()
+    check(launches == _counts(False, attention_nhd=24 * 2),
+          f"standard engine launches {launches}: want 24 attention_nhd a batch, no embed kernel")
+    np.testing.assert_array_equal(labels, labels_std)
+    err = float(np.abs(standard - fast).max())
+    check(standard.shape == (n, len(CLASSES)) and np.isfinite(standard).all() and err <= 1e-4,
+          f"standard engine logits {standard.shape} differ from the fast engine's by {err} "
+          "(fp32 atol 1e-4)")
+    return {"rows": n, "max_abs_err": err, "launches": launches}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: fine-tuning at full width
 # ---------------------------------------------------------------------------
@@ -874,7 +1086,8 @@ def _wrappers():
 
 
 # kernels with a tensor_core_launches count: every bf16 launch goes there
-TENSOR_CORE = ["patch_embed_u8", "attention_nhd", "attention_nhd_bwd", "flash_attention"]
+TENSOR_CORE = ["patch_embed_u8", "attention_nhd", "attention_nhd_bwd", "flash_attention",
+               "attention_small"]
 
 
 def _reset_counts():
@@ -904,16 +1117,99 @@ def _counts(tensor_cores: bool = True, **nonzero):
     return counts
 
 
-def _device_batch(torch, data, idx, patch_size):
+def _device_batch(torch, data, idx, patch_size=None):
+    """Rows ``idx`` of ``data`` on the card: the image as uint8 patch rows
+    with a ``patch_size`` (the u8 wire), else as ``data.pixels`` (the f32
+    wire for a dataset with stats)."""
     from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
 
+    image = ({"patches_u8": extract_patches_u8(data.images[idx], patch_size)}
+             if patch_size is not None else {"pixel_values": data.pixels(idx)})
+    host = {
+        "input_ids": data.input_ids[idx], "attention_mask": data.attention_mask[idx],
+        "text_present": data.text_present[idx], "image_present": data.image_present[idx],
+        "labels": data.labels[idx], **image,
+    }
+    return {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+
+
+def leafwise_grad_check(card, cpu):
+    """Fp32 gradients on the card against the CPU's, leaf by leaf, from
+    ``_leaf_grads``: |card - cpu| <= 1e-3 * max|cpu leaf| + 1e-6 * max|cpu,
+    all leaves|: fp32 sums over 12 layers in another order. The floor is
+    for leaves whose exact gradient is 0 (the attention key bias: softmax
+    does not see a shift shared by every key), where both devices hold
+    rounding noise. A leaf that is zero on the card and not on the CPU
+    fails; the losses agree within 1e-4."""
+    (loss_card, g_card), (loss_cpu, g_cpu) = card, cpu
+    check(abs(loss_card - loss_cpu) <= 1e-4, f"fp32 loss card {loss_card} vs cpu {loss_cpu}")
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values() if g is not None)
+    ratios = []
+    for name, want_g in g_cpu.items():
+        got_g = g_card[name]
+        if want_g is None:
+            check(got_g is None, f"{name}: a gradient on the card, none on the CPU")
+            continue
+        check(got_g is not None, f"{name}: no gradient on the card")
+        scale = float(want_g.abs().max())
+        err = float((got_g - want_g).abs().max())
+        check(not (scale > floor and float(got_g.abs().max()) == 0),
+              f"{name}: gradient zero on the card, {scale} on the CPU")
+        tol = 1e-3 * scale + floor
+        check(err <= tol, f"{name}: card vs cpu gradient err {err} (leaf max {scale}, tol {tol})")
+        ratios.append((err / tol, name, err, scale))
+    ratios.sort(reverse=True)
     return {
-        "input_ids": torch.from_numpy(data.input_ids[idx]).cuda(),
-        "attention_mask": torch.from_numpy(data.attention_mask[idx]).cuda(),
-        "patches_u8": torch.from_numpy(extract_patches_u8(data.images[idx], patch_size)).cuda(),
-        "text_present": torch.from_numpy(data.text_present[idx]).cuda(),
-        "image_present": torch.from_numpy(data.image_present[idx]).cuda(),
-        "labels": torch.from_numpy(data.labels[idx]).cuda(),
+        "leaves": len(ratios), "floor": floor, "loss_card": loss_card, "loss_cpu": loss_cpu,
+        "worst_err_over_tol": [{"leaf": n, "err": e, "leaf_max": sc, "err_over_tol": r}
+                               for r, n, e, sc in ratios[:4]],
+    }
+
+
+def fixed_batch_loss_falls(torch, model, batch, lr_encoder, lr_head, steps: int = 10):
+    """The loss on one fixed batch before and after ``steps`` optimizer
+    steps (dropout on, a seeded generator); fails unless it fell."""
+    from multimodal_content_moderation_tpu_torch.training.loop import make_train_step
+    from multimodal_content_moderation_tpu_torch.training.optim import AdamW
+
+    opt = AdamW(dict(model.named_parameters()), lr_encoder=lr_encoder, lr_head=lr_head,
+                total_steps=steps, warmup_ratio=0.0, schedule="constant")
+    step = make_train_step(model, opt, generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        before = float(model(batch)["loss"])
+    for _ in range(steps):
+        step(batch)
+    with torch.no_grad():
+        after = float(model(batch)["loss"])
+    check(after < before, f"loss on a fixed batch did not fall: {before} -> {after}")
+    return {"before": before, f"after_{steps}_steps": after}
+
+
+def staged_training(torch, model, staged, card, accum, batch_size):
+    """Training samples/s over staged batches (3 passes of 8 micro-steps),
+    the CUDA-event time of the forward, backward and optimizer per
+    micro-step, and a profiler breakdown of one optimizer step."""
+    from multimodal_content_moderation_tpu_torch.training.loop import make_train_step
+    from multimodal_content_moderation_tpu_torch.training.optim import AdamW
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    opt = AdamW(dict(model.named_parameters()), total_steps=100, accumulation_steps=accum)
+    step = make_train_step(model, opt, generator=gen)
+    for b in staged:
+        step(b)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i in range(8):
+            step(staged[i % len(staged)])
+        torch.cuda.synchronize()
+        rates.append(8 * batch_size / (time.perf_counter() - t0))
+    return {
+        "staged_train_samples_per_s": {"median": sorted(rates)[1], "passes": rates, "card": card},
+        "train_step_parts_ms": step_parts_ms(torch, model, opt, gen, staged),
+        "device_time_train": device_time_breakdown(
+            torch, lambda: [step(staged[i]) for i in range(accum)], 1),
     }
 
 
@@ -971,11 +1267,9 @@ def train_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
     from multimodal_content_moderation_tpu_torch.training import checkpoints as ckpt_lib
-    from multimodal_content_moderation_tpu_torch.training.loop import (
-        TrainArgs, Trainer, make_train_step)
+    from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs, Trainer
     from multimodal_content_moderation_tpu_torch.training.metrics import (
         make_compute_metrics_multi)
-    from multimodal_content_moderation_tpu_torch.training.optim import AdamW
 
     report = {}
     out_dir = os.path.join(REPO, "build", "chip_smoke_run")
@@ -1073,75 +1367,20 @@ def train_phase(torch, card: str):
                                       attention_nhd_bwd=24),
                   f"gradient check launches {counts()}")
         del m
-    (loss_card, g_card), (loss_cpu, g_cpu) = grads["cuda"], grads["cpu"]
-    check(abs(loss_card - loss_cpu) <= 1e-4, f"fp32 loss card {loss_card} vs cpu {loss_cpu}")
-    # per leaf: |card - cpu| <= 1e-3 * max|cpu leaf| + 1e-6 * max|cpu, all
-    # leaves|: fp32 sums over 12 layers in another order. The floor is for
-    # leaves whose exact gradient is 0 (the attention key bias: softmax does
-    # not see a shift shared by every key), where both devices hold rounding
-    # noise. A leaf that is zero on the card and not on the CPU fails.
-    floor = 1e-6 * max(float(g.abs().max()) for g in g_cpu.values() if g is not None)
-    ratios = []
-    for name, want_g in g_cpu.items():
-        got_g = g_card[name]
-        if want_g is None:
-            check(got_g is None, f"{name}: a gradient on the card, none on the CPU")
-            continue
-        check(got_g is not None, f"{name}: no gradient on the card")
-        scale = float(want_g.abs().max())
-        err = float((got_g - want_g).abs().max())
-        check(not (scale > floor and float(got_g.abs().max()) == 0),
-              f"{name}: gradient zero on the card, {scale} on the CPU")
-        tol = 1e-3 * scale + floor
-        check(err <= tol, f"{name}: card vs cpu gradient err {err} (leaf max {scale}, tol {tol})")
-        ratios.append((err / tol, name, err, scale))
-    ratios.sort(reverse=True)
-    report["grad_check"] = {
-        "leaves": len(ratios), "floor": floor, "loss_card": loss_card, "loss_cpu": loss_cpu,
-        "worst_err_over_tol": [{"leaf": n, "err": e, "leaf_max": sc, "err_over_tol": r}
-                               for r, n, e, sc in ratios[:4]],
-    }
-    del grads, g_card, g_cpu
+    report["grad_check"] = leafwise_grad_check(grads["cuda"], grads["cpu"])
+    del grads
     # the check above runs fp32, which bypasses the bf16 dense's backward
     report["dense_bf16_grad_check"] = dense_bf16_grad_check(torch)
 
     # learning: the loss on one fixed batch falls over 10 optimizer steps
     model = new_model(seed=2, **bf16_pallas)
-    batch = _device_batch(torch, train_ds, np.arange(TRAIN_BATCH), 32)
-    opt = AdamW(dict(model.named_parameters()), lr_encoder=1e-5, lr_head=5e-4,
-                total_steps=10, warmup_ratio=0.0, schedule="constant")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    step = make_train_step(model, opt, generator=gen)
-    with torch.no_grad():
-        before = float(model(batch)["loss"])
-    for _ in range(10):
-        step(batch)
-    with torch.no_grad():
-        after = float(model(batch)["loss"])
-    check(after < before, f"loss on a fixed batch did not fall: {before} -> {after}")
-    report["fixed_batch_loss"] = {"before": before, "after_10_steps": after}
+    report["fixed_batch_loss"] = fixed_batch_loss_falls(
+        torch, model, _device_batch(torch, train_ds, np.arange(TRAIN_BATCH), 32), 1e-5, 5e-4)
 
     # throughput on staged batches, and the time of each part of a step
-    opt = AdamW(dict(model.named_parameters()), total_steps=100,
-                accumulation_steps=TRAIN_ACCUM)
-    step = make_train_step(model, opt, generator=gen)
     staged = [_device_batch(torch, train_ds, np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH), 32)
               for i in range(4)]
-    for b in staged:
-        step(b)
-    torch.cuda.synchronize()
-    rates = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for i in range(8):
-            step(staged[i % 4])
-        torch.cuda.synchronize()
-        rates.append(8 * TRAIN_BATCH / (time.perf_counter() - t0))
-    report["staged_train_samples_per_s"] = {"median": sorted(rates)[1], "passes": rates,
-                                           "card": card}
-    report["train_step_parts_ms"] = step_parts_ms(torch, model, opt, gen, staged)
-    report["device_time_train"] = device_time_breakdown(
-        torch, lambda: [step(staged[i]) for i in range(TRAIN_ACCUM)], 1)
+    report.update(staged_training(torch, model, staged, card, TRAIN_ACCUM, TRAIN_BATCH))
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     shutil.rmtree(out_dir, ignore_errors=True)
     return report
@@ -1167,6 +1406,194 @@ def step_parts_ms(torch, model, opt, gen, staged, n: int = 8):
             parts[k] += ev[j].elapsed_time(ev[j + 1]) / n
     parts["optimizer_note"] = "mean over micro-steps; the update itself runs on every 2nd"
     return parts
+
+
+def trainer_run(torch, model, args, train_ds, val_ds, want_fn, label):
+    """``Trainer.train`` for one epoch on the card, counted from 0: the
+    launches must equal ``want_fn(micro_steps, eval_batches)``; returns the
+    report and the trainer."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.training.loop import Trainer
+    from multimodal_content_moderation_tpu_torch.training.metrics import (
+        make_compute_metrics_multi)
+
+    trainer = Trainer(model, args, train_ds, val_ds, make_compute_metrics_multi(len(CLASSES)),
+                      device="cuda")
+    n_micro = len(train_ds) // args.per_device_train_batch_size
+    eval_batches = -(-len(val_ds) // args.per_device_eval_batch_size)
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = want_fn(n_micro, eval_batches)
+    check(launches == want, f"{label}: launches {launches}, want {want} for {n_micro} "
+                            f"micro-steps + {eval_batches} eval batches")
+    accum = args.gradient_accumulation_steps
+    check(result["global_step"] == n_micro and trainer.optimizer.count == n_micro // accum,
+          f"{label}: global_step {result['global_step']}, optimizer {trainer.optimizer.count}")
+    hist = result["history"][0]
+    check(np.isfinite(hist["loss"]) and np.isfinite(hist["train_loss"]),
+          f"{label}: non-finite eval/train loss {hist}")
+    return {"main_path_launches": launches, "micro_steps": n_micro, "eval_batches": eval_batches,
+            "optimizer_steps": trainer.optimizer.count, "history": result["history"],
+            "train_wall_s": wall,
+            "trainer_samples_per_s": result["train_samples_per_second"]}, trainer
+
+
+def clip_f32_train_phase(torch, card: str):
+    """CLIP ViT-B/32 fine-tuning as ``config/clip_fusion.yaml`` ships it:
+    the f32 wire (normalised pixels through the pixel path), the "xla"
+    attention core, bf16 towers on fp32 master weights, B=32 x 2, text_fit
+    width 48, 4 optimizer steps and a standard-engine eval through
+    ``Trainer.train`` (no kernel runs: the launch counts stay 0); the loss
+    on a fixed batch falls; one micro-step's loss on the f32 wire against
+    the u8 wire's on the same rows and dropout draw (fp32 atol 1e-4: the
+    two wires round the embed apart; bf16 atol 2e-2: the f32 wire rounds
+    the pixels and the embed weight to bf16, the u8 wire neither); staged
+    samples/s, CUDA-event step parts and a profiler breakdown."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
+    from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke_clip_f32")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    stats = (CLIP_MEAN, CLIP_STD)
+    train_ds = InMemoryDataset(8 * TRAIN_BATCH, seed=3, stats=stats)
+    val_ds = InMemoryDataset(64 - 7, seed=4, stats=stats)
+    for d in (train_ds, val_ds):
+        d.truncate_text(TRAIN_SEQ)
+
+    def new_model(seed=0, **perf):
+        m = FusionModel.create("clip", num_labels=len(CLASSES), seed=seed, device="cuda")
+        return model_io.with_performance_options(m, **perf)
+
+    args = TrainArgs(
+        output_dir=out_dir, num_train_epochs=1, per_device_train_batch_size=TRAIN_BATCH,
+        per_device_eval_batch_size=64, gradient_accumulation_steps=TRAIN_ACCUM,
+        logging_steps=4, save_total_limit=1, early_stopping=False, wire="f32",
+        num_workers=4, seed=0,
+    )
+    report, trainer = trainer_run(torch, new_model(compute_dtype="bfloat16"), args, train_ds,
+                                  val_ds, lambda micro, evals: _counts(), "clip f32 training")
+    del trainer
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the f32 wire against the u8 wire: the same rows and dropout draw
+    idx = np.arange(TRAIN_BATCH)
+    f32_batch = _device_batch(torch, train_ds, idx)
+    u8_batch = {**{k: v for k, v in f32_batch.items() if k != "pixel_values"},
+                "patches_u8": torch.from_numpy(extract_patches_u8(train_ds.images[idx], 32)).cuda()}
+    wires = {}
+    for dtype, atol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        m = new_model(seed=1, compute_dtype=dtype).replace(image_mean=CLIP_MEAN,
+                                                           image_std=CLIP_STD)
+        losses = []
+        for batch in (f32_batch, u8_batch):
+            with torch.no_grad():
+                gen = torch.Generator(device="cuda").manual_seed(5)
+                losses.append(float(m(batch, generator=gen)["loss"]))
+        err = abs(losses[0] - losses[1])
+        check(err <= atol, f"{dtype} micro-step loss: f32 wire {losses[0]}, u8 wire "
+                           f"{losses[1]} (atol {atol})")
+        wires[dtype] = {"f32_wire": losses[0], "u8_wire": losses[1], "abs_diff": err,
+                        "atol": atol}
+        del m
+    report["f32_vs_u8_wire_loss"] = wires
+
+    model = new_model(seed=2, compute_dtype="bfloat16")
+    report["fixed_batch_loss"] = fixed_batch_loss_falls(torch, model, f32_batch, 1e-5, 5e-4)
+    staged = [_device_batch(torch, train_ds, np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH))
+              for i in range(4)]
+    report.update(staged_training(torch, model, staged, card, TRAIN_ACCUM, TRAIN_BATCH))
+    return report
+
+
+def siglip224_train_phase(torch, card: str):
+    """SigLIP2-B/16-224 fine-tuning at ``config/siglip_fusion.yaml``
+    settings, full width and depth, random weights from a seed: the f32
+    wire, bf16 towers on fp32 master weights, B=24 x 2, text seq 64 (SigLIP
+    ignores text_fit), 4 optimizer steps and a standard-engine eval through
+    ``Trainer.train``, once as shipped (attention "xla": no kernel runs) and
+    once with attention "pallas" (``attention_nhd`` and
+    ``attention_nhd_bwd`` on the vision tower at T=196 without a mask and on
+    the text tower with its key mask: 24 of each per micro-step, 24
+    forward launches per eval batch, every one on the tensor cores). For
+    each: the loss on a fixed batch falls, staged samples/s, CUDA-event
+    forward / backward / optimizer ms per micro-step and a profiler
+    breakdown. Then fp32 gradients with the kernels on the card against the
+    CPU's plain versions on every leaf, 2 rows."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs
+
+    cfg = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224)
+    stats = (SIGLIP_MEAN, SIGLIP_STD)
+    B = SIGLIP_TRAIN_BATCH
+    train_ds = InMemoryDataset(8 * B, seed=10, T=64, siglip=True, stats=stats)
+    val_ds = InMemoryDataset(64 - 7, seed=11, T=64, siglip=True, stats=stats)
+
+    def new_model(seed=0, device="cuda", **perf):
+        m = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=seed,
+                               device=device)
+        return model_io.with_performance_options(m, **perf)
+
+    report = {}
+    for impl in ("xla", "pallas"):
+        out_dir = os.path.join(REPO, "build", f"chip_smoke_siglip224_{impl}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        args = TrainArgs(
+            output_dir=out_dir, num_train_epochs=1, per_device_train_batch_size=B,
+            per_device_eval_batch_size=64, gradient_accumulation_steps=2, lr_encoder=5e-6,
+            lr_head=3e-4, logging_steps=4, save_total_limit=1, early_stopping=False,
+            wire="f32", num_workers=4, seed=0,
+        )
+        if impl == "xla":
+            def want(micro, evals):
+                return _counts()
+        else:
+            def want(micro, evals):
+                return _counts(attention_nhd=24 * (micro + evals), attention_nhd_bwd=24 * micro)
+        run, trainer = trainer_run(
+            torch, new_model(compute_dtype="bfloat16", attention_impl=impl), args, train_ds,
+            val_ds, want, f"siglip224 {impl} training")
+        del trainer
+        shutil.rmtree(out_dir, ignore_errors=True)
+        model = new_model(seed=2, compute_dtype="bfloat16", attention_impl=impl)
+        run["fixed_batch_loss"] = fixed_batch_loss_falls(
+            torch, model, _device_batch(torch, train_ds, np.arange(B)), 5e-6, 3e-4)
+        staged = [_device_batch(torch, train_ds, np.arange(i * B, (i + 1) * B)) for i in range(4)]
+        run.update(staged_training(torch, model, staged, card, 2, B))
+        del model, staged
+        report[impl] = run
+
+    # gradients: fp32 on the card (kernels, TF32 off) against the CPU (plain
+    # versions), 2 rows; the weights drawn once, on the CPU (a generator on
+    # the card draws other numbers from the same seed), and copied over
+    grads = {}
+    for device in ("cuda", "cpu"):
+        m = new_model(seed=3, device="cpu", attention_impl="pallas").to(device)
+        batch = _device_batch(torch, train_ds, np.arange(2))
+        if device == "cpu":
+            batch = {k: v.cpu() for k, v in batch.items()}
+        counts = _reset_counts()
+        grads[device] = _leaf_grads(m, batch)
+        if device == "cuda":
+            check(counts() == _counts(False, attention_nhd=24, attention_nhd_bwd=24),
+                  f"siglip224 gradient check launches {counts()}")
+        del m
+    report["grad_check"] = leafwise_grad_check(grads["cuda"], grads["cpu"])
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -1435,7 +1862,9 @@ def mha_dense_mask_phase(torch):
                   f"(atol {atol} + rtol {rtol})")
         report[f"{dtype}_max_abs_err_vs_xla"] = err
     report["launches"] = counts()
-    check(report["launches"] == _counts(attention_small=2),
+    # one launch a call; the bf16 one on the tensor cores
+    want = {**_counts(attention_small=2), "attention_small_tensor_core": 1}
+    check(report["launches"] == want,
           f"mha with a dense mask launches {report['launches']}, want 1 attention_small a call")
     return report
 
@@ -1508,6 +1937,7 @@ UNITS = {
     "siglip224": "one SigLIP2-B/16-224 eval batch, bf16, B=64, text seq 64",
     "evaluate": "one CLIP ViT-B/32 eval batch, bf16, B=144",
     "train": "one CLIP ViT-B/32 training micro-step, bf16, B=32",
+    "siglip224_train": "one SigLIP2-B/16-224 training micro-step, bf16, B=24, text seq 64",
     "mha_dense_mask": "one mha(impl='pallas') call with a dense mask, bf16",
 }
 # the shared headers each kernel's source includes
@@ -1516,13 +1946,14 @@ HEADERS = {
     "attention_nhd": ["attention_mma.cuh", "mma_common.cuh"],
     "attention_nhd_bwd": ["attention_mma.cuh", "mma_common.cuh"],
     "flash_attention": ["attention_mma.cuh", "mma_common.cuh"],
-    "attention_small": [],
+    "attention_small": ["attention_mma.cuh", "mma_common.cuh"],
 }
 PER_UNIT = {
     "siglip384": {"patch_embed_u8": 1, "attention_nhd": 12, "flash_attention": 12},
     "siglip224": {"patch_embed_u8": 1, "attention_nhd": 24},
     "evaluate": {"patch_embed_u8": 1, "attention_nhd": 24},
     "train": {"patch_embed_u8": 1, "attention_nhd": 24, "attention_nhd_bwd": 24},
+    "siglip224_train": {"attention_nhd": 24, "attention_nhd_bwd": 24},
     "mha_dense_mask": {"attention_small": 1},
 }
 WORK = {
@@ -1545,7 +1976,14 @@ WORK = {
         "attention_nhd": "12 vision [32,50,768]/12 heads + 12 text [32,48,512]/8 heads",
         "attention_nhd_bwd": "12 vision [32,50,768]/12 heads + 12 text [32,48,512]/8 heads",
     },
-    "mha_dense_mask": {"attention_small": "[512, 77, 64] + a dense [512, 77, 77] fp32 mask"},
+    "siglip224_train": {
+        "attention_nhd": "12 vision [24,196,768]/12 heads + 12 text [24,64,768]/12 heads, "
+                         "key mask",
+        "attention_nhd_bwd": "12 vision [24,196,768]/12 heads + 12 text [24,64,768]/12 heads, "
+                             "key mask",
+    },
+    "mha_dense_mask": {"attention_small": "[64, 8, 77, 64] views of [64, 77, 512] + a dense "
+                                          "[64, 1, 77, 77] fp32 mask read broadcast"},
 }
 # the path whose numbers head each kernel's entry, fixed so that entries
 # compare from one run to the next; other_paths carries the rest
@@ -1640,6 +2078,7 @@ def main() -> int:
             f"(atol {c['atol']:g} rtol {c['rtol']:.3g}) kernel {c['ms']:.4f} ms "
             f"plain {c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
             f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
+            + (f" JAX estimate {c['jax_estimate_ms']:.4f} ms" if "jax_estimate_ms" in c else "")
             + (f" SIMT {c['simt_ms']:.4f} ms (SIMT new new SIMT "
                f"{', '.join(f'{t:.4f}' for t in c['simt_new_new_simt_ms'])})"
                if "simt_ms" in c else "")
@@ -1674,18 +2113,29 @@ def main() -> int:
     print(f"mha dense mask: {mha}")
     print(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
+    # phase 6: the shipped fine-tuning configs on the f32 wire
+    t0 = time.perf_counter()
+    clip_f32 = clip_f32_train_phase(torch, card)
+    for k, v in clip_f32.items():
+        print(f"clip f32 train {k}: {v}")
+    siglip_train = siglip224_train_phase(torch, card)
+    for k, v in siglip_train.items():
+        print(f"siglip224 train {k}: {v}")
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
     launches_by_path = {"siglip384": siglip["main_path_launches"],
                         "siglip224": siglip224["main_path_launches"],
                         "evaluate": report["main_path_launches"],
                         "train": train["main_path_launches"],
+                        "siglip224_train": siglip_train["pallas"]["main_path_launches"],
                         "mha_dense_mask": mha["launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,
-                   "siglip224": siglip224,
-                   "mha_dense_mask": mha, "kernels": kernels},
+                   "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
+                   "siglip224_train": siglip_train, "kernels": kernels},
                   f, indent=1)
 
     print(card)

@@ -52,9 +52,12 @@ def build_preprocessors(
     aug_cfg: Dict[str, Any],
     image_backend: str = "pil",
     seed: int = 0,
+    output: str = "uint8_hwc",
 ) -> Tuple[ImagePreprocessor, ImagePreprocessor]:
     """(train, eval) preprocessors from the config sections, both producing
-    uint8 HWC crops (the u8 wire); the train one augments when
+    ``output``: uint8 HWC crops for the u8 wire (evaluated by the fast
+    engine), normalised float32 CHW arrays ("float_nchw") for the f32 wire
+    (evaluated by the standard engine); the train one augments when
     ``augmentation.enabled``."""
     enc_dir = resolve_encoder_dir(model_cfg)
     (H, W), mean, std = image_stats_from_dir(enc_dir, model_cfg.get("backend", "clip"))
@@ -63,10 +66,11 @@ def build_preprocessors(
         is_train=True,
         augment=aug_cfg.get("enabled", False),
         aug_scale=(aug_cfg.get("aug_scale_min", 0.8), aug_cfg.get("aug_scale_max", 1.0)),
+        output=output,
         seed=seed,
         backend=image_backend,
     )
-    eval_pp = ImagePreprocessor(H, W, mean, std, backend=image_backend)
+    eval_pp = ImagePreprocessor(H, W, mean, std, output=output, backend=image_backend)
     return train_pp, eval_pp
 
 

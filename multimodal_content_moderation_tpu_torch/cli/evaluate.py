@@ -1,9 +1,12 @@
 #!/usr/bin/env python
-"""Evaluation CLI (the reference ``scripts/evaluate.py`` surface) on the
-uint8 fast engine: loads a checkpoint and its inference_config.json,
-streams the test CSV through ``evaluate_logits_u8`` and writes
-``eval_results.json`` with the detailed metric schema (mean-threshold
-overall metrics + per-class calibrated F1).
+"""Evaluation CLI (the reference ``scripts/evaluate.py`` surface): loads a
+checkpoint and its inference_config.json, streams the test CSV through the
+standard engine (``--engine standard``, the default: normalised fp32 pixels
+at the full text width, ``training.loop.evaluate_logits_standard``) or the
+uint8 fast engine (``--engine fast``: ``evaluate_logits_u8``, with text
+buckets) and writes ``eval_results.json`` with the detailed metric schema
+(mean-threshold overall metrics + per-class calibrated F1), computed in
+numpy.
 
     python -m multimodal_content_moderation_tpu_torch.cli.evaluate \\
         --checkpoint RUN/checkpoint-N --test_csv test.csv --image_root images
@@ -19,7 +22,6 @@ import numpy as np
 
 # values the port refuses, with the slice that brings each
 _LATER = {
-    ("engine", "standard"): "the standard engine comes with the training slice",
     ("precision", "int8_mlp"): "the int8 fc1 tier comes with its own slice",
     ("image_backend", "native"): "the native libjpeg backend comes in a later slice",
     ("image_backend", "native_scaled"): "the native libjpeg backend comes in a later slice",
@@ -47,9 +49,10 @@ def parse_args(argv=None):
     parser.add_argument(
         "--engine",
         choices=["standard", "fast"],
-        default="fast",
-        help="fast = uint8 wire format + the fused patch-embed kernel; "
-        "standard is not ported yet",
+        default="standard",
+        help="standard = normalised fp32 pixels through the pixel path at the full "
+        "text width; fast = uint8 wire format + the fused patch-embed kernel, with "
+        "text buckets",
     )
     parser.add_argument(
         "--attention",
@@ -63,10 +66,9 @@ def parse_args(argv=None):
         "--seq_buckets",
         type=str,
         default="auto",
-        help="length-sorted bucketed evaluation: comma-separated ladder of "
-        "text widths, e.g. '32,48,64'; exact for CLIP and SigLIP (its carry "
-        "column). 'auto' = 32,48,64; "
-        "'off' disables",
+        help="length-sorted bucketed evaluation (fast engine): comma-separated "
+        "ladder of text widths, e.g. '32,48,64'; exact for CLIP and SigLIP (its "
+        "carry column). 'auto' = 32,48,64; 'off' disables",
     )
     parser.add_argument(
         "--image_backend",
@@ -102,11 +104,12 @@ def main(argv=None):
         evaluate_logits_u8,
         parse_seq_buckets,
     )
+    from multimodal_content_moderation_tpu_torch.training.loop import evaluate_logits_standard
     from multimodal_content_moderation_tpu_torch.training.metrics import (
+        binary_f1,
         compute_detailed_metrics,
     )
     from multimodal_content_moderation_tpu_torch.utils.config import save_json
-    from sklearn.metrics import f1_score
 
     print(f"Loading model from: {args.checkpoint}")
     model, config = model_io.load_checkpoint(
@@ -128,7 +131,10 @@ def main(argv=None):
     enc_dir = args.encoder_dir or config.get("encoder_dir") or args.checkpoint
     tokenizer = load_tokenizer(enc_dir)
     (H, W), mean, std = image_stats_from_dir(enc_dir, config.get("backend", "clip"))
-    preproc = ImagePreprocessor(H, W, mean, std, output="uint8_hwc", backend=args.image_backend)
+    preproc = ImagePreprocessor(
+        H, W, mean, std, output="uint8_hwc" if args.engine == "fast" else "float_nchw",
+        backend=args.image_backend,
+    )
     test_ds = CSVDataset(
         args.test_csv,
         args.image_root,
@@ -139,11 +145,22 @@ def main(argv=None):
     )
     print(f"Test samples: {len(test_ds)}")
 
-    engine = FastInferenceEngine(model, mean, std)
-    t0 = time.time()
-    logits, labels = evaluate_logits_u8(
-        engine, test_ds, args.batch_size, seq_buckets=parse_seq_buckets(args.seq_buckets)
-    )
+    if args.engine == "fast":
+        engine = FastInferenceEngine(model, mean, std)
+        t0 = time.time()
+        logits, labels = evaluate_logits_u8(
+            engine, test_ds, args.batch_size, seq_buckets=parse_seq_buckets(args.seq_buckets)
+        )
+    else:
+        if (args.seq_buckets or "off").strip().lower() not in ("auto", "off", "none", ""):
+            # an explicit ladder that does nothing would be a trap ("auto", the
+            # default, stays quiet), as the JAX CLI says
+            print(
+                f"WARNING: seq_buckets={args.seq_buckets} ignored: requires "
+                "--engine fast (standard engine evaluates at full text width)"
+            )
+        t0 = time.time()
+        logits, labels = evaluate_logits_standard(model, test_ds, args.batch_size)
     dt = time.time() - t0
     if config.get("use_logit_adjustment") and config.get("priors"):
         # post-hoc logit adjustment: subtract log(p / (1 - p)) per class
@@ -155,14 +172,12 @@ def main(argv=None):
     metrics = compute_detailed_metrics(probs, labels, mean_threshold, class_names)
     for i, (name, thresh) in enumerate(zip(class_names, thresholds)):
         bin_pred = (probs[:, i] >= thresh).astype(int)
-        metrics["per_class"][name]["f1_calibrated"] = float(
-            f1_score(labels[:, i], bin_pred, zero_division=0)
-        )
+        metrics["per_class"][name]["f1_calibrated"] = binary_f1(labels[:, i], bin_pred)
         metrics["per_class"][name]["threshold"] = thresh
     metrics["runtime"] = dt
     metrics["samples_per_second"] = len(test_ds) / dt if dt > 0 else 0.0
     metrics["device"] = (
-        torch.cuda.get_device_name(engine.device) if engine.device.type == "cuda" else "cpu"
+        torch.cuda.get_device_name(model.device) if model.device.type == "cuda" else "cpu"
     )
 
     print("=" * 60)

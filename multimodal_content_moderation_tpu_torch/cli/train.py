@@ -9,9 +9,12 @@ running the port's trainer on one device.
         --config config/clip_fusion.yaml \\
         --model.encoder_dir /path/to/local/clip-vit-base-patch32
 
-Ported: the CLIP fusion model on the uint8 wire (``training.wire: u8``),
+Ported: the CLIP and SigLIP fusion models on either wire
+(``training.wire: f32``, the shipped default, or ``u8``),
 ``training.attention: pallas | xla``, ``training.precision: bf16 | fp32``,
-``gradient_checkpointing`` and ``text_fit``. The run directory records
+``gradient_checkpointing`` and ``text_fit`` (CLIP only: ignored with a
+warning for SigLIP, as in the JAX package). ``config/clip_fusion.yaml`` and
+``config/siglip_fusion.yaml`` train as shipped. The run directory records
 ``"format": "torch"`` and loads in the port's evaluate CLI.
 """
 
@@ -101,7 +104,7 @@ def override_config(config: Dict[str, Any], args) -> Dict[str, Any]:
     return config
 
 
-def _refuse_unported(config, model_cfg, train_cfg, data_cfg) -> None:
+def _refuse_unported(config, model_cfg, data_cfg) -> None:
     par = config.get("parallel", {})
     if (par.get("data") or -1) not in (-1, 1) or (par.get("model") or 1) != 1:
         raise NotImplementedError(
@@ -110,21 +113,16 @@ def _refuse_unported(config, model_cfg, train_cfg, data_cfg) -> None:
         )
     if (model_cfg.get("head") or "fusion") != "fusion":
         raise NotImplementedError("model.head mtl is not ported yet (the multi-task slice)")
-    if model_cfg["backend"] != "clip":
-        raise NotImplementedError(
-            f"training the {model_cfg['backend']} backend is not ported yet (the port "
-            "evaluates SigLIP; its training slice comes later)"
-        )
-    wire = train_cfg.get("wire", "f32") or "f32"
-    if wire != "u8":
-        raise NotImplementedError(
-            f"training.wire {wire!r} is not ported yet: it needs the pixel path "
-            "(patchify), which a later slice brings; use training.wire u8"
-        )
     if (data_cfg.get("image_backend") or "pil") != "pil":
-        raise NotImplementedError("data.image_backend native* is not ported yet")
+        raise NotImplementedError(
+            "data.image_backend native* is not ported yet (the slice that runs the "
+            "evaluate CLI on the card brings the native JPEG decoder)"
+        )
     if data_cfg.get("image_cache"):
-        raise NotImplementedError("data.image_cache is not ported yet")
+        raise NotImplementedError(
+            "data.image_cache is not ported yet (the slice that runs the evaluate CLI "
+            "on the card brings the pixel cache)"
+        )
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -170,10 +168,12 @@ def main(argv=None) -> Dict[str, Any]:
     # ---- assets & data -----------------------------------------------------
     enc_dir = resolve_encoder_dir(model_cfg)
     model_cfg["backend"] = model_io.resolve_backend(enc_dir, model_cfg.get("backend", "clip"))
-    _refuse_unported(config, model_cfg, train_cfg, data_cfg)
+    _refuse_unported(config, model_cfg, data_cfg)
     tokenizer = build_tokenizer(model_cfg)
+    wire = train_cfg.get("wire", "f32") or "f32"
     train_pp, eval_pp = build_preprocessors(
-        model_cfg, aug_cfg, image_backend=data_cfg.get("image_backend", "pil"), seed=seed
+        model_cfg, aug_cfg, image_backend=data_cfg.get("image_backend", "pil"), seed=seed,
+        output="uint8_hwc" if wire == "u8" else "float_nchw",
     )
 
     class_names = data_cfg.get("class_names", []) or []
@@ -193,9 +193,15 @@ def main(argv=None) -> Dict[str, Any]:
     class_names = train_ds.class_names
 
     # training.text_fit: shrink the static text width to the data's longest
-    # row (a multiple of 8). Exact for CLIP: causal text tower + EOS pooling.
+    # row (a multiple of 8). Exact for CLIP: causal text tower + EOS pooling;
+    # SigLIP pools the last position, so its pads are not inert
     text_fit = str(train_cfg.get("text_fit", "off") or "off").lower()
-    if text_fit in ("auto", "on", "true", "1"):
+    if text_fit in ("auto", "on", "true", "1") and model_cfg["backend"] != "clip":
+        logger.warning(
+            "training.text_fit ignored: requires the CLIP backend (causal + EOS "
+            "pooling); backend=%s pads are not inert", model_cfg["backend"],
+        )
+    elif text_fit in ("auto", "on", "true", "1"):
         splits = [d for d in (train_ds, val_ds, test_ds) if d is not None]
         longest = max(int(d.attention_mask.sum(axis=1).max(initial=1)) for d in splits)
         fit = min(max_len, max(8, -(-longest // 8) * 8))
@@ -230,14 +236,16 @@ def main(argv=None) -> Dict[str, Any]:
         fusion_dim=model_cfg.get("fusion_dim", 512),
         loss_type=loss_cfg.get("type", "bce"),
         focal_gamma=loss_cfg.get("focal_gamma", 1.5),
-        clip_config=enc_config, seed=seed, device=args.device,
+        seed=seed, device=args.device,
+        **{"clip_config" if backend == "clip" else "siglip_config": enc_config},
     )
-    # the u8 wire: the normalisation stats live in the model, folded into
-    # the patch embed on the device
-    model = model.replace(
-        image_mean=tuple(float(m) for m in train_pp.mean),
-        image_std=tuple(float(s) for s in train_pp.std),
-    )
+    if wire == "u8":
+        # the normalisation stats live in the model, folded into the patch
+        # embed on the device (the f32 wire normalises on the host)
+        model = model.replace(
+            image_mean=tuple(float(m) for m in train_pp.mean),
+            image_std=tuple(float(s) for s in train_pp.std),
+        )
     model = model_io.init_from_encoder_dir(model, enc_dir)
 
     compute_metrics = make_compute_metrics_multi(
@@ -272,7 +280,7 @@ def main(argv=None) -> Dict[str, Any]:
         logging_dir=os.path.join(output_dir, "logs"),
         debug_nans=train_cfg.get("debug_nans", False),
         resume_from_checkpoint=train_cfg.get("resume_from_checkpoint", "") or "",
-        wire=train_cfg.get("wire", "f32") or "f32",
+        wire=wire,
         accumulator_dtype=train_cfg.get("accumulator_dtype", "") or "",
     )
     trainer = Trainer(model, targs, train_ds, val_ds, compute_metrics, device=args.device)

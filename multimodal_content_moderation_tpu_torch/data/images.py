@@ -10,15 +10,16 @@ The train path (``augment``) is torchvision's RandomResizedCrop, horizontal
 flip and ColorJitter, drawn from a numpy ``Generator`` in the same order as
 the JAX package's ``data/images.py``, so one seed gives the same crops.
 
-The host produces raw uint8 HWC crops; on the uint8 wire the normalisation
-is folded into the patch embed on the card (``models/u8wire.py``). Missing
-or corrupt images degrade to zeros with presence flag 0.0.
+The host produces either raw uint8 HWC crops (``output="uint8_hwc"``, the
+uint8 wire: the normalisation is folded into the patch embed on the card,
+``models/u8wire.py``) or normalised float32 CHW arrays (``"float_nchw"``, the
+pixel path: ``normalize_crop``, which needs no PIL). Missing or corrupt
+images degrade to zeros with presence flag 0.0.
 
-Not ported yet: the normalised float32 NCHW output (the pixel path) and the
-native libjpeg backend.
+Not ported yet: the native libjpeg backend.
 
 PIL is imported where an image is decoded, so this module (and the stats
-below) import on a machine without it.
+and ``normalize_crop`` below) import on a machine without it.
 """
 
 from __future__ import annotations
@@ -34,6 +35,15 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
+
+
+def normalize_crop(crop_u8: np.ndarray, mean, std) -> np.ndarray:
+    """uint8 HWC crop -> normalised float32 CHW: ``(crop / 255 - mean) /
+    std`` in fp32, in that order (the JAX package's ``normalize``, bit for
+    bit), then transposed."""
+    x = crop_u8.astype(np.float32) / 255.0
+    x = (x - np.asarray(mean, np.float32)) / np.asarray(std, np.float32)
+    return np.ascontiguousarray(x.transpose(2, 0, 1))
 
 
 def resize_shortest_edge(im, size: int):
@@ -110,9 +120,10 @@ def _adjust_hue(im, factor: float):
 
 
 class ImagePreprocessor:
-    """Decode + resize + crop (+ augment) one image to a fixed-shape uint8
-    HWC crop. ``mean``/``std`` (the encoder's stats) are applied on the
-    card, folded into the patch embed; they are kept for the model."""
+    """Decode + resize + crop (+ augment) one image to a fixed-shape array:
+    a uint8 HWC crop (``output="uint8_hwc"``; ``mean``/``std``, the
+    encoder's stats, are then applied on the card, folded into the patch
+    embed) or a normalised float32 CHW array (``"float_nchw"``)."""
 
     def __init__(
         self,
@@ -128,11 +139,8 @@ class ImagePreprocessor:
         seed: int = 0,
         backend: str = "pil",
     ):
-        if output != "uint8_hwc":
-            raise NotImplementedError(
-                f"image output {output!r} is not ported yet (the pixel path comes "
-                "in a later slice); use 'uint8_hwc'"
-            )
+        if output not in ("uint8_hwc", "float_nchw"):
+            raise ValueError(f"image output {output!r}: want 'uint8_hwc' or 'float_nchw'")
         if backend != "pil":
             raise NotImplementedError(
                 f"image backend {backend!r} is not ported yet (the native libjpeg "
@@ -145,6 +153,7 @@ class ImagePreprocessor:
         self.augment = augment and is_train
         self.aug_scale = aug_scale
         self.jitter = color_jitter
+        self.output = output
         self.rng = np.random.default_rng(seed)
 
     def _train_transform(self, im) -> np.ndarray:
@@ -169,14 +178,18 @@ class ImagePreprocessor:
         return np.asarray(im, np.uint8)
 
     def zero_output(self) -> np.ndarray:
-        return np.zeros((self.H, self.W, 3), np.uint8)
+        if self.output == "uint8_hwc":
+            return np.zeros((self.H, self.W, 3), np.uint8)
+        return np.zeros((3, self.H, self.W), np.float32)
 
     def process_pil(self, im) -> np.ndarray:
         im = im.convert("RGB")
         if self.augment:
-            return self._train_transform(im)
-        im = resize_shortest_edge(im, self.H)
-        return center_crop(np.asarray(im, np.uint8), self.H, self.W)
+            crop = self._train_transform(im)
+        else:
+            im = resize_shortest_edge(im, self.H)
+            crop = center_crop(np.asarray(im, np.uint8), self.H, self.W)
+        return crop if self.output == "uint8_hwc" else normalize_crop(crop, self.mean, self.std)
 
     def process_bytes(self, data: bytes) -> Tuple[np.ndarray, float]:
         """Encoded image bytes -> (array, present_flag); any failure

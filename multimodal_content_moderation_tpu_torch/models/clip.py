@@ -3,8 +3,10 @@
 Semantics match HF ``transformers.CLIPModel``, as the JAX package's
 ``models/clip.py`` does: causal text tower pooled at the first EOS, ViT
 with a CLS token, pre-LN and post-LN on the CLS token, and both
-projections. The vision trunk starts from embedded patch tokens (the uint8
-wire path of ``models/u8wire.py``); the pixel path is not ported yet.
+projections. The vision trunk starts from embedded patch tokens: the
+uint8 wire path of ``models/u8wire.py`` embeds them on the card, the pixel
+path (``clip_vision_hidden``) patchifies normalised fp32 NCHW pixels and
+applies the ``patch_embedding`` dense.
 """
 
 from __future__ import annotations
@@ -15,7 +17,12 @@ from typing import Optional
 import torch
 
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import NEG_INF
-from multimodal_content_moderation_tpu_torch.ops.layers import dense, layer_norm, transformer_block
+from multimodal_content_moderation_tpu_torch.ops.layers import (
+    dense,
+    layer_norm,
+    patchify,
+    transformer_block,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,4 +262,24 @@ def clip_vision_pooled_from_tokens(params, tokens, cfg: CLIPVisionConfig) -> tor
 def clip_image_features_from_tokens(params, tokens, cfg: CLIPConfig) -> torch.Tensor:
     """``get_image_features`` from embedded patch tokens."""
     pooled = clip_vision_pooled_from_tokens(params, tokens, cfg.vision)
+    return dense(pooled, params["visual_projection"])
+
+
+def clip_vision_hidden(params, pixel_values: torch.Tensor, cfg: CLIPVisionConfig) -> torch.Tensor:
+    """Hidden states [B, 1+N, D] of the ViT (before post-LN) from normalised
+    [B, C, H, W] pixels, cast to the compute dtype before the patches."""
+    patches = patchify(pixel_values.to(getattr(torch, cfg.compute_dtype)), cfg.patch_size)
+    tokens = dense(patches, params["vision_model"]["patch_embedding"])
+    return clip_vision_encoder(params, tokens, cfg)
+
+
+def clip_vision_pooled(params, pixel_values: torch.Tensor, cfg: CLIPVisionConfig) -> torch.Tensor:
+    """Post-LN of the CLS token (= HF ``CLIPVisionModel.pooler_output``)."""
+    x = clip_vision_hidden(params, pixel_values, cfg)
+    return layer_norm(x[:, 0], params["vision_model"]["post_ln"], cfg.layer_norm_eps)
+
+
+def clip_image_features(params, pixel_values: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
+    """= HF ``CLIPModel.get_image_features`` (pooled -> visual_projection)."""
+    pooled = clip_vision_pooled(params, pixel_values, cfg.vision)
     return dense(pooled, params["visual_projection"])

@@ -9,11 +9,17 @@ Layout conventions handled here, once, at load time:
 
 Prefixes: the reference fusion checkpoint keeps the encoder under
 ``backbone.*`` and the head modules at the top level.
+
+``model.safetensors`` is read with the ``safetensors`` package where it is
+installed, else with ``read_safetensors``, a reader of the format built from
+the standard library, so a checkpoint loads on a machine without the package.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import struct
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -187,10 +193,59 @@ def fusion_model_from_torch(
     return {"backbone": backbone, "head": fusion_head_from_torch(sd)}
 
 
-def load_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """Load a .safetensors file into a numpy state dict."""
-    from safetensors.numpy import load_file
+# safetensors dtype names -> numpy types, little-endian as the format stores
+# them (BF16 has no numpy type: it goes through torch)
+_ST_DTYPES = {
+    "F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4", "I16": "<i2",
+    "I8": "i1", "U64": "<u8", "U32": "<u4", "U16": "<u2", "U8": "u1", "BOOL": "?",
+}
 
+
+def read_safetensors(path: str) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+    """A .safetensors file -> {name: array}: an 8-byte little-endian header
+    length, a JSON header (each tensor's ``dtype``, ``shape`` and
+    ``data_offsets`` into the data that follows; ``__metadata__`` skipped),
+    then the raw little-endian data. Every dtype comes back as
+    ``safetensors.numpy.load_file`` gives it, a numpy array of that type,
+    except BF16, which numpy lacks: a ``torch.bfloat16`` tensor. The arrays
+    are views of one buffer read from the file."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(f.read())
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if info["dtype"] == "BF16":
+            itemsize = 2
+        elif info["dtype"] in _ST_DTYPES:
+            dt = np.dtype(_ST_DTYPES[info["dtype"]])
+            itemsize = dt.itemsize
+        else:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which is not read here")
+        if end - start != count * itemsize or not 0 <= start <= end <= len(data):
+            raise ValueError(f"{path}: {name} has data_offsets {info['data_offsets']} for "
+                             f"{info['dtype']} {list(shape)}")
+        if info["dtype"] == "BF16":
+            out[name] = (torch.frombuffer(data, dtype=torch.bfloat16, count=count, offset=start)
+                         if count else torch.empty(0, dtype=torch.bfloat16)).reshape(shape)
+        else:
+            out[name] = np.frombuffer(data, dtype=dt, count=count, offset=start).reshape(shape)
+    return out
+
+
+def load_safetensors(path: str) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
+    """Load a .safetensors file into a state dict of numpy arrays: with
+    ``safetensors.numpy`` where the package is installed, else with
+    ``read_safetensors`` (which also reads BF16, as torch tensors)."""
+    try:
+        from safetensors.numpy import load_file
+    except ImportError:
+        return read_safetensors(path)
     return load_file(path)
 
 

@@ -113,7 +113,8 @@ def _check_backend(backend: str) -> str:
 class FusionModel(nn.Module):
     """Backbone + fusion head. ``forward(batch) -> {"logits"}`` (and
     ``"loss"`` when the batch holds ``labels``) where batch holds input_ids,
-    attention_mask, patches_u8 ([B, N, C*p*p] uint8), text_present and
+    attention_mask, the image as patches_u8 ([B, N, C*p*p] uint8, the u8
+    wire) or pixel_values (normalised fp32 [B, C, H, W]), text_present and
     image_present (and, for SigLIP, optionally the text ``position_ids`` of
     a bucket's carry column).
 
@@ -221,22 +222,34 @@ class FusionModel(nn.Module):
         return self.head["proj_t"]["w"].device
 
     def encode(self, batch: Dict[str, torch.Tensor]):
+        """(text features, image features): the image from ``patches_u8``
+        (the uint8 wire) where the batch carries them, else from
+        ``pixel_values`` (normalised fp32 [B, C, H, W], the pixel path)."""
         from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
 
         bp = self.backbone
+        u8 = batch.get("patches_u8")
         if self.backend == "clip":
             t = clip_mod.clip_text_features(
                 bp, batch["input_ids"], batch.get("attention_mask"), self.clip_config
             )
-            tokens = embed_for_model(self, bp, batch["patches_u8"])
-            v = clip_mod.clip_image_features_from_tokens(bp, tokens, self.clip_config)
+            if u8 is not None:
+                v = clip_mod.clip_image_features_from_tokens(
+                    bp, embed_for_model(self, bp, u8), self.clip_config
+                )
+            else:
+                v = clip_mod.clip_image_features(bp, batch["pixel_values"], self.clip_config)
             return t, v
         t = siglip_mod.siglip_text_features(
             bp, batch["input_ids"], batch.get("attention_mask"), self.siglip_config,
             position_ids=batch.get("position_ids"),
         )
-        tokens = embed_for_model(self, bp, batch["patches_u8"])
-        v = siglip_mod.siglip_image_features_from_tokens(bp, tokens, self.siglip_config)
+        if u8 is not None:
+            v = siglip_mod.siglip_image_features_from_tokens(
+                bp, embed_for_model(self, bp, u8), self.siglip_config
+            )
+        else:
+            v = siglip_mod.siglip_image_features(bp, batch["pixel_values"], self.siglip_config)
         return t, v
 
     def forward(
@@ -248,10 +261,6 @@ class FusionModel(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """``generator`` turns on the head's dropout (training); the loss
         is computed when the batch carries ``labels``."""
-        if "patches_u8" not in batch:
-            raise NotImplementedError(
-                "the pixel_values path is not ported yet; pass patches_u8"
-            )
         tfeat, vfeat = self.encode(batch)
         logits = fusion_head_apply(
             self.head, tfeat, vfeat, batch["text_present"], batch["image_present"], generator

@@ -10,8 +10,10 @@ Semantics match HF ``transformers.SiglipModel``, as the JAX package's
 - the activation is tanh-approximate GELU and LayerNorm's eps is 1e-6;
 - text attention is bidirectional with key padding (no causal mask).
 
-The vision trunk starts from embedded patch tokens (the uint8 wire of
-``models/u8wire.py``); the pixel path is not ported yet.
+The vision trunk starts from embedded patch tokens: the uint8 wire of
+``models/u8wire.py`` embeds them on the card, the pixel path
+(``siglip_vision_hidden``) patchifies normalised fp32 NCHW pixels and applies
+the ``patch_embedding`` dense with its bias.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     dense,
     layer_norm,
     mha,
+    patchify,
     transformer_block,
 )
 
@@ -196,4 +199,18 @@ def siglip_vision_encoder(params, tokens: torch.Tensor, cfg: SigLIPVisionConfig)
 def siglip_image_features_from_tokens(params, tokens: torch.Tensor, cfg: SigLIPConfig) -> torch.Tensor:
     """``get_image_features`` (MAP-head pooled) from embedded patch tokens."""
     hidden = siglip_vision_encoder(params, tokens, cfg.vision)
+    return _map_head(hidden, params["vision_model"]["map_head"], cfg.vision)
+
+
+def siglip_vision_hidden(params, pixel_values: torch.Tensor, cfg: SigLIPVisionConfig) -> torch.Tensor:
+    """Post-LN hidden states [B, N, D] of the SigLIP ViT from normalised
+    [B, C, H, W] pixels, cast to the compute dtype before the patches."""
+    patches = patchify(pixel_values.to(getattr(torch, cfg.compute_dtype)), cfg.patch_size)
+    tokens = dense(patches, params["vision_model"]["patch_embedding"])
+    return siglip_vision_encoder(params, tokens, cfg)
+
+
+def siglip_image_features(params, pixel_values: torch.Tensor, cfg: SigLIPConfig) -> torch.Tensor:
+    """= HF ``SiglipModel.get_image_features`` (MAP-head pooled)."""
+    hidden = siglip_vision_hidden(params, pixel_values, cfg.vision)
     return _map_head(hidden, params["vision_model"]["map_head"], cfg.vision)

@@ -113,6 +113,19 @@ def dropout(
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[B, C, H, W] -> [B, (H/p)*(W/p), C*p*p] non-overlapping patches, the
+    im2col of a stride == kernel conv, channel-major (C, ph, pw) inside each
+    patch: the layout of a converted ``Conv2d.weight.reshape(d, -1)`` and of
+    the uint8 wire rows."""
+    B, C, H, W = pixel_values.shape
+    p = patch_size
+    nh, nw = H // p, W // p
+    x = pixel_values.reshape(B, C, nh, p, nw, p)
+    x = x.permute(0, 2, 4, 1, 3, 5)  # [B, nh, nw, C, p, p]
+    return x.reshape(B, nh * nw, C * p * p)
+
+
 def mha(
     x_q: torch.Tensor,
     x_kv: torch.Tensor,

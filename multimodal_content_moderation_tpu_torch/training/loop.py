@@ -5,20 +5,25 @@ package's ``training/loop.py``).
   backward, then the optimizer (``training/optim.AdamW``: global-norm clip,
   two-group AdamW, accumulation). The loss comes back as a device tensor;
   nothing in a step waits for the device.
-- ``evaluate_logits``: the u8-wire eval engine (``models/fast_infer``): the
-  last batch padded to the batch size and the pads trimmed on the host, two
-  batches in flight.
+- ``evaluate_logits``: the fast engine on uint8 crops (``models/fast_infer``);
+  ``evaluate_logits_standard``: the standard engine on normalised fp32 pixels
+  (``FusionModel.forward`` on ``pixel_values``, the JAX package's
+  ``make_eval_step``). Both pad the last batch to the batch size, trim the
+  pads on the host and keep two batches in flight.
 - ``Trainer``: per-epoch order from ``np.random.default_rng(seed + epoch)``
-  or the weighted sampler, uint8 patch rows built on the host (the u8
-  wire), per-epoch eval, checkpoints with ``save_total_limit``, best-metric
-  tracking, early stopping, resume from ``trainstate-*`` and
-  load-best-at-end, with the JAX trainer's result dict.
+  or the weighted sampler, the CLIP or SigLIP fusion model on either wire
+  (``wire: f32``, the shipped default: normalised pixels through the pixel
+  path; ``wire: u8``: uint8 patch rows built on the host), per-epoch eval,
+  checkpoints with ``save_total_limit``, best-metric tracking, early
+  stopping, resume from ``trainstate-*`` and load-best-at-end, with the JAX
+  trainer's result dict.
 
 Host batches are prepared on a background thread and copied from pinned
 memory without blocking. On the card the model's kernels run in both
-passes (``patch_embed_u8``, ``attention_nhd`` and ``attention_nhd_bwd``).
-Multi-device meshes are not ported; the JAX package's
-``enforce_gspmd_safe_kernels`` exists only for them.
+passes (``patch_embed_u8`` on the u8 wire; ``attention_nhd`` and
+``attention_nhd_bwd`` with ``attention_impl="pallas"``). Multi-device meshes
+are not ported; the JAX package's ``enforce_gspmd_safe_kernels`` exists only
+for them.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from multimodal_content_moderation_tpu_torch.models.fast_infer import (
     evaluate_logits_u8,
 )
 from multimodal_content_moderation_tpu_torch.models.u8wire import default_stats
+from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
 from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits
 from multimodal_content_moderation_tpu_torch.training import checkpoints as ckpt_lib
@@ -94,24 +100,28 @@ class TrainArgs:
     debug_nans: bool = False
     resume_from_checkpoint: str = ""  # "" | "auto" | explicit trainstate dir
     prefetch: int = 2
-    # "u8": raw uint8 patch rows on the wire, the normalisation folded into
-    # the patch embed on the device (models/u8wire.py). "f32" (normalised
-    # pixels) needs the pixel path, which is not ported.
+    # "f32": normalised fp32 NCHW pixels through the pixel path (patchify +
+    # the patch_embedding dense), evaluated by the standard engine. "u8": raw
+    # uint8 patch rows on the wire, the normalisation folded into the patch
+    # embed on the device (models/u8wire.py), evaluated by the fast engine.
     wire: str = "f32"
     # "" keeps fp32 Adam m/v; "bfloat16" stores them in bf16 (optim.AdamW)
     accumulator_dtype: str = ""
 
 
 def host_batches(
-    dataset, batch_size: int, patch_size: int, indices, num_workers: int = 8
+    dataset, batch_size: int, patch_size: Optional[int], indices, num_workers: int = 8
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Full training batches in ``indices`` order as {name: CPU tensor}, the
-    uint8 HWC crops cut into wire-format patch rows."""
+    """Full training batches in ``indices`` order as {name: CPU tensor}. With
+    a ``patch_size`` (the u8 wire) the uint8 HWC crops are cut into
+    wire-format patch rows; without one (the f32 wire) the normalised
+    ``pixel_values`` go as they are."""
     for batch in dataset.batches(
         batch_size, drop_last=True, indices=indices, num_workers=num_workers
     ):
         b = {k: batch[k] for k in BATCH_KEYS if k in batch}
-        b["patches_u8"] = extract_patches_u8(b.pop("pixel_values"), patch_size)
+        if patch_size is not None:
+            b["patches_u8"] = extract_patches_u8(b.pop("pixel_values"), patch_size)
         yield {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in b.items()}
 
 
@@ -172,10 +182,40 @@ def make_train_step(
     return train_step
 
 
+def evaluate_logits_standard(model, dataset, batch_size: int, num_workers: int = 8):
+    """(logits, labels) host arrays of the dataset in its row order through
+    ``model.forward`` on normalised fp32 ``pixel_values`` at the full text
+    width (the JAX package's standard engine): the last batch padded to
+    ``batch_size`` and the pads trimmed on the host, two batches in flight."""
+    valids, labels = [], []
+
+    def host():
+        for batch in dataset.batches(batch_size, pad_to_batch=True, num_workers=num_workers):
+            if batch["pixel_values"].dtype != np.float32:
+                raise ValueError(
+                    "the standard engine takes normalised float32 NCHW pixel_values (a "
+                    f"float_nchw preprocessor), got {batch['pixel_values'].dtype}"
+                )
+            valids.append(int(batch.pop("_valid")))
+            labels.append(batch.pop("labels")[: valids[-1]])
+            yield {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+
+    logits, outs = [], []
+    with torch.inference_mode():
+        for dev in prefetch_to_device(host(), model.device, size=2):
+            outs.append(model(dev)["logits"].float())
+            if len(outs) > 2:
+                logits.append(outs.pop(0).cpu().numpy())
+        logits.extend(o.cpu().numpy() for o in outs)
+    return (np.concatenate([lg[:v] for lg, v in zip(logits, valids)]),
+            np.concatenate(labels))
+
+
 def evaluate_logits(model, dataset, batch_size: int, num_workers: int = 8):
     """(logits, labels) host arrays of the dataset in its row order, through
-    the u8-wire eval engine (``models/fast_infer``): the last batch padded to
-    ``batch_size`` and the pads trimmed on the host, two batches in flight."""
+    the u8-wire eval engine (``models/fast_infer``, a dataset of uint8 HWC
+    crops): the last batch padded to ``batch_size`` and the pads trimmed on
+    the host, two batches in flight."""
     mean, std = default_stats(model.backend)
     engine = FastInferenceEngine(model, model.image_mean or mean, model.image_std or std)
     return evaluate_logits_u8(engine, dataset, batch_size, num_workers=num_workers)
@@ -195,22 +235,32 @@ class Trainer:
         pos_weight: Optional[np.ndarray] = None,
         device="cuda",
     ):
-        if args.wire != "u8":
-            raise NotImplementedError(
-                f"wire {args.wire!r} is not ported yet: it needs the pixel path "
-                "(patchify), which a later slice brings; use wire 'u8'"
-            )
+        if args.wire not in ("u8", "f32"):
+            raise ValueError(f"wire {args.wire!r}: want 'f32' or 'u8'")
         if args.report_to not in ("", "none"):
-            raise NotImplementedError(f"report_to {args.report_to!r} is not ported yet")
-        if model.backend != "clip":
-            raise NotImplementedError(f"backend {model.backend!r} is not ported yet")
+            raise NotImplementedError(
+                f"report_to {args.report_to!r} is not ported yet (the utils slice "
+                "brings the event writer)"
+            )
+        vision = model.encoder_config.vision
+        n_vision = (vision.image_size // vision.patch_size) ** 2 + int(model.backend == "clip")
+        if vision.attention_impl == "pallas" and n_vision > MAX_SEQ:
+            # the text towers stop at 77 (CLIP) and 64 (SigLIP) positions
+            raise NotImplementedError(
+                f"attention 'pallas' would train the vision tower at {n_vision} positions "
+                "through flash_attention, which is forward only (the JAX package cannot "
+                "differentiate it either: its pallas_call JVP rule fails): train with "
+                f"attention 'xla', or at sequences of at most {MAX_SEQ}"
+            )
         self.args = args
         self.train_ds = train_dataset
         self.eval_ds = eval_dataset
         self.compute_metrics = compute_metrics
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.patch_size = model.clip_config.vision.patch_size
+        # the u8 wire cuts patch rows of the backend's own patch size
+        self.patch_size = model.encoder_config.vision.patch_size if args.wire == "u8" else None
+        self.eval_logits = evaluate_logits if args.wire == "u8" else evaluate_logits_standard
 
         n_batches = max(len(train_dataset) // args.per_device_train_batch_size, 1)
         self.steps_per_epoch = n_batches
@@ -264,7 +314,7 @@ class Trainer:
         return order
 
     def predict(self, dataset) -> Tuple[np.ndarray, np.ndarray]:
-        return evaluate_logits(
+        return self.eval_logits(
             self.model, dataset, self.args.per_device_eval_batch_size, self.args.num_workers
         )
 

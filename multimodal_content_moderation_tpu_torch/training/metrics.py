@@ -1,12 +1,10 @@
 """Evaluation metrics on host numpy (the reference's
 src/training/metrics.py report: same names, same numbers).
 
-The training loop's metrics (``make_compute_metrics_multi``,
-``calibrate_thresholds``) are computed in numpy alone, because the card's
-machine has no sklearn: F1 with sklearn's ``zero_division=0`` and averaging
-rules, and ROC-AUC by midranks (the Mann-Whitney statistic, ties counted
-one half), which is the area sklearn's trapezoids give. The CLI's detailed
-report (``compute_detailed_metrics``) imports sklearn where it runs.
+Every metric is computed in numpy alone, because the card's machine has
+no sklearn: precision, recall and F1 with sklearn's ``zero_division=0`` and
+averaging rules, and ROC-AUC by midranks (the Mann-Whitney statistic, ties
+counted one half), which is the area sklearn's trapezoids give.
 """
 
 from __future__ import annotations
@@ -28,18 +26,49 @@ def _f(value) -> float:
     return 0.0 if np.isnan(v) else v
 
 
+def _ratio(num, den) -> np.ndarray:
+    """num / den, 0 where the denominator is 0 (sklearn's zero_division=0)."""
+    num, den = np.asarray(num, np.float64), np.asarray(den, np.float64)
+    return np.where(den > 0, num / np.where(den > 0, den, 1), 0.0)
+
+
 def _f1(tp, fp, fn) -> np.ndarray:
     """2tp / (2tp + fp + fn), 0 where the denominator is 0."""
-    tp, fp, fn = (np.asarray(a, np.float64) for a in (tp, fp, fn))
-    den = 2 * tp + fp + fn
-    return np.where(den > 0, 2 * tp / np.where(den > 0, den, 1), 0.0)
+    tp = np.asarray(tp, np.float64)
+    return _ratio(2 * tp, 2 * tp + np.asarray(fp) + np.asarray(fn))
+
+
+def _counts(y_true: np.ndarray, y_pred: np.ndarray):
+    """Per-class (tp, fp, fn) as sklearn's ``average="macro"`` sees them: per
+    label column of a multi-label [N, C>1] indicator; for one column, per
+    class 0 and 1 that occurs in either array (sklearn reads a 0/1 column as
+    a binary target)."""
+    t = np.asarray(y_true).reshape(len(y_true), -1) == 1
+    p = np.asarray(y_pred).reshape(len(y_pred), -1) == 1
+    if t.shape[1] > 1:
+        return tuple(np.sum(a, axis=0) for a in (t & p, ~t & p, t & ~p))
+    t, p = t[:, 0], p[:, 0]
+    classes = [c for c in (False, True) if np.any(t == c) or np.any(p == c)]
+    return tuple(np.array([np.sum(a(c)) for c in classes]) for a in (
+        lambda c: (t == c) & (p == c), lambda c: (t != c) & (p == c), lambda c: (t == c) & (p != c)))
+
+
+def _binary_counts(y_true: np.ndarray, y_pred: np.ndarray):
+    t = np.asarray(y_true).ravel() == 1
+    p = np.asarray(y_pred).ravel() == 1
+    return np.sum(t & p), np.sum(~t & p), np.sum(t & ~p)
 
 
 def binary_f1(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     """sklearn ``f1_score(y_true, y_pred, zero_division=0)`` for 0/1 vectors."""
-    t = np.asarray(y_true).ravel() == 1
-    p = np.asarray(y_pred).ravel() == 1
-    return float(_f1(np.sum(t & p), np.sum(~t & p), np.sum(t & ~p)))
+    return float(_f1(*_binary_counts(y_true, y_pred)))
+
+
+def binary_precision_recall(y_true: np.ndarray, y_pred: np.ndarray):
+    """sklearn ``precision_score`` and ``recall_score`` (``zero_division=0``)
+    for 0/1 vectors."""
+    tp, fp, fn = _binary_counts(y_true, y_pred)
+    return float(_ratio(tp, tp + fp)), float(_ratio(tp, tp + fn))
 
 
 def f1_scores(y_true: np.ndarray, y_pred: np.ndarray):
@@ -48,16 +77,20 @@ def f1_scores(y_true: np.ndarray, y_pred: np.ndarray):
     one column, over the classes 0 and 1 that occur in either array (sklearn
     reads a 0/1 column as a binary target, so its "macro" averages the F1 of
     both classes and its "micro" is the accuracy)."""
-    t = np.asarray(y_true).reshape(len(y_true), -1) == 1
-    p = np.asarray(y_pred).reshape(len(y_pred), -1) == 1
-    if t.shape[1] > 1:
-        tp, fp, fn = (np.sum(a, axis=0) for a in (t & p, ~t & p, t & ~p))
-        return float(np.mean(_f1(tp, fp, fn))), float(_f1(tp.sum(), fp.sum(), fn.sum()))
-    t, p = t[:, 0], p[:, 0]
-    classes = [c for c in (False, True) if np.any(t == c) or np.any(p == c)]
-    per = [_f1(np.sum((t == c) & (p == c)), np.sum((t != c) & (p == c)), np.sum((t == c) & (p != c)))
-           for c in classes]
-    return float(np.mean(per)), float(np.mean(t == p))
+    tp, fp, fn = _counts(y_true, y_pred)
+    macro = float(np.mean(_f1(tp, fp, fn)))
+    if np.asarray(y_true).reshape(len(y_true), -1).shape[1] > 1:
+        return macro, float(_f1(tp.sum(), fp.sum(), fn.sum()))
+    t = np.asarray(y_true).ravel() == 1
+    return macro, float(np.mean(t == (np.asarray(y_pred).ravel() == 1)))
+
+
+def precision_recall_macro(y_true: np.ndarray, y_pred: np.ndarray):
+    """(macro precision, macro recall) as sklearn ``precision_score`` and
+    ``recall_score`` (``average="macro"``, ``zero_division=0``) compute them,
+    with ``f1_scores``'s reading of the columns."""
+    tp, fp, fn = _counts(y_true, y_pred)
+    return float(np.mean(_ratio(tp, tp + fp))), float(np.mean(_ratio(tp, tp + fn)))
 
 
 def roc_auc(y_true: np.ndarray, scores: np.ndarray) -> float:
@@ -135,41 +168,39 @@ def compute_detailed_metrics(
     class_names: Optional[List[str]] = None,
 ) -> dict:
     """Full report incl. precision/recall/support and per-class ROC
-    (reference metrics.py:164-215)."""
-    from sklearn.metrics import f1_score, precision_score, recall_score, roc_auc_score
-
+    (reference metrics.py:164-215), with the numbers sklearn gives: macro
+    and micro F1, macro precision and recall, macro ROC-AUC (0.0 when a
+    column holds one class), and per class F1, precision, recall, support
+    and ROC-AUC (0.0 for a column with one class)."""
     bin_preds = (probs >= threshold).astype(int)
     n_classes = probs.shape[1]
     if class_names is None:
         class_names = [f"class_{i}" for i in range(n_classes)]
 
+    f1_macro, f1_micro = f1_scores(y_true, bin_preds)
+    precision_macro, recall_macro = precision_recall_macro(y_true, bin_preds)
     metrics = {
-        "f1_macro": float(f1_score(y_true, bin_preds, average="macro", zero_division=0)),
-        "f1_micro": float(f1_score(y_true, bin_preds, average="micro", zero_division=0)),
-        "precision_macro": float(
-            precision_score(y_true, bin_preds, average="macro", zero_division=0)
-        ),
-        "recall_macro": float(
-            recall_score(y_true, bin_preds, average="macro", zero_division=0)
-        ),
+        "f1_macro": f1_macro,
+        "f1_micro": f1_micro,
+        "precision_macro": precision_macro,
+        "recall_macro": recall_macro,
     }
     try:
-        metrics["roc_auc_macro"] = _f(roc_auc_score(y_true, probs, average="macro"))
+        metrics["roc_auc_macro"] = _f(roc_auc_macro(y_true, probs))
     except ValueError:
         metrics["roc_auc_macro"] = 0.0
 
     metrics["per_class"] = {}
     for j, name in enumerate(class_names):
+        precision, recall = binary_precision_recall(y_true[:, j], bin_preds[:, j])
         cm = {
-            "f1": float(f1_score(y_true[:, j], bin_preds[:, j], zero_division=0)),
-            "precision": float(
-                precision_score(y_true[:, j], bin_preds[:, j], zero_division=0)
-            ),
-            "recall": float(recall_score(y_true[:, j], bin_preds[:, j], zero_division=0)),
+            "f1": binary_f1(y_true[:, j], bin_preds[:, j]),
+            "precision": precision,
+            "recall": recall,
             "support": int(y_true[:, j].sum()),
         }
         try:
-            cm["roc_auc"] = _f(roc_auc_score(y_true[:, j], probs[:, j]))
+            cm["roc_auc"] = _f(roc_auc(y_true[:, j], probs[:, j]))
         except ValueError:
             cm["roc_auc"] = 0.0
         metrics["per_class"][name] = cm

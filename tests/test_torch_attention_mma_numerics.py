@@ -16,6 +16,12 @@ card, atol 1e-3 + rtol 2^-7 (one rounding of the output).
 A row whose keys are all masked is held against the port's plain version
 only: JAX pads such rows' keys (ROADMAP queue 3, faults 6 and 8).
 
+``attention_small`` (``csrc/attention_small.cu``,
+``attention_small_mma_launch``) runs the same routine over its slice's keys,
+staged whole (one key tile of up to four 64-key chunks), with the one
+folded additive mask added after the scale: the same model with ``dense``,
+held against JAX's ``attention_small`` in interpret mode.
+
 The backward (``csrc/attention_nhd_bwd.cu``, ``attention_nhd_bwd_mma_launch``)
 is modelled in its two launches:
 
@@ -238,6 +244,36 @@ def test_model_cross_attention_matches_plain(T, S, dh):
     km = torch.from_numpy(_key_row(g, B, S, True))
     got = mma_model(q[:, 0], k[:, 0], v[:, 0], key=km)
     _close(got, cf.flash_attention_reference(q, k, v, None, km)[:, 0])
+
+
+SMALL_CASES = [  # BH, T, dh, mask kind
+    (4, 77, 64, "dense"),  # the mha dense-mask shape: two 64-key chunks
+    (3, 200, 16, "dense"),  # four chunks, the last one of 8 keys
+    (2, 50, 64, "none"),  # one ragged chunk, no mask
+    (4, 77, 64, "folded"),  # causal + a key row folded, as fused_mha gives it
+]
+
+
+@pytest.mark.parametrize("BH,T,dh,kind", SMALL_CASES)
+def test_model_matches_jax_attention_small(BH, T, dh, kind):
+    """``attention_small`` in bf16: JAX's kernel (interpret mode), the
+    port's plain version and the model of the tensor-core kernel agree."""
+    g = np.random.default_rng(BH * T + dh)
+    q, k, v = (_bf16(g, (BH, T, dh)) for _ in range(3))
+    mask = None
+    if kind == "dense":
+        mask = np.where(g.random((BH, T, T)) < 0.3, NEG_INF, 0.0).astype(np.float32)
+        mask[..., 0] = 0.0
+    elif kind == "folded":
+        causal = np.where(np.arange(T)[None, :] <= np.arange(T)[:, None], 0.0, NEG_INF)
+        key = _key_row(g, BH, T, False)
+        mask = (np.zeros((BH, T, T), np.float32) + causal.astype(np.float32)) + key[:, None, :]
+    tm = None if mask is None else torch.from_numpy(mask)
+    model = mma_model(q, k, v, dense=tm)
+    want = jattn.attention_small(_j(q), _j(k), _j(v), None if mask is None else jnp.asarray(mask),
+                                 interpret=True)
+    _close(model, want)
+    _close(model, cf.attention_small_reference(q, k, v, tm))
 
 
 def test_split_p_keeps_the_fp32_product():

@@ -1,13 +1,19 @@
 """The port's evaluate CLI against the JAX package's on one reference-format
 checkpoint: a tiny JAX fusion model on the ``encoder_dir`` config, exported
-with ``export_safetensors`` beside an ``inference_config.json``.
+with ``export_safetensors`` beside an ``inference_config.json``, through
+both engines (``--engine standard``, the default of both CLIs, and
+``fast``); and the two engines of the port against each other.
 
-Tolerances as in tests/test_cli.py: f1 within 1e-6, ROC-AUC within 1e-4."""
+Tolerances as in tests/test_cli.py: f1 within 1e-6, ROC-AUC within 1e-4;
+the two engines' logits within fp32 atol 1e-5 (the u8 wire folds the
+normalisation into the embed weight, the standard engine normalises then
+embeds: the same fp32 math rounded in another order)."""
 
 import json
 import os
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -47,17 +53,16 @@ def checkpoint(encoder_dir, tmp_path_factory):
     return str(d)
 
 
+@pytest.mark.parametrize("engine", ["fast", "standard"])
 @pytest.mark.parametrize("attention", ["xla", "pallas"])
-def test_evaluate_cli_matches_jax(checkpoint, data_dir, tmp_path, attention):
+def test_evaluate_cli_matches_jax(checkpoint, data_dir, tmp_path, attention, engine):
     common = [
         "--checkpoint", checkpoint,
         "--test_csv", f"{data_dir}/test.csv",
         "--image_root", f"{data_dir}/images",
         "--batch_size", "8",
-    ]
-    want = j_eval.main(
-        common + ["--engine", "fast", "--device", "cpu", "--output", str(tmp_path / "jax.json")]
-    )
+    ] + (["--engine", "fast"] if engine == "fast" else [])
+    want = j_eval.main(common + ["--device", "cpu", "--output", str(tmp_path / "jax.json")])
     out = str(tmp_path / "torch.json")
     got = t_eval.main(
         common + ["--device", "cpu", "--attention", attention, "--output", out]
@@ -76,8 +81,44 @@ def test_evaluate_cli_matches_jax(checkpoint, data_dir, tmp_path, attention):
 
 
 @pytest.mark.parametrize(
-    "flag", [["--engine", "standard"], ["--precision", "int8_mlp"], ["--image_backend", "native"]]
+    "flag",
+    [["--image_backend", "native_scaled"], ["--precision", "int8_mlp"],
+     ["--image_backend", "native"]],
 )
 def test_evaluate_cli_names_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         t_eval.parse_args(["--checkpoint", "c", "--test_csv", "t.csv"] + flag)
+
+
+def test_standard_engine_matches_the_fast_engine(checkpoint, data_dir, capsys):
+    """The port's two engines on the same checkpoint and CSV: the standard
+    engine (fp32 pixels, full text width) against the fast engine (u8 wire,
+    the seq-8 bucket rung): logits within fp32 atol 1e-5. An explicit
+    ``--seq_buckets`` ladder with the standard engine is named as ignored."""
+    from multimodal_content_moderation_tpu_torch.cli.common import image_stats_from_dir
+    from multimodal_content_moderation_tpu_torch.data.dataset import CSVDataset
+    from multimodal_content_moderation_tpu_torch.data.images import ImagePreprocessor
+    from multimodal_content_moderation_tpu_torch.data.tokenizer import load_tokenizer
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.training.loop import evaluate_logits_standard
+
+    model, cfg = model_io.load_checkpoint(checkpoint, device="cpu")
+    enc = cfg["encoder_dir"]
+    (H, W), mean, std = image_stats_from_dir(enc, "clip")
+    logits = {}
+    for output in ("uint8_hwc", "float_nchw"):
+        ds = CSVDataset(f"{data_dir}/test.csv", f"{data_dir}/images", load_tokenizer(enc),
+                        ImagePreprocessor(H, W, mean, std, output=output), 16,
+                        class_names=CLASSES)
+        if output == "uint8_hwc":
+            logits[output], labels = fi.evaluate_logits_u8(
+                fi.FastInferenceEngine(model, mean, std), ds, 8, seq_buckets=(8,))
+        else:
+            logits[output], labels_std = evaluate_logits_standard(model, ds, 8)
+    np.testing.assert_array_equal(labels, labels_std)
+    np.testing.assert_allclose(logits["float_nchw"], logits["uint8_hwc"], atol=1e-5, rtol=0)
+    t_eval.main(["--checkpoint", checkpoint, "--test_csv", f"{data_dir}/test.csv",
+                 "--image_root", f"{data_dir}/images", "--batch_size", "8", "--device", "cpu",
+                 "--seq_buckets", "8,16", "--output", os.devnull])
+    assert "seq_buckets=8,16 ignored" in capsys.readouterr().out

@@ -86,3 +86,31 @@ def test_init_from_encoder_dir_matches_jax(encoder_dir):
         np.testing.assert_array_equal(v.numpy(), before[k].numpy())
     # no weights in the directory: the model is left as it is
     assert model_io.init_from_encoder_dir(model, None) is model
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_float_nchw_output_matches_jax_bitwise(augment):
+    """The float_nchw output (the f32 wire and the standard engine):
+    ``(crop / 255 - mean) / std`` in fp32, as CHW, bit for bit the JAX
+    package's, with and without augmentation; ``normalize_crop`` alone on a
+    uint8 crop is the same function; a missing image is CHW zeros."""
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.data.images import normalize_crop
+
+    g = np.random.default_rng(4)
+    images = [Image.fromarray(g.integers(0, 256, size=(37 + 7 * i, 45, 3), dtype=np.uint8))
+              for i in range(3)]
+    for stats in ({}, {"mean": SIGLIP_MEAN, "std": SIGLIP_STD}):
+        kw = dict(is_train=True, augment=augment, seed=2, **stats)
+        mine = ImagePreprocessor(32, 32, output="float_nchw", **kw)
+        theirs = JPre(32, 32, output="float_nchw", **kw)
+        for im in images:
+            got, want = mine.process_pil(im), theirs.process_pil(im)
+            assert got.dtype == np.float32 and got.shape == (3, 32, 32)
+            np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+        crop = g.integers(0, 256, size=(32, 32, 3), dtype=np.uint8)
+        got = normalize_crop(crop, mine.mean, mine.std)
+        np.testing.assert_array_equal(got.view(np.uint32), theirs.normalize(crop).view(np.uint32))
+        (zeros, flag), (jzeros, jflag) = mine.load(""), theirs.load("")
+        assert flag == jflag == 0.0 and zeros.shape == (3, 32, 32)
+        np.testing.assert_array_equal(zeros, jzeros)

@@ -212,6 +212,40 @@ def test_fused_mha_short_path_matches_jax(flags, dtype):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flags", ["dense_b1", "dense_shared", "causal_key", "dense_b1_key"])
+def test_fused_mha_broadcast_mask_and_strided_views_match_jax(flags, dtype):
+    """The short path as ``mha`` reaches it: q, k, v as [B, H, T, dh] views of
+    [B, T, D] memory (no copy) and the mask in its broadcast shape ([B, 1, T,
+    S] or [T, S], folded with a causal flag or a key row into [B, 1, T, S]),
+    against JAX ``fused_mha`` on contiguous heads and the expanded mask."""
+    B, H, T, dh = 3, 4, 77, 16
+    g = np.random.default_rng(28)
+    q3, k3, v3 = (g.normal(size=(B, T, H * dh)).astype(np.float32) for _ in range(3))
+    if dtype == "bfloat16":
+        q3, k3, v3 = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                      for a in (q3, k3, v3))
+    heads = [a.reshape(B, T, H, dh).transpose(0, 2, 1, 3) for a in (q3, k3, v3)]
+    dense = None
+    if flags.startswith("dense"):
+        shape = (B, 1, T, T) if "b1" in flags else (T, T)
+        dense = np.where(g.random(shape) < 0.3, NEG_INF, 0.0).astype(np.float32)
+        dense[..., 0] = 0.0
+    km = _key_mask([77, 40, 5], T) if "key" in flags else None
+    causal = "causal" in flags
+    want = j_fused(
+        *(_j(np.ascontiguousarray(a), dtype) for a in heads),
+        None if dense is None else jnp.asarray(dense), interpret=True, causal=causal,
+        key_mask=None if km is None else jnp.asarray(km),
+    )
+    views = [_t(a, dtype).view(B, T, H, dh).transpose(1, 2) for a in (q3, k3, v3)]
+    assert not views[0].is_contiguous()
+    got = cf.fused_mha(*views, None if dense is None else torch.from_numpy(dense),
+                       causal=causal, key_mask=None if km is None else torch.from_numpy(km))
+    assert got.shape == (B, H, T, dh)
+    _close(got, want, dtype)
+
+
 def _attn_params(g, D):
     p = {n: {"w": (g.normal(size=(D, D)) * D**-0.5).astype(np.float32),
              "b": (g.normal(size=(D,)) * 0.1).astype(np.float32)} for n in ("q", "k", "v", "o")}

@@ -1,7 +1,8 @@
 """The port stands alone: no file of it (or chip_smoke.py) imports JAX or
-the JAX package, and the modules on the card's path import with only the
-packages the card machine has (no pandas, PIL, sklearn, yaml, safetensors,
-regex or transformers)."""
+the JAX package, and the modules on the card's path import without pandas,
+PIL, sklearn, yaml, regex or transformers (which the card machine lacks) and
+without safetensors (which the port must not need: it reads the format
+itself)."""
 
 import ast
 import os
@@ -43,6 +44,7 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.utils.profiling",
     "chip_smoke",
 ]
+# the packages the card's path must import without
 MISSING_ON_CARD_MACHINE = [
     "jax", "jaxlib", "multimodal_content_moderation_tpu", "pandas", "PIL", "sklearn",
     "yaml", "safetensors", "regex", "transformers",

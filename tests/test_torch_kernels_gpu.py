@@ -15,8 +15,8 @@ each side from an fp32 sum). ``flash_attention`` and ``attention_small``
 against their plain versions: fp32 atol 1e-4, bf16 rtol 2^-7 + atol 1e-3
 (an online softmax on the card, one softmax in the plain version).
 
-bf16 ``patch_embed_u8``, ``attention_nhd``, ``attention_nhd_bwd`` and
-``flash_attention`` calls run the tensor-core kernels (``csrc/mma_common.cuh``,
+bf16 ``patch_embed_u8``, ``attention_nhd``, ``attention_nhd_bwd``,
+``flash_attention`` and ``attention_small`` calls run the tensor-core kernels (``csrc/mma_common.cuh``,
 ``csrc/attention_mma.cuh``) and fp32 calls the SIMT ones: every call adds
 one to the wrapper's ``launches``, and a bf16 call one to its
 ``tensor_core_launches`` too."""
@@ -351,7 +351,8 @@ def test_flash_attention_strided_unaligned_view(dtype):
 
 
 @pytest.mark.parametrize(
-    "kernel", ["attention_nhd", "flash_attention", "patch_embed_u8", "attention_nhd_bwd"])
+    "kernel",
+    ["attention_nhd", "flash_attention", "patch_embed_u8", "attention_nhd_bwd", "attention_small"])
 def test_simt_kernel_stays_the_earlier_bf16_design(kernel):
     """The uncounted SIMT entry (the yardstick chip_smoke.py times) agrees
     with the plain version on the same bf16 inputs, and neither count
@@ -379,6 +380,15 @@ def test_simt_kernel_stays_the_earlier_bf16_design(kernel):
         before = wrapper.launches, wrapper.tensor_core_launches
         got = [ci.patch_embed_u8_simt(x, w, b, torch.bfloat16)]
         want = [ci.patch_embed_reference(x, w, b, torch.bfloat16)]
+    elif kernel == "attention_small":
+        q, k, v = (torch.randn(4, 8, 77, 64, generator=g, device="cuda").bfloat16()
+                   for _ in range(3))
+        mask = torch.where(torch.rand(4, 1, 77, 77, generator=g, device="cuda") < 0.3,
+                           ca.NEG_INF, 0.0)
+        wrapper = cf.attention_small
+        before = wrapper.launches, wrapper.tensor_core_launches
+        got = [cf.attention_small_simt(q, k, v, mask)]
+        want = [cf.attention_small_reference(q, k, v, mask)]
     else:
         q, k, v, do = (torch.randn(4, 48, 512, generator=g, device="cuda").bfloat16()
                        for _ in range(4))
@@ -420,11 +430,67 @@ def test_attention_small_kernel(BH, T, S, dh, with_mask, dtype):
     if with_mask:
         mask = torch.where(torch.rand(BH, T, S, generator=g, device="cuda") < 0.3, ca.NEG_INF, 0.0)
         mask[0] = ca.NEG_INF  # slice 0: every key masked, a uniform average
-    before = cf.attention_small.launches
-    got = cf.attention_small(q, k, v, mask)
-    assert cf.attention_small.launches == before + 1
+    got = _launch_counted(cf.attention_small, dtype, lambda: cf.attention_small(q, k, v, mask))
+    assert got.shape == q.shape and got.is_contiguous()
     assert torch.isfinite(got.float()).all()
     _assert_close(got, cf.attention_small_reference(q, k, v, mask))
+
+
+SMALL_VIEW_SHAPES = [
+    # B, H, T, S, dh, mask kind ("key": [B, 1, T, S]; "dense": [B, H, T, S];
+    # "shared": [T, S]), q's storage offset (elements)
+    (64, 8, 77, 77, 64, "key", 0),  # the mha dense-mask path's shape
+    (3, 4, 200, 256, 128, "dense", 0),  # dh = 128, four key chunks, S != T
+    (2, 3, 1, 130, 16, "shared", 0),  # one query row, ragged S
+    (2, 2, 70, 70, 40, "key", 0),  # dh = 40: zero columns up to 64
+    (2, 2, 33, 33, 5, "dense", 1),  # dh = 5 (odd), unaligned rows: element loads
+]
+
+
+@pytest.mark.parametrize("B,H,T,S,dh,kind,offset", SMALL_VIEW_SHAPES)
+def test_attention_small_reads_views_and_broadcast_masks(B, H, T, S, dh, kind, offset):
+    """[B, T, D] memory viewed as [B, H, T, dh] (the view mha passes) and a
+    mask read with its broadcast strides: the same result as the plain
+    version, an output whose [B, T, D] view is free, and the contiguous
+    [B*H, T, dh] form of the JAX contract gives the same numbers."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(T + S + dh)
+    shape = {"key": (B, 1, T, S), "dense": (B, H, T, S), "shared": (T, S)}[kind]
+    mask = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.3, ca.NEG_INF, 0.0)
+    mask[..., 0] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q3 = _offset_randn(g, (B, T, H * dh), offset, dtype)
+        k3, v3 = (_offset_randn(g, (B, S, H * dh), offset, dtype) for _ in range(2))
+        q, k, v = (t.view(B, t.shape[1], H, dh).transpose(1, 2) for t in (q3, k3, v3))
+        got = _launch_counted(cf.attention_small, dtype,
+                              lambda: cf.attention_small(q, k, v, mask))
+        assert got.shape == (B, H, T, dh) and got.transpose(1, 2).is_contiguous()
+        assert torch.isfinite(got.float()).all()
+        _assert_close(got, cf.attention_small_reference(q, k, v, mask))
+        flat = [t.reshape(B * H, t.shape[2], dh) for t in (q, k, v)]
+        m3 = mask.expand(B, H, T, S).reshape(B * H, T, S)
+        torch.testing.assert_close(cf.attention_small(*flat, m3).view(B, H, T, dh), got,
+                                   atol=0, rtol=0)
+
+
+def test_attention_small_fully_masked_rows():
+    """A row whose keys are all at -FLT_MAX averages them; a row of -inf
+    entries (a causal and a key mask of -FLT_MAX added) is NaN, as in the
+    plain version, in both kernels."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    BH, T, dh = 4, 77, 64
+    mask = torch.zeros(BH, T, T, device="cuda")
+    mask[1] = ca.NEG_INF
+    mask[2, 5] = float("-inf")
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(BH, T, dh, generator=g, device="cuda").to(dtype) for _ in range(3))
+        got = cf.attention_small(q, k, v, mask).float()
+        want = cf.attention_small_reference(q, k, v, mask).float()
+        assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got[2, 5]).all()
+        keep = ~torch.isnan(want)
+        _assert_close(got[keep].to(dtype), want[keep].to(dtype))
+        _assert_close(got[1].to(dtype), v[1].float().mean(0).expand(T, dh).to(dtype))
 
 
 @pytest.mark.parametrize("T,dense", [(289, False), (289, True), (77, True)])

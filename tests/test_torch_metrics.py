@@ -59,3 +59,35 @@ def test_compute_metrics_and_thresholds_match_jax(seed):
     for k in want:
         assert got[k] == pytest.approx(want[k], abs=1e-9), k
     assert tm.calibrate_thresholds(probs, y) == jm.calibrate_thresholds(probs, y)
+
+
+def _nested_close(got, want, path=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _nested_close(got[k], want[k], f"{path}.{k}")
+    else:
+        assert type(got) is type(want), path
+        assert got == pytest.approx(want, abs=1e-12), path
+
+
+@pytest.mark.parametrize("seed", range(20, 30))
+def test_compute_detailed_metrics_matches_the_jax_report(seed):
+    """The numpy report against the JAX package's (sklearn's
+    ``f1_score``, ``precision_score``, ``recall_score`` and ``roc_auc_score``):
+    every key and number, degenerate columns included; and a column that
+    holds one class gets a per-class ROC-AUC of 0.0 and a macro ROC-AUC of
+    0.0 (tolerance 1e-12)."""
+    y, probs = _case(seed)
+    if seed == 20:  # five columns, the second of them all 0
+        y = (np.random.default_rng(0).random((30, 5)) < 0.4).astype(np.float32)
+        probs = np.round(np.random.default_rng(1).random((30, 5)), 2).astype(np.float32)
+        y[:, 1] = 0.0
+    names = [f"c{i}" for i in range(y.shape[1])]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # sklearn's degenerate-class warnings
+        want = jm.compute_detailed_metrics(probs, y, 0.45, names)
+    got = tm.compute_detailed_metrics(probs, y, 0.45, names)
+    _nested_close(got, want)
+    if seed == 20:
+        assert got["per_class"]["c1"]["roc_auc"] == 0.0 and got["roc_auc_macro"] == 0.0

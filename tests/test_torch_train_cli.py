@@ -6,10 +6,14 @@ plain versions on the CPU) and ``--device cpu``.
 It writes the JAX CLI's five artifacts with the JAX CLI's keys (as
 tests/test_cli.py checks them), ``"format": "torch"`` in
 inference_config.json, and the run directory then loads in the port's
-evaluate CLI."""
+evaluate CLI. The shipped ``config/clip_fusion.yaml`` and
+``config/siglip_fusion.yaml`` train as they are (the f32 wire, bf16, the
+"xla" attention core), with only the encoder, the data and the epochs set
+on the command line; ``config/clip_mtl.yaml`` names the slice it waits for."""
 
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -100,7 +104,7 @@ def test_run_directory_loads_in_the_evaluate_cli(torch_run, data_dir, tmp_path):
 @pytest.mark.parametrize(
     "wire,flags,match",
     [
-        ("f32", [], "patchify"),
+        ("f32", ["--model.head", "mtl"], "multi-task slice"),
         ("u8", ["--model.head", "mtl"], "mtl"),
         ("u8", ["--parallel.model", "2"], "one device"),
     ],
@@ -110,3 +114,77 @@ def test_train_cli_names_what_is_not_ported(config_file, tmp_path, wire, flags, 
     with pytest.raises(NotImplementedError, match=match):
         t_train.main(["--config", cfg, "--saving.output_dir", str(tmp_path / "x"),
                       "--device", "cpu"] + flags)
+
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def siglip_encoder_dir(tmp_path_factory):
+    """A tiny SigLIP encoder directory without weights (the model starts from
+    its seeded init): config.json with a 64-position text tower, as the
+    shipped config's ``max_text_length``, a WordLevel tokenizer.json and a
+    32-pixel preprocessor_config.json."""
+    from tokenizers import Tokenizer, models, pre_tokenizers
+
+    d = tmp_path_factory.mktemp("siglip_train_enc")
+    words = ["<pad>", "<unk>", "hate", "love"]
+    tk = Tokenizer(models.WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({"pad_token": "<pad>"}))
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "siglip",
+        "text_config": {"vocab_size": len(words), "hidden_size": 32, "num_hidden_layers": 1,
+                        "num_attention_heads": 2, "intermediate_size": 64,
+                        "max_position_embeddings": 64},
+        "vision_config": {"hidden_size": 32, "num_hidden_layers": 1, "num_attention_heads": 2,
+                          "intermediate_size": 64, "image_size": 32, "patch_size": 16},
+    }))
+    (d / "preprocessor_config.json").write_text(json.dumps(
+        {"size": {"height": 32, "width": 32}, "image_mean": [0.5] * 3, "image_std": [0.5] * 3}))
+    return str(d)
+
+
+@pytest.mark.parametrize("name", ["clip_fusion.yaml", "siglip_fusion.yaml"])
+def test_shipped_configs_train(name, encoder_dir, siglip_encoder_dir, data_dir, tmp_path,
+                               caplog):
+    """The shipped YAML with no wire override: the f32 wire (float_nchw
+    pixels through the pixel path), evaluated by the standard engine; the
+    five artifacts are written. SigLIP ignores ``text_fit`` with a warning
+    and trains at the full 64-position text width."""
+    enc = encoder_dir if name.startswith("clip") else siglip_encoder_dir
+    out = str(tmp_path / "run")
+    result = t_train.main([
+        "--config", str(REPO / "config" / name), "--model.encoder_dir", enc,
+        "--data.train_csv", f"{data_dir}/train.csv", "--data.val_csv", f"{data_dir}/val.csv",
+        "--data.test_csv", f"{data_dir}/test.csv", "--data.image_root", f"{data_dir}/images",
+        "--training.num_train_epochs", "2", "--saving.output_dir", out, "--device", "cpu",
+    ])
+    for artifact in ["config.json", "val_report.json", "test_metrics.json",
+                     "inference_config.json", "label_map.json"]:
+        assert os.path.exists(os.path.join(out, artifact)), artifact
+    with open(os.path.join(out, "config.json")) as f:
+        training = json.load(f)["training"]
+    assert training["wire"] == "f32" and training["precision"] == "bf16"
+    assert training["attention"] == "xla"
+    with open(os.path.join(out, "inference_config.json")) as f:
+        cfg = json.load(f)
+    assert set(cfg) == INFERENCE_KEYS and cfg["backend"] == name.split("_")[0]
+    assert os.path.isdir(cfg["best_checkpoint_dir"])
+    with open(os.path.join(out, "test_metrics.json")) as f:
+        assert set(json.load(f)) == {f"test_{k}" for k in METRIC_KEYS}
+    hist = result["result"]["history"]
+    assert len(hist) == 2 and result["result"]["global_step"] == 2
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["train_loss"]) for h in hist)
+    assert ("text_fit ignored" in caplog.text) == name.startswith("siglip")
+
+
+def test_shipped_clip_mtl_names_the_multi_task_slice(encoder_dir, data_dir, tmp_path):
+    with pytest.raises(NotImplementedError, match="multi-task slice"):
+        t_train.main([
+            "--config", str(REPO / "config" / "clip_mtl.yaml"), "--model.encoder_dir",
+            encoder_dir, "--data.train_csv", f"{data_dir}/train.csv",
+            "--data.val_csv", f"{data_dir}/val.csv", "--saving.output_dir", str(tmp_path / "x"),
+            "--device", "cpu",
+        ])

@@ -43,7 +43,12 @@ from multimodal_content_moderation_tpu_torch.models.siglip import (
 from multimodal_content_moderation_tpu_torch.ops import cuda_image as ci
 from multimodal_content_moderation_tpu_torch.ops.layers import dropout
 from multimodal_content_moderation_tpu_torch.training import checkpoints as ckpt_lib
-from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs, Trainer, make_train_step
+from multimodal_content_moderation_tpu_torch.training.loop import (
+    TrainArgs,
+    Trainer,
+    evaluate_logits,
+    make_train_step,
+)
 from multimodal_content_moderation_tpu_torch.training.metrics import make_compute_metrics_multi
 from multimodal_content_moderation_tpu_torch.training.optim import AdamW
 from multimodal_content_moderation_tpu_torch.utils.profiling import assert_finite
@@ -357,13 +362,19 @@ def _tiny_siglip():
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="patchify"):
-        Trainer(_port_model(), _args(tmp_path, wire="f32"), TinyDataset(4, 0),
+    """Both wires and both backends train (tests/test_torch_pixel_path.py);
+    what stays refused names its slice: tensorboard events, the generic
+    backend, and a wire that does not exist."""
+    with pytest.raises(NotImplementedError, match="utils slice"):
+        Trainer(_port_model(), _args(tmp_path, report_to="tensorboard"), TinyDataset(4, 0),
+                TinyDataset(4, 0), make_compute_metrics_multi(3), device="cpu")
+    with pytest.raises(ValueError, match="wire"):
+        Trainer(_port_model(), _args(tmp_path, wire="u16"), TinyDataset(4, 0),
                 TinyDataset(4, 0), make_compute_metrics_multi(3), device="cpu")
     siglip = FusionModel.create("siglip", num_labels=3, fusion_dim=16, device="cpu",
                                 siglip_config=_tiny_siglip())
-    with pytest.raises(NotImplementedError, match="backend"):
-        Trainer(siglip, _args(tmp_path), TinyDataset(4, 0), TinyDataset(4, 0),
-                make_compute_metrics_multi(3), device="cpu")
+    trainer = Trainer(siglip, _args(tmp_path), TinyDataset(4, 0), TinyDataset(4, 0),
+                      make_compute_metrics_multi(3), device="cpu")
+    assert trainer.patch_size == 16 and trainer.eval_logits is evaluate_logits
     with pytest.raises(NotImplementedError, match="backend"):
         model_io.resolve_backend(None, "generic")
