@@ -82,6 +82,27 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    exactly, all on the tensor cores), each with a falling loss on a fixed
    batch and CUDA-event forward / backward / optimizer ms per micro-step;
    then fp32 card-vs-CPU SigLIP gradients on every leaf.
+7. The moderation endpoint at full CLIP ViT-B/32 width, from JPEG bytes and
+   real text, with PIL, pandas, ``regex``, yaml and JAX hidden from imports
+   for the whole run: the native JPEG decoder (libjpeg, or nvJPEG where the
+   machine has no libjpeg; named in the output) on every committed fixture
+   against its committed PIL crop, and its decode rate at 224 and 384 px;
+   the bf16 classifier's answers on the fixtures from their PIL crops and
+   from the native decode, side by side; a
+   reference-format checkpoint with a synthetic 49,408-entry CLIP BPE
+   vocabulary; a cold start of ``python -m ...serving.server`` in a fresh
+   process and build directory (seconds to /ping 200); ``cli/evaluate.main``
+   (fast engine, native_scaled, the kernels, bf16, buckets, a pixel cache)
+   twice over a CSV of tweet-length rows with NA strings and missing images,
+   the second run decoding nothing; ``serving.server.serve`` in a thread
+   (``SERVE_ENV``): /ping, 404, 400, single and batch requests, fp32 card
+   probabilities against ``MultiModalClassifier(device="cpu")`` (atol 1e-4),
+   bf16 ``forward_batch`` logits against fp32 (3e-2), buckets against none
+   (fp32, 1e-5), 4 concurrent clients each getting its own rows with
+   micro-batching off and on, then requests/s and p50 / p99 latency over
+   ``LOAD_WINDOW_S`` of load at 1, 4 and 16 clients, off and on, with 1
+   ``patch_embed_u8`` and 24 ``attention_nhd`` launches per served batch,
+   all on the tensor cores.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -325,6 +346,10 @@ def attention_cases(torch, g):
     specs += [(TRAIN_BATCH, 50, 768, 12, False, False, "train path: vision tower"),
               (TRAIN_BATCH, TRAIN_SEQ, 512, 8, True, True,
                f"train path: text tower, seq {TRAIN_SEQ}")]
+    # the serving path's B=32 batches at the text widths it launches besides
+    # the train path's 48 (its vision tower is the train path's shape)
+    specs += [(SERVE_BATCH, T, 512, 8, True, True, f"serving path: text tower, seq {T}")
+              for T in (32, 64, 77)]
     specs += [(SIGLIP_BATCH, 64, 768, 12, False, True,
                "siglip text: text tower, seq 64, key mask, not causal"),
               (SIGLIP_BATCH, SIGLIP224_T, 768, 12, False, False, "siglip224 path: vision tower")]
@@ -1869,6 +1894,633 @@ def mha_dense_mask_phase(torch):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the moderation endpoint and the evaluate CLI, from CSV rows and
+# JPEG bytes
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 32  # MultiModalClassifier's batch (the JAX endpoint's too)
+N_CSV_ROWS = 9 * SERVE_BATCH - 7  # nine batches, the last one padded
+# the endpoint as phase 7 serves it (serving/handler.model_fn's knobs)
+SERVE_ENV = {"MMHARM_ENGINE": "fast", "MMHARM_ATTENTION": "pallas",
+             "MMHARM_PRECISION": "bf16", "MMHARM_IMAGE_BACKEND": "native_scaled",
+             "MMHARM_SEQ_BUCKETS": "auto", "MMHARM_PREWARM": "1"}
+MICROBATCH_MS = "4"  # the JAX MicroBatcher's default window
+# what the card's path runs without: hidden from imports for the whole run
+HIDDEN_MODULES = ["jax", "jaxlib", "multimodal_content_moderation_tpu", "PIL", "pandas",
+                  "regex", "yaml"]
+WORDS = ("the a you they this that is are was not just so really why how all people "
+         "women men immigrants refugees neighbours go back home hate love stupid "
+         "disgusting trash never always ever lol wtf smh rt #news #politics #tbt "
+         "@user @friend 🙂 😂 🔥 ... !!! ?? don't they're it's I'll").split()
+NA_TEXTS = ["", "NA", "null", "None", "nan", "N/A", "   "]
+LOAD_CLIENTS = (1, 4, 16)
+LOAD_WINDOW_S = 12.0  # each level: clients post back to back for this long
+
+
+def tweet(g) -> str:
+    """A tweet-length text (3 to 40 words, at most 280 characters)."""
+    words = [WORDS[int(i)] for i in g.integers(0, len(WORDS), size=int(g.integers(3, 41)))]
+    if g.random() < 0.3:
+        words[0] = words[0].upper()
+    return " ".join(words)[:280]
+
+
+def write_serving_checkpoint(torch, root: str, hf_cfg: dict, device: str) -> str:
+    """A reference-format CLIP fusion checkpoint (random weights from a seed)
+    with a synthetic 49,408-entry CLIP BPE vocabulary, so that real text is
+    tokenized by the port's own BPE."""
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.testdata import write_clip_bpe
+
+    ckpt = os.path.join(root, "checkpoint")
+    os.makedirs(ckpt)
+    src = FusionModel.create("clip", num_labels=len(CLASSES), seed=3, device=device,
+                             clip_config=model_io.clip_config_from_dict(hf_cfg))
+    torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
+    del src
+    size = hf_cfg["vision_config"]["image_size"]
+    files = {
+        "config.json": hf_cfg,
+        "inference_config.json": {
+            "backend": "clip", "head": "fusion", "fusion_dim": 512, "class_names": CLASSES,
+            "thresholds": [0.5, 0.45, 0.5, 0.55, 0.5], "max_text_length": 77},
+        "preprocessor_config.json": {
+            "size": {"shortest_edge": size}, "crop_size": {"height": size, "width": size},
+            "image_mean": list(CLIP_MEAN), "image_std": list(CLIP_STD)},
+    }
+    for name, obj in files.items():
+        with open(os.path.join(ckpt, name), "w") as f:
+            json.dump(obj, f)
+    vocab = write_clip_bpe(ckpt, hf_cfg["text_config"]["vocab_size"], seed=0)
+    check(vocab["<|startoftext|>"] == hf_cfg["text_config"]["bos_token_id"]
+          and vocab["<|endoftext|>"] == hf_cfg["text_config"]["eos_token_id"],
+          "synthetic vocabulary: BOS/EOS ids differ from the config's")
+    return ckpt
+
+
+def decode_checks():
+    """Every committed JPEG fixture through the native decoder at 224 and
+    384 px against its committed PIL crop: libjpeg unscaled must be
+    bit-identical, and scaled within the JAX package's scaled-path tolerance
+    (tests/test_native_ops.py: mean absolute difference < 2.0 levels).
+    nvJPEG has no scaled decode; its planes are upsampled and converted as
+    libjpeg does, so only its IDCT's rounding is left: mean < 0.5 and at
+    most 8 levels on any sample (measured on an H100: 0.13 and 3). The
+    corrupt fixture must not decode (and must not raise: a raise is a fault
+    of the decoder, not of the bytes)."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data import native
+    from multimodal_content_moderation_tpu_torch.testdata import (
+        CROP_SIZES, jpeg_fixtures, pil_crops)
+
+    decoder = native.jpeg_decoder()
+    check(decoder in ("libjpeg", "nvjpeg"), f"no JPEG decoder in the native library "
+                                            f"(build attempts: {native.build_log})")
+    report = {"decoder": decoder, "build_attempts": list(native.build_log), "cases": []}
+    for name, path in jpeg_fixtures().items():
+        data = path.read_bytes()
+        crops = pil_crops(name)
+        for size in CROP_SIZES:
+            for scaled in (False, True) if decoder == "libjpeg" else (False,):
+                got = native.decode_jpeg_resize_crop(data, size, scaled=scaled)
+                label = f"{name} {size}px {'scaled' if scaled else 'full'}"
+                if crops is None:
+                    check(got is None, f"decode {label}: a corrupt file decoded")
+                    continue
+                check(got is not None, f"decode {label}: failed")
+                diff = np.abs(got.astype(np.int32) - crops[size].astype(np.int32))
+                case = {"case": label, "mean_abs_diff": float(diff.mean()),
+                        "max_abs_diff": int(diff.max())}
+                if decoder == "libjpeg" and not scaled:
+                    check(case["max_abs_diff"] == 0, f"decode {label}: {case} (want exact)")
+                elif decoder == "nvjpeg":
+                    check(case["mean_abs_diff"] < 0.5 and case["max_abs_diff"] <= 8,
+                          f"decode {label}: {case} (want mean < 0.5, max <= 8)")
+                else:
+                    check(case["mean_abs_diff"] < 2.0, f"decode {label}: {case} (want < 2.0)")
+                report["cases"].append(case)
+    report["max_mean_abs_diff"] = max(c["mean_abs_diff"] for c in report["cases"])
+    report["max_abs_diff"] = max(c["max_abs_diff"] for c in report["cases"])
+    return report
+
+
+def decode_rates(card: str):
+    """Decoded 224 and 384 px crops per second through the native library
+    with 1 and 8 threads, over the committed fixtures (sources 97x203 to
+    456x610 px). libjpeg runs on the host's cores; nvJPEG is hybrid: entropy
+    decode, upsampling, colour conversion and resize on the host's cores,
+    the IDCT on the card."""
+    import concurrent.futures as cf
+
+    from multimodal_content_moderation_tpu_torch.data import native
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures, pil_crops
+
+    blobs = [p.read_bytes() for n, p in jpeg_fixtures().items() if pil_crops(n) is not None]
+    decoder = native.jpeg_decoder()
+    out = {"card": card, "cpu_cores": os.cpu_count(), "decoder": decoder,
+           "where": "host cores" if decoder == "libjpeg" else "host cores + card (IDCT)"}
+    for size in (224, 384):
+        for threads in (1, 8):
+            work = blobs * (40 if threads == 1 else 160)
+            with cf.ThreadPoolExecutor(threads) as pool:
+                list(pool.map(lambda b: native.decode_jpeg_resize_crop(b, size, True),
+                              blobs * threads))  # warm every thread's decoder state
+                t0 = time.perf_counter()
+                list(pool.map(lambda b: native.decode_jpeg_resize_crop(b, size, True), work))
+                dt = time.perf_counter() - t0
+            out[f"{size}px_{threads}_threads_images_per_s"] = len(work) / dt
+    return out
+
+
+def write_csv(root: str, g) -> str:
+    """``N_CSV_ROWS`` rows of tweet-length texts (with NA strings and empty
+    texts), JPEG paths into ``root/images`` (some missing, some empty, one
+    corrupt) and multi-label ``labels``."""
+    import csv
+
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures
+
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    names = []
+    for name, path in jpeg_fixtures().items():
+        shutil.copy(path, os.path.join(images, path.name))
+        names.append(path.name)
+    path = os.path.join(root, "test.csv")
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["text", "image_path", "labels"])
+        for i in range(N_CSV_ROWS):
+            text = NA_TEXTS[i // 11 % len(NA_TEXTS)] if i % 11 == 5 else tweet(g)
+            image = ("" if i % 13 == 4 else f"missing_{i}.jpg" if i % 13 == 9
+                     else names[i % len(names)])
+            labels = ",".join(c for c in CLASSES if g.random() < 0.25)
+            w.writerow([text, image, labels])
+    return path
+
+
+def csv_evaluate_checks(ckpt: str, root: str, g, device: str):
+    """``cli/evaluate.main`` as a user runs it on the card, twice over one
+    CSV with one pixel cache: both runs write ``eval_results.json`` with the
+    same metrics; the first decodes every row whose JPEG exists, the second
+    decodes nothing (every row is a cache hit); each launches 1
+    ``patch_embed_u8`` and 24 ``attention_nhd`` per batch, on the tensor
+    cores."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.cli import evaluate
+    from multimodal_content_moderation_tpu_torch.data import native
+
+    csv_path = write_csv(root, g)
+    n_batches = -(-N_CSV_ROWS // SERVE_BATCH)
+    decodes = []  # one entry per call (list.append is atomic across threads)
+    real_decode = native.decode_jpeg_resize_crop
+
+    def counted(*a, **k):
+        decodes.append(1)
+        return real_decode(*a, **k)
+
+    native.decode_jpeg_resize_crop = counted
+    runs = []
+    try:
+        for run in (1, 2):
+            out = os.path.join(root, f"eval_results_{run}.json")
+            decodes.clear()
+            counts = _reset_counts()
+            t0 = time.perf_counter()
+            metrics = evaluate.main([
+                "--checkpoint", ckpt, "--test_csv", csv_path, "--image_root",
+                os.path.join(root, "images"), "--batch_size", str(SERVE_BATCH),
+                "--engine", "fast", "--image_backend", "native_scaled", "--attention", "pallas",
+                "--precision", "bf16", "--seq_buckets", "auto",
+                "--image_cache", os.path.join(root, "pixel_cache"), "--device", device,
+                "--output", out])
+            wall = time.perf_counter() - t0
+            launches = counts()
+            check(os.path.exists(out), f"evaluate run {run}: {out} was not written")
+            with open(out) as f:
+                saved = json.load(f)
+            check(np.isfinite(saved["f1_macro"]) and np.isfinite(saved["roc_auc_macro"]),
+                  f"evaluate run {run}: metrics {saved}")
+            check(launches == _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches),
+                  f"evaluate run {run}: launches {launches} for {n_batches} batches")
+            runs.append({"wall_s": wall, "decodes": len(decodes), "launches": launches,
+                         "f1_macro": saved["f1_macro"], "roc_auc_macro": saved["roc_auc_macro"],
+                         "samples_per_second": saved["samples_per_second"]})
+    finally:
+        native.decode_jpeg_resize_crop = real_decode
+    present = sum(1 for line in open(csv_path, encoding="utf-8").read().splitlines()[1:]
+                  if ".jpg" in line and "missing_" not in line)
+    check(runs[0]["decodes"] == present,
+          f"evaluate run 1 decoded {runs[0]['decodes']} JPEGs, the CSV names {present}")
+    check(runs[1]["decodes"] == 0,
+          f"evaluate run 2 decoded {runs[1]['decodes']} JPEGs: want every row from the cache")
+    check(abs(runs[0]["f1_macro"] - runs[1]["f1_macro"]) <= 1e-6
+          and abs(runs[0]["roc_auc_macro"] - runs[1]["roc_auc_macro"]) <= 1e-6,
+          f"evaluate runs differ: {runs}")
+    return {"rows": N_CSV_ROWS, "batches": n_batches, "runs": runs}
+
+
+def _post(url: str, body: bytes, timeout: float = 120):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _get_status(url: str, timeout: float = 10) -> int:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def _probs(preds) -> "list":
+    return [[p["probabilities"][c] for c in CLASSES] for p in preds]
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def load_test(url: str, clients: int, bodies, window_s: float = LOAD_WINDOW_S):
+    """``clients`` threads post requests back to back, each starting new
+    ones until ``window_s`` has passed since the level began: requests/s is
+    every request over the wall time to the last answer, and p50 / p99 are
+    over every request's latency (host clock around each HTTP call)."""
+    import threading
+
+    import numpy as np
+
+    lat, errors = [], []
+    lock = threading.Lock()
+    deadline = time.perf_counter() + window_s
+
+    def worker(c):
+        i = 0
+        while time.perf_counter() < deadline:
+            body = bodies[(c * 7 + i) % len(bodies)]
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                status, _ = _post(url, body)
+            except OSError as e:  # a refused or reset connection fails the check below
+                status = repr(e)
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt)
+                if status != 200:
+                    errors.append(status)
+
+    threads = [threading.Thread(target=worker, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"load test with {clients} clients: statuses {errors}")
+    ms = np.asarray(lat) * 1e3
+    return {"clients": clients, "requests": len(lat), "wall_s": wall,
+            "requests_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def served_logits(h, classifier, insts):
+    """The logits ``forward_batch`` returns while ``predict_fn`` answers
+    ``insts``, in request order."""
+    import numpy as np
+
+    got = []
+    real = classifier.forward_batch
+
+    def recording(batch, valid):
+        out = real(batch, valid)
+        got.append(out)
+        return out
+
+    classifier.forward_batch = recording
+    try:
+        h.predict_fn(insts, classifier)
+    finally:
+        del classifier.forward_batch
+    return np.concatenate(got)
+
+
+def decoder_effect(classifier):
+    """The classifier on every decodable fixture (each with a tweet), once
+    from its committed PIL crop (the reference's pipeline) and once from the
+    native decode of its bytes (the card's): how far the card's JPEG
+    decoder moves the served answers."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures, pil_crops
+
+    names = [n for n in jpeg_fixtures() if pil_crops(n) is not None]
+    g = np.random.default_rng(12)
+    texts = [tweet(g) for _ in names]
+    size = classifier.preproc.H
+    crops = {"pil": [pil_crops(n)[size] for n in names],
+             "native": [classifier.preproc.process_bytes(jpeg_fixtures()[n].read_bytes())[0]
+                        for n in names]}
+    logits = {k: classifier.forward_batch(
+        classifier.make_batch(texts, px, [1.0] * len(names)), len(names))
+        for k, px in crops.items()}
+    probs = {k: 1.0 / (1.0 + np.exp(-v)) for k, v in logits.items()}
+    pixels = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+                 for a, b in zip(crops["pil"], crops["native"]))
+    return {"fixtures": len(names), "crop_px": size, "max_abs_pixel_diff": pixels,
+            "max_abs_logit_diff": _max_diff(logits["pil"], logits["native"]),
+            "max_abs_prob_diff": _max_diff(probs["pil"], probs["native"])}
+
+
+def routing_check(url: str, cases):
+    """4 clients post their own requests at once; each must get exactly its
+    own rows: within 1e-4 of the same request's sequential answer (fp32;
+    batch composition only changes summation order), and closer to it than
+    to any other request's answer, which differ by more than 1e-3."""
+    import threading
+
+    bodies = [json.dumps({"instances": insts}).encode() for insts in cases]
+    sequential = [_probs(_post(url, b)[1]["predictions"]) for b in bodies]
+    for i in range(len(cases)):
+        for j in range(i + 1, len(cases)):
+            check(_max_diff(sequential[i], sequential[j]) > 1e-3,
+                  f"routing check has no power: requests {i} and {j} answer alike")
+    results = [None] * len(cases)
+
+    def worker(k):
+        status, out = _post(url, bodies[k])
+        results[k] = _probs(out["predictions"]) if status == 200 else status
+
+    worst = 0.0
+    for _ in range(3):
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(len(cases))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for k, got in enumerate(results):
+            check(isinstance(got, list) and len(got) == len(cases[k]),
+                  f"concurrent request {k}: {got if not isinstance(got, list) else len(got)}")
+            own = _max_diff(got, sequential[k])
+            other = min(_max_diff(got, s) for j, s in enumerate(sequential)
+                        if j != k and len(s) == len(got)) if len(cases) > 1 else 1.0
+            check(own <= 1e-4 and own < other,
+                  f"concurrent request {k}: {own} from its own answer, {other} from another's")
+            worst = max(worst, own)
+    return worst
+
+
+def cold_start(ckpt: str, root: str, device: str):
+    """``python -m ...serving.server`` in a fresh process with a fresh
+    build directory (``MMHARM_COMPILE_CACHE``) and the packages the card
+    lacks hidden: seconds from the start of the process to /ping 200, which
+    the server answers only after the model is loaded, the kernels and the
+    image library are built and every text width has run; then one request.
+    The process is stopped before this returns."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cache = os.path.join(root, "cold_build")
+    code = (f"import sys; sys.modules.update(dict.fromkeys({HIDDEN_MODULES!r})); "
+            f"sys.path.insert(0, {REPO!r}); "
+            f"from {PKG}.serving.server import main; "
+            f"main(['--model-dir', {ckpt!r}, '--port', '{port}', '--host', '127.0.0.1', "
+            f"'--device', {device!r}])")
+    env = {**os.environ, **SERVE_ENV, "MMHARM_COMPILE_CACHE": cache}
+    log = open(os.path.join(root, "cold_server.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, stdout=log,
+                            stderr=subprocess.STDOUT, cwd=root)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        ping_s = None
+        while time.perf_counter() - t0 < 600 and proc.poll() is None:
+            try:
+                if _get_status(f"{url}/ping", timeout=2) == 200:
+                    ping_s = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        check(ping_s is not None, f"cold server: no /ping 200 (exit {proc.poll()}; "
+                                  f"log {os.path.join(root, 'cold_server.log')})")
+        body = json.dumps({"text": "first request"}).encode()
+        t1 = time.perf_counter()
+        status, out = _post(f"{url}/invocations", body)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        check(status == 200 and len(out["predictions"]) == 1, f"cold server: {status} {out}")
+        built = sorted(os.path.relpath(os.path.join(d, f), cache)
+                       for d, _, fs in os.walk(cache) for f in fs if f.endswith(".so"))
+        check(len(built) == 3 and any(b.startswith("native/") for b in built)
+              and not any("flash_attention" in b for b in built),
+              f"cold server built {built}: want patch_embed_u8, attention_nhd and the image "
+              "library (CLIP never launches flash_attention)")
+        return {"seconds_to_ping_200": ping_s, "first_request_ms": first_ms, "built": built}
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def serving_phase(torch, card: str, hf_cfg: dict = HF_CLIP_B32, device: str = "cuda"):
+    """The moderation endpoint at full CLIP ViT-B/32 width, from JPEG bytes
+    and real text: decode checks and rates, a cold start, the evaluate CLI
+    over a CSV with a pixel cache, and ``serving.server.serve`` with the
+    knobs of ``SERVE_ENV`` (fp32 endpoint against the CPU classifier, bf16
+    against fp32, buckets against none, concurrent routing with and without
+    micro-batching, 400 / 404, load at 1, 4 and 16 clients, and the kernel
+    launches of the served batches)."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.cli.inference import MultiModalClassifier
+    from multimodal_content_moderation_tpu_torch.serving import handler as h
+    from multimodal_content_moderation_tpu_torch.serving import server as srv
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures
+
+    report = {"card": card}
+    root = os.path.join(REPO, "build", "chip_smoke_serving")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    g = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    report["decode"] = decode_checks()
+    print(f"serving: JPEG decoder {report['decode']['decoder']}, worst fixture mean |diff| "
+          f"{report['decode']['max_mean_abs_diff']:.4f}, max |diff| "
+          f"{report['decode']['max_abs_diff']} (vs the committed PIL crops)")
+    report["decode_rates"] = decode_rates(card)
+    ckpt = write_serving_checkpoint(torch, root, hf_cfg, device)
+    report["setup_s"] = time.perf_counter() - t0
+    report["cold_start"] = cold_start(ckpt, root, device)
+    report["csv_evaluate"] = csv_evaluate_checks(ckpt, root, g, device)
+
+    # the requests: tweet-length texts, JPEG bytes (base64), some without an
+    # image, one corrupt, one under the "image_base64" key
+    blobs = [base64.b64encode(p.read_bytes()).decode() for p in jpeg_fixtures().values()]
+    insts = []
+    for i in range(48):
+        inst = {"text": tweet(g) if i % 9 != 4 else NA_TEXTS[i % len(NA_TEXTS)]}
+        if i % 6 != 5:
+            inst["image_base64" if i % 10 == 3 else "image"] = blobs[i % len(blobs)]
+        insts.append(inst)
+
+    saved_env = {k: os.environ.get(k) for k in [*SERVE_ENV, "MMHARM_MICROBATCH_MS"]}
+    os.environ.update(SERVE_ENV)
+    os.environ.pop("MMHARM_MICROBATCH_MS", None)
+    server = None
+    try:
+        counts = _reset_counts()
+        t0 = time.perf_counter()
+        server = srv.serve(ckpt, port=0, host="127.0.0.1", device=device)
+        report["serve_s_warm_builds"] = time.perf_counter() - t0
+        bf16 = server.state.classifier
+        widths = len(bf16._bucket_ladder)
+        check(counts() == _counts(patch_embed_u8=widths, attention_nhd=24 * widths),
+              f"serve(): prewarm launches {counts()} for {widths} text widths")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        check(_get_status(f"{url}/ping") == 200, "/ping is not 200 after serve()")
+        check(_get_status(f"{url}/nope") == 404, "an unknown route is not 404")
+        status, out = _post(f"{url}/invocations", b"{not json")
+        check(status == 400, f"a bad body got {status}, want 400")
+        status, out = _post(f"{url}/invocations", json.dumps(insts[0]).encode())
+        check(status == 200 and len(out["predictions"]) == 1
+              and set(out["predictions"][0]) == {"class_predictions", "probabilities",
+                                                 "any_harmful"},
+              f"single request: {status} {out}")
+        body = json.dumps({"instances": insts[:40]}).encode()
+        status, out = _post(f"{url}/invocations", body)
+        check(status == 200 and len(out["predictions"]) == 40, f"batch request: {status}")
+        bf16_probs = _probs(out["predictions"])
+        check(np.isfinite(bf16_probs).all(), "bf16 endpoint: non-finite probabilities")
+        report["decoder_vs_pil_bf16"] = decoder_effect(bf16)
+        check(np.isfinite(report["decoder_vs_pil_bf16"]["max_abs_prob_diff"]),
+              f"decoder vs PIL crops: {report['decoder_vs_pil_bf16']}")
+
+        # fp32 on the card against the CPU classifier, both with buckets,
+        # then without; bf16 against fp32
+        os.environ["MMHARM_PRECISION"] = "fp32"
+        fp32 = h.model_fn(ckpt, device=device)
+        server.state.classifier = fp32
+        status, out = _post(f"{url}/invocations", body)
+        check(status == 200, f"fp32 endpoint: {status}")
+        fp32_probs = _probs(out["predictions"])
+        cpu = MultiModalClassifier(ckpt, batch_size=8, engine="fast", attention="pallas",
+                                   image_backend="native_scaled", device="cpu")
+        cpu_probs = _probs(h.predict_fn(insts[:40], cpu))
+        del cpu
+        report["fp32_card_vs_cpu_max_abs_err"] = _max_diff(fp32_probs, cpu_probs)
+        check(report["fp32_card_vs_cpu_max_abs_err"] <= 1e-4,
+              f"fp32 endpoint vs the CPU classifier: {report['fp32_card_vs_cpu_max_abs_err']}")
+        report["bf16_vs_fp32_probs_max_abs_err"] = _max_diff(bf16_probs, fp32_probs)
+        # phase 3's bf16 tolerance, on the logits forward_batch serves
+        report["bf16_vs_fp32_logits_max_abs_err"] = _max_diff(
+            served_logits(h, bf16, insts[:40]), served_logits(h, fp32, insts[:40]))
+        check(report["bf16_vs_fp32_logits_max_abs_err"] <= 3e-2,
+              f"bf16 endpoint logits vs fp32: {report['bf16_vs_fp32_logits_max_abs_err']} "
+              "(atol 3e-2)")
+        os.environ["MMHARM_SEQ_BUCKETS"] = "off"
+        fp32_off = h.model_fn(ckpt, device=device)
+        check(fp32_off._bucket_ladder is None, "MMHARM_SEQ_BUCKETS=off left a ladder")
+        off_probs = _probs(h.predict_fn(insts[:40], fp32_off))
+        del fp32_off
+        report["fp32_buckets_vs_none_max_abs_err"] = _max_diff(fp32_probs, off_probs)
+        check(report["fp32_buckets_vs_none_max_abs_err"] <= 1e-5,
+              f"bucketed vs unbucketed: {report['fp32_buckets_vs_none_max_abs_err']}")
+        os.environ["MMHARM_SEQ_BUCKETS"] = SERVE_ENV["MMHARM_SEQ_BUCKETS"]
+
+        # routing: 4 concurrent clients, fp32, micro-batching off then on
+        cases = [insts[3 * k : 3 * k + 3] for k in range(4)]
+        report["routing_max_abs_err"] = {}
+        for label, window in (("microbatch_off", None), ("microbatch_on", MICROBATCH_MS)):
+            if window:
+                os.environ["MMHARM_MICROBATCH_MS"] = window
+            else:
+                os.environ.pop("MMHARM_MICROBATCH_MS", None)
+            srv.configure(server.state)
+            report["routing_max_abs_err"][label] = routing_check(f"{url}/invocations", cases)
+        server.state.classifier = bf16
+        del fp32
+
+        # load: single-instance requests (text + JPEG) against the bf16
+        # endpoint for LOAD_WINDOW_S at each of 1, 4 and 16 clients; every
+        # served batch counted
+        served = []  # host ms of each served forward_batch (to the logits on the host)
+        real_forward = bf16.forward_batch
+
+        def counted_forward(batch, valid):
+            t = time.perf_counter()
+            out = real_forward(batch, valid)
+            served.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        bf16.forward_batch = counted_forward
+        bodies = [json.dumps(inst).encode() for inst in insts]
+        counts = _reset_counts()
+        report["load"] = {}
+        for label, window in (("microbatch_off", None), ("microbatch_on", MICROBATCH_MS)):
+            if window:
+                os.environ["MMHARM_MICROBATCH_MS"] = window
+            else:
+                os.environ.pop("MMHARM_MICROBATCH_MS", None)
+            srv.configure(server.state)
+            report["load"][label] = [load_test(f"{url}/invocations", c, bodies)
+                                     for c in LOAD_CLIENTS]
+        launches = counts()
+        report["served_batches"] = len(served)
+        report["forward_batch_ms_median"] = float(np.median(served))
+        report["launches"] = launches
+        check(launches == _counts(patch_embed_u8=len(served), attention_nhd=24 * len(served)),
+              f"serving: launches {launches} for {len(served)} served batches (want 1 and 24 "
+              "per batch, all on the tensor cores)")
+        bf16.forward_batch = real_forward
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for label, levels in report["load"].items():
+        for r in levels:
+            print(f"serving {label}: {r['clients']:2d} clients {r['requests']:4d} requests "
+                  f"in {r['wall_s']:.1f} s "
+                  f"{r['requests_per_s']:.1f} req/s p50 {r['p50_ms']:.1f} ms "
+                  f"p99 {r['p99_ms']:.1f} ms ({card})")
+    loaded = sorted(m for m, mod in sys.modules.items()
+                    if mod is not None and m.split(".")[0] in HIDDEN_MODULES)
+    check(not loaded, f"modules the card's path must not import were imported: {loaded}")
+    shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
 # device-kernel name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = [
     ("attention_nhd_bwd", ("attention_nhd_bwd",)),
@@ -2049,6 +2701,14 @@ def main() -> int:
         print(f"chip_smoke: {PKG}/ is missing beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    # None in sys.modules makes an import raise ImportError: nothing the card
+    # machine may lack is used on the way
+    import importlib.util
+
+    installed = [m for m in HIDDEN_MODULES  # the JAX package is in every checkout
+                 if m != "multimodal_content_moderation_tpu" and importlib.util.find_spec(m)]
+    print(f"installed here, hidden from imports for this run: {installed}")
+    sys.modules.update(dict.fromkeys(HIDDEN_MODULES))
     from multimodal_content_moderation_tpu_torch.ops import _build
 
     # fp32 products stay fp32 (no TF32) wherever a comparison is made
@@ -2068,6 +2728,7 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
 
     # phase 2: kernels against their plain versions
+    results = {}
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = (patch_embed_cases(torch, g) + attention_cases(torch, g) + flash_cases(torch, g)
@@ -2084,58 +2745,46 @@ def main() -> int:
                if "simt_ms" in c else "")
             + "".join(f" [{k} by events]" for k, how in c["timed_by"].items() if how != "graph")
         )
+    results["cases"] = cases
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
-    # phase 3: the CLIP eval path through the entry points
-    t0 = time.perf_counter()
-    report = full_model_phase(torch, card)
-    for k, v in report.items():
-        print(f"model {k}: {v}")
-    print(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    # phases 3-7: the paths through the entry points; each prints its report
+    paths = [
+        (3, "model", lambda: full_model_phase(torch, card)),  # the CLIP eval path
+        (4, "train", lambda: train_phase(torch, card)),  # the training path
+        (5, "siglip", lambda: siglip_phase(torch, card)),  # SigLIP-384 eval
+        (5, "siglip224", lambda: siglip224_phase(torch, card)),  # SigLIP-224 eval
+        (5, "mha_dense_mask", lambda: mha_dense_mask_phase(torch)),  # attention_small
+        (6, "clip_f32_train", lambda: clip_f32_train_phase(torch, card)),
+        (6, "siglip224_train", lambda: siglip224_train_phase(torch, card)),
+        (7, "serving", lambda: serving_phase(torch, card)),  # the moderation endpoint
+    ]
+    for phase in sorted({p for p, *_ in paths}):
+        t0 = time.perf_counter()
+        for _, key, run in (p for p in paths if p[0] == phase):
+            results[key] = run()
+            for k, v in results[key].items():
+                print(f"{key} {k}: {v}")
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
 
-    # phase 4: the training path through the entry points
-    t0 = time.perf_counter()
-    train = train_phase(torch, card)
-    for k, v in train.items():
-        print(f"train {k}: {v}")
-    print(f"phase 4: {time.perf_counter() - t0:.1f} s")
-
-    # phase 5: the SigLIP-384 and SigLIP-224 eval paths, and attention_small
-    # through mha
-    t0 = time.perf_counter()
-    siglip = siglip_phase(torch, card)
-    for k, v in siglip.items():
-        print(f"siglip {k}: {v}")
-    siglip224 = siglip224_phase(torch, card)
-    for k, v in siglip224.items():
-        print(f"siglip224 {k}: {v}")
-    mha = mha_dense_mask_phase(torch)
-    print(f"mha dense mask: {mha}")
-    print(f"phase 5: {time.perf_counter() - t0:.1f} s")
-
-    # phase 6: the shipped fine-tuning configs on the f32 wire
-    t0 = time.perf_counter()
-    clip_f32 = clip_f32_train_phase(torch, card)
-    for k, v in clip_f32.items():
-        print(f"clip f32 train {k}: {v}")
-    siglip_train = siglip224_train_phase(torch, card)
-    for k, v in siglip_train.items():
-        print(f"siglip224 train {k}: {v}")
-    print(f"phase 6: {time.perf_counter() - t0:.1f} s")
-
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    cases, report, train = results["cases"], results["model"], results["train"]
+    siglip, siglip224, mha = results["siglip"], results["siglip224"], results["mha_dense_mask"]
+    clip_f32, siglip_train = results["clip_f32_train"], results["siglip224_train"]
+    serving = results["serving"]
     launches_by_path = {"siglip384": siglip["main_path_launches"],
                         "siglip224": siglip224["main_path_launches"],
                         "evaluate": report["main_path_launches"],
                         "train": train["main_path_launches"],
                         "siglip224_train": siglip_train["pallas"]["main_path_launches"],
-                        "mha_dense_mask": mha["launches"]}
+                        "mha_dense_mask": mha["launches"],
+                        "serving": serving["launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,
                    "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
-                   "siglip224_train": siglip_train, "kernels": kernels},
+                   "siglip224_train": siglip_train, "serving": serving, "kernels": kernels},
                   f, indent=1)
 
     print(card)

@@ -6,7 +6,9 @@ at the full text width, ``training.loop.evaluate_logits_standard``) or the
 uint8 fast engine (``--engine fast``: ``evaluate_logits_u8``, with text
 buckets) and writes ``eval_results.json`` with the detailed metric schema
 (mean-threshold overall metrics + per-class calibrated F1), computed in
-numpy.
+numpy. The CSV is read without pandas (``data/dataset.read_csv``), the CLIP
+tokenizer runs without ``regex``, and ``--image_backend native*`` decodes
+JPEGs without PIL, so the CLI runs on a machine that has none of them.
 
     python -m multimodal_content_moderation_tpu_torch.cli.evaluate \\
         --checkpoint RUN/checkpoint-N --test_csv test.csv --image_root images
@@ -23,8 +25,6 @@ import numpy as np
 # values the port refuses, with the slice that brings each
 _LATER = {
     ("precision", "int8_mlp"): "the int8 fc1 tier comes with its own slice",
-    ("image_backend", "native"): "the native libjpeg backend comes in a later slice",
-    ("image_backend", "native_scaled"): "the native libjpeg backend comes in a later slice",
 }
 
 
@@ -74,7 +74,16 @@ def parse_args(argv=None):
         "--image_backend",
         choices=["pil", "native", "native_scaled"],
         default="pil",
-        help="JPEG decode path; only pil is ported",
+        help="JPEG decode path: pil = PIL; native = the C++ library (libjpeg, or nvJPEG "
+        "where libjpeg is missing), PIL's resize bit for bit; native_scaled adds "
+        "libjpeg's DCT-domain downscale",
+    )
+    parser.add_argument(
+        "--image_cache",
+        type=str,
+        default=None,
+        help="directory of the decode-once pixel cache (data/cache.py): the first run "
+        "fills it, later runs over the same rows read it instead of decoding",
     )
     parser.add_argument(
         "--device",
@@ -93,6 +102,12 @@ def main(argv=None):
     args = parse_args(argv)
 
     import torch
+
+    from multimodal_content_moderation_tpu_torch.utils.compile_cache import (
+        maybe_enable_from_env,
+    )
+
+    maybe_enable_from_env()
 
     from multimodal_content_moderation_tpu_torch.cli.common import image_stats_from_dir
     from multimodal_content_moderation_tpu_torch.data.dataset import CSVDataset
@@ -142,6 +157,7 @@ def main(argv=None):
         preproc,
         min(int(config.get("max_text_length", 77)), model.text_max_positions),
         class_names=class_names if len(class_names) > 1 else None,
+        cache_dir=args.image_cache,
     )
     print(f"Test samples: {len(test_ds)}")
 

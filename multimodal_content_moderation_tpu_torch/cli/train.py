@@ -113,16 +113,6 @@ def _refuse_unported(config, model_cfg, data_cfg) -> None:
         )
     if (model_cfg.get("head") or "fusion") != "fusion":
         raise NotImplementedError("model.head mtl is not ported yet (the multi-task slice)")
-    if (data_cfg.get("image_backend") or "pil") != "pil":
-        raise NotImplementedError(
-            "data.image_backend native* is not ported yet (the slice that runs the "
-            "evaluate CLI on the card brings the native JPEG decoder)"
-        )
-    if data_cfg.get("image_cache"):
-        raise NotImplementedError(
-            "data.image_cache is not ported yet (the slice that runs the evaluate CLI "
-            "on the card brings the pixel cache)"
-        )
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -185,6 +175,9 @@ def main(argv=None) -> Dict[str, Any]:
         return CSVDataset(
             csv, data_cfg.get("image_root", ""), tokenizer, pp, max_len,
             class_names=class_names or None, is_train=train,
+            # the decode-once pixel cache; CSVDataset skips it for an
+            # augmenting preprocessor
+            cache_dir=data_cfg.get("image_cache") or None,
         )
 
     train_ds = mk_ds(data_cfg["train_csv"], train_pp, True)

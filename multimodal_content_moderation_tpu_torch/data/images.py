@@ -16,7 +16,18 @@ uint8 wire: the normalisation is folded into the patch embed on the card,
 pixel path: ``normalize_crop``, which needs no PIL). Missing or corrupt
 images degrade to zeros with presence flag 0.0.
 
-Not ported yet: the native libjpeg backend.
+Decode backends:
+- ``pil``: PIL decode and resize (the reference).
+- ``native``: one call into the port's C++ library (``data/native.py``):
+  JPEG decode, shortest-edge resize with PIL's own arithmetic, centre crop,
+  without the GIL. With libjpeg the crop is bit-identical to ``pil``'s; on a
+  machine without libjpeg the decoder is nvJPEG.
+- ``native_scaled``: ``native`` with libjpeg's DCT-domain M/8 downscale
+  (near-exact, cheaper on large images).
+A ``native*`` backend needs no PIL for JPEGs: other formats go to PIL where
+it is installed, and degrade to zeros where it is not, as an undecodable
+image does. A ``native*`` backend whose library cannot be built, or has no
+JPEG decoder, raises when the preprocessor is made.
 
 PIL is imported where an image is decoded, so this module (and the stats
 and ``normalize_crop`` below) import on a machine without it.
@@ -24,6 +35,7 @@ and ``normalize_crop`` below) import on a machine without it.
 
 from __future__ import annotations
 
+import base64
 import io
 import math
 import os
@@ -35,6 +47,24 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
+
+# a 16x16 JPEG (PIL, quality 50): warmup() decodes it to initialise the
+# native decoder before the first request
+_WARM_JPEG = base64.b64decode(
+    "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDABALDA4MChAODQ4SERATGCgaGBYWGDEjJR0oOjM9PDkz"
+    "ODdASFxOQERXRTc4UG1RV19iZ2hnPk1xeXBkeFxlZ2P/2wBDARESEhgVGC8aGi9jQjhCY2NjY2Nj"
+    "Y2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2NjY2P/wAARCAAQABADASIA"
+    "AhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQA"
+    "AAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3"
+    "ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWm"
+    "p6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEA"
+    "AwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSEx"
+    "BhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElK"
+    "U1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3"
+    "uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwAlllYs"
+    "rbQoTfKhRgMEehORgAc9QPyqON8KZ8kmQF9qoNx5OTg9ccAkevoBTmR5r1goQB18xiEIAB4JBHXP"
+    "Yc8le+aYd7XZBwwCNgqQWxnAYkcZ4znI+72xy5L3lrr+v9X/AAHZ25Vu/wCv6/E//9k="
+)
 
 
 def normalize_crop(crop_u8: np.ndarray, mean, std) -> np.ndarray:
@@ -141,11 +171,19 @@ class ImagePreprocessor:
     ):
         if output not in ("uint8_hwc", "float_nchw"):
             raise ValueError(f"image output {output!r}: want 'uint8_hwc' or 'float_nchw'")
+        if backend not in ("pil", "native", "native_scaled"):
+            raise ValueError(f"image backend {backend!r}: want pil, native or native_scaled")
         if backend != "pil":
-            raise NotImplementedError(
-                f"image backend {backend!r} is not ported yet (the native libjpeg "
-                "backend comes in a later slice); use 'pil'"
-            )
+            from multimodal_content_moderation_tpu_torch.data import native
+
+            native.load()  # raises where the library cannot be built
+            if not native.jpeg_available():
+                raise RuntimeError(
+                    f"image backend {backend!r}: the native library was built without a "
+                    "JPEG decoder (neither jpeglib.h nor the CUDA toolkit's nvjpeg.h "
+                    "was found); use 'pil'"
+                )
+        self.backend = backend
         self.H, self.W = height, width
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
@@ -177,24 +215,53 @@ class ImagePreprocessor:
                 im = _adjust_hue(im, self.rng.uniform(-hue, hue))
         return np.asarray(im, np.uint8)
 
+    def warmup(self) -> None:
+        """Initialise the native JPEG decoder (nvJPEG creates its handle and
+        a decoder state on its first call); nothing for ``pil``."""
+        if self.backend != "pil":
+            self.process_bytes(_WARM_JPEG)
+
     def zero_output(self) -> np.ndarray:
         if self.output == "uint8_hwc":
             return np.zeros((self.H, self.W, 3), np.uint8)
         return np.zeros((3, self.H, self.W), np.float32)
 
+    def _finish(self, crop: np.ndarray) -> np.ndarray:
+        return crop if self.output == "uint8_hwc" else normalize_crop(crop, self.mean, self.std)
+
     def process_pil(self, im) -> np.ndarray:
         im = im.convert("RGB")
         if self.augment:
             crop = self._train_transform(im)
+        elif self.backend != "pil" and self.H == self.W:
+            from multimodal_content_moderation_tpu_torch.data import native
+
+            crop = native.resize_center_crop(np.asarray(im, np.uint8), self.H)
         else:
             im = resize_shortest_edge(im, self.H)
             crop = center_crop(np.asarray(im, np.uint8), self.H, self.W)
-        return crop if self.output == "uint8_hwc" else normalize_crop(crop, self.mean, self.std)
+        return self._finish(crop)
 
     def process_bytes(self, data: bytes) -> Tuple[np.ndarray, float]:
-        """Encoded image bytes -> (array, present_flag); any failure
-        degrades to zeros."""
-        from PIL import Image
+        """Encoded image bytes -> (array, present_flag). With a ``native*``
+        backend a JPEG takes one native call (decode, resize, crop); other
+        bytes go to PIL, or, where PIL is not installed, degrade to zeros,
+        as bytes that do not decode do. A fault of the native decoder
+        itself (memory, the card) raises."""
+        if self.backend != "pil" and not self.augment and self.H == self.W:
+            from multimodal_content_moderation_tpu_torch.data import native
+
+            crop = native.decode_jpeg_resize_crop(
+                data, self.H, scaled=self.backend == "native_scaled"
+            )
+            if crop is not None:
+                return self._finish(crop), 1.0
+            try:
+                from PIL import Image
+            except ImportError:
+                return self.zero_output(), 0.0
+        else:
+            from PIL import Image
 
         try:
             with Image.open(io.BytesIO(data)) as im:

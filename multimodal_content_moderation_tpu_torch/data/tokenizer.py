@@ -17,6 +17,15 @@ available backend:
 
 It exposes ``encode_batch(texts, max_length) -> (ids, mask)`` producing the
 fixed-shape int32 arrays the batch pipeline uses.
+
+The CLIP pre-tokenizer uses the ``regex`` package where it is installed.
+Without it (the card machine has none) the same two steps run on
+``unicodedata``: the whitespace collapse and a scanner for ``_CLIP_PATTERN``
+(``_clip_findall``). Both are held to ``regex`` on every code point that is
+assigned in ``unicodedata.unidata_version``. ``regex`` carries a newer
+Unicode database; the code points it calls letters or numbers that this
+Python's database leaves unassigned (category Cn) are a version gap, not a
+difference of the two implementations.
 """
 
 from __future__ import annotations
@@ -31,13 +40,98 @@ import numpy as np
 
 try:  # `regex` supports \p{L}/\p{N}; stdlib `re` does not.
     import regex as _re
-except ImportError:  # pragma: no cover
+except ImportError:
     _re = None
 
 _CLIP_PATTERN = (
     r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
     r"|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"
 )
+
+# ``regex``'s \s: the Unicode White_Space property. It leaves out
+# U+001C-U+001F, which ``str.isspace`` and the stdlib's \s include.
+_WHITE_SPACE = frozenset(
+    "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004\u2005\u2006"
+    "\u2007\u2008\u2009\u200a\u2028\u2029\u202f\u205f\u3000"
+)
+# _CLIP_PATTERN's literals under IGNORECASE: regex also matches U+017F (long
+# s) for "s"
+_SPECIALS = ("<|startoftext|>", "<|endoftext|>")
+_CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+# U+0345 is Mn, but under IGNORECASE it case-folds to a letter (iota), so it
+# leaves the negated class and no alternative matches it: findall skips it
+_UNMATCHED = frozenset("\u0345")
+
+
+def _ci_equal(ch: str, lit: str) -> bool:
+    return ch == lit or ch == lit.upper() or (lit == "s" and ch == "\u017f")
+
+
+def _match_literal(text: str, i: int, lit: str) -> bool:
+    if i + len(lit) > len(text):
+        return False
+    return all(_ci_equal(text[i + k], c) for k, c in enumerate(lit))
+
+
+def _kind(ch: str) -> str:
+    """"L" (letter), "N" (number), "S" (white space), "X" (matched by no
+    alternative) or "P" (the rest: the negated class)."""
+    if ch in _WHITE_SPACE:
+        return "S"
+    if ch in _UNMATCHED:
+        return "X"
+    cat = unicodedata.category(ch)[0]
+    return cat if cat in ("L", "N") else "P"
+
+
+def collapse_whitespace(text: str) -> str:
+    """``regex.sub(r"\\s+", " ", text)`` without ``regex``."""
+    out: List[str] = []
+    in_ws = False
+    for ch in text:
+        if ch in _WHITE_SPACE:
+            if not in_ws:
+                out.append(" ")
+            in_ws = True
+        else:
+            out.append(ch)
+            in_ws = False
+    return "".join(out)
+
+
+def _clip_findall(text: str) -> List[str]:
+    """``regex.compile(_CLIP_PATTERN, IGNORECASE).findall(text)`` without
+    ``regex``: at each position the alternatives in their order, the first
+    that matches wins, and a position that none matches is skipped."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        ch = text[i]
+        if ch == "<":
+            lit = next((s for s in _SPECIALS if _match_literal(text, i, s)), None)
+            if lit is not None:
+                out.append(text[i : i + len(lit)])
+                i += len(lit)
+                continue
+        elif ch == "'":
+            lit = next((s for s in _CONTRACTIONS if _match_literal(text, i, s)), None)
+            if lit is not None:
+                out.append(text[i : i + len(lit)])
+                i += len(lit)
+                continue
+        kind = _kind(ch)
+        if kind == "N":
+            out.append(ch)
+            i += 1
+        elif kind in ("L", "P"):
+            j = i + 1
+            while j < n and _kind(text[j]) == kind:
+                j += 1
+            out.append(text[i:j])
+            i = j
+        else:
+            i += 1
+    return out
 
 
 @functools.lru_cache()
@@ -62,8 +156,6 @@ class ClipBPETokenizer:
     """CLIP byte-level BPE tokenizer (pure Python, file-driven)."""
 
     def __init__(self, vocab_file: str, merges_file: str):
-        if _re is None:
-            raise ImportError("ClipBPETokenizer requires the `regex` package")
         with open(vocab_file, encoding="utf-8") as f:
             self.encoder: Dict[str, int] = json.load(f)
         self.decoder = {v: k for k, v in self.encoder.items()}
@@ -74,7 +166,9 @@ class ClipBPETokenizer:
         self.bpe_ranks = {m: i for i, m in enumerate(merges)}
         self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
-        self.pat = _re.compile(_CLIP_PATTERN, _re.IGNORECASE)
+        # regex where it is installed, else the unicodedata scanners above
+        self.pat = None if _re is None else _re.compile(_CLIP_PATTERN, _re.IGNORECASE)
+        self.ws = None if _re is None else _re.compile(r"\s+")
         self.bos_token_id = self.encoder["<|startoftext|>"]
         self.eos_token_id = self.encoder["<|endoftext|>"]
         self.pad_token_id = self.eos_token_id  # CLIP pads with <|endoftext|>
@@ -112,14 +206,15 @@ class ClipBPETokenizer:
 
     def _normalize(self, text: str) -> str:
         text = unicodedata.normalize("NFC", text)
-        text = _re.sub(r"\s+", " ", text)
+        text = collapse_whitespace(text) if self.ws is None else self.ws.sub(" ", text)
         return text.strip().lower()
 
     def tokenize_ids(self, text: str) -> List[int]:
         """Text -> BPE token ids (no special tokens)."""
         text = self._normalize(text)
         ids: List[int] = []
-        for tok in self.pat.findall(text):
+        pieces = _clip_findall(text) if self.pat is None else self.pat.findall(text)
+        for tok in pieces:
             mapped = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
             for piece in self._bpe(mapped):
                 ids.append(self.encoder[piece])

@@ -6,7 +6,9 @@ shared library with a plain C interface, at first use, and loaded with
 every shared header (``csrc/*.cuh``), so an edited kernel or header is
 rebuilt and a stale library is never loaded. Builds go to
 ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``). A failed build raises; nothing falls back.
+``.gitignore``), or under ``MMHARM_COMPILE_CACHE`` where an entry point
+enabled it (``utils/compile_cache.py``). A failed build raises; nothing
+falls back.
 
 Every C entry point takes raw device pointers, ints and the current CUDA
 stream, launches, and returns ``cudaGetLastError()``; :func:`check` turns a
@@ -24,8 +26,10 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+from multimodal_content_moderation_tpu_torch.utils import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+BUILD_DIR = compile_cache.REPO_BUILD / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,12 +56,19 @@ def _nvcc() -> str:
     )
 
 
+def build_dir() -> Path:
+    """``BUILD_DIR``, or ``torch_kernels/`` under an enabled
+    ``MMHARM_COMPILE_CACHE``."""
+    root = compile_cache.cache_dir()
+    return Path(root) / "torch_kernels" if root else BUILD_DIR
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -78,7 +89,7 @@ def build(names: Iterable[str]) -> None:
         todo = [n for n in names if n not in _libs and not _lib_path(n).exists()]
         if not todo:
             return
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir().mkdir(parents=True, exist_ok=True)
         started = [(n, *_start(n)) for n in todo]
         failures = []
         for name, proc, tmp, out in started:

@@ -80,14 +80,18 @@ def test_evaluate_cli_matches_jax(checkpoint, data_dir, tmp_path, attention, eng
         assert g["roc_auc"] == pytest.approx(w["roc_auc"], abs=1e-4)
 
 
-@pytest.mark.parametrize(
-    "flag",
-    [["--image_backend", "native_scaled"], ["--precision", "int8_mlp"],
-     ["--image_backend", "native"]],
-)
-def test_evaluate_cli_names_what_is_not_ported(flag):
+def test_evaluate_cli_names_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_eval.parse_args(["--checkpoint", "c", "--test_csv", "t.csv"] + flag)
+        t_eval.parse_args(["--checkpoint", "c", "--test_csv", "t.csv", "--precision", "int8_mlp"])
+
+
+@pytest.mark.parametrize("backend", ["native", "native_scaled"])
+def test_evaluate_cli_takes_the_native_backends(backend, tmp_path):
+    """The native JPEG backends and the pixel cache are ported: the CLI
+    takes them (the run itself: tests/test_torch_no_pil.py)."""
+    args = t_eval.parse_args(["--checkpoint", "c", "--test_csv", "t.csv", "--image_backend",
+                              backend, "--image_cache", str(tmp_path)])
+    assert args.image_backend == backend and args.image_cache == str(tmp_path)
 
 
 def test_standard_engine_matches_the_fast_engine(checkpoint, data_dir, capsys):

@@ -16,9 +16,22 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "multimodal_content_moderation_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 
-# what chip_smoke.py drives on the card: the CLIP and SigLIP eval paths and
-# the training path
+# what chip_smoke.py drives on the card: the CLIP and SigLIP eval paths, the
+# training path, and the moderation endpoint with the evaluate CLI (CSV rows,
+# the CLIP BPE tokenizer, JPEG decode, the pixel cache)
 CARD_PATH_MODULES = [
+    "multimodal_content_moderation_tpu_torch.utils.compile_cache",
+    "multimodal_content_moderation_tpu_torch.data.tokenizer",
+    "multimodal_content_moderation_tpu_torch.data.dataset",
+    "multimodal_content_moderation_tpu_torch.data.native",
+    "multimodal_content_moderation_tpu_torch.data.cache",
+    "multimodal_content_moderation_tpu_torch.cli.common",
+    "multimodal_content_moderation_tpu_torch.cli.evaluate",
+    "multimodal_content_moderation_tpu_torch.cli.inference",
+    "multimodal_content_moderation_tpu_torch.serving",
+    "multimodal_content_moderation_tpu_torch.serving.handler",
+    "multimodal_content_moderation_tpu_torch.serving.server",
+    "multimodal_content_moderation_tpu_torch.testdata",
     "multimodal_content_moderation_tpu_torch.ops._build",
     "multimodal_content_moderation_tpu_torch.ops.cuda_image",
     "multimodal_content_moderation_tpu_torch.ops.cuda_attention",
