@@ -103,6 +103,24 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``LOAD_WINDOW_S`` of load at 1, 4 and 16 clients, off and on, with 1
    ``patch_embed_u8`` and 24 ``attention_nhd`` launches per served batch,
    all on the tensor cores.
+8. The multi-task head (``config/clip_mtl.yaml``: 5 tasks, fusion 512,
+   hidden task heads of 256, learned task weights) on CLIP ViT-B/32's bare
+   towers, random weights from a seed: ``Trainer.train`` at B=32 x 2 as
+   shipped (f32 wire, attention "xla": no kernel runs) and on the u8 wire
+   with attention "pallas" (1 ``patch_embed_u8``, 24 ``attention_nhd`` and
+   24 ``attention_nhd_bwd`` per micro-step, all on the tensor cores), each
+   with a falling loss on a fixed batch, ``head.log_vars`` moving, staged
+   samples/s and CUDA-event step parts; fp32 card-vs-CPU gradients on
+   every leaf; a reference-format multi-task checkpoint (``tower_txt.`` /
+   ``tower_img.`` + the ``MultiTaskClassifier`` head) through
+   ``load_checkpoint`` -> ``FastInferenceEngine`` -> ``evaluate_logits_u8``
+   (fp32 card vs CPU, fp32 buckets vs none within 1e-5, bf16 B=144 with 1 +
+   24 launches per batch, staged samples/s at seq 77 and 32);
+   SigLIP2-B/16-224 with the shared "auto" backbone (B=64, seq 64, 1 + 24
+   launches per batch, no ``flash_attention``); and the endpoint's
+   ``model_fn`` -> ``predict_fn`` on that checkpoint (answers keyed by the
+   task names, fp32 card vs ``MultiModalClassifier(device="cpu")`` within
+   1e-4).
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -680,9 +698,13 @@ HF_SIGLIP2_B16_224 = {
 
 
 def reference_state_dict(model) -> dict:
-    """The port's parameter tree -> reference fusion checkpoint keys
-    (``backbone.*`` in the HF CLIPModel or SiglipModel layout + head), the
-    layout ``models/convert.py`` reads."""
+    """The port's parameter tree -> reference checkpoint keys, the layout
+    ``models/convert.py`` reads: a fusion model's ``backbone.*`` in the HF
+    CLIPModel or SiglipModel layout + its head; a multi-task model's bare
+    CLIP towers under ``tower_txt.text_model.*`` / ``tower_img.vision_model.*``
+    (or its SigLIP backbone under ``backbone.*``) + the reference
+    ``MultiTaskClassifier`` head (``shared_head.1``, ``heads.{j}`` or
+    ``heads.{j}.0`` / ``heads.{j}.3``, ``log_vars``)."""
     import torch
 
     bb, hd = model.backbone, model.head
@@ -708,46 +730,62 @@ def reference_state_dict(model) -> dict:
 
     t, v = bb["text_model"], bb["vision_model"]
     vc = model.encoder_config.vision
-    sd["backbone.text_model.embeddings.token_embedding.weight"] = t["token_embedding"]
-    sd["backbone.text_model.embeddings.position_embedding.weight"] = t["position_embedding"]
-    layers("backbone.text_model", t["layers"])
-    ln("backbone.text_model.final_layer_norm", t["final_ln"])
+    mtl = "shared_fc" in hd
+    towers = mtl and model.backend == "clip"  # the multi-task CLIP towers stand apart
+    tp = "tower_txt.text_model" if towers else "backbone.text_model"
+    vp = "tower_img.vision_model" if towers else "backbone.vision_model"
+    sd[f"{tp}.embeddings.token_embedding.weight"] = t["token_embedding"]
+    sd[f"{tp}.embeddings.position_embedding.weight"] = t["position_embedding"]
+    layers(tp, t["layers"])
+    ln(f"{tp}.final_layer_norm", t["final_ln"])
     pe = v["patch_embedding"]
-    sd["backbone.vision_model.embeddings.patch_embedding.weight"] = pe["w"].t().reshape(
+    sd[f"{vp}.embeddings.patch_embedding.weight"] = pe["w"].t().reshape(
         vc.hidden_size, vc.num_channels, vc.patch_size, vc.patch_size
     )
     if "b" in pe:
-        sd["backbone.vision_model.embeddings.patch_embedding.bias"] = pe["b"]
-    sd["backbone.vision_model.embeddings.position_embedding.weight"] = v["position_embedding"]
-    layers("backbone.vision_model", v["layers"])
-    ln("backbone.vision_model.post_layernorm", v["post_ln"])
+        sd[f"{vp}.embeddings.patch_embedding.bias"] = pe["b"]
+    sd[f"{vp}.embeddings.position_embedding.weight"] = v["position_embedding"]
+    layers(vp, v["layers"])
+    ln(f"{vp}.post_layernorm", v["post_ln"])
     if model.backend == "clip":
-        sd["backbone.vision_model.embeddings.class_embedding"] = v["class_embedding"]
-        ln("backbone.vision_model.pre_layrnorm", v["pre_ln"])
-        lin("backbone.text_projection", bb["text_projection"])
-        lin("backbone.visual_projection", bb["visual_projection"])
-        sd["backbone.logit_scale"] = bb["logit_scale"]
+        sd[f"{vp}.embeddings.class_embedding"] = v["class_embedding"]
+        ln(f"{vp}.pre_layrnorm", v["pre_ln"])
+        if not towers:
+            lin("backbone.text_projection", bb["text_projection"])
+            lin("backbone.visual_projection", bb["visual_projection"])
+            sd["backbone.logit_scale"] = bb["logit_scale"]
     else:
-        lin("backbone.text_model.head", t["head"])
+        lin(f"{tp}.head", t["head"])
         mh = v["map_head"]
-        sd["backbone.vision_model.head.probe"] = mh["probe"]
+        sd[f"{vp}.head.probe"] = mh["probe"]
         attn = mh["attn"]
-        sd["backbone.vision_model.head.attention.in_proj_weight"] = torch.cat(
+        sd[f"{vp}.head.attention.in_proj_weight"] = torch.cat(
             [attn[n]["w"].t() for n in ("q", "k", "v")])
-        sd["backbone.vision_model.head.attention.in_proj_bias"] = torch.cat(
+        sd[f"{vp}.head.attention.in_proj_bias"] = torch.cat(
             [attn[n]["b"] for n in ("q", "k", "v")])
-        lin("backbone.vision_model.head.attention.out_proj", attn["o"])
-        ln("backbone.vision_model.head.layernorm", mh["ln"])
-        lin("backbone.vision_model.head.mlp.fc1", mh["fc1"])
-        lin("backbone.vision_model.head.mlp.fc2", mh["fc2"])
+        lin(f"{vp}.head.attention.out_proj", attn["o"])
+        ln(f"{vp}.head.layernorm", mh["ln"])
+        lin(f"{vp}.head.mlp.fc1", mh["fc1"])
+        lin(f"{vp}.head.mlp.fc2", mh["fc2"])
         for name in ("logit_scale", "logit_bias"):  # HF keeps shape (1,)
             sd[f"backbone.{name}"] = bb[name].reshape(1)
     for n in ("proj_t", "proj_i", "g_t", "g_i", "gate"):
         lin(n, hd[n])
-    ln("ln_fused", hd["ln_fused"])
-    ln("cls.0", hd["cls_ln"])
-    lin("cls.1", hd["cls_fc1"])
-    lin("cls.4", hd["cls_fc2"])
+    if mtl:
+        lin("shared_head.1", hd["shared_fc"])
+        for j, task in enumerate(hd["heads"]):
+            if "fc" in task:
+                lin(f"heads.{j}", task["fc"])
+            else:
+                lin(f"heads.{j}.0", task["fc1"])
+                lin(f"heads.{j}.3", task["fc2"])
+        if "log_vars" in hd:
+            sd["log_vars"] = hd["log_vars"]
+    else:
+        ln("ln_fused", hd["ln_fused"])
+        ln("cls.0", hd["cls_ln"])
+        lin("cls.1", hd["cls_fc1"])
+        lin("cls.4", hd["cls_fc2"])
     return {k: x.detach().cpu().contiguous().clone() for k, x in sd.items()}
 
 
@@ -855,6 +893,23 @@ class InMemoryDataset:
             if pad_to_batch:
                 batch["_valid"] = np.int32(valid)
             yield batch
+
+
+def staged_eval_rates(torch, engine, ids, patches, mask, passes: int = 3):
+    """Samples/s of the engine over batches already on the card (distinct
+    ids per batch, one synchronise per pass): the median and every pass."""
+    B = ids[0].shape[0]
+    ones = torch.ones(B, device="cuda")
+    engine(ids[0], mask, patches[0], ones, ones)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        for i, x in enumerate(ids):
+            engine(x, mask, patches[i % len(patches)], ones, ones)
+        torch.cuda.synchronize()
+        rates.append(len(ids) * B / (time.perf_counter() - t0))
+    return {"median": sorted(rates)[len(rates) // 2], "passes": rates}
 
 
 def full_model_phase(torch, card: str):
@@ -966,18 +1021,8 @@ def full_model_phase(torch, card: str):
     for width in (77, 32):
         mask = torch.ones(BATCH, width, dtype=torch.int32, device="cuda")
         ids = [ids_batch(width) for _ in range(20)]
-        engine(ids_batch(width), mask, patches[0], ones, ones)
-        torch.cuda.synchronize()
-        rates = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for i, x in enumerate(ids):
-                engine(x, mask, patches[i % 4], ones, ones)
-            torch.cuda.synchronize()
-            rates.append(len(ids) * BATCH / (time.perf_counter() - t0))
         report[f"staged_samples_per_s_seq{width}"] = {
-            "median": sorted(rates)[1], "passes": rates, "card": card,
-        }
+            **staged_eval_rates(torch, engine, ids, patches, mask), "card": card}
         report[f"device_time_seq{width}"] = device_time_breakdown(
             torch, lambda: [engine(x, mask, patches[i % 4], ones, ones)
                             for i, x in enumerate(ids[:4])], 4,
@@ -1210,10 +1255,11 @@ def fixed_batch_loss_falls(torch, model, batch, lr_encoder, lr_head, steps: int 
     return {"before": before, f"after_{steps}_steps": after}
 
 
-def staged_training(torch, model, staged, card, accum, batch_size):
+def staged_training(torch, model, staged, card, accum, batch_size, profile: bool = True):
     """Training samples/s over staged batches (3 passes of 8 micro-steps),
     the CUDA-event time of the forward, backward and optimizer per
-    micro-step, and a profiler breakdown of one optimizer step."""
+    micro-step, and (``profile``) a profiler breakdown of one optimizer
+    step."""
     from multimodal_content_moderation_tpu_torch.training.loop import make_train_step
     from multimodal_content_moderation_tpu_torch.training.optim import AdamW
 
@@ -1230,12 +1276,14 @@ def staged_training(torch, model, staged, card, accum, batch_size):
             step(staged[i % len(staged)])
         torch.cuda.synchronize()
         rates.append(8 * batch_size / (time.perf_counter() - t0))
-    return {
+    out = {
         "staged_train_samples_per_s": {"median": sorted(rates)[1], "passes": rates, "card": card},
         "train_step_parts_ms": step_parts_ms(torch, model, opt, gen, staged),
-        "device_time_train": device_time_breakdown(
-            torch, lambda: [step(staged[i]) for i in range(accum)], 1),
     }
+    if profile:
+        out["device_time_train"] = device_time_breakdown(
+            torch, lambda: [step(staged[i]) for i in range(accum)], 1)
+    return out
 
 
 def _leaf_grads(model, batch):
@@ -1433,18 +1481,18 @@ def step_parts_ms(torch, model, opt, gen, staged, n: int = 8):
     return parts
 
 
-def trainer_run(torch, model, args, train_ds, val_ds, want_fn, label):
+def trainer_run(torch, model, args, train_ds, val_ds, want_fn, label, metrics=None):
     """``Trainer.train`` for one epoch on the card, counted from 0: the
     launches must equal ``want_fn(micro_steps, eval_batches)``; returns the
-    report and the trainer."""
+    report and the trainer. ``metrics``: the fusion metrics by default."""
     import numpy as np
 
     from multimodal_content_moderation_tpu_torch.training.loop import Trainer
     from multimodal_content_moderation_tpu_torch.training.metrics import (
         make_compute_metrics_multi)
 
-    trainer = Trainer(model, args, train_ds, val_ds, make_compute_metrics_multi(len(CLASSES)),
-                      device="cuda")
+    trainer = Trainer(model, args, train_ds, val_ds,
+                      metrics or make_compute_metrics_multi(len(CLASSES)), device="cuda")
     n_micro = len(train_ds) // args.per_device_train_batch_size
     eval_batches = -(-len(val_ds) // args.per_device_eval_batch_size)
     counts = _reset_counts()
@@ -1926,27 +1974,29 @@ def tweet(g) -> str:
     return " ".join(words)[:280]
 
 
-def write_serving_checkpoint(torch, root: str, hf_cfg: dict, device: str) -> str:
-    """A reference-format CLIP fusion checkpoint (random weights from a seed)
-    with a synthetic 49,408-entry CLIP BPE vocabulary, so that real text is
-    tokenized by the port's own BPE."""
+def write_serving_checkpoint(torch, root: str, hf_cfg: dict, device: str,
+                             head: str = "fusion") -> str:
+    """A reference-format CLIP checkpoint (random weights from a seed) with a
+    synthetic 49,408-entry CLIP BPE vocabulary, so that real text is
+    tokenized by the port's own BPE: the fusion head, or with ``head="mtl"``
+    the multi-task head at ``config/clip_mtl.yaml``'s settings."""
     from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
     from multimodal_content_moderation_tpu_torch.models import model_io
-    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
     from multimodal_content_moderation_tpu_torch.testdata import write_clip_bpe
 
     ckpt = os.path.join(root, "checkpoint")
     os.makedirs(ckpt)
-    src = FusionModel.create("clip", num_labels=len(CLASSES), seed=3, device=device,
-                             clip_config=model_io.clip_config_from_dict(hf_cfg))
+    mtl = MTL_HEAD if head == "mtl" else {}
+    src = model_io.build_model(head, "clip", CLASSES, seed=3, device=device,
+                               clip_config=model_io.clip_config_from_dict(hf_cfg), **mtl)
     torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     del src
     size = hf_cfg["vision_config"]["image_size"]
     files = {
         "config.json": hf_cfg,
         "inference_config.json": {
-            "backend": "clip", "head": "fusion", "fusion_dim": 512, "class_names": CLASSES,
-            "thresholds": [0.5, 0.45, 0.5, 0.55, 0.5], "max_text_length": 77},
+            "backend": "clip", "head": head, "fusion_dim": 512, "class_names": CLASSES,
+            "thresholds": [0.5, 0.45, 0.5, 0.55, 0.5], "max_text_length": 77, **mtl},
         "preprocessor_config.json": {
             "size": {"shortest_edge": size}, "crop_size": {"height": size, "width": size},
             "image_mean": list(CLIP_MEAN), "image_std": list(CLIP_STD)},
@@ -2521,6 +2571,310 @@ def serving_phase(torch, card: str, hf_cfg: dict = HF_CLIP_B32, device: str = "c
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the multi-task head (config/clip_mtl.yaml) on the card
+# ---------------------------------------------------------------------------
+
+MTL_HEAD = {"fusion_dim": 512, "head_hidden_dim": 256, "learnable_task_weights": True}
+MTL_MICRO_STEPS = 4  # 2 optimizer steps of B=32 x 2 in each Trainer run
+
+
+def mtl_train_phase(torch, card: str):
+    """CLIP ViT-B/32 multi-task fine-tuning at ``config/clip_mtl.yaml``'s
+    settings (5 tasks, fusion 512, hidden task heads of 256, learned task
+    weights, B=32 x 2, lr 1e-5 / 5e-4, bf16 towers on fp32 master weights,
+    text_fit width 48) through ``Trainer.train``, twice: as shipped (the f32
+    wire, attention "xla": no kernel runs) and on the u8 wire with attention
+    "pallas" (1 ``patch_embed_u8``, 24 ``attention_nhd`` and 24
+    ``attention_nhd_bwd`` per micro-step, 1 + 24 forward launches per eval
+    batch, all on the tensor cores). For each: the loss on a fixed batch
+    falls over 10 optimizer steps and ``head.log_vars`` moves; staged
+    samples/s (median and range of 3 passes) and CUDA-event forward /
+    backward / optimizer ms per micro-step. Then fp32 gradients on the card
+    (u8 wire, the kernels) against the CPU's on every leaf, 4 rows."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs
+    from multimodal_content_moderation_tpu_torch.training.metrics import (
+        make_compute_metrics_mtl)
+
+    stats = (CLIP_MEAN, CLIP_STD)
+
+    def new_model(seed=0, device="cuda", **perf):
+        m = model_io.build_model("mtl", "clip", CLASSES, seed=seed, device=device,
+                                 clip_config=model_io.clip_config_from_dict(HF_CLIP_B32),
+                                 **MTL_HEAD)
+        return model_io.with_performance_options(m, **perf).replace(
+            image_mean=CLIP_MEAN, image_std=CLIP_STD)
+
+    report = {}
+    for wire, impl in (("f32", "xla"), ("u8", "pallas")):
+        out_dir = os.path.join(REPO, "build", f"chip_smoke_mtl_{wire}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        train_ds = InMemoryDataset(MTL_MICRO_STEPS * TRAIN_BATCH, seed=20,
+                                   stats=stats if wire == "f32" else None)
+        val_ds = InMemoryDataset(64 - 7, seed=21, stats=stats if wire == "f32" else None)
+        for d in (train_ds, val_ds):
+            d.truncate_text(TRAIN_SEQ)
+        args = TrainArgs(
+            output_dir=out_dir, num_train_epochs=1, per_device_train_batch_size=TRAIN_BATCH,
+            per_device_eval_batch_size=64, gradient_accumulation_steps=TRAIN_ACCUM,
+            lr_encoder=1e-5, lr_head=5e-4, logging_steps=2, save_total_limit=1,
+            early_stopping=False, metric_for_best_model="roc_macro", wire=wire,
+            num_workers=4, seed=0,
+        )
+        if wire == "f32":
+            def want(micro, evals):
+                return _counts()
+        else:
+            def want(micro, evals):
+                return _counts(patch_embed_u8=micro + evals, attention_nhd=24 * (micro + evals),
+                               attention_nhd_bwd=24 * micro)
+        run, trainer = trainer_run(
+            torch, new_model(compute_dtype="bfloat16", attention_impl=impl), args, train_ds,
+            val_ds, want, f"mtl {wire} training", make_compute_metrics_mtl(CLASSES))
+        check(all(f"roc_{c}" in run["history"][0] for c in CLASSES),
+              f"mtl {wire}: per-task metrics missing from {run['history'][0]}")
+        del trainer
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+        model = new_model(seed=2, compute_dtype="bfloat16", attention_impl=impl)
+        patch = 32 if wire == "u8" else None
+        idx = np.arange(TRAIN_BATCH)
+        before = model.head["log_vars"].detach().clone()
+        run["fixed_batch_loss"] = fixed_batch_loss_falls(
+            torch, model, _device_batch(torch, train_ds, idx, patch), 1e-5, 5e-4)
+        after = model.head["log_vars"].detach()
+        check(bool((after - before).abs().min() > 0),
+              f"mtl {wire}: head.log_vars did not move: {before.tolist()} -> {after.tolist()}")
+        run["log_vars_after_10_steps"] = after.tolist()
+        staged = [_device_batch(torch, train_ds, np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH),
+                                patch) for i in range(MTL_MICRO_STEPS)]
+        run.update(staged_training(torch, model, staged, card, TRAIN_ACCUM, TRAIN_BATCH,
+                                   profile=False))
+        del model, staged
+        report[wire] = run
+
+    # gradients: fp32 on the card (kernels, TF32 off) against the CPU (plain
+    # versions), 4 rows; the weights drawn once, on the CPU, and copied over
+    rows = InMemoryDataset(4, seed=25)
+    rows.truncate_text(TRAIN_SEQ)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        m = new_model(seed=3, device="cpu", attention_impl="pallas")
+        with torch.no_grad():  # task weights off zero, so their gradients are not all alike
+            m.head["log_vars"].copy_(torch.linspace(-0.5, 0.5, len(CLASSES)))
+        m = m.to(device)
+        batch = _device_batch(torch, rows, np.arange(4), 32)
+        if device == "cpu":
+            batch = {k: v.cpu() for k, v in batch.items()}
+        counts = _reset_counts()
+        grads[device] = _leaf_grads(m, batch)
+        if device == "cuda":
+            check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=24,
+                                      attention_nhd_bwd=24),
+                  f"mtl gradient check launches {counts()}")
+        del m
+    check({"head.log_vars", f"head.heads.{len(CLASSES) - 1}.fc2.w"} <= set(grads["cpu"][1]),
+          "mtl gradient check: the task heads' leaves are missing")
+    report["grad_check"] = leafwise_grad_check(grads["cuda"], grads["cpu"])
+    report["main_path_launches"] = report["u8"]["main_path_launches"]
+    return report
+
+
+def mtl_eval_phase(torch, card: str, root: str):
+    """(b) A reference-format CLIP ViT-B/32 multi-task checkpoint
+    (``tower_txt.``/``tower_img.`` + the ``MultiTaskClassifier`` head, from
+    ``reference_state_dict``) through ``load_checkpoint`` ->
+    ``FastInferenceEngine`` -> ``evaluate_logits_u8``: fp32 card against
+    CPU logits (8 rows, atol 2e-3), fp32 buckets against none (atol 1e-5),
+    and in bf16 with the kernels 1 ``patch_embed_u8`` and 24
+    ``attention_nhd`` per batch at B=144, all on the tensor cores, then
+    staged samples/s at seq 77 and the seq-32 bucket. (c) SigLIP2-B/16-224
+    with the shared "auto" backbone and the same head, B=64, text seq 64: 1
+    + 24 launches per batch and no ``flash_attention``, staged samples/s.
+    Returns the report and (b)'s checkpoint, which phase 8 (d) serves."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import (
+        CLIP_MEAN, CLIP_STD, SIGLIP_MEAN, SIGLIP_STD)
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.multitask import MultiTaskModel
+
+    report = {"card": card}
+    ckpt = write_serving_checkpoint(torch, root, HF_CLIP_B32, "cuda", head="mtl")
+    model, cfg = model_io.load_checkpoint(ckpt, device="cuda")
+    check(isinstance(model, MultiTaskModel) and model.backend == "clip"
+          and model.head_hidden_dim == MTL_HEAD["head_hidden_dim"] and model.learnable_task_weights
+          and "text_projection" not in model.backbone,
+          "load_checkpoint: not the multi-task CLIP model of the checkpoint")
+    cpu_model, _ = model_io.load_checkpoint(ckpt, device="cpu")
+    data = InMemoryDataset(2 * BATCH - 5, seed=22)  # a padded last batch
+    rows = next(data.batches(8))
+    outs = []
+    for m in (model, cpu_model):
+        eng = fi.FastInferenceEngine(
+            model_io.with_performance_options(m, attention_impl="pallas"), CLIP_MEAN, CLIP_STD)
+        outs.append(eng(rows["input_ids"], rows["attention_mask"],
+                        eng.patches_from_hwc(rows["pixel_values"]),
+                        rows["text_present"], rows["image_present"]).cpu())
+    del cpu_model
+    err = float((outs[0] - outs[1]).abs().max())
+    report["fp32_card_vs_cpu_max_abs_err"] = err
+    check(err <= 2e-3 and bool(outs[0].isfinite().all()),
+          f"mtl fp32 logits on the card differ from the CPU's by {err} (atol 2e-3)")
+
+    fp32 = fi.FastInferenceEngine(model_io.with_performance_options(model, attention_impl="pallas"),
+                                  CLIP_MEAN, CLIP_STD)
+    full, _ = fi.evaluate_logits_u8(fp32, data, BATCH, num_workers=4)
+    cut, _ = fi.evaluate_logits_u8(fp32, data, BATCH, num_workers=4,
+                                   seq_buckets=fi.parse_seq_buckets("auto"))
+    err = float(np.abs(cut - full).max())
+    report["fp32_buckets_vs_full_max_abs_err"] = err
+    check(err <= 1e-5, f"mtl fp32 bucketed logits differ from unbucketed by {err} (atol 1e-5)")
+
+    # the main path: bf16 towers with the kernels, counted from 0
+    bf16 = model_io.with_performance_options(
+        model, compute_dtype="bfloat16", attention_impl="pallas").to(torch.bfloat16)
+    del model, fp32
+    engine = fi.FastInferenceEngine(bf16, CLIP_MEAN, CLIP_STD)
+    n_batches = -(-len(data) // BATCH)
+    counts = _reset_counts()
+    logits, labels = fi.evaluate_logits_u8(engine, data, BATCH, num_workers=4,
+                                           seq_buckets=fi.parse_seq_buckets("auto"))
+    launches = counts()
+    check(launches == _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches),
+          f"mtl evaluate: launches {launches} for {n_batches} batches (want 1 and 24 per batch)")
+    check(logits.shape == (len(data), len(CLASSES)) and np.isfinite(logits).all()
+          and float(np.abs(logits - full).max()) <= 3e-2,
+          f"mtl bf16 logits: shape {logits.shape}, max |bf16 - fp32| "
+          f"{float(np.abs(logits - full).max())} (atol 3e-2)")
+    np.testing.assert_array_equal(labels, data.labels)
+    report["main_path_launches"] = launches
+    report["main_path_batches"] = n_batches
+    g = np.random.default_rng(23)
+    patches = [torch.from_numpy(engine.patches_from_hwc(
+        g.integers(0, 256, size=(BATCH, 224, 224, 3), dtype=np.uint8))).cuda() for _ in range(2)]
+    for width in (77, 32):
+        ids = []
+        for _ in range(10):
+            x = g.integers(1, 49405, size=(BATCH, width)).astype(np.int32)
+            x[:, width - 2] = 49407
+            ids.append(torch.from_numpy(x).cuda())
+        mask = torch.ones(BATCH, width, dtype=torch.int32, device="cuda")
+        report[f"staged_samples_per_s_seq{width}"] = {
+            **staged_eval_rates(torch, engine, ids, patches, mask), "card": card}
+    del bf16, engine
+
+    # (c) SigLIP2-B/16-224, the shared "auto" backbone
+    cfg224 = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224)
+    auto = model_io.build_model("mtl", "siglip", CLASSES, siglip_config=cfg224, seed=4,
+                                device="cuda", **MTL_HEAD)
+    check(auto.backend == "auto", f"build_model mtl siglip gave backend {auto.backend}")
+    auto = model_io.with_performance_options(
+        auto, compute_dtype="bfloat16", attention_impl="pallas").to(torch.bfloat16)
+    engine = fi.FastInferenceEngine(auto, SIGLIP_MEAN, SIGLIP_STD)
+    patches = [torch.from_numpy(engine.patches_from_hwc(
+        g.integers(0, 256, size=(SIGLIP_BATCH, 224, 224, 3), dtype=np.uint8))).cuda()
+        for _ in range(2)]
+    ids = [torch.from_numpy(g.integers(2, 256000, size=(SIGLIP_BATCH, 64)).astype(np.int32)
+                            ).cuda() for _ in range(N_SIGLIP224_BATCHES)]
+    mask = torch.ones(SIGLIP_BATCH, 64, dtype=torch.int32, device="cuda")
+    ones = torch.ones(SIGLIP_BATCH, device="cuda")
+    out = engine(ids[0], mask, patches[0], ones, ones)
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (SIGLIP_BATCH, len(CLASSES)) and bool(out.isfinite().all()),
+          f"mtl siglip224 logits {tuple(out.shape)}, finite={bool(out.isfinite().all())}")
+    counts = _reset_counts()
+    rates = staged_eval_rates(torch, engine, ids, patches, mask)
+    launches = counts()
+    n = 3 * len(ids) + 1  # the passes and their warm-up call
+    check(launches == _counts(patch_embed_u8=n, attention_nhd=24 * n),
+          f"mtl siglip224: launches {launches} for {n} batches (want 1 and 24 per batch, "
+          "no flash_attention)")
+    report["siglip224_auto"] = {"launches": launches, "batches": n,
+                                "staged_samples_per_s_seq64": {**rates, "card": card}}
+    del auto, engine
+    return report, ckpt
+
+
+def mtl_serving_phase(torch, card: str, ckpt: str):
+    """(d) The endpoint on phase 8 (b)'s multi-task checkpoint: ``model_fn``
+    (fp32, the fast engine, the kernels, the native decoder, buckets) ->
+    ``predict_fn`` for one request and for a batch of text + fixture JPEG
+    requests; every answer is keyed by the task names, and the card's
+    probabilities are within 1e-4 of ``MultiModalClassifier(device="cpu")``."""
+    import base64
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.cli.inference import MultiModalClassifier
+    from multimodal_content_moderation_tpu_torch.serving import handler as h
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures
+
+    g = np.random.default_rng(24)
+    blobs = [base64.b64encode(p.read_bytes()).decode() for p in jpeg_fixtures().values()]
+    insts = [{"text": tweet(g), **({"image": blobs[i % len(blobs)]} if i % 5 != 4 else {})}
+             for i in range(12)]
+    env = {**SERVE_ENV, "MMHARM_PRECISION": "fp32"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        counts = _reset_counts()
+        classifier = h.model_fn(ckpt, device="cuda")
+        one = h.predict_fn(insts[:1], classifier)
+        batch = h.predict_fn(insts, classifier)
+        launches = counts()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(classifier.class_names == CLASSES and len(one) == 1 and len(batch) == len(insts),
+          f"mtl endpoint: {len(one)} and {len(batch)} answers, classes {classifier.class_names}")
+    for p in one + batch:
+        check(set(p["probabilities"]) == set(CLASSES) == set(p["class_predictions"]),
+              f"mtl endpoint: an answer is not keyed by the task names: {p}")
+    cpu = MultiModalClassifier(ckpt, batch_size=8, engine="fast", attention="pallas",
+                               image_backend="native_scaled", device="cpu")
+    cpu_probs = _probs(h.predict_fn(insts, cpu))
+    del cpu
+    err = _max_diff(_probs(batch), cpu_probs)
+    check(err <= 1e-4, f"mtl endpoint: fp32 card vs the CPU classifier {err} (atol 1e-4)")
+    check(_max_diff(_probs(one), cpu_probs[:1]) <= 1e-4, "mtl endpoint: the single request")
+    widths = len(classifier._bucket_ladder)
+    served = 1 + -(-len(insts) // classifier.batch_size)
+    check(launches == _counts(False, patch_embed_u8=widths + served,
+                              attention_nhd=24 * (widths + served)),
+          f"mtl endpoint: launches {launches} for {widths} warm-up widths + {served} batches")
+    return {"card": card, "requests": len(insts), "fp32_card_vs_cpu_max_abs_err": err,
+            "launches": launches, "prewarm_widths": widths, "served_batches": served,
+            "example": batch[0]}
+
+
+def mtl_phase(torch, card: str):
+    """Phase 8: the multi-task head on the card (training, eval, serving)."""
+    root = os.path.join(REPO, "build", "chip_smoke_mtl")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    report = {}
+    t0 = time.perf_counter()
+    report["train"] = mtl_train_phase(torch, card)
+    report["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["evaluate"], ckpt = mtl_eval_phase(torch, card, root)
+    report["evaluate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["serving"] = mtl_serving_phase(torch, card, ckpt)
+    report["serving_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
 # device-kernel name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = [
     ("attention_nhd_bwd", ("attention_nhd_bwd",)),
@@ -2758,6 +3112,7 @@ def main() -> int:
         (6, "clip_f32_train", lambda: clip_f32_train_phase(torch, card)),
         (6, "siglip224_train", lambda: siglip224_train_phase(torch, card)),
         (7, "serving", lambda: serving_phase(torch, card)),  # the moderation endpoint
+        (8, "mtl", lambda: mtl_phase(torch, card)),  # the multi-task head
     ]
     for phase in sorted({p for p, *_ in paths}):
         t0 = time.perf_counter()
@@ -2771,20 +3126,23 @@ def main() -> int:
     cases, report, train = results["cases"], results["model"], results["train"]
     siglip, siglip224, mha = results["siglip"], results["siglip224"], results["mha_dense_mask"]
     clip_f32, siglip_train = results["clip_f32_train"], results["siglip224_train"]
-    serving = results["serving"]
+    serving, mtl = results["serving"], results["mtl"]
     launches_by_path = {"siglip384": siglip["main_path_launches"],
                         "siglip224": siglip224["main_path_launches"],
                         "evaluate": report["main_path_launches"],
                         "train": train["main_path_launches"],
                         "siglip224_train": siglip_train["pallas"]["main_path_launches"],
                         "mha_dense_mask": mha["launches"],
-                        "serving": serving["launches"]}
+                        "serving": serving["launches"],
+                        "mtl_train": mtl["train"]["main_path_launches"],
+                        "mtl_evaluate": mtl["evaluate"]["main_path_launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,
                    "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
-                   "siglip224_train": siglip_train, "serving": serving, "kernels": kernels},
+                   "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
+                   "kernels": kernels},
                   f, indent=1)
 
     print(card)

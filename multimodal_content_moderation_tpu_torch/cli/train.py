@@ -9,13 +9,14 @@ running the port's trainer on one device.
         --config config/clip_fusion.yaml \\
         --model.encoder_dir /path/to/local/clip-vit-base-patch32
 
-Ported: the CLIP and SigLIP fusion models on either wire
+Ported: the CLIP and SigLIP fusion and multi-task models on either wire
 (``training.wire: f32``, the shipped default, or ``u8``),
 ``training.attention: pallas | xla``, ``training.precision: bf16 | fp32``,
 ``gradient_checkpointing`` and ``text_fit`` (CLIP only: ignored with a
-warning for SigLIP, as in the JAX package). ``config/clip_fusion.yaml`` and
-``config/siglip_fusion.yaml`` train as shipped. The run directory records
-``"format": "torch"`` and loads in the port's evaluate CLI.
+warning for SigLIP, as in the JAX package). ``config/clip_fusion.yaml``,
+``config/siglip_fusion.yaml`` and ``config/clip_mtl.yaml`` train as shipped
+(``model.head: mtl`` scores each epoch with the per-task metrics). The run
+directory records ``"format": "torch"`` and loads in the port's evaluate CLI.
 """
 
 from __future__ import annotations
@@ -111,8 +112,6 @@ def _refuse_unported(config, model_cfg, data_cfg) -> None:
             f"parallel {par} is not ported yet: the port trains on one device "
             "(multi-GPU comes in a later slice)"
         )
-    if (model_cfg.get("head") or "fusion") != "fusion":
-        raise NotImplementedError("model.head mtl is not ported yet (the multi-task slice)")
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -130,6 +129,7 @@ def main(argv=None) -> Dict[str, Any]:
     from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs, Trainer
     from multimodal_content_moderation_tpu_torch.training.metrics import (
         calibrate_thresholds,
+        make_compute_metrics_mtl,
         make_compute_metrics_multi,
     )
     from multimodal_content_moderation_tpu_torch.utils.config import (
@@ -230,6 +230,8 @@ def main(argv=None) -> Dict[str, Any]:
         loss_type=loss_cfg.get("type", "bce"),
         focal_gamma=loss_cfg.get("focal_gamma", 1.5),
         seed=seed, device=args.device,
+        head_hidden_dim=model_cfg.get("head_hidden_dim", 0) or 0,
+        learnable_task_weights=model_cfg.get("learnable_task_weights", False),
         **{"clip_config" if backend == "clip" else "siglip_config": enc_config},
     )
     if wire == "u8":
@@ -241,9 +243,12 @@ def main(argv=None) -> Dict[str, Any]:
         )
     model = model_io.init_from_encoder_dir(model, enc_dir)
 
-    compute_metrics = make_compute_metrics_multi(
-        len(class_names) or 1, eval_cfg.get("threshold", 0.5)
-    )
+    if head == "mtl":
+        compute_metrics = make_compute_metrics_mtl(class_names, eval_cfg.get("threshold", 0.5))
+    else:
+        compute_metrics = make_compute_metrics_multi(
+            len(class_names) or 1, eval_cfg.get("threshold", 0.5)
+        )
     targs = TrainArgs(
         output_dir=output_dir,
         num_train_epochs=train_cfg.get("num_train_epochs", 8),

@@ -8,7 +8,9 @@ Layout conventions handled here, once, at load time:
   -> q/k/v dense params
 
 Prefixes: the reference fusion checkpoint keeps the encoder under
-``backbone.*`` and the head modules at the top level.
+``backbone.*`` and the head modules at the top level; the multi-task one
+keeps CLIP's bare towers under ``tower_txt.*`` / ``tower_img.*`` and a
+shared SigLIP backbone under ``backbone.*``.
 
 ``model.safetensors`` is read with the ``safetensors`` package where it is
 installed, else with ``read_safetensors``, a reader of the format built from
@@ -191,6 +193,51 @@ def fusion_model_from_torch(
     else:
         backbone = siglip_params_from_torch(sd, siglip_cfg, prefix="backbone.")
     return {"backbone": backbone, "head": fusion_head_from_torch(sd)}
+
+
+def mtl_head_from_torch(sd: Dict, num_tasks: int) -> dict:
+    """Reference MultiTaskClassifier head; ``shared_head`` Sequential index
+    1 = Linear; a task head is a bare Linear (``heads.{j}``) or a Sequential
+    whose indices 0 and 3 are its Linears; ``log_vars`` where the head
+    learns its task weights."""
+    params = {
+        "proj_t": _linear(sd, "proj_t"),
+        "proj_i": _linear(sd, "proj_i"),
+        "g_t": _linear(sd, "g_t"),
+        "g_i": _linear(sd, "g_i"),
+        "gate": _linear(sd, "gate"),
+        "shared_fc": _linear(sd, "shared_head.1"),
+    }
+    params["heads"] = [
+        {"fc": _linear(sd, f"heads.{j}")}
+        if f"heads.{j}.weight" in sd
+        else {"fc1": _linear(sd, f"heads.{j}.0"), "fc2": _linear(sd, f"heads.{j}.3")}
+        for j in range(num_tasks)
+    ]
+    if "log_vars" in sd:
+        params["log_vars"] = _t(sd["log_vars"])
+    return params
+
+
+def mtl_model_from_torch(
+    sd: Dict, backend: str, num_tasks: int, clip_cfg: Optional[CLIPConfig] = None,
+    siglip_cfg: Optional[SigLIPConfig] = None,
+) -> dict:
+    """Full reference multi-task checkpoint: CLIP keeps its bare towers under
+    ``tower_txt.text_model.*`` and ``tower_img.vision_model.*``; the shared
+    SigLIP backbone ("auto", "siglip") lies under ``backbone.*``."""
+    if backend == "clip":
+        backbone = {
+            "text_model": clip_text_tower_from_torch(
+                sd, clip_cfg, prefix="tower_txt.text_model."
+            ),
+            "vision_model": clip_vision_tower_from_torch(
+                sd, clip_cfg, prefix="tower_img.vision_model."
+            ),
+        }
+    else:
+        backbone = siglip_params_from_torch(sd, siglip_cfg, prefix="backbone.")
+    return {"backbone": backbone, "head": mtl_head_from_torch(sd, num_tasks)}
 
 
 # safetensors dtype names -> numpy types, little-endian as the format stores

@@ -21,7 +21,8 @@ from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patch
 
 
 class FastInferenceEngine:
-    """u8-wire forward of a ``FusionModel`` on the model's device.
+    """u8-wire forward of a ``FusionModel`` or a ``MultiTaskModel`` on the
+    model's device.
 
     On the card the patch embed is the ``patch_embed_u8`` kernel; the
     attention core follows the model's ``attention_impl``."""

@@ -104,13 +104,45 @@ def _check_backend(backend: str) -> str:
     backend = backend.lower()
     if backend not in ("clip", "siglip", "auto"):
         raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (the generic backend comes in a "
-            "later slice)"
+            f"backend {backend!r} is not ported yet (the generic BERT-family + ViT towers "
+            "come with the generic slice)"
         )
     return backend
 
 
-class FusionModel(nn.Module):
+class DualEncoderModel(nn.Module):
+    """What the fusion and the multi-task model share: a CLIP or SigLIP
+    backbone (``clip_config`` / ``siglip_config``), a head whose ``proj_t``
+    holds the device, and config fields that ``replace`` swaps."""
+
+    def replace(self, **fields):
+        """A copy with other config fields that shares these parameters."""
+        new = copy.copy(self)
+        for k, v in fields.items():
+            if not hasattr(self, k) or isinstance(getattr(self, k), nn.Module):
+                raise ValueError(f"{type(self).__name__} has no config field {k!r}")
+            object.__setattr__(new, k, v)
+        return new
+
+    @property
+    def encoder_config(self):
+        """The backbone's config: a ``CLIPConfig`` or a ``SigLIPConfig``."""
+        return self.clip_config if self.backend == "clip" else self.siglip_config
+
+    @property
+    def image_size(self) -> int:
+        return self.encoder_config.vision.image_size
+
+    @property
+    def text_max_positions(self) -> int:
+        return self.encoder_config.text.max_positions
+
+    @property
+    def device(self) -> torch.device:
+        return self.head["proj_t"]["w"].device
+
+
+class FusionModel(DualEncoderModel):
     """Backbone + fusion head. ``forward(batch) -> {"logits"}`` (and
     ``"loss"`` when the batch holds ``labels``) where batch holds input_ids,
     attention_mask, the image as patches_u8 ([B, N, C*p*p] uint8, the u8
@@ -188,38 +220,12 @@ class FusionModel(nn.Module):
             loss_type=loss_type, focal_gamma=focal_gamma, siglip_config=siglip_config,
         )
 
-    def replace(self, **fields) -> "FusionModel":
-        """A copy with other config fields that shares these parameters."""
-        new = copy.copy(self)
-        for k, v in fields.items():
-            if not hasattr(self, k) or isinstance(getattr(self, k), nn.Module):
-                raise ValueError(f"FusionModel has no config field {k!r}")
-            object.__setattr__(new, k, v)
-        return new
-
-    @property
-    def encoder_config(self):
-        """The backbone's config: a ``CLIPConfig`` or a ``SigLIPConfig``."""
-        return self.clip_config if self.backend == "clip" else self.siglip_config
-
     @property
     def feature_dim(self) -> int:
         if self.backend == "clip":
             return self.clip_config.projection_dim
         # SigLIP: the text head's projection_size == the vision hidden size
         return self.siglip_config.text.projection_size
-
-    @property
-    def image_size(self) -> int:
-        return self.encoder_config.vision.image_size
-
-    @property
-    def text_max_positions(self) -> int:
-        return self.encoder_config.text.max_positions
-
-    @property
-    def device(self) -> torch.device:
-        return self.head["proj_t"]["w"].device
 
     def encode(self, batch: Dict[str, torch.Tensor]):
         """(text features, image features): the image from ``patches_u8``

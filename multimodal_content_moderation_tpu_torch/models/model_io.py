@@ -1,10 +1,12 @@
 """Model construction + checkpoint resolution (fully offline).
 
-Resolves two checkpoint layouts into a ``FusionModel`` on the chosen device,
-with ``inference_config.json`` in the directory or its parent:
+Resolves two checkpoint layouts into a ``FusionModel`` or a
+``MultiTaskModel`` (``"head": "mtl"``) on the chosen device, with
+``inference_config.json`` in the directory or its parent:
 
 1. a reference-format run checkpoint (``model.safetensors`` or
-   ``pytorch_model.bin`` with ``backbone.*`` and head keys);
+   ``pytorch_model.bin`` with ``backbone.*`` and head keys; a multi-task
+   CLIP checkpoint keeps its towers under ``tower_txt.*`` / ``tower_img.*``);
 2. the port's own run directories (``checkpoint-N/params.pt``, written by
    ``training/checkpoints.py``, with ``"format": "torch"``).
 
@@ -13,8 +15,8 @@ of a new model (``init_from_encoder_dir``); the head starts from the seeded
 random init. Both backbones load: CLIP and SigLIP (a SigLIP2 checkpoint's
 ``image_size`` sizes its position table, so SigLIP2-B/16 at 384 px loads as
 it is). The JAX package's Orbax run directories are its own format
-(``mmharm-export`` converts them); the generic and multi-task models come
-with their slices. Config JSONs are parsed directly.
+(``mmharm-export`` converts them); the generic backend comes with its
+slice. Config JSONs are parsed directly.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ from multimodal_content_moderation_tpu_torch.models.clip import (
     CLIPVisionConfig,
 )
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+from multimodal_content_moderation_tpu_torch.models.multitask import (
+    CLIP_TOP_LEVEL,
+    MultiTaskModel,
+)
 from multimodal_content_moderation_tpu_torch.models.params import flatten
 from multimodal_content_moderation_tpu_torch.models.siglip import (
     SigLIPConfig,
@@ -103,6 +109,11 @@ def siglip_config_from_dict(d: Dict[str, Any]) -> SigLIPConfig:
 
 
 def _not_ported(what: str):
+    if "generic" in what:
+        return NotImplementedError(
+            f"{what} is not ported yet (the generic BERT-family + ViT towers come with "
+            "the generic slice)"
+        )
     return NotImplementedError(f"{what} is not ported yet (a later slice brings it)")
 
 
@@ -168,11 +179,27 @@ def build_model(
     seed: int = 0,
     device="cuda",
     siglip_config: Optional[SigLIPConfig] = None,
-) -> FusionModel:
-    """A randomly initialised fusion model (scripts/train.py's contract;
-    the multi-task head is not ported)."""
+    head_hidden_dim: int = 0,
+    learnable_task_weights: bool = False,
+):
+    """A randomly initialised fusion or multi-task model (scripts/train.py's
+    contract). The multi-task head maps the backend as the JAX package does:
+    clip -> clip, siglip / auto -> the shared "auto" backbone; the generic
+    backend raises."""
+    if head == "mtl":
+        return MultiTaskModel.create(
+            backend=backend if backend in ("clip", "generic") else "auto",
+            num_tasks=len(class_names),
+            fusion_dim=fusion_dim,
+            head_hidden_dim=head_hidden_dim or 0,
+            learnable_task_weights=learnable_task_weights,
+            clip_config=clip_config,
+            siglip_config=siglip_config,
+            seed=seed,
+            device=device,
+        )
     if head != "fusion":
-        raise _not_ported(f"head {head!r}")
+        raise ValueError(f"head {head!r}: want 'fusion' or 'mtl'")
     return FusionModel.create(
         backend=backend,
         num_labels=len(class_names),
@@ -186,16 +213,20 @@ def build_model(
     )
 
 
-def init_from_encoder_dir(model: FusionModel, encoder_dir: Optional[str]) -> FusionModel:
+def init_from_encoder_dir(model, encoder_dir: Optional[str]):
     """Copy the HF encoder weights of ``encoder_dir`` (a local CLIP or
     SigLIP checkpoint directory) into the model's backbone, in place; the
-    head keeps its seeded random init. Without weights there, the model is
-    returned as it is."""
+    head keeps its seeded random init. A multi-task model's CLIP towers are
+    bare, so it takes no projections or ``logit_scale``. Without weights
+    there, the model is returned as it is."""
     sd = _find_state_dict(encoder_dir) if encoder_dir else None
     if sd is None:
         return model
     if model.backend == "clip":
         backbone = convert.clip_params_from_torch(sd, model.clip_config)
+        if isinstance(model, MultiTaskModel):
+            for name in CLIP_TOP_LEVEL:
+                backbone.pop(name, None)
     else:
         backbone = convert.siglip_params_from_torch(sd, model.siglip_config)
     flat = flatten(backbone)
@@ -210,11 +241,11 @@ def init_from_encoder_dir(model: FusionModel, encoder_dir: Optional[str]) -> Fus
 
 
 def with_performance_options(
-    model: FusionModel,
+    model,
     compute_dtype: Optional[str] = None,
     scores_dtype: Optional[str] = None,
     attention_impl: Optional[str] = None,
-) -> FusionModel:
+):
     """A copy of the model (sharing its parameters) with the towers'
     performance knobs set: ``compute_dtype="bfloat16"`` = mixed precision,
     ``scores_dtype`` = the "xla" core's score dtype, ``attention_impl``
@@ -257,10 +288,13 @@ def load_checkpoint(
     encoder_dir: Optional[str] = None,
     dtype: Optional[torch.dtype] = None,
     device="cuda",
-) -> Tuple[FusionModel, Dict[str, Any]]:
+) -> Tuple[Any, Dict[str, Any]]:
     """Checkpoint -> (model on ``device``, inference_config): a
     reference-format checkpoint, or a ``checkpoint-N`` of the port's own run
-    directory (``"format": "torch"``).
+    directory (``"format": "torch"``); a ``FusionModel``, or a
+    ``MultiTaskModel`` where the config says ``"head": "mtl"`` (with its
+    ``head_hidden_dim`` and ``learnable_task_weights``; a reference-format
+    checkpoint's weights show both).
 
     ``encoder_dir`` supplies the encoder ``config.json`` when the checkpoint
     does not carry one."""
@@ -268,8 +302,8 @@ def load_checkpoint(
     cfg, _ = find_inference_config(checkpoint_dir)
     backend = cfg.get("backend", "clip")
     head = cfg.get("head", "fusion")
-    if head != "fusion":
-        raise _not_ported(f"head {head!r}")
+    if head not in ("fusion", "mtl"):
+        raise ValueError(f"{checkpoint_dir}: head {head!r}: want 'fusion' or 'mtl'")
     if backend not in ("clip", "siglip", "auto"):
         raise _not_ported(f"backend {backend!r}")
     if cfg.get("format") == "orbax":
@@ -286,7 +320,10 @@ def load_checkpoint(
         from multimodal_content_moderation_tpu_torch.training.checkpoints import load_params
 
         model = build_model(
-            head, backend, class_names, cfg.get("fusion_dim", 512), device="cpu", **cfg_kw,
+            head, backend, class_names, cfg.get("fusion_dim", 512), device="cpu",
+            head_hidden_dim=cfg.get("head_hidden_dim", 0) or 0,
+            learnable_task_weights=bool(cfg.get("learnable_task_weights", False)),
+            **cfg_kw,
         )
         model.load_state_dict(load_params(checkpoint_dir), strict=True)
         if dtype is not None:
@@ -296,9 +333,22 @@ def load_checkpoint(
     sd = _find_state_dict(checkpoint_dir)
     if sd is None:
         raise FileNotFoundError(f"No model weights found in {checkpoint_dir}")
-    params = convert.fusion_model_from_torch(
-        sd, backend, **{"clip_cfg" if backend == "clip" else "siglip_cfg": enc_cfg}
-    )
+    conv_kw = {"clip_cfg" if backend == "clip" else "siglip_cfg": enc_cfg}
+    if head == "mtl":
+        mtl_backend = "clip" if backend == "clip" else "auto"
+        params = convert.mtl_model_from_torch(sd, mtl_backend, len(class_names), **conv_kw)
+        if dtype is not None:
+            params = convert.to_dtype(params, dtype)
+        first = params["head"]["heads"][0]
+        model = MultiTaskModel(
+            params, mtl_backend, num_tasks=len(class_names),
+            fusion_dim=cfg.get("fusion_dim", 512),
+            head_hidden_dim=int(first["fc1"]["w"].shape[1]) if "fc1" in first else 0,
+            learnable_task_weights="log_vars" in params["head"],
+            **cfg_kw,
+        )
+        return model.to(dev), cfg
+    params = convert.fusion_model_from_torch(sd, backend, **conv_kw)
     if dtype is not None:
         params = convert.to_dtype(params, dtype)
     model = FusionModel(

@@ -29,8 +29,10 @@ def default_stats(backend: str):
 
 
 def embed_for_model(model, backbone, patches_u8: torch.Tensor) -> torch.Tensor:
-    """Model-aware u8 embed: the vision config and normalisation stats
-    (model fields, else the backend's defaults)."""
+    """Model-aware u8 embed, for a ``FusionModel`` or a ``MultiTaskModel``:
+    the vision config and normalisation stats (model fields, else the
+    backend's defaults; "auto", the multi-task SigLIP backbone, takes
+    SigLIP's)."""
     dmean, dstd = default_stats(model.backend)
     return embed_patches_u8(
         backbone,

@@ -7,11 +7,13 @@ package's ``training/loop.py``).
   nothing in a step waits for the device.
 - ``evaluate_logits``: the fast engine on uint8 crops (``models/fast_infer``);
   ``evaluate_logits_standard``: the standard engine on normalised fp32 pixels
-  (``FusionModel.forward`` on ``pixel_values``, the JAX package's
+  (the model's ``forward`` on ``pixel_values``, the JAX package's
   ``make_eval_step``). Both pad the last batch to the batch size, trim the
   pads on the host and keep two batches in flight.
 - ``Trainer``: per-epoch order from ``np.random.default_rng(seed + epoch)``
-  or the weighted sampler, the CLIP or SigLIP fusion model on either wire
+  or the weighted sampler, the CLIP or SigLIP fusion or multi-task model
+  (``models/multitask.py``, its loss weighted by the learned ``log_vars``
+  where the head has them) on either wire
   (``wire: f32``, the shipped default: normalised pixels through the pixel
   path; ``wire: u8``: uint8 patch rows built on the host), per-epoch eval,
   checkpoints with ``save_total_limit``, best-metric tracking, early

@@ -135,6 +135,33 @@ def make_compute_metrics_multi(num_labels: int, threshold: float = 0.5) -> Calla
     return compute_metrics
 
 
+def make_compute_metrics_mtl(task_names: List[str], threshold: float = 0.5) -> Callable:
+    """Multi-task: the aggregate f1_macro/f1_micro/roc_macro plus
+    ``f1_<task>`` and ``roc_<task>`` per task (reference metrics.py:58-113);
+    a degenerate column gives its ROC-AUC, and the macro one, 0.0."""
+
+    def compute_metrics(eval_pred):
+        logits, labels = eval_pred
+        probs = sigmoid(np.asarray(logits))
+        labels = np.asarray(labels)
+        bin_preds = (probs >= threshold).astype(int)
+        f1_macro, f1_micro = f1_scores(labels, bin_preds)
+        try:
+            roc_macro = _f(roc_auc_macro(labels, probs))
+        except ValueError:
+            roc_macro = 0.0
+        out = {"f1_macro": f1_macro, "f1_micro": f1_micro, "roc_macro": roc_macro}
+        for j, name in enumerate(task_names):
+            out[f"f1_{name}"] = binary_f1(labels[:, j], bin_preds[:, j])
+            try:
+                out[f"roc_{name}"] = _f(roc_auc(labels[:, j], probs[:, j]))
+            except ValueError:
+                out[f"roc_{name}"] = 0.0
+        return out
+
+    return compute_metrics
+
+
 def calibrate_thresholds(
     probs: np.ndarray,
     y_true: np.ndarray,

@@ -23,6 +23,7 @@ from multimodal_content_moderation_tpu_torch.models import clip as tclip
 from multimodal_content_moderation_tpu_torch.models import model_io
 from multimodal_content_moderation_tpu_torch.models.bridge import load_jax_params
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+from test_torch_siglip import assert_within_ulps
 
 MEAN = (0.48145466, 0.4578275, 0.40821073)
 STD = (0.26862954, 0.26130258, 0.27577711)
@@ -126,7 +127,7 @@ def test_clip_text_truncation_exact():
         cut = tclip.clip_text_features(
             tmodel.backbone, torch.from_numpy(ids[:, :8]), torch.from_numpy(mask[:, :8]), cfg
         ).numpy()
-    np.testing.assert_allclose(cut, full, atol=1e-6, rtol=1e-6)
+    assert_within_ulps(cut, full)
     want = np.asarray(j_text_features(jparams["backbone"], ids, mask, jmodel.clip_config))
     np.testing.assert_allclose(full, want, atol=1e-5, rtol=0)
 

@@ -17,7 +17,7 @@ PORT = REPO / "multimodal_content_moderation_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 
 # what chip_smoke.py drives on the card: the CLIP and SigLIP eval paths, the
-# training path, and the moderation endpoint with the evaluate CLI (CSV rows,
+# training path, the multi-task model, and the moderation endpoint with the evaluate CLI (CSV rows,
 # the CLIP BPE tokenizer, JPEG decode, the pixel cache)
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.utils.compile_cache",
@@ -40,6 +40,7 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.models.clip",
     "multimodal_content_moderation_tpu_torch.models.siglip",
     "multimodal_content_moderation_tpu_torch.models.fusion",
+    "multimodal_content_moderation_tpu_torch.models.multitask",
     "multimodal_content_moderation_tpu_torch.models.u8wire",
     "multimodal_content_moderation_tpu_torch.models.bridge",
     "multimodal_content_moderation_tpu_torch.models.convert",

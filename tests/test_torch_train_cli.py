@@ -6,10 +6,12 @@ plain versions on the CPU) and ``--device cpu``.
 It writes the JAX CLI's five artifacts with the JAX CLI's keys (as
 tests/test_cli.py checks them), ``"format": "torch"`` in
 inference_config.json, and the run directory then loads in the port's
-evaluate CLI. The shipped ``config/clip_fusion.yaml`` and
-``config/siglip_fusion.yaml`` train as they are (the f32 wire, bf16, the
-"xla" attention core), with only the encoder, the data and the epochs set
-on the command line; ``config/clip_mtl.yaml`` names the slice it waits for."""
+evaluate CLI. The shipped ``config/clip_fusion.yaml``,
+``config/siglip_fusion.yaml`` and ``config/clip_mtl.yaml`` train as they are
+(the f32 wire, bf16, the "xla" attention core), with only the encoder, the
+data and the epochs set on the command line; ``clip_mtl.yaml`` also on the
+u8 wire with the kernels, and its run directory scores in the evaluate
+CLI as in the trainer's test pass."""
 
 import json
 import os
@@ -104,8 +106,6 @@ def test_run_directory_loads_in_the_evaluate_cli(torch_run, data_dir, tmp_path):
 @pytest.mark.parametrize(
     "wire,flags,match",
     [
-        ("f32", ["--model.head", "mtl"], "multi-task slice"),
-        ("u8", ["--model.head", "mtl"], "mtl"),
         ("u8", ["--parallel.model", "2"], "one device"),
     ],
 )
@@ -180,11 +180,96 @@ def test_shipped_configs_train(name, encoder_dir, siglip_encoder_dir, data_dir, 
     assert ("text_fit ignored" in caplog.text) == name.startswith("siglip")
 
 
-def test_shipped_clip_mtl_names_the_multi_task_slice(encoder_dir, data_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-task slice"):
-        t_train.main([
-            "--config", str(REPO / "config" / "clip_mtl.yaml"), "--model.encoder_dir",
-            encoder_dir, "--data.train_csv", f"{data_dir}/train.csv",
-            "--data.val_csv", f"{data_dir}/val.csv", "--saving.output_dir", str(tmp_path / "x"),
-            "--device", "cpu",
-        ])
+MTL_METRIC_KEYS = METRIC_KEYS | {
+    f"{m}_{c}" for m in ("f1", "roc")
+    for c in ("racist", "sexist", "homophobe", "religion", "otherhate")
+}
+
+
+def _mtl_config(directory, **training):
+    """The shipped ``config/clip_mtl.yaml`` as the base of a YAML that sets
+    ``training`` keys (the CLI has no flag for the wire)."""
+    path = directory / "mtl.yaml"
+    path.write_text(yaml.safe_dump({"_base_": str(REPO / "config" / "clip_mtl.yaml"),
+                                    "training": training}))
+    return str(path)
+
+
+@pytest.fixture(scope="module", params=["f32", "u8"])
+def mtl_run(request, encoder_dir, data_dir, tmp_path_factory):
+    """``config/clip_mtl.yaml`` as shipped (f32), and on the u8 wire with
+    ``attention: pallas``: 2 epochs of 32 rows at batch 32 x 2 accumulation."""
+    d = tmp_path_factory.mktemp(f"mtl_{request.param}")
+    cfg = (str(REPO / "config" / "clip_mtl.yaml") if request.param == "f32"
+           else _mtl_config(d, wire="u8", attention="pallas"))
+    out = str(d / "run")
+    result = t_train.main([
+        "--config", cfg, "--model.encoder_dir", encoder_dir,
+        "--data.train_csv", f"{data_dir}/train.csv", "--data.val_csv", f"{data_dir}/val.csv",
+        "--data.test_csv", f"{data_dir}/test.csv", "--data.image_root", f"{data_dir}/images",
+        "--training.num_train_epochs", "2", "--saving.output_dir", out, "--device", "cpu",
+    ])
+    return request.param, out, result
+
+
+def test_shipped_clip_mtl_trains(mtl_run):
+    wire, out, result = mtl_run
+    for artifact in ["config.json", "val_report.json", "test_metrics.json",
+                     "inference_config.json", "label_map.json"]:
+        assert os.path.exists(os.path.join(out, artifact)), artifact
+    with open(os.path.join(out, "config.json")) as f:
+        training = json.load(f)["training"]
+    assert training["wire"] == wire and training["gradient_accumulation_steps"] == 2
+    assert training["attention"] == ("xla" if wire == "f32" else "pallas")
+    with open(os.path.join(out, "inference_config.json")) as f:
+        cfg = json.load(f)
+    assert set(cfg) == INFERENCE_KEYS and cfg["head"] == "mtl" and cfg["backend"] == "clip"
+    assert cfg["head_hidden_dim"] == 256 and cfg["learnable_task_weights"] is True
+    assert os.path.isdir(cfg["best_checkpoint_dir"])
+    with open(os.path.join(out, "test_metrics.json")) as f:
+        assert set(json.load(f)) == {f"test_{k}" for k in MTL_METRIC_KEYS}
+    with open(os.path.join(out, "val_report.json")) as f:
+        assert set(json.load(f)) == MTL_METRIC_KEYS
+    hist = result["result"]["history"]
+    assert len(hist) == 2 and result["result"]["global_step"] == 2
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["train_loss"]) for h in hist)
+
+
+def test_mtl_run_directory_scores_in_the_evaluate_cli(mtl_run, data_dir, tmp_path):
+    wire, out, result = mtl_run
+    metrics = t_eval.main([
+        "--checkpoint", result["result"]["best_checkpoint"],
+        "--test_csv", f"{data_dir}/test.csv", "--image_root", f"{data_dir}/images",
+        "--batch_size", "8", "--device", "cpu", "--output", str(tmp_path / "eval.json"),
+        "--engine", "standard" if wire == "f32" else "fast",
+    ])
+    assert set(metrics["per_class"]) == {"racist", "sexist", "homophobe", "religion",
+                                         "otherhate"}
+    with open(os.path.join(out, "test_metrics.json")) as f:
+        test = json.load(f)
+    assert metrics["roc_auc_macro"] == pytest.approx(test["test_roc_macro"], abs=1e-4)
+
+
+def test_mtl_run_directory_serves(mtl_run, monkeypatch):
+    """``model_fn`` loads the run's best checkpoint (the port's own format)
+    and ``predict_fn`` answers with the task names, on the run's wire."""
+    from multimodal_content_moderation_tpu_torch.serving import handler
+
+    wire, _, result = mtl_run
+    monkeypatch.setenv("MMHARM_ENGINE", "standard" if wire == "f32" else "fast")
+    classifier = handler.model_fn(result["result"]["best_checkpoint"], device="cpu")
+    out = handler.predict_fn([{"text": "hate hate hate"}, {"text": ""}], classifier)
+    tasks = {"racist", "sexist", "homophobe", "religion", "otherhate"}
+    assert len(out) == 2 and all(set(r["probabilities"]) == tasks for r in out)
+    assert all(0.0 < p < 1.0 for r in out for p in r["probabilities"].values())
+
+
+def test_mtl_on_the_generic_backend_names_the_generic_slice(config_file, tmp_path):
+    with open(config_file) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"].update(head="mtl", backend="generic")
+    path = tmp_path / "generic.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    with pytest.raises(NotImplementedError, match="generic slice"):
+        t_train.main(["--config", str(path), "--saving.output_dir", str(tmp_path / "x"),
+                      "--device", "cpu"])
