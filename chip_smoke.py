@@ -9,8 +9,10 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    versions, and the five kernels built from ``csrc/`` with nvcc (one
    process per source, started together), with their ``-Xptxas -v`` lines.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
-   fp32, at the shapes of the eval, training, SigLIP-384, SigLIP-224 and
-   SigLIP-224 training paths and a few edge shapes, each held to a stated
+   fp32, at the shapes of the eval, training, SigLIP-384, SigLIP-224,
+   SigLIP-224 training and generic (ViT-B/16 at T=197, BERT's non-causal
+   key-masked text at seq 77 with a one-token and a [CLS] [SEP] row) paths
+   and a few edge shapes, each held to a stated
    tolerance, and timed (kernel, plain version, one PyTorch library call as
    a yardstick the port never calls) beside the card's bound for the same
    work. Each time is the device's: 50 calls captured in a CUDA graph and
@@ -121,6 +123,26 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``model_fn`` -> ``predict_fn`` on that checkpoint (answers keyed by the
    task names, fp32 card vs ``MultiModalClassifier(device="cpu")`` within
    1e-4).
+9. The generic dual encoder (``VisionTextDualEncoderModel`` over ViT-B/16
+   at 224 px and BERT-base, projection 512, random weights from a seed): a
+   reference-format checkpoint (``backbone.`` + the VTDE names + the fusion
+   head, ``model.safetensors``) and an encoder dir whose BERT
+   ``tokenizer.json`` over a synthetic 30,522-entry vocabulary must load in
+   the port's ``JSONTokenizer``; eval through ``load_checkpoint`` ->
+   ``FastInferenceEngine`` -> ``evaluate_logits_u8`` (fp32 card vs CPU
+   within 1e-5; bf16, B=64, width 77, ``seq_buckets`` "auto", which the
+   generic backend runs at full width: 1 ``patch_embed_u8`` and 24
+   ``attention_nhd`` per batch on the tensor cores, every batch at width
+   77; staged samples/s) and one ``--engine standard`` batch; training as
+   ``config/default.yaml`` gives it (B=32 x 2, bf16) through ``Trainer`` on
+   the f32 wire ("xla") and the u8 wire ("pallas": 1 / 12 / 12 launches a
+   micro-step, the text tower's dropout on the non-kernel core), a falling
+   loss on a fixed batch, staged samples/s, step parts, fp32 card-vs-CPU
+   gradients on every leaf; RoBERTa-base and DistilBERT-base towers (fp32
+   card vs CPU, 1 + 24 and 1 + 18 launches); the multi-task head on the
+   generic backbone (2 u8 micro-steps, one eval batch); the endpoint over
+   HTTP (fp32 card vs the CPU classifier within 1e-5, no bucket ladder) and
+   the evaluate CLI over a CSV.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -162,6 +184,18 @@ SIGLIP224_TRAIN_SPECS = [
     (SIGLIP_TRAIN_BATCH, SIGLIP224_T, 768, 12, False, False, "siglip224 train path: vision tower"),
     (SIGLIP_TRAIN_BATCH, 64, 768, 12, False, True,
      "siglip224 train path: text tower, seq 64, key mask"),
+]
+GENERIC_BATCH = 64  # config/default.yaml per_device_eval_batch_size
+GENERIC_T = 197  # ViT-B/16 at 224 px: 196 patches + the class token
+GENERIC_TEXT_T = 77  # config/default.yaml max_text_length (text_fit is CLIP's)
+GENERIC_NEG_INF = -1e9  # the generic towers' key bias (models/generic.py)
+GENERIC_SPECS = [
+    (GENERIC_BATCH, GENERIC_T, 768, 12, False, False,
+     "generic eval path: vision tower, ViT-B/16, T=197"),
+    (GENERIC_BATCH, GENERIC_TEXT_T, 768, 12, False, True,
+     "generic eval path: text tower, seq 77, key mask, not causal"),
+    (TRAIN_BATCH, GENERIC_T, 768, 12, False, False,
+     "generic train path: vision tower, ViT-B/16, T=197"),
 ]
 
 
@@ -239,14 +273,17 @@ def _paths(label: str, dtype: str):
     """The paths whose unit of work a bf16 case times: "evaluate" (CLIP,
     B=144), "train" (CLIP, B=32), "siglip384" and "siglip224" (SigLIP2-B/16
     at 384 and 224 px, B=64; "siglip text" is the text tower of both),
-    "siglip224_train" (SigLIP2-B/16-224 training, B=24), "mha_dense_mask"."""
+    "siglip224_train" (SigLIP2-B/16-224 training, B=24), "mha_dense_mask",
+    "generic_eval" and "generic_train" (ViT-B/16 + BERT-base, B=64 / 32)."""
     if dtype != "bfloat16":
         return []
     return {"main path": ["evaluate"], "train path": ["train"],
             "siglip384 path": ["siglip384"], "siglip224 path": ["siglip224"],
             "siglip text": ["siglip384", "siglip224"],
             "siglip224 train path": ["siglip224_train"],
-            "mha dense mask": ["mha_dense_mask"]}.get(label.split(":")[0], [])
+            "mha dense mask": ["mha_dense_mask"],
+            "generic eval path": ["generic_eval"],
+            "generic train path": ["generic_train"]}.get(label.split(":")[0], [])
 
 
 def simt_beside(case, new_fn, simt_fn, want, atol, rtol):
@@ -280,10 +317,11 @@ def _sdpa_mask(torch, keep, causal, T, S):
     return mask
 
 
-def _keep_rows(torch, g, B, S):
-    """Right padding of varied lengths; batch row 0 has every key masked."""
+def _keep_rows(torch, g, B, S, first=(0,)):
+    """Right padding of varied lengths (1 to S); the first rows take the
+    lengths ``first``: by default row 0 has every key masked."""
     lengths = torch.randint(1, S + 1, (B,), generator=g, device="cuda")
-    lengths[0] = 0
+    lengths[: len(first)] = torch.tensor(first, device="cuda")
     return torch.arange(S, device="cuda")[None, :] < lengths[:, None]
 
 
@@ -313,6 +351,9 @@ def patch_embed_cases(torch, g):
         (SIGLIP_BATCH * SIGLIP_T, 768, 768, "siglip384 path: SigLIP2-B/16-384 with its bias, B=64"),
         (SIGLIP_BATCH * SIGLIP224_T, 768, 768,
          "siglip224 path: SigLIP2-B/16-224 with its bias, B=64"),
+        (GENERIC_BATCH * (GENERIC_T - 1), 768, 768,
+         "generic eval path: ViT-B/16 with its bias, B=64"),
+        (TRAIN_BATCH * (GENERIC_T - 1), 768, 768, "generic train path: ViT-B/16, B=32"),
     ]:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
@@ -372,6 +413,7 @@ def attention_cases(torch, g):
                "siglip text: text tower, seq 64, key mask, not causal"),
               (SIGLIP_BATCH, SIGLIP224_T, 768, 12, False, False, "siglip224 path: vision tower")]
     specs += SIGLIP224_TRAIN_SPECS
+    specs += GENERIC_SPECS
     # the shapes at which the earlier SIMT kernel is timed beside the new one
     simt_at = {"main path: vision tower", "main path: text tower, seq 77",
                "siglip224 path: vision tower"}
@@ -382,8 +424,11 @@ def attention_cases(torch, g):
             q, k, v = (torch.randn(B, T, D, generator=g, device="cuda").to(dt) for _ in range(3))
             km = keep = None
             if with_km:
-                keep = _keep_rows(torch, g, B, T)
-                km = (1.0 - keep.float()) * ca.NEG_INF
+                # the generic text tower: a one-token row, a [CLS] [SEP] row,
+                # a full row; its key bias is -1e9 (models/generic.py)
+                generic = label.startswith("generic")
+                keep = _keep_rows(torch, g, B, T, (1, 2, T) if generic else (0,))
+                km = (1.0 - keep.float()) * (GENERIC_NEG_INF if generic else ca.NEG_INF)
             got = ca.attention_nhd(q, k, v, h, km, causal)
             want = ca.attention_nhd_reference(q, k, v, h, km, causal)
             torch.cuda.synchronize()
@@ -590,6 +635,9 @@ def attention_bwd_cases(torch, g):
     specs += [(16, T, 768, 12, False, True, f"key mask, seq {T}") for T in (131, 196, 197)]
     specs += [(4, 256, 256, 2, True, True, "seq 256, head dim 128")]
     specs += SIGLIP224_TRAIN_SPECS
+    # the generic training micro-step: only the vision tower takes the
+    # kernels (the text tower's dropout takes the non-kernel core)
+    specs += [spec for spec in GENERIC_SPECS if spec[-1].startswith("generic train")]
     cases = []
     for B, T, D, h, causal, with_km, label in specs:
         for dtype in ("bfloat16", "float32"):
@@ -819,19 +867,26 @@ class InMemoryDataset:
     tokens, EOS at a position between 8 and 40, EOS padding, 224x224 crops.
     SigLIP-style (``siglip=True``): 8 to 60 random tokens then PAD (id 0)
     padding, so the rows fall in the 32, 48 and 64 text buckets, and
-    ``image_size`` crops. With ``stats`` (mean, std) the batches carry the
+    ``image_size`` crops. BERT-style (``bert=True``): [CLS], word pieces,
+    [SEP] (8 to 60 in all), [PAD] padding. With ``stats`` (mean, std) the batches carry the
     crops as normalised float32 CHW pixels (a float_nchw preprocessor's
     output, through ``data.images.normalize_crop``), else as the uint8
     crops."""
 
     def __init__(self, n: int, seed: int, T: int = 77, siglip: bool = False,
-                 image_size: int = 224, stats=None):
+                 image_size: int = 224, stats=None, bert: bool = False):
         import numpy as np
 
         self.stats = stats
         g = np.random.default_rng(seed)
         self.attention_mask = np.zeros((n, T), np.int32)
-        if siglip:
+        if bert:  # [CLS] 6 to 58 word pieces [SEP], then [PAD] (id 0)
+            self.input_ids = np.zeros((n, T), np.int32)
+            for i, length in enumerate(g.integers(8, 61, size=n)):
+                self.input_ids[i, :length] = g.integers(1000, 30522, size=length)
+                self.input_ids[i, 0], self.input_ids[i, length - 1] = 101, 102
+                self.attention_mask[i, :length] = 1
+        elif siglip:
             self.input_ids = np.zeros((n, T), np.int32)
             for i, length in enumerate(g.integers(8, 61, size=n)):
                 self.input_ids[i, :length] = g.integers(2, 256000, size=length)
@@ -2875,6 +2930,574 @@ def mtl_phase(torch, card: str):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the generic dual encoder (ViT-B/16 + BERT-base) on the card
+# ---------------------------------------------------------------------------
+
+# VisionTextDualEncoderModel over google/vit-base-patch16-224-in21k and
+# bert-base-uncased (their config.json dimensions), projection_dim 512
+HF_VTDE_B16 = {
+    "model_type": "vision-text-dual-encoder", "projection_dim": 512,
+    "logit_scale_init_value": 2.6592,
+    "text_config": {
+        "model_type": "bert", "vocab_size": 30522, "hidden_size": 768,
+        "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072,
+        "max_position_embeddings": 512, "type_vocab_size": 2, "pad_token_id": 0,
+        "hidden_act": "gelu", "layer_norm_eps": 1e-12, "hidden_dropout_prob": 0.1,
+        "attention_probs_dropout_prob": 0.1,
+    },
+    "vision_config": {
+        "model_type": "vit", "hidden_size": 768, "num_hidden_layers": 12,
+        "num_attention_heads": 12, "intermediate_size": 3072, "image_size": 224,
+        "patch_size": 16, "num_channels": 3, "hidden_act": "gelu", "layer_norm_eps": 1e-12,
+        "hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0,
+    },
+}
+# roberta-base and distilbert-base-uncased (their config.json dimensions)
+ROBERTA_BASE = {
+    "model_type": "roberta", "vocab_size": 50265, "hidden_size": 768, "num_hidden_layers": 12,
+    "num_attention_heads": 12, "intermediate_size": 3072, "max_position_embeddings": 514,
+    "type_vocab_size": 1, "pad_token_id": 1, "hidden_act": "gelu", "layer_norm_eps": 1e-5,
+}
+DISTILBERT_BASE = {
+    "model_type": "distilbert", "vocab_size": 30522, "dim": 768, "n_layers": 6, "n_heads": 12,
+    "hidden_dim": 3072, "max_position_embeddings": 512, "pad_token_id": 0,
+    "activation": "gelu", "dropout": 0.1, "attention_dropout": 0.1,
+}
+GENERIC_MICRO_STEPS = 4  # 2 optimizer steps of B=32 x 2 in each Trainer run
+
+
+def generic_reference_state_dict(model) -> dict:
+    """A generic fusion model -> the reference checkpoint's keys: the
+    ``VisionTextDualEncoderModel`` names under ``backbone.`` (BERT or
+    DistilBERT text, ViT vision, the projections, ``logit_scale``) + the
+    ``MultiModalFusionClassifier`` head, the layout ``models/convert.py``
+    reads."""
+    bb, hd = model.backbone, model.head
+    cfg = model.generic_config
+    sd = {}
+
+    def lin(prefix, p):
+        sd[f"{prefix}.weight"] = p["w"].t()
+        if "b" in p:
+            sd[f"{prefix}.bias"] = p["b"]
+
+    def ln(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
+
+    t, v = bb["text_model"], bb["vision_model"]
+    tp, vp = "backbone.text_model", "backbone.vision_model"
+    sd[f"{tp}.embeddings.word_embeddings.weight"] = t["word_embeddings"]
+    sd[f"{tp}.embeddings.position_embeddings.weight"] = t["position_embeddings"]
+    ln(f"{tp}.embeddings.LayerNorm", t["emb_ln"])
+    if "token_type_embeddings" in t:
+        sd[f"{tp}.embeddings.token_type_embeddings.weight"] = t["token_type_embeddings"]
+    distil = cfg.text.arch == "distilbert"
+    for i, lp in enumerate(t["layers"]):
+        if distil:
+            b = f"{tp}.transformer.layer.{i}"
+            for n, hf in (("q", "q_lin"), ("k", "k_lin"), ("v", "v_lin"), ("o", "out_lin")):
+                lin(f"{b}.attention.{hf}", lp["attn"][n])
+            ln(f"{b}.sa_layer_norm", lp["ln1"])
+            lin(f"{b}.ffn.lin1", lp["fc1"])
+            lin(f"{b}.ffn.lin2", lp["fc2"])
+            ln(f"{b}.output_layer_norm", lp["ln2"])
+        else:
+            b = f"{tp}.encoder.layer.{i}"
+            for n, hf in (("q", "query"), ("k", "key"), ("v", "value")):
+                lin(f"{b}.attention.self.{hf}", lp["attn"][n])
+            lin(f"{b}.attention.output.dense", lp["attn"]["o"])
+            ln(f"{b}.attention.output.LayerNorm", lp["ln1"])
+            lin(f"{b}.intermediate.dense", lp["fc1"])
+            lin(f"{b}.output.dense", lp["fc2"])
+            ln(f"{b}.output.LayerNorm", lp["ln2"])
+    if "pooler" in t:
+        lin(f"{tp}.pooler.dense", t["pooler"])
+    vc = cfg.vision
+    sd[f"{vp}.embeddings.cls_token"] = v["cls_token"]
+    sd[f"{vp}.embeddings.position_embeddings"] = v["position_embeddings"][None]
+    pe = v["patch_embedding"]
+    sd[f"{vp}.embeddings.patch_embeddings.projection.weight"] = pe["w"].t().reshape(
+        vc.hidden_size, vc.num_channels, vc.patch_size, vc.patch_size)
+    sd[f"{vp}.embeddings.patch_embeddings.projection.bias"] = pe["b"]
+    for i, lp in enumerate(v["layers"]):
+        b = f"{vp}.encoder.layer.{i}"
+        ln(f"{b}.layernorm_before", lp["ln1"])
+        for n, hf in (("q", "query"), ("k", "key"), ("v", "value")):
+            lin(f"{b}.attention.attention.{hf}", lp["attn"][n])
+        lin(f"{b}.attention.output.dense", lp["attn"]["o"])
+        ln(f"{b}.layernorm_after", lp["ln2"])
+        lin(f"{b}.intermediate.dense", lp["fc1"])
+        lin(f"{b}.output.dense", lp["fc2"])
+    ln(f"{vp}.layernorm", v["post_ln"])
+    if "pooler" in v:
+        lin(f"{vp}.pooler.dense", v["pooler"])
+    lin("backbone.text_projection", bb["text_projection"])
+    lin("backbone.visual_projection", bb["visual_projection"])
+    sd["backbone.logit_scale"] = bb["logit_scale"]
+    for n in ("proj_t", "proj_i", "g_t", "g_i", "gate"):
+        lin(n, hd[n])
+    ln("ln_fused", hd["ln_fused"])
+    ln("cls.0", hd["cls_ln"])
+    lin("cls.1", hd["cls_fc1"])
+    lin("cls.4", hd["cls_fc2"])
+    return {k: x.detach().cpu().contiguous().clone() for k, x in sd.items()}
+
+
+def write_generic_dirs(torch, root: str):
+    """(encoder dir, checkpoint dir) of the full-width generic model: the
+    encoder dir holds the ``vision-text-dual-encoder`` ``config.json``,
+    ``preprocessor_config.json`` (224 px, 0.5 / 0.5) and a BERT WordPiece
+    ``tokenizer.json`` over a synthetic 30,522-entry vocabulary; the
+    checkpoint dir a reference-format fusion checkpoint (random weights
+    from a seed, written as ``model.safetensors`` by ``save_safetensors``)
+    and its ``inference_config.json``. Returns the source model too."""
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.models.generic import GenericDualConfig
+    from multimodal_content_moderation_tpu_torch.testdata import write_bert_wordpiece
+
+    enc, ckpt = os.path.join(root, "encoder"), os.path.join(root, "checkpoint")
+    os.makedirs(ckpt)
+    write_bert_wordpiece(enc, HF_VTDE_B16["text_config"]["vocab_size"], seed=0,
+                         words=[w for w in (w.strip("#@.!?") for w in WORDS) if w])
+    files = {
+        os.path.join(enc, "config.json"): HF_VTDE_B16,
+        os.path.join(enc, "preprocessor_config.json"): {
+            "size": 224, "image_mean": [0.5] * 3, "image_std": [0.5] * 3},
+        os.path.join(ckpt, "inference_config.json"): {
+            "backend": "generic", "head": "fusion", "fusion_dim": 512, "class_names": CLASSES,
+            "thresholds": [0.5, 0.45, 0.5, 0.55, 0.5], "max_text_length": GENERIC_TEXT_T,
+            "encoder_dir": enc},
+    }
+    for path, obj in files.items():
+        with open(path, "w") as f:
+            json.dump(obj, f)
+    src = FusionModel.create("generic", num_labels=len(CLASSES), seed=0, device="cuda",
+                             generic_config=GenericDualConfig.from_dict(HF_VTDE_B16))
+    save_safetensors(generic_reference_state_dict(src), os.path.join(ckpt, "model.safetensors"))
+    return enc, ckpt, src
+
+
+def _full_width_spy(engine):
+    """Record the text width of every batch ``engine`` moves to the card."""
+    widths = []
+    real = engine.to_device
+
+    def to_device(x):
+        t = real(x)
+        if t.dim() == 2 and not t.is_floating_point():
+            widths.append(int(t.shape[1]))
+        return t
+
+    engine.to_device = to_device
+    return widths
+
+
+def generic_eval_phase(torch, card: str, enc: str, ckpt: str, src):
+    """(b) The reference-format checkpoint through ``load_checkpoint`` ->
+    ``FastInferenceEngine`` -> ``evaluate_logits_u8``: fp32 card against CPU
+    logits (8 rows, atol 1e-5); in bf16 with the kernels (B=64, width 77,
+    seq_buckets "auto", which the generic backend runs at full width) 1
+    ``patch_embed_u8`` and 24 ``attention_nhd`` per batch on the tensor
+    cores, no ``flash_attention``, every batch at width 77, within 3e-2 of
+    fp32; staged samples/s; then one batch through ``--engine standard``
+    (the f32 wire) against the fast engine (fp32, atol 1e-4)."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.data.tokenizer import load_tokenizer
+    from multimodal_content_moderation_tpu_torch.data.tokenizer_json import JSONTokenizer
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.training.loop import evaluate_logits_standard
+
+    report = {"card": card}
+    tok = load_tokenizer(enc)
+    check(isinstance(tok, JSONTokenizer),
+          f"the BERT tokenizer.json loaded as {type(tok).__name__}, not the port's JSONTokenizer")
+    ids, mask = tok.encode_batch(["Hate speech, online!", ""], GENERIC_TEXT_T)
+    check(ids[0, 0] == 101 and ids[1, :2].tolist() == [101, 102] and mask[1].sum() == 2,
+          f"BERT tokenizer: {ids[:, :8].tolist()}")
+    report["tokenizer"] = type(tok).__name__
+    t0 = time.perf_counter()
+    model, cfg = model_io.load_checkpoint(ckpt, device="cuda")
+    report["load_checkpoint_s"] = time.perf_counter() - t0
+    src_sd, got_sd = src.state_dict(), model.state_dict()
+    check(src_sd.keys() == got_sd.keys() and model.backend == "generic",
+          "load_checkpoint: not the generic model of the checkpoint")
+    for name, x in src_sd.items():
+        check(torch.equal(x, got_sd[name]), f"load_checkpoint: {name} differs")
+    report["parameters"] = sum(p.numel() for p in model.parameters())
+
+    data = InMemoryDataset(3 * GENERIC_BATCH - 5, seed=30, bert=True)  # a padded last batch
+    cpu_model, _ = model_io.load_checkpoint(ckpt, device="cpu")
+    rows = next(data.batches(8))
+    outs = []
+    for m in (model, cpu_model):
+        eng = fi.FastInferenceEngine(
+            model_io.with_performance_options(m, attention_impl="pallas"), SIGLIP_MEAN,
+            SIGLIP_STD)
+        outs.append(eng(rows["input_ids"], rows["attention_mask"],
+                        eng.patches_from_hwc(rows["pixel_values"]),
+                        rows["text_present"], rows["image_present"]).cpu())
+    del cpu_model
+    err = float((outs[0] - outs[1]).abs().max())
+    report["fp32_card_vs_cpu_max_abs_err"] = err
+    check(err <= 1e-5 and bool(outs[0].isfinite().all()),
+          f"generic fp32 logits on the card differ from the CPU's by {err} (atol 1e-5)")
+
+    fp32 = model_io.with_performance_options(model, attention_impl="pallas")
+    fp32_engine = fi.FastInferenceEngine(fp32, SIGLIP_MEAN, SIGLIP_STD)
+    full, _ = fi.evaluate_logits_u8(fp32_engine, data, GENERIC_BATCH, num_workers=4)
+    # --engine standard: normalised fp32 pixels of the same crops, one batch
+    fast, _ = fi.evaluate_logits_u8(fp32_engine, InMemoryDataset(GENERIC_BATCH, seed=39,
+                                                                 bert=True), GENERIC_BATCH)
+    one = InMemoryDataset(GENERIC_BATCH, seed=39, bert=True, stats=(SIGLIP_MEAN, SIGLIP_STD))
+    counts = _reset_counts()
+    standard, _ = evaluate_logits_standard(fp32, one, GENERIC_BATCH, num_workers=2)
+    launches = counts()
+    check(launches == _counts(False, attention_nhd=24),
+          f"generic standard engine launches {launches}: want 24 attention_nhd, no embed")
+    err = float(np.abs(standard - fast).max())
+    report["standard_vs_fast_engine_max_abs_err"] = err
+    check(err <= 1e-4, f"generic --engine standard vs fast: {err} (fp32 atol 1e-4)")
+
+    # the main path: bf16 towers with the kernels, counted from 0
+    bf16 = model_io.with_performance_options(
+        model, compute_dtype="bfloat16", attention_impl="pallas").to(torch.bfloat16)
+    del model, fp32
+    engine = fi.FastInferenceEngine(bf16, SIGLIP_MEAN, SIGLIP_STD)
+    widths = _full_width_spy(engine)
+    n_batches = -(-len(data) // GENERIC_BATCH)
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    logits, labels = fi.evaluate_logits_u8(engine, data, GENERIC_BATCH, num_workers=4,
+                                           seq_buckets=fi.parse_seq_buckets("auto"))
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check(launches == _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches),
+          f"generic evaluate: launches {launches} for {n_batches} batches (want 1 and 24 per "
+          "batch on the tensor cores, no flash_attention)")
+    # each batch moves its ids and its mask
+    check(len(widths) == 2 * n_batches and set(widths) == {GENERIC_TEXT_T},
+          f"generic evaluate with seq_buckets auto ran text widths {widths}, want 77 only")
+    err = float(np.abs(logits - full).max())
+    check(logits.shape == (len(data), len(CLASSES)) and np.isfinite(logits).all()
+          and err <= 3e-2, f"generic bf16 logits: shape {logits.shape}, max |bf16 - fp32| "
+                           f"{err} (atol 3e-2)")
+    np.testing.assert_array_equal(labels, data.labels)
+    report["bf16_vs_fp32_max_abs_err"] = err
+    report["main_path_launches"] = launches
+    report["main_path_batches"] = n_batches
+    report["evaluate_samples_per_s_incl_host_prep"] = len(data) / wall
+    g = np.random.default_rng(31)
+    patches = [torch.from_numpy(engine.patches_from_hwc(
+        g.integers(0, 256, size=(GENERIC_BATCH, 224, 224, 3), dtype=np.uint8))).cuda()
+        for _ in range(2)]
+    ids = []
+    for _ in range(8):
+        x = g.integers(1000, 30522, size=(GENERIC_BATCH, GENERIC_TEXT_T)).astype(np.int32)
+        x[:, 0], x[:, -1] = 101, 102
+        ids.append(torch.from_numpy(x).cuda())
+    mask = torch.ones(GENERIC_BATCH, GENERIC_TEXT_T, dtype=torch.int32, device="cuda")
+    report["staged_samples_per_s_seq77"] = {
+        **staged_eval_rates(torch, engine, ids, patches, mask), "card": card}
+    del bf16, engine
+    return report
+
+
+def _generic_model(torch, head="fusion", seed=0, device="cuda", text=None, **perf):
+    """The full-width generic model (``HF_VTDE_B16``, or another
+    ``text_config``) from a seed, the knobs ``perf`` in both towers."""
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.generic import GenericDualConfig
+
+    cfg = GenericDualConfig.from_dict({**HF_VTDE_B16, **({"text_config": text} if text else {})})
+    m = model_io.build_model(head, "generic", CLASSES, seed=seed, device=device,
+                             generic_config=cfg, **(MTL_HEAD if head == "mtl" else {}))
+    return model_io.with_performance_options(m, **perf).replace(
+        image_mean=SIGLIP_MEAN, image_std=SIGLIP_STD)
+
+
+def generic_train_phase(torch, card: str):
+    """(c) Fine-tuning as ``config/default.yaml`` gives it with ``backend:
+    generic`` (B=32 x 2, bf16 towers on fp32 master weights, lr 1e-5 /
+    5e-4, text width 77: ``text_fit`` is CLIP's) through ``Trainer.train``,
+    on the f32 wire with attention "xla" (no kernel) and on the u8 wire with
+    attention "pallas": per micro-step 1 ``patch_embed_u8``, 12
+    ``attention_nhd`` and 12 ``attention_nhd_bwd`` (the vision tower; the
+    text tower trains with HF's dropout 0.1 on the non-kernel core), 1 + 24
+    per eval batch, all on the tensor cores. Each: a falling loss on a fixed
+    batch, staged samples/s, CUDA-event step parts. Then fp32 gradients on
+    the card (u8 wire, the kernels, the dropout rates 0) against the CPU's
+    on every leaf, 4 rows."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs
+
+    report = {}
+    for wire, impl in (("f32", "xla"), ("u8", "pallas")):
+        out_dir = os.path.join(REPO, "build", f"chip_smoke_generic_{wire}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        stats = ((0.5,) * 3, (0.5,) * 3) if wire == "f32" else None
+        train_ds = InMemoryDataset(GENERIC_MICRO_STEPS * TRAIN_BATCH, seed=32, bert=True,
+                                   stats=stats)
+        val_ds = InMemoryDataset(64 - 7, seed=33, bert=True, stats=stats)
+        args = TrainArgs(
+            output_dir=out_dir, num_train_epochs=1, per_device_train_batch_size=TRAIN_BATCH,
+            per_device_eval_batch_size=64, gradient_accumulation_steps=TRAIN_ACCUM,
+            lr_encoder=1e-5, lr_head=5e-4, logging_steps=2, save_total_limit=1,
+            early_stopping=False, wire=wire, num_workers=4, seed=0,
+        )
+        if wire == "f32":
+            def want(micro, evals):
+                return _counts()
+        else:
+            def want(micro, evals):
+                return _counts(patch_embed_u8=micro + evals,
+                               attention_nhd=12 * micro + 24 * evals,
+                               attention_nhd_bwd=12 * micro)
+        run, trainer = trainer_run(
+            torch, _generic_model(torch, compute_dtype="bfloat16", attention_impl=impl), args,
+            train_ds, val_ds, want, f"generic {wire} training")
+        del trainer
+        shutil.rmtree(out_dir, ignore_errors=True)
+        model = _generic_model(torch, seed=2, compute_dtype="bfloat16", attention_impl=impl)
+        patch = 16 if wire == "u8" else None
+        run["fixed_batch_loss"] = fixed_batch_loss_falls(
+            torch, model, _device_batch(torch, train_ds, np.arange(TRAIN_BATCH), patch),
+            1e-5, 5e-4)
+        staged = [_device_batch(torch, train_ds, np.arange(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH),
+                                patch) for i in range(GENERIC_MICRO_STEPS)]
+        run.update(staged_training(torch, model, staged, card, TRAIN_ACCUM, TRAIN_BATCH,
+                                   profile=False))
+        del model, staged
+        report[wire] = run
+
+    rows = InMemoryDataset(4, seed=34, bert=True)
+    grads = {}
+    for device in ("cuda", "cpu"):
+        m = _generic_model(torch, seed=3, device="cpu", attention_impl="pallas")
+        t = m.generic_config.text
+        m = m.replace(generic_config=dataclasses.replace(m.generic_config, text=dataclasses.replace(
+            t, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))).to(device)
+        batch = _device_batch(torch, rows, np.arange(4), 16)
+        if device == "cpu":
+            batch = {k: v.cpu() for k, v in batch.items()}
+        counts = _reset_counts()
+        grads[device] = _leaf_grads(m, batch)
+        if device == "cuda":
+            check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=24,
+                                      attention_nhd_bwd=24),
+                  f"generic gradient check launches {counts()}")
+        del m
+    report["grad_check"] = leafwise_grad_check(grads["cuda"], grads["cpu"])
+    report["main_path_launches"] = report["u8"]["main_path_launches"]
+    return report
+
+
+def generic_towers_phase(torch, card: str):
+    """(d) RoBERTa-base and DistilBERT-base text towers (with the ViT-B/16):
+    one fp32 eval batch of 8 rows each through ``FastInferenceEngine`` with
+    the kernels, card against CPU logits (atol 1e-5), with their launches:
+    1 + 24 (RoBERTa: 12 text layers) and 1 + 18 (DistilBERT: 6)."""
+    import copy
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+
+    report = {}
+    g = np.random.default_rng(35)
+    for name, text, (cls, sep, pad) in (("roberta_base", ROBERTA_BASE, (0, 2, 1)),
+                                         ("distilbert_base", DISTILBERT_BASE, (101, 102, 0))):
+        cpu = _generic_model(torch, seed=4, device="cpu", text=text, attention_impl="pallas")
+        card_model = copy.deepcopy(cpu).to("cuda")
+        ids = np.full((8, GENERIC_TEXT_T), pad, np.int32)
+        mask = np.zeros((8, GENERIC_TEXT_T), np.int32)
+        for i, n in enumerate([1, 2, GENERIC_TEXT_T, 9, 20, 33, 50, 64]):
+            ids[i, :n] = g.integers(1000, text["vocab_size"], size=n)
+            ids[i, 0], ids[i, n - 1] = cls, (sep if n > 1 else cls)
+            mask[i, :n] = 1
+        crops = g.integers(0, 256, size=(8, 224, 224, 3), dtype=np.uint8)
+        ones = np.ones(8, np.float32)
+        outs = []
+        for m in (card_model, cpu):
+            eng = fi.FastInferenceEngine(m, SIGLIP_MEAN, SIGLIP_STD)
+            counts = _reset_counts()
+            outs.append(eng(ids, mask, eng.patches_from_hwc(crops), ones, ones).cpu())
+            if m is card_model:
+                launches = counts()
+        layers = text.get("num_hidden_layers", text.get("n_layers"))
+        check(launches == _counts(False, patch_embed_u8=1, attention_nhd=12 + layers),
+              f"{name}: launches {launches}, want 1 + {12 + layers}")
+        err = float((outs[0] - outs[1]).abs().max())
+        check(err <= 1e-5 and bool(outs[0].isfinite().all()),
+              f"{name}: fp32 logits on the card differ from the CPU's by {err} (atol 1e-5)")
+        report[name] = {"fp32_card_vs_cpu_max_abs_err": err, "launches": launches,
+                        "text_layers": layers}
+        del cpu, card_model
+    return report
+
+
+def generic_mtl_phase(torch, card: str):
+    """(e) The multi-task head (``clip_mtl.yaml``'s: fusion 512, hidden task
+    heads of 256, learned task weights) on the generic backbone's raw
+    towers: ``Trainer.train`` for 2 u8 micro-steps (B=32 x 2, bf16, the
+    kernels) and one eval batch: 1 / 12 / 12 launches per micro-step and 1 +
+    24 per eval batch, on the tensor cores."""
+    from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs
+    from multimodal_content_moderation_tpu_torch.training.metrics import make_compute_metrics_mtl
+
+    out_dir = os.path.join(REPO, "build", "chip_smoke_generic_mtl")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    args = TrainArgs(
+        output_dir=out_dir, num_train_epochs=1, per_device_train_batch_size=TRAIN_BATCH,
+        per_device_eval_batch_size=64, gradient_accumulation_steps=TRAIN_ACCUM,
+        lr_encoder=1e-5, lr_head=5e-4, logging_steps=1, save_total_limit=1,
+        early_stopping=False, wire="u8", num_workers=4, seed=0,
+    )
+    model = _generic_model(torch, head="mtl", compute_dtype="bfloat16", attention_impl="pallas")
+    check(model.backend == "generic" and "text_projection" not in model.backbone
+          and model.head["proj_t"]["w"].shape[0] == 768,
+          "the multi-task generic model does not pool the raw towers")
+
+    def want(micro, evals):
+        return _counts(patch_embed_u8=micro + evals, attention_nhd=12 * micro + 24 * evals,
+                       attention_nhd_bwd=12 * micro)
+
+    run, trainer = trainer_run(
+        torch, model, args, InMemoryDataset(2 * TRAIN_BATCH, seed=36, bert=True),
+        InMemoryDataset(64 - 7, seed=37, bert=True), want, "generic mtl training",
+        make_compute_metrics_mtl(CLASSES))
+    check(all(f"roc_{c}" in run["history"][0] for c in CLASSES),
+          f"generic mtl: per-task metrics missing from {run['history'][0]}")
+    del trainer
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return run
+
+
+def generic_serving_phase(torch, card: str, ckpt: str, root: str):
+    """(f) The endpoint and the evaluate CLI on the generic checkpoint:
+    ``serving.server.serve`` (fp32, the fast engine, the kernels, the native
+    decoder, ``MMHARM_SEQ_BUCKETS=auto``, which the generic backend serves
+    at full width) answers a single and a batch request (text + fixture
+    JPEG) over HTTP; its probabilities are within 1e-5 of
+    ``MultiModalClassifier(device="cpu")``'s, and each served batch makes 1
+    + 24 launches. Then ``cli/evaluate.main`` (bf16, the fast engine, the
+    kernels, ``--seq_buckets auto``) over a generated CSV: 1 + 24 launches
+    per batch on the tensor cores."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.cli import evaluate
+    from multimodal_content_moderation_tpu_torch.cli.inference import MultiModalClassifier
+    from multimodal_content_moderation_tpu_torch.serving import handler as h
+    from multimodal_content_moderation_tpu_torch.serving import server as srv
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures
+
+    g = np.random.default_rng(38)
+    blobs = [base64.b64encode(p.read_bytes()).decode() for p in jpeg_fixtures().values()]
+    insts = [{"text": tweet(g), **({"image": blobs[i % len(blobs)]} if i % 5 != 4 else {})}
+             for i in range(12)]
+    report = {"card": card}
+    env = {**SERVE_ENV, "MMHARM_PRECISION": "fp32"}
+    saved_env = {k: os.environ.get(k) for k in [*env, "MMHARM_MICROBATCH_MS"]}
+    os.environ.update(env)
+    os.environ.pop("MMHARM_MICROBATCH_MS", None)
+    server = None
+    try:
+        counts = _reset_counts()
+        server = srv.serve(ckpt, port=0, host="127.0.0.1", device="cuda")
+        classifier = server.state.classifier
+        check(classifier._bucket_ladder is None,
+              "the generic endpoint built a bucket ladder (its tower may mean-pool the pads)")
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        check(_get_status(f"{url}/ping") == 200, "/ping is not 200 after serve()")
+        status, one = _post(f"{url}/invocations", json.dumps(insts[0]).encode())
+        check(status == 200 and len(one["predictions"]) == 1, f"single request: {status}")
+        status, out = _post(f"{url}/invocations", json.dumps({"instances": insts}).encode())
+        check(status == 200 and len(out["predictions"]) == len(insts),
+              f"batch request: {status}")
+        launches = counts()
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    served = 1 + 1 + -(-len(insts) // classifier.batch_size)  # the warm-up, then the requests
+    check(launches == _counts(False, patch_embed_u8=served, attention_nhd=24 * served),
+          f"generic endpoint: launches {launches} for {served} batches (warm-up included)")
+    cpu = MultiModalClassifier(ckpt, batch_size=8, engine="fast", attention="pallas",
+                               image_backend="native_scaled", device="cpu")
+    cpu_probs = _probs(h.predict_fn(insts, cpu))
+    del cpu
+    err = _max_diff(_probs(out["predictions"]), cpu_probs)
+    check(err <= 1e-5 and _max_diff(_probs(one["predictions"]), cpu_probs[:1]) <= 1e-5,
+          f"generic endpoint: fp32 card vs the CPU classifier {err} (atol 1e-5)")
+    report.update(requests=len(insts), fp32_card_vs_cpu_max_abs_err=err, launches=launches,
+                  served_batches=served, example=out["predictions"][0])
+
+    csv_path = write_csv(root, g)
+    n_batches = -(-N_CSV_ROWS // SERVE_BATCH)
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    metrics = evaluate.main([
+        "--checkpoint", ckpt, "--test_csv", csv_path, "--image_root",
+        os.path.join(root, "images"), "--batch_size", str(SERVE_BATCH), "--engine", "fast",
+        "--image_backend", "native_scaled", "--attention", "pallas", "--precision", "bf16",
+        "--seq_buckets", "auto", "--device", "cuda",
+        "--output", os.path.join(root, "eval_results.json")])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check(launches == _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches),
+          f"generic evaluate CLI: launches {launches} for {n_batches} batches")
+    check(np.isfinite(metrics["f1_macro"]) and np.isfinite(metrics["roc_auc_macro"]),
+          f"generic evaluate CLI: metrics {metrics}")
+    report["evaluate_cli"] = {"rows": N_CSV_ROWS, "batches": n_batches, "wall_s": wall,
+                              "launches": launches, "f1_macro": metrics["f1_macro"],
+                              "samples_per_second": metrics["samples_per_second"]}
+    return report
+
+
+def generic_phase(torch, card: str):
+    """Phase 9: the generic dual encoder on the card (checkpoint, eval,
+    training, the other text towers, the multi-task head, the endpoint and
+    the evaluate CLI)."""
+    root = os.path.join(REPO, "build", "chip_smoke_generic")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    report = {}
+    t0 = time.perf_counter()
+    enc, ckpt, src = write_generic_dirs(torch, root)
+    report["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["eval"] = generic_eval_phase(torch, card, enc, ckpt, src)
+    report["eval_s"] = time.perf_counter() - t0
+    del src
+    for key, run in (("train", generic_train_phase), ("towers", generic_towers_phase),
+                     ("mtl", generic_mtl_phase)):
+        t0 = time.perf_counter()
+        report[key] = run(torch, card)
+        report[f"{key}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["serving"] = generic_serving_phase(torch, card, ckpt, root)
+    report["serving_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
 # device-kernel name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = [
     ("attention_nhd_bwd", ("attention_nhd_bwd",)),
@@ -2945,6 +3568,9 @@ UNITS = {
     "train": "one CLIP ViT-B/32 training micro-step, bf16, B=32",
     "siglip224_train": "one SigLIP2-B/16-224 training micro-step, bf16, B=24, text seq 64",
     "mha_dense_mask": "one mha(impl='pallas') call with a dense mask, bf16",
+    "generic_eval": "one ViT-B/16 + BERT-base eval batch, bf16, B=64, text seq 77",
+    "generic_train": "one ViT-B/16 + BERT-base training micro-step, bf16, B=32, u8 wire (the "
+                     "text tower's dropout keeps it on the non-kernel core)",
 }
 # the shared headers each kernel's source includes
 HEADERS = {
@@ -2961,6 +3587,8 @@ PER_UNIT = {
     "train": {"patch_embed_u8": 1, "attention_nhd": 24, "attention_nhd_bwd": 24},
     "siglip224_train": {"attention_nhd": 24, "attention_nhd_bwd": 24},
     "mha_dense_mask": {"attention_small": 1},
+    "generic_eval": {"patch_embed_u8": 1, "attention_nhd": 24},
+    "generic_train": {"patch_embed_u8": 1, "attention_nhd": 12, "attention_nhd_bwd": 12},
 }
 WORK = {
     "siglip384": {
@@ -2990,6 +3618,16 @@ WORK = {
     },
     "mha_dense_mask": {"attention_small": "[64, 8, 77, 64] views of [64, 77, 512] + a dense "
                                           "[64, 1, 77, 77] fp32 mask read broadcast"},
+    "generic_eval": {
+        "patch_embed_u8": "[12544, 768] x [768, 768] + bias",
+        "attention_nhd": "12 vision [64,197,768]/12 heads + 12 text [64,77,768]/12 heads, "
+                         "key mask, not causal",
+    },
+    "generic_train": {
+        "patch_embed_u8": "[6272, 768] x [768, 768] + bias",
+        "attention_nhd": "12 vision [32,197,768]/12 heads",
+        "attention_nhd_bwd": "12 vision [32,197,768]/12 heads",
+    },
 }
 # the path whose numbers head each kernel's entry, fixed so that entries
 # compare from one run to the next; other_paths carries the rest
@@ -3113,6 +3751,7 @@ def main() -> int:
         (6, "siglip224_train", lambda: siglip224_train_phase(torch, card)),
         (7, "serving", lambda: serving_phase(torch, card)),  # the moderation endpoint
         (8, "mtl", lambda: mtl_phase(torch, card)),  # the multi-task head
+        (9, "generic", lambda: generic_phase(torch, card)),  # ViT-B/16 + BERT-base
     ]
     for phase in sorted({p for p, *_ in paths}):
         t0 = time.perf_counter()
@@ -3126,7 +3765,7 @@ def main() -> int:
     cases, report, train = results["cases"], results["model"], results["train"]
     siglip, siglip224, mha = results["siglip"], results["siglip224"], results["mha_dense_mask"]
     clip_f32, siglip_train = results["clip_f32_train"], results["siglip224_train"]
-    serving, mtl = results["serving"], results["mtl"]
+    serving, mtl, generic = results["serving"], results["mtl"], results["generic"]
     launches_by_path = {"siglip384": siglip["main_path_launches"],
                         "siglip224": siglip224["main_path_launches"],
                         "evaluate": report["main_path_launches"],
@@ -3135,14 +3774,16 @@ def main() -> int:
                         "mha_dense_mask": mha["launches"],
                         "serving": serving["launches"],
                         "mtl_train": mtl["train"]["main_path_launches"],
-                        "mtl_evaluate": mtl["evaluate"]["main_path_launches"]}
+                        "mtl_evaluate": mtl["evaluate"]["main_path_launches"],
+                        "generic_eval": generic["eval"]["main_path_launches"],
+                        "generic_train": generic["train"]["main_path_launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,
                    "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
                    "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
-                   "kernels": kernels},
+                   "generic": generic, "kernels": kernels},
                   f, indent=1)
 
     print(card)

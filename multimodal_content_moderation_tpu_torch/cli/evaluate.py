@@ -6,7 +6,9 @@ at the full text width, ``training.loop.evaluate_logits_standard``) or the
 uint8 fast engine (``--engine fast``: ``evaluate_logits_u8``, with text
 buckets) and writes ``eval_results.json`` with the detailed metric schema
 (mean-threshold overall metrics + per-class calibrated F1), computed in
-numpy. The CSV is read without pandas (``data/dataset.read_csv``), the CLIP
+numpy. A generic (BERT-family + ViT) checkpoint evaluates at the full text
+width on both engines: its tower may mean-pool over the pads, so buckets
+would change its logits. The CSV is read without pandas (``data/dataset.read_csv``), the CLIP
 tokenizer runs without ``regex``, and ``--image_backend native*`` decodes
 JPEGs without PIL, so the CLI runs on a machine that has none of them.
 
@@ -68,7 +70,8 @@ def parse_args(argv=None):
         default="auto",
         help="length-sorted bucketed evaluation (fast engine): comma-separated "
         "ladder of text widths, e.g. '32,48,64'; exact for CLIP and SigLIP (its "
-        "carry column). 'auto' = 32,48,64; 'off' disables",
+        "carry column), never used for the generic backend. 'auto' = 32,48,64; "
+        "'off' disables",
     )
     parser.add_argument(
         "--image_backend",
@@ -116,6 +119,7 @@ def main(argv=None):
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fast_infer import (
         FastInferenceEngine,
+        buckets_exact,
         evaluate_logits_u8,
         parse_seq_buckets,
     )
@@ -161,20 +165,24 @@ def main(argv=None):
     )
     print(f"Test samples: {len(test_ds)}")
 
+    explicit = (args.seq_buckets or "off").strip().lower() not in ("auto", "off", "none", "")
+    full_width = args.engine != "fast" or not buckets_exact(model.backend)
+    if explicit and full_width:
+        # an explicit ladder that does nothing would be a trap ("auto", the
+        # default, stays quiet), as the JAX CLI says
+        why = ("requires --engine fast (standard engine evaluates at full text width)"
+               if args.engine != "fast" else
+               "the generic backend evaluates at full text width (its tower may "
+               "mean-pool over the pads)")
+        print(f"WARNING: seq_buckets={args.seq_buckets} ignored: {why}")
     if args.engine == "fast":
         engine = FastInferenceEngine(model, mean, std)
         t0 = time.time()
         logits, labels = evaluate_logits_u8(
-            engine, test_ds, args.batch_size, seq_buckets=parse_seq_buckets(args.seq_buckets)
+            engine, test_ds, args.batch_size,
+            seq_buckets=None if full_width else parse_seq_buckets(args.seq_buckets),
         )
     else:
-        if (args.seq_buckets or "off").strip().lower() not in ("auto", "off", "none", ""):
-            # an explicit ladder that does nothing would be a trap ("auto", the
-            # default, stays quiet), as the JAX CLI says
-            print(
-                f"WARNING: seq_buckets={args.seq_buckets} ignored: requires "
-                "--engine fast (standard engine evaluates at full text width)"
-            )
         t0 = time.time()
         logits, labels = evaluate_logits_standard(model, test_ds, args.batch_size)
     dt = time.time() - t0

@@ -48,7 +48,8 @@ class MultiModalClassifier:
     ``any_harmful``. ``precision``: fp32 | bf16 | bf16_fast (bf16 attention
     scores on the "xla" core); ``engine``: standard (normalised fp32 pixels)
     | fast (the uint8 wire and the fused patch-embed kernel, with text
-    buckets); ``image_backend``: pil | native | native_scaled;
+    buckets, except for the generic backend, whose tower may mean-pool over
+    the pads); ``image_backend``: pil | native | native_scaled;
     ``attention``: xla | pallas (the hand-written kernels); ``device``: the
     card ("cuda") unless the caller asks for "cpu"."""
 
@@ -71,6 +72,7 @@ class MultiModalClassifier:
         from multimodal_content_moderation_tpu_torch.models.fast_infer import (
             FastInferenceEngine,
             bucket_ladder,
+            buckets_exact,
             parse_seq_buckets,
         )
 
@@ -129,20 +131,22 @@ class MultiModalClassifier:
 
         # Text buckets (fast engine): each batch runs at the smallest ladder
         # width covering its longest row, exact for CLIP (causal tower,
-        # first-EOS pooling) and SigLIP (the carry column). Applied inside
-        # forward_batch, so predict, predict_batch, the serving handler and
-        # the micro-batcher all get it.
+        # first-EOS pooling) and SigLIP (the carry column); never for the
+        # generic towers, which may mean-pool over the pads (the JAX
+        # classifier builds a ladder for them and shifts their logits).
+        # Applied inside forward_batch, so predict, predict_batch, the
+        # serving handler and the micro-batcher all get it.
         self._bucket_ladder: Optional[List[int]] = None
         buckets = parse_seq_buckets(seq_buckets)
         if buckets is not None:
-            if self.engine is None:
+            if self.engine is None or not buckets_exact(model.backend):
                 # 'auto' is the default and silently inapplicable; an explicit
                 # ladder deserves a signal
                 if (seq_buckets or "").strip().lower() != "auto":
                     logger.warning(
-                        "seq_buckets=%s ignored: requires --engine fast "
-                        "(the standard engine evaluates at full text width)",
+                        "seq_buckets=%s ignored: %s evaluates at full text width",
                         seq_buckets,
+                        "the standard engine" if self.engine is None else "the generic backend",
                     )
             else:
                 self._bucket_ladder = bucket_ladder(buckets, self.max_len)
@@ -276,8 +280,9 @@ class MultiModalClassifier:
         kernels = ["patch_embed_u8"] if self.engine is not None else []
         if self.attention == "pallas":
             vision = self.model.encoder_config.vision
-            # CLIP prepends a class token; SigLIP does not
-            positions = (vision.image_size // vision.patch_size) ** 2 + (self.backend == "clip")
+            # CLIP and the ViT prepend a class token; SigLIP does not
+            positions = ((vision.image_size // vision.patch_size) ** 2
+                         + (self.backend in ("clip", "generic")))
             kernels.append("attention_nhd")
             if max(positions, self.max_len) > MAX_SEQ:
                 kernels.append("flash_attention")

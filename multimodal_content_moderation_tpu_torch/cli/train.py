@@ -9,11 +9,14 @@ running the port's trainer on one device.
         --config config/clip_fusion.yaml \\
         --model.encoder_dir /path/to/local/clip-vit-base-patch32
 
-Ported: the CLIP and SigLIP fusion and multi-task models on either wire
-(``training.wire: f32``, the shipped default, or ``u8``),
+Ported: the CLIP, SigLIP and generic (a ``VisionTextDualEncoderModel``
+encoder dir: BERT, RoBERTa or DistilBERT text + ViT; ``backend: auto``
+resolves to it from the dir's ``config.json``) fusion and multi-task models
+on either wire (``training.wire: f32``, the shipped default, or ``u8``),
 ``training.attention: pallas | xla``, ``training.precision: bf16 | fp32``,
-``gradient_checkpointing`` and ``text_fit`` (CLIP only: ignored with a
-warning for SigLIP, as in the JAX package). ``config/clip_fusion.yaml``,
+``gradient_checkpointing`` (remat in both towers) and ``text_fit`` (CLIP
+only: ignored with a warning for the other backends, as in the JAX
+package). ``config/clip_fusion.yaml``,
 ``config/siglip_fusion.yaml`` and ``config/clip_mtl.yaml`` train as shipped
 (``model.head: mtl`` scores each epoch with the per-task metrics). The run
 directory records ``"format": "torch"`` and loads in the port's evaluate CLI.
@@ -43,7 +46,8 @@ def parse_args(argv=None):
     parser.add_argument("--data.test_csv", dest="test_csv", default=None)
     parser.add_argument("--data.image_root", dest="image_root", default=None)
     parser.add_argument(
-        "--model.backend", dest="backend", choices=["clip", "siglip", "auto"], default=None
+        "--model.backend", dest="backend", choices=["clip", "siglip", "auto", "generic"],
+        default=None,
     )
     parser.add_argument("--model.head", dest="head", choices=["fusion", "mtl"], default=None)
     parser.add_argument("--model.encoder_name", dest="encoder_name", default=None)
@@ -125,6 +129,7 @@ def main(argv=None) -> Dict[str, Any]:
     )
     from multimodal_content_moderation_tpu_torch.data.dataset import CSVDataset
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import config_field
     from multimodal_content_moderation_tpu_torch.ops.losses import logit_adjust
     from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs, Trainer
     from multimodal_content_moderation_tpu_torch.training.metrics import (
@@ -232,7 +237,7 @@ def main(argv=None) -> Dict[str, Any]:
         seed=seed, device=args.device,
         head_hidden_dim=model_cfg.get("head_hidden_dim", 0) or 0,
         learnable_task_weights=model_cfg.get("learnable_task_weights", False),
-        **{"clip_config" if backend == "clip" else "siglip_config": enc_config},
+        **{config_field(backend): enc_config},
     )
     if wire == "u8":
         # the normalisation stats live in the model, folded into the patch

@@ -7,9 +7,10 @@ This module implements the subset of its pipeline those checkpoints use:
   -> truncation (template-aware) -> TemplateProcessing -> padding
 
 Models: Unigram (SentencePiece Viterbi, the SigLIP/T5 family), BPE with
-optional byte fallback (the Gemma/SigLIP2 family), WordLevel, WordPiece.
-Normalizers: Sequence/Replace/Prepend/Lowercase/NFx/Strip. Pre-tokenizers:
-Metaspace/Whitespace/WhitespaceSplit/Split/Sequence.
+optional byte fallback (the Gemma/SigLIP2 family), WordLevel, WordPiece (the
+BERT family). Normalizers: Sequence/Replace/Prepend/Lowercase/NFx/Strip/
+BertNormalizer. Pre-tokenizers: Metaspace/Whitespace/WhitespaceSplit/Split/
+Sequence/BertPreTokenizer.
 
 Anything outside the subset raises ``UnsupportedTokenizerJSON``, and
 ``data.tokenizer.load_tokenizer`` then uses the Rust ``tokenizers`` wheel
@@ -23,10 +24,13 @@ from __future__ import annotations
 import json
 import os
 import re
+import string
 import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from multimodal_content_moderation_tpu_torch.data.tokenizer import _WHITE_SPACE
 
 
 class UnsupportedTokenizerJSON(Exception):
@@ -67,6 +71,8 @@ def _build_normalizer(spec):
         return lambda s: s.lower()
     if t in ("NFC", "NFD", "NFKC", "NFKD"):
         return lambda s, _f=t: unicodedata.normalize(_f, s)
+    if t == "BertNormalizer":
+        return _bert_normalizer(spec)
     if t == "Strip":
         left, right = spec.get("strip_left", True), spec.get("strip_right", True)
 
@@ -79,6 +85,82 @@ def _build_normalizer(spec):
 
         return strip
     raise UnsupportedTokenizerJSON(f"normalizer {t}")
+
+
+# ``tokenizers``' BertNormalizer and BertPreTokenizer, character by character
+# as the wheel's Rust code defines them: white space is the Unicode
+# White_Space property (Rust ``char::is_whitespace``, ``regex``'s ``\s``,
+# which ``data/tokenizer.py`` spells out); a control character
+# is any other code point of category Cc, Cf or Co (the wheel keeps
+# unassigned ones); "Chinese" is the CJK ideograph blocks below. The wheel
+# carries an older Unicode database than Python's ``unicodedata``: they part
+# only on code points that the newer versions assigned or recategorised.
+_CJK_RANGES = (
+    (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+    (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F),
+)
+
+
+def _is_control(ch: str) -> bool:
+    return unicodedata.category(ch) in ("Cc", "Cf", "Co") and ch not in "\t\n\r"
+
+
+def _is_cjk(ch: str) -> bool:
+    cp = ord(ch)
+    return any(lo <= cp <= hi for lo, hi in _CJK_RANGES)
+
+
+def _is_bert_punct(ch: str) -> bool:
+    """ASCII punctuation (``$+<=>^`|~`` included) or a Unicode P* category."""
+    return ch in string.punctuation or unicodedata.category(ch)[0] == "P"
+
+
+def _bert_normalizer(spec):
+    clean = spec.get("clean_text", True)
+    cjk = spec.get("handle_chinese_chars", True)
+    lowercase = spec.get("lowercase", True)
+    strip_accents = spec.get("strip_accents")
+    if strip_accents is None:  # follows lowercase, as in the wheel
+        strip_accents = lowercase
+
+    def normalize(s):
+        if clean:
+            s = "".join(
+                " " if ch in _WHITE_SPACE else ch
+                for ch in s
+                if ch not in "\x00\ufffd" and not _is_control(ch)
+            )
+        if cjk:
+            s = "".join(f" {ch} " if _is_cjk(ch) else ch for ch in s)
+        if strip_accents:
+            s = "".join(ch for ch in unicodedata.normalize("NFD", s)
+                        if unicodedata.category(ch) != "Mn")
+        if lowercase:  # per character: no final-sigma rule
+            s = "".join(ch.lower() for ch in s)
+        return s
+
+    return normalize
+
+
+def _bert_pre_tokenize(s: str) -> List[str]:
+    """Split on white space (dropped), then every punctuation character on
+    its own."""
+    out, cur = [], []
+    for ch in s:
+        if ch in _WHITE_SPACE:
+            if cur:
+                out.append("".join(cur))
+                cur = []
+        elif _is_bert_punct(ch):
+            if cur:
+                out.append("".join(cur))
+                cur = []
+            out.append(ch)
+        else:
+            cur.append(ch)
+    if cur:
+        out.append("".join(cur))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +187,8 @@ def _build_pre_tokenizer(spec):
         return lambda s: _WHITESPACE_RX.findall(s)
     if t == "WhitespaceSplit":
         return lambda s: s.split()
+    if t == "BertPreTokenizer":
+        return _bert_pre_tokenize
     if t == "Metaspace":
         rep = spec.get("replacement", "▁")
         scheme = spec.get("prepend_scheme")

@@ -10,7 +10,9 @@ Layout conventions handled here, once, at load time:
 Prefixes: the reference fusion checkpoint keeps the encoder under
 ``backbone.*`` and the head modules at the top level; the multi-task one
 keeps CLIP's bare towers under ``tower_txt.*`` / ``tower_img.*`` and a
-shared SigLIP backbone under ``backbone.*``.
+shared SigLIP or generic backbone under ``backbone.*`` (a generic backbone
+in ``VisionTextDualEncoderModel`` names, read by
+``models/generic.generic_params_from_torch``).
 
 ``model.safetensors`` is read with the ``safetensors`` package where it is
 installed, else with ``read_safetensors``, a reader of the format built from
@@ -184,12 +186,19 @@ def fusion_head_from_torch(sd: Dict) -> dict:
 
 def fusion_model_from_torch(
     sd: Dict, backend: str, clip_cfg: Optional[CLIPConfig] = None,
-    siglip_cfg: Optional[SigLIPConfig] = None,
+    siglip_cfg: Optional[SigLIPConfig] = None, generic_cfg=None,
 ) -> dict:
     """Full reference fusion checkpoint (backbone.* + head); any backend
-    other than CLIP is the SigLIP family, as in the JAX package."""
+    other than CLIP and generic is the SigLIP family, as in the JAX
+    package."""
     if backend == "clip":
         backbone = clip_params_from_torch(sd, clip_cfg, prefix="backbone.")
+    elif backend == "generic":
+        from multimodal_content_moderation_tpu_torch.models.generic import (
+            generic_params_from_torch,
+        )
+
+        backbone = generic_params_from_torch(sd, generic_cfg, prefix="backbone.")
     else:
         backbone = siglip_params_from_torch(sd, siglip_cfg, prefix="backbone.")
     return {"backbone": backbone, "head": fusion_head_from_torch(sd)}
@@ -221,11 +230,13 @@ def mtl_head_from_torch(sd: Dict, num_tasks: int) -> dict:
 
 def mtl_model_from_torch(
     sd: Dict, backend: str, num_tasks: int, clip_cfg: Optional[CLIPConfig] = None,
-    siglip_cfg: Optional[SigLIPConfig] = None,
+    siglip_cfg: Optional[SigLIPConfig] = None, generic_cfg=None,
 ) -> dict:
     """Full reference multi-task checkpoint: CLIP keeps its bare towers under
     ``tower_txt.text_model.*`` and ``tower_img.vision_model.*``; the shared
-    SigLIP backbone ("auto", "siglip") lies under ``backbone.*``."""
+    SigLIP backbone ("auto", "siglip") and the generic one lie under
+    ``backbone.*``, the generic one read without its projections and
+    ``logit_scale`` (the multi-task model pools the raw towers)."""
     if backend == "clip":
         backbone = {
             "text_model": clip_text_tower_from_torch(
@@ -235,6 +246,14 @@ def mtl_model_from_torch(
                 sd, clip_cfg, prefix="tower_img.vision_model."
             ),
         }
+    elif backend == "generic":
+        from multimodal_content_moderation_tpu_torch.models.generic import (
+            generic_params_from_torch,
+        )
+
+        backbone = generic_params_from_torch(sd, generic_cfg, prefix="backbone.")
+        for name in ("text_projection", "visual_projection", "logit_scale"):
+            backbone.pop(name, None)
     else:
         backbone = siglip_params_from_torch(sd, siglip_cfg, prefix="backbone.")
     return {"backbone": backbone, "head": mtl_head_from_torch(sd, num_tasks)}

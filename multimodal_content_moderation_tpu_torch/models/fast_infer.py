@@ -88,6 +88,13 @@ def parse_seq_buckets(spec: Optional[str]) -> Optional[Tuple[int, ...]]:
         ) from None
 
 
+def buckets_exact(backend: str) -> bool:
+    """Whether text buckets leave a backend's logits as they are: CLIP and
+    SigLIP, not the generic towers (a mean over every position, pads
+    included)."""
+    return backend != "generic"
+
+
 def bucket_ladder(buckets: Sequence[int], full_T: int) -> Optional[List[int]]:
     """Sorted, deduplicated widths below ``full_T`` with ``full_T`` as the
     terminal rung, or None when no bucket is below ``full_T``."""
@@ -142,14 +149,15 @@ def evaluate_logits_u8(
     visited in token-length order and each batch's ids/mask shrink to the
     smallest bucket covering its longest row. Exact for CLIP (causal text
     tower, first-EOS pooling) and SigLIP (masked keys, the carry column).
-    (The JAX engine also turns buckets off for its mean-pooling generic
-    backend, which is not ported.)"""
+    The generic backend runs at the full width whatever ``seq_buckets``
+    says, as in the JAX engine: its tower may mean-pool over every
+    position, pads included, so a narrower batch changes its features."""
     from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_producer
 
     indices = None
     backend = engine.model.backend
     full_T = dataset.input_ids.shape[1]
-    if seq_buckets:
+    if seq_buckets and buckets_exact(backend):
         ladder = bucket_ladder(seq_buckets, full_T)
         if ladder is not None:
             lengths = dataset.attention_mask.sum(axis=1)

@@ -1,5 +1,5 @@
-"""Gated late-fusion multi-label classifier over the CLIP or SigLIP dual
-encoder.
+"""Gated late-fusion multi-label classifier over the CLIP, SigLIP or generic
+(BERT-family + ViT) dual encoder.
 
 Same math as the JAX package's ``models/fusion.py`` (the reference
 ``MultiModalFusionClassifier``): L2-normalised encoder features masked by
@@ -7,8 +7,9 @@ presence flags, projected, tanh-gated fusion with a sigmoid gate that sees
 both projections and the flags, a three-way fallback when a modality is
 absent, and ``[fused, t, v, |t-v|, t*v] -> LN -> Linear -> GELU -> Dropout(0.2) ->
 Linear``, and the in-model BCE (``pos_weight``) or focal loss when the
-batch carries labels. The generic (BERT-family + ViT) backend is not ported
-yet.
+batch carries labels. The generic towers train with HF's dropout, drawn
+from a generator forked off the head's (``ops.layers.fork_generator``, as
+the JAX package splits its key).
 """
 
 from __future__ import annotations
@@ -20,9 +21,16 @@ import torch
 from torch import nn
 
 from multimodal_content_moderation_tpu_torch.models import clip as clip_mod
+from multimodal_content_moderation_tpu_torch.models import generic as generic_mod
 from multimodal_content_moderation_tpu_torch.models import siglip as siglip_mod
 from multimodal_content_moderation_tpu_torch.models.params import ParamTree
-from multimodal_content_moderation_tpu_torch.ops.layers import dense, dropout, gelu_exact, layer_norm
+from multimodal_content_moderation_tpu_torch.ops.layers import (
+    dense,
+    dropout,
+    fork_generator,
+    gelu_exact,
+    layer_norm,
+)
 from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits, focal_with_logits
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
 
@@ -102,18 +110,42 @@ def fusion_head_apply(
 
 def _check_backend(backend: str) -> str:
     backend = backend.lower()
-    if backend not in ("clip", "siglip", "auto"):
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (the generic BERT-family + ViT towers "
-            "come with the generic slice)"
-        )
+    if backend not in ("clip", "siglip", "auto", "generic"):
+        raise ValueError(f"backend {backend!r}: want clip, siglip, auto or generic")
     return backend
 
 
+def config_field(backend: str) -> str:
+    """The model field that holds a backend's encoder config."""
+    return {"clip": "clip_config", "generic": "generic_config"}.get(backend, "siglip_config")
+
+
+def encoder_configs(backend, clip_config=None, siglip_config=None, generic_config=None):
+    """The three config fields of a model: the backend's (its canonical
+    architecture where none is given), the other two None."""
+    cfgs = dict.fromkeys(("clip_config", "siglip_config", "generic_config"))
+    if backend == "clip":
+        cfgs["clip_config"] = clip_config or clip_mod.CLIPConfig.base_patch32()
+    elif backend == "generic":
+        cfgs["generic_config"] = generic_config or generic_mod.GenericDualConfig()
+    else:
+        cfgs["siglip_config"] = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
+    return cfgs
+
+
+def encoder_generator(backend: str, generator: Optional[torch.Generator]):
+    """The encoder's dropout generator: forked off the head's for the
+    generic towers (the only ones with dropout), else None."""
+    if generator is None or backend != "generic":
+        return None
+    return fork_generator(generator)
+
+
 class DualEncoderModel(nn.Module):
-    """What the fusion and the multi-task model share: a CLIP or SigLIP
-    backbone (``clip_config`` / ``siglip_config``), a head whose ``proj_t``
-    holds the device, and config fields that ``replace`` swaps."""
+    """What the fusion and the multi-task model share: a CLIP, SigLIP or
+    generic backbone (``clip_config`` / ``siglip_config`` /
+    ``generic_config``), a head whose ``proj_t`` holds the device, and
+    config fields that ``replace`` swaps."""
 
     def replace(self, **fields):
         """A copy with other config fields that shares these parameters."""
@@ -126,8 +158,9 @@ class DualEncoderModel(nn.Module):
 
     @property
     def encoder_config(self):
-        """The backbone's config: a ``CLIPConfig`` or a ``SigLIPConfig``."""
-        return self.clip_config if self.backend == "clip" else self.siglip_config
+        """The backbone's config: a ``CLIPConfig``, a ``SigLIPConfig`` or a
+        ``GenericDualConfig``."""
+        return getattr(self, config_field(self.backend))
 
     @property
     def image_size(self) -> int:
@@ -141,6 +174,25 @@ class DualEncoderModel(nn.Module):
     def device(self) -> torch.device:
         return self.head["proj_t"]["w"].device
 
+    def _set_encoder_config(self, backend, clip_config, siglip_config, generic_config):
+        self.backend = backend
+        for name, cfg in encoder_configs(backend, clip_config, siglip_config,
+                                         generic_config).items():
+            setattr(self, name, cfg)
+
+
+def fusion_feature_dim(backend, clip_config=None, siglip_config=None, generic_config=None):
+    """The width of the features the fusion head takes."""
+    if backend == "clip":
+        return clip_config.projection_dim
+    if backend == "generic":
+        # the reference's probe: projection_dim, else the text width, else
+        # the vision width
+        g = generic_config
+        return g.projection_dim or g.text.hidden_size or g.vision.hidden_size
+    # SigLIP: the text head's projection_size == the vision hidden size
+    return siglip_config.text.projection_size
+
 
 class FusionModel(DualEncoderModel):
     """Backbone + fusion head. ``forward(batch) -> {"logits"}`` (and
@@ -150,8 +202,9 @@ class FusionModel(DualEncoderModel):
     image_present (and, for SigLIP, optionally the text ``position_ids`` of
     a bucket's carry column).
 
-    ``backend`` is "clip" or "siglip" ("auto" is SigLIP, as in the JAX
-    package, for a checkpoint whose inference config kept it).
+    ``backend`` is "clip", "siglip" ("auto" is SigLIP, as in the JAX
+    package, for a checkpoint whose inference config kept it) or "generic"
+    (``generic_config``: a BERT-family text tower and a ViT).
 
     Parameters live in ``backbone`` and ``head`` (``ParamTree``s), so the
     ``state_dict`` keys are the JAX pytree paths
@@ -169,15 +222,11 @@ class FusionModel(DualEncoderModel):
         loss_type: str = "bce",
         focal_gamma: float = 1.5,
         siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
+        generic_config: Optional[generic_mod.GenericDualConfig] = None,
     ):
         super().__init__()
-        backend = _check_backend(backend)
-        self.backend = backend
-        self.clip_config = self.siglip_config = None
-        if backend == "clip":
-            self.clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
-        else:
-            self.siglip_config = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
+        self._set_encoder_config(_check_backend(backend), clip_config, siglip_config,
+                                 generic_config)
         self.num_labels = num_labels
         self.fusion_dim = fusion_dim
         self.image_mean = image_mean
@@ -199,42 +248,52 @@ class FusionModel(DualEncoderModel):
         loss_type: str = "bce",
         focal_gamma: float = 1.5,
         siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
+        generic_config: Optional[generic_mod.GenericDualConfig] = None,
     ) -> "FusionModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
         backend = _check_backend(backend)
+        cfgs = encoder_configs(backend, clip_config, siglip_config, generic_config)
         g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         if backend == "clip":
-            clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
-            backbone = clip_mod.clip_init(g, clip_config, dtype)
-            feature_dim = clip_config.projection_dim
+            backbone = clip_mod.clip_init(g, cfgs["clip_config"], dtype)
+        elif backend == "generic":
+            backbone = generic_mod.generic_init(g, cfgs["generic_config"], dtype)
         else:
-            siglip_config = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
-            backbone = siglip_mod.siglip_init(g, siglip_config, dtype)
-            feature_dim = siglip_config.text.projection_size
-        params = {
-            "backbone": backbone,
-            "head": fusion_head_init(g, feature_dim, num_labels, fusion_dim, dtype),
-        }
+            backbone = siglip_mod.siglip_init(g, cfgs["siglip_config"], dtype)
+        head = fusion_head_init(g, fusion_feature_dim(backend, **cfgs), num_labels, fusion_dim,
+                                dtype)
         return FusionModel(
-            params, backend, clip_config, num_labels, fusion_dim,
-            loss_type=loss_type, focal_gamma=focal_gamma, siglip_config=siglip_config,
+            {"backbone": backbone, "head": head}, backend, num_labels=num_labels,
+            fusion_dim=fusion_dim, loss_type=loss_type, focal_gamma=focal_gamma, **cfgs,
         )
 
     @property
     def feature_dim(self) -> int:
-        if self.backend == "clip":
-            return self.clip_config.projection_dim
-        # SigLIP: the text head's projection_size == the vision hidden size
-        return self.siglip_config.text.projection_size
+        return fusion_feature_dim(self.backend, self.clip_config, self.siglip_config,
+                                  self.generic_config)
 
-    def encode(self, batch: Dict[str, torch.Tensor]):
+    def encode(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None):
         """(text features, image features): the image from ``patches_u8``
         (the uint8 wire) where the batch carries them, else from
-        ``pixel_values`` (normalised fp32 [B, C, H, W], the pixel path)."""
+        ``pixel_values`` (normalised fp32 [B, C, H, W], the pixel path).
+        ``generator`` turns on the generic text tower's dropout."""
         from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
 
         bp = self.backbone
         u8 = batch.get("patches_u8")
+        if self.backend == "generic":
+            cfg = self.generic_config
+            t = generic_mod.generic_text_features(
+                bp, batch["input_ids"], batch.get("attention_mask"), cfg, generator
+            )
+            if u8 is not None:
+                v = generic_mod.generic_image_features_from_tokens(
+                    bp, embed_for_model(self, bp, u8), cfg
+                )
+            else:
+                v = generic_mod.generic_image_features(bp, batch["pixel_values"], cfg)
+            return t, v
         if self.backend == "clip":
             t = clip_mod.clip_text_features(
                 bp, batch["input_ids"], batch.get("attention_mask"), self.clip_config
@@ -265,9 +324,10 @@ class FusionModel(DualEncoderModel):
         pos_weight: Optional[torch.Tensor] = None,
         alpha_focal: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        """``generator`` turns on the head's dropout (training); the loss
-        is computed when the batch carries ``labels``."""
-        tfeat, vfeat = self.encode(batch)
+        """``generator`` turns on the head's dropout (training), and the
+        generic towers' from a generator forked off it; the loss is computed
+        when the batch carries ``labels``."""
+        tfeat, vfeat = self.encode(batch, encoder_generator(self.backend, generator))
         logits = fusion_head_apply(
             self.head, tfeat, vfeat, batch["text_present"], batch["image_present"], generator
         )

@@ -12,11 +12,13 @@ Resolves two checkpoint layouts into a ``FusionModel`` or a
 
 A local HF encoder directory (``config.json`` + weights) seeds the backbone
 of a new model (``init_from_encoder_dir``); the head starts from the seeded
-random init. Both backbones load: CLIP and SigLIP (a SigLIP2 checkpoint's
+random init. Every backbone loads: CLIP, SigLIP (a SigLIP2 checkpoint's
 ``image_size`` sizes its position table, so SigLIP2-B/16 at 384 px loads as
-it is). The JAX package's Orbax run directories are its own format
-(``mmharm-export`` converts them); the generic backend comes with its
-slice. Config JSONs are parsed directly.
+it is) and the generic ``VisionTextDualEncoderModel`` (a BERT, RoBERTa or
+DistilBERT text tower with a ViT; ``backend: auto`` resolves to it from
+the encoder's ``config.json``). The JAX package's Orbax run directories
+are its own format (``mmharm-export`` converts them). Config JSONs are
+parsed directly.
 """
 
 from __future__ import annotations
@@ -34,7 +36,11 @@ from multimodal_content_moderation_tpu_torch.models.clip import (
     CLIPTextConfig,
     CLIPVisionConfig,
 )
-from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel, config_field
+from multimodal_content_moderation_tpu_torch.models.generic import (
+    GenericDualConfig,
+    generic_params_from_torch,
+)
 from multimodal_content_moderation_tpu_torch.models.multitask import (
     CLIP_TOP_LEVEL,
     MultiTaskModel,
@@ -108,52 +114,44 @@ def siglip_config_from_dict(d: Dict[str, Any]) -> SigLIPConfig:
     )
 
 
-def _not_ported(what: str):
-    if "generic" in what:
-        return NotImplementedError(
-            f"{what} is not ported yet (the generic BERT-family + ViT towers come with "
-            "the generic slice)"
-        )
-    return NotImplementedError(f"{what} is not ported yet (a later slice brings it)")
+BACKENDS = ("clip", "siglip", "auto", "generic")
 
 
 def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
     """Resolve ``backend: auto`` from the local encoder's ``config.json``
-    ``model_type``, as the JAX package does (clip -> clip, siglip-family or
-    none -> siglip, another dual-encoder config -> generic); the generic
-    backend is not ported, so that answer raises."""
-    resolved = backend
-    if backend == "auto":
-        resolved = "siglip"
-        cfg_path = os.path.join(encoder_dir or "", "config.json")
-        if os.path.exists(cfg_path):
-            d = load_json(cfg_path)
-            model_type = d.get("model_type", "")
-            if model_type == "clip":
-                resolved = "clip"
-            elif model_type and not model_type.startswith("siglip") and (
-                "text_config" in d or "vision_config" in d
-            ):
-                resolved = "generic"
-    if resolved not in ("clip", "siglip"):
-        raise _not_ported(f"backend {resolved!r}")
-    return resolved
+    ``model_type``, as the JAX package does: clip -> clip, siglip-family or
+    none -> siglip, another dual-encoder config (``text_config`` /
+    ``vision_config``, e.g. ``vision-text-dual-encoder``) -> generic. Other
+    names come back as they are."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
+    if backend != "auto":
+        return backend
+    cfg_path = os.path.join(encoder_dir or "", "config.json")
+    if os.path.exists(cfg_path):
+        d = load_json(cfg_path)
+        model_type = d.get("model_type", "")
+        if model_type == "clip":
+            return "clip"
+        if model_type and not model_type.startswith("siglip") and (
+            "text_config" in d or "vision_config" in d
+        ):
+            return "generic"
+    return "siglip"
 
 
 def load_encoder_config(encoder_dir: str, backend: str):
     """Parse a local HF ``config.json`` into the backend's config
-    dataclasses (``CLIPConfig`` for clip, ``SigLIPConfig`` for the SigLIP
-    family), or the backend's canonical architecture without one."""
-    if backend == "generic":
-        raise _not_ported(f"backend {backend!r}")
+    dataclasses (``CLIPConfig`` for clip, ``GenericDualConfig`` for generic,
+    ``SigLIPConfig`` for the SigLIP family), or the backend's canonical
+    architecture without one."""
     cfg_path = os.path.join(encoder_dir, "config.json")
+    d = load_json(cfg_path) if os.path.exists(cfg_path) else None
     if backend == "clip":
-        if os.path.exists(cfg_path):
-            return clip_config_from_dict(load_json(cfg_path))
-        return CLIPConfig.base_patch32()
-    if os.path.exists(cfg_path):
-        return siglip_config_from_dict(load_json(cfg_path))
-    return SigLIPConfig.base_patch16_224()
+        return CLIPConfig.base_patch32() if d is None else clip_config_from_dict(d)
+    if backend == "generic":
+        return GenericDualConfig() if d is None else GenericDualConfig.from_dict(d)
+    return SigLIPConfig.base_patch16_224() if d is None else siglip_config_from_dict(d)
 
 
 def _find_state_dict(directory: str) -> Optional[Dict]:
@@ -181,11 +179,12 @@ def build_model(
     siglip_config: Optional[SigLIPConfig] = None,
     head_hidden_dim: int = 0,
     learnable_task_weights: bool = False,
+    generic_config: Optional[GenericDualConfig] = None,
 ):
     """A randomly initialised fusion or multi-task model (scripts/train.py's
     contract). The multi-task head maps the backend as the JAX package does:
-    clip -> clip, siglip / auto -> the shared "auto" backbone; the generic
-    backend raises."""
+    clip -> clip, generic -> generic, siglip / auto -> the shared "auto"
+    backbone."""
     if head == "mtl":
         return MultiTaskModel.create(
             backend=backend if backend in ("clip", "generic") else "auto",
@@ -195,6 +194,7 @@ def build_model(
             learnable_task_weights=learnable_task_weights,
             clip_config=clip_config,
             siglip_config=siglip_config,
+            generic_config=generic_config,
             seed=seed,
             device=device,
         )
@@ -210,20 +210,24 @@ def build_model(
         loss_type=loss_type,
         focal_gamma=focal_gamma,
         siglip_config=siglip_config,
+        generic_config=generic_config,
     )
 
 
 def init_from_encoder_dir(model, encoder_dir: Optional[str]):
-    """Copy the HF encoder weights of ``encoder_dir`` (a local CLIP or
-    SigLIP checkpoint directory) into the model's backbone, in place; the
-    head keeps its seeded random init. A multi-task model's CLIP towers are
-    bare, so it takes no projections or ``logit_scale``. Without weights
-    there, the model is returned as it is."""
+    """Copy the HF encoder weights of ``encoder_dir`` (a local CLIP, SigLIP
+    or ``VisionTextDualEncoderModel`` checkpoint directory) into the model's
+    backbone, in place; the head keeps its seeded random init. A multi-task
+    model's CLIP and generic towers are bare, so it takes no projections or
+    ``logit_scale``. Without weights there, the model is returned as it
+    is."""
     sd = _find_state_dict(encoder_dir) if encoder_dir else None
     if sd is None:
         return model
-    if model.backend == "clip":
-        backbone = convert.clip_params_from_torch(sd, model.clip_config)
+    if model.backend in ("clip", "generic"):
+        backbone = (convert.clip_params_from_torch(sd, model.clip_config)
+                    if model.backend == "clip"
+                    else generic_params_from_torch(sd, model.generic_config))
         if isinstance(model, MultiTaskModel):
             for name in CLIP_TOP_LEVEL:
                 backbone.pop(name, None)
@@ -267,8 +271,7 @@ def with_performance_options(
         text=dataclasses.replace(cfg.text, **overrides),
         vision=dataclasses.replace(cfg.vision, **overrides),
     )
-    field = "clip_config" if model.backend == "clip" else "siglip_config"
-    return model.replace(**{field: new_cfg})
+    return model.replace(**{config_field(model.backend): new_cfg})
 
 
 def find_inference_config(checkpoint_dir: str) -> Tuple[Dict[str, Any], str]:
@@ -304,8 +307,8 @@ def load_checkpoint(
     head = cfg.get("head", "fusion")
     if head not in ("fusion", "mtl"):
         raise ValueError(f"{checkpoint_dir}: head {head!r}: want 'fusion' or 'mtl'")
-    if backend not in ("clip", "siglip", "auto"):
-        raise _not_ported(f"backend {backend!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"{checkpoint_dir}: backend {backend!r}: want one of {BACKENDS}")
     if cfg.get("format") == "orbax":
         raise NotImplementedError(
             "an Orbax run directory is the JAX package's own format: convert it "
@@ -313,8 +316,8 @@ def load_checkpoint(
         )
     class_names = cfg.get("class_names", ["harmful"])
     enc_src = encoder_dir or cfg.get("encoder_dir") or checkpoint_dir
-    enc_cfg = load_encoder_config(enc_src, "clip" if backend == "clip" else "siglip")
-    cfg_kw = {"clip_config" if backend == "clip" else "siglip_config": enc_cfg}
+    enc_cfg = load_encoder_config(enc_src, backend)
+    cfg_kw = {config_field(backend): enc_cfg}
 
     if cfg.get("format") == "torch":
         from multimodal_content_moderation_tpu_torch.training.checkpoints import load_params
@@ -333,9 +336,9 @@ def load_checkpoint(
     sd = _find_state_dict(checkpoint_dir)
     if sd is None:
         raise FileNotFoundError(f"No model weights found in {checkpoint_dir}")
-    conv_kw = {"clip_cfg" if backend == "clip" else "siglip_cfg": enc_cfg}
+    conv_kw = {config_field(backend).replace("_config", "_cfg"): enc_cfg}
     if head == "mtl":
-        mtl_backend = "clip" if backend == "clip" else "auto"
+        mtl_backend = backend if backend in ("clip", "generic") else "auto"
         params = convert.mtl_model_from_torch(sd, mtl_backend, len(class_names), **conv_kw)
         if dtype is not None:
             params = convert.to_dtype(params, dtype)

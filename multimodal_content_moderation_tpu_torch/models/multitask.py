@@ -17,29 +17,37 @@ Backends:
   post-LN class token;
 - "auto" (and "siglip"): one shared SigLIP backbone; the text feature is the
   last-position pooler through the text head, the image feature the MAP
-  head's output.
-The generic (BERT-family + ViT) backend comes with its own slice.
+  head's output;
+- "generic": the BERT-family text tower and the ViT, raw (no projections,
+  no ``logit_scale``), each pooled by the reference's fallback (its tanh
+  pooler, else the plain mean), the text tower with HF's dropout from a
+  generator forked off the head's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
 
 from multimodal_content_moderation_tpu_torch.models import clip as clip_mod
+from multimodal_content_moderation_tpu_torch.models import generic as generic_mod
 from multimodal_content_moderation_tpu_torch.models import siglip as siglip_mod
 from multimodal_content_moderation_tpu_torch.models.fusion import (
     DualEncoderModel,
     _check_backend,
     _head_dense_init,
+    encoder_configs,
+    encoder_generator,
 )
 from multimodal_content_moderation_tpu_torch.models.params import ParamTree
 from multimodal_content_moderation_tpu_torch.ops.layers import dense, dropout, gelu_exact
 from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
 
-# the CLIP entries a multi-task model does not hold: its towers are bare
+# the CLIP and generic entries a multi-task model does not hold: its towers
+# are bare
 CLIP_TOP_LEVEL = ("text_projection", "visual_projection", "logit_scale")
 
 
@@ -159,15 +167,11 @@ class MultiTaskModel(DualEncoderModel):
         learnable_task_weights: bool = False,
         image_mean: Optional[tuple] = None,
         image_std: Optional[tuple] = None,
+        generic_config: Optional[generic_mod.GenericDualConfig] = None,
     ):
         super().__init__()
-        backend = _check_backend(backend)
-        self.backend = backend
-        self.clip_config = self.siglip_config = None
-        if backend == "clip":
-            self.clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
-        else:
-            self.siglip_config = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
+        self._set_encoder_config(_check_backend(backend), clip_config, siglip_config,
+                                 generic_config)
         self.num_tasks = num_tasks
         self.fusion_dim = fusion_dim
         self.head_hidden_dim = head_hidden_dim or 0
@@ -189,36 +193,59 @@ class MultiTaskModel(DualEncoderModel):
         seed: int = 0,
         device="cuda",
         dtype=torch.float32,
+        generic_config: Optional[generic_mod.GenericDualConfig] = None,
     ) -> "MultiTaskModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
         backend = _check_backend(backend)
+        cfgs = encoder_configs(backend, clip_config, siglip_config, generic_config)
         g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         if backend == "clip":
-            clip_config = clip_config or clip_mod.CLIPConfig.base_patch32()
-            backbone = clip_mod.clip_init(g, clip_config, dtype)
+            cfg = cfgs["clip_config"]
+            backbone = clip_mod.clip_init(g, cfg, dtype)
             for name in CLIP_TOP_LEVEL:
                 backbone.pop(name, None)
-            dims = (clip_config.text.hidden_size, clip_config.vision.hidden_size)
+            dims = (cfg.text.hidden_size, cfg.vision.hidden_size)
+        elif backend == "generic":
+            # the raw towers: no projections, no logit_scale
+            cfg = cfgs["generic_config"]
+            backbone = generic_mod.generic_init(
+                g, dataclasses.replace(cfg, projection_dim=0), dtype)
+            dims = (cfg.text.hidden_size, cfg.vision.hidden_size)
         else:
-            siglip_config = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
-            backbone = siglip_mod.siglip_init(g, siglip_config, dtype)
-            dims = (siglip_config.text.projection_size, siglip_config.vision.hidden_size)
+            cfg = cfgs["siglip_config"]
+            backbone = siglip_mod.siglip_init(g, cfg, dtype)
+            dims = (cfg.text.projection_size, cfg.vision.hidden_size)
         head = mtl_head_init(
             g, *dims, num_tasks, fusion_dim, head_hidden_dim, learnable_task_weights, dtype
         )
         return MultiTaskModel(
-            {"backbone": backbone, "head": head}, backend, clip_config, siglip_config,
-            num_tasks, fusion_dim, head_hidden_dim, learnable_task_weights,
+            {"backbone": backbone, "head": head}, backend, num_tasks=num_tasks,
+            fusion_dim=fusion_dim, head_hidden_dim=head_hidden_dim,
+            learnable_task_weights=learnable_task_weights, **cfgs,
         )
 
-    def encode(self, batch: Dict[str, torch.Tensor]):
+    def encode(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None):
         """(text features, image features), pooled from the bare towers: the
         image from ``patches_u8`` (the uint8 wire) where the batch carries
-        them, else from ``pixel_values`` (normalised fp32 [B, C, H, W])."""
+        them, else from ``pixel_values`` (normalised fp32 [B, C, H, W]).
+        ``generator`` turns on the generic text tower's dropout."""
         from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
 
         bp = self.backbone
         u8 = batch.get("patches_u8")
+        if self.backend == "generic":
+            cfg = self.generic_config
+            t = generic_mod.generic_text_pooled(
+                bp, batch["input_ids"], batch.get("attention_mask"), cfg.text, generator
+            )
+            if u8 is not None:
+                v = generic_mod.generic_vision_pooled_from_tokens(
+                    bp, embed_for_model(self, bp, u8), cfg.vision
+                )
+            else:
+                v = generic_mod.generic_vision_pooled(bp, batch["pixel_values"], cfg.vision)
+            return t, v
         if self.backend == "clip":
             cfg = self.clip_config
             t = clip_mod.clip_text_pooled(
@@ -249,9 +276,10 @@ class MultiTaskModel(DualEncoderModel):
         generator: Optional[torch.Generator] = None,
         pos_weight: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        """``generator`` turns on the head's dropout (training); the loss
-        is computed when the batch carries ``labels``."""
-        tfeat, vfeat = self.encode(batch)
+        """``generator`` turns on the head's dropout (training), and the
+        generic text tower's from a generator forked off it; the loss is
+        computed when the batch carries ``labels``."""
+        tfeat, vfeat = self.encode(batch, encoder_generator(self.backend, generator))
         logits = mtl_head_apply(
             self.head, tfeat, vfeat, batch["text_present"], batch["image_present"], generator
         )

@@ -31,8 +31,8 @@ def default_stats(backend: str):
 def embed_for_model(model, backbone, patches_u8: torch.Tensor) -> torch.Tensor:
     """Model-aware u8 embed, for a ``FusionModel`` or a ``MultiTaskModel``:
     the vision config and normalisation stats (model fields, else the
-    backend's defaults; "auto", the multi-task SigLIP backbone, takes
-    SigLIP's)."""
+    backend's defaults; "auto", the multi-task SigLIP backbone, and the
+    generic ViT take SigLIP's 0.5 / 0.5)."""
     dmean, dstd = default_stats(model.backend)
     return embed_patches_u8(
         backbone,

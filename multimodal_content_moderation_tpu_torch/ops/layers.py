@@ -13,6 +13,7 @@ Parameters are passed as mappings (``p["w"]``), which a
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional
 
 import torch
@@ -113,6 +114,44 @@ def dropout(
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def fork_generator(generator: torch.Generator) -> torch.Generator:
+    """A new generator on ``generator``'s device whose seed is a hash of
+    that generator's state, which then moves on by one draw: the
+    counterpart of JAX's ``random.split``. The parent's later draws do not
+    depend on how much the child draws, and nothing waits for the device
+    (a CUDA generator's state lives on the host)."""
+    state = generator.get_state().numpy().tobytes()
+    seed = int.from_bytes(hashlib.blake2b(state, digest_size=8).digest(), "little") >> 1
+    child = torch.Generator(device=generator.device).manual_seed(seed)
+    torch.empty(1, device=generator.device).uniform_(generator=generator)
+    return child
+
+
+def checkpoint_replaying(fn, x: torch.Tensor, generator: Optional[torch.Generator]):
+    """``torch.utils.checkpoint`` of ``fn(x, generator)`` whose recompute
+    draws the same dropout masks as the forward did. Checkpoint restores
+    only the default RNG states, not an explicit generator, so the
+    generator's state is saved here, outside the checkpointed function;
+    the forward and the recompute each draw from a copy started at that
+    state, and ``generator`` moves on as if ``fn`` had drawn from it."""
+    if generator is None:
+        return checkpoint(lambda x: fn(x, None), x, use_reentrant=False)
+    state = generator.get_state()
+    end = []
+
+    def run(x):
+        g = torch.Generator(device=generator.device)
+        g.set_state(state)
+        y = fn(x, g)
+        if not end:  # the forward, not the recompute
+            end.append(g.get_state())
+        return y
+
+    y = checkpoint(run, x, use_reentrant=False)
+    generator.set_state(end[0])
+    return y
+
+
 def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
     """[B, C, H, W] -> [B, (H/p)*(W/p), C*p*p] non-overlapping patches, the
     im2col of a stride == kernel conv, channel-major (C, ph, pw) inside each
@@ -136,6 +175,8 @@ def mha(
     scores_dtype: str = "float32",
     causal: bool = False,
     key_mask: Optional[torch.Tensor] = None,
+    probs_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Multi-head attention with fp32 softmax.
 
@@ -147,17 +188,23 @@ def mha(
     when there is no dense mask and both lengths are at most 256, else
     ``fused_mha``; their plain versions on the CPU). A single query with no
     mask (the SigLIP MAP head) takes neither: fp32 products over the
-    [B, Tk, h, dh] view."""
+    [B, Tk, h, dh] view.
+
+    ``probs_dropout`` with a ``generator`` (training) drops attention
+    weights after the softmax, before the product with v (HF's
+    attention-probability dropout). Active dropout takes the "xla" core
+    whatever ``impl`` says, in every branch: the kernels have no dropout."""
     B, Tq, D = x_q.shape
     Tk = x_kv.shape[1]
     h = num_heads
     dh = D // h
+    drop = probs_dropout > 0.0 and generator is not None
 
     q3 = dense(x_q, p["q"])
     k3 = dense(x_kv, p["k"])
     v3 = dense(x_kv, p["v"])
 
-    if Tq == 1 and mask is None and key_mask is None and not causal:
+    if Tq == 1 and mask is None and key_mask is None and not causal and not drop:
         qh = q3.float().reshape(B, 1, h, dh)
         kh = k3.float().reshape(B, Tk, h, dh)
         logits = (kh * qh).sum(-1) * (1.0 / float(dh) ** 0.5)  # [B, Tk, h]
@@ -166,7 +213,7 @@ def mha(
         out = (vh * w[..., None]).sum(1)  # [B, h, dh]
         return dense(out.to(x_q.dtype).reshape(B, 1, D), p["o"])
 
-    if impl == "pallas":
+    if impl == "pallas" and not drop:
         if mask is None and max(Tq, Tk) <= MAX_SEQ:
             out = attention_nhd_diff(q3, k3, v3, key_mask, h, causal)
         else:
@@ -179,7 +226,7 @@ def mha(
             )
             out = out.transpose(1, 2).reshape(B, Tq, D)
         return dense(out, p["o"])
-    if impl != "xla":
+    if impl not in ("xla", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
 
     q = q3.reshape(B, Tq, h, dh).transpose(1, 2)
@@ -198,6 +245,8 @@ def mha(
         keep = torch.ones(Tq, Tk, dtype=torch.bool, device=x_q.device).tril()
         logits = logits.masked_fill(~keep, float("-inf"))
     weights = torch.softmax(logits.float(), dim=-1).to(x_q.dtype)
+    if drop:
+        weights = dropout(weights, probs_dropout, generator)
     out = torch.matmul(weights, v)
     out = out.transpose(1, 2).reshape(B, Tq, D)
     return dense(out, p["o"])

@@ -11,7 +11,9 @@ package's ``training/loop.py``).
   ``make_eval_step``). Both pad the last batch to the batch size, trim the
   pads on the host and keep two batches in flight.
 - ``Trainer``: per-epoch order from ``np.random.default_rng(seed + epoch)``
-  or the weighted sampler, the CLIP or SigLIP fusion or multi-task model
+  or the weighted sampler, the CLIP, SigLIP or generic fusion or multi-task
+  model (the generic text tower with HF's dropout, drawn from a generator
+  the model forks off the trainer's)
   (``models/multitask.py``, its loss weighted by the learned ``log_vars``
   where the head has them) on either wire
   (``wire: f32``, the shipped default: normalised pixels through the pixel
@@ -245,9 +247,12 @@ class Trainer:
                 "brings the event writer)"
             )
         vision = model.encoder_config.vision
-        n_vision = (vision.image_size // vision.patch_size) ** 2 + int(model.backend == "clip")
+        # CLIP's and the ViT's class token
+        n_vision = ((vision.image_size // vision.patch_size) ** 2
+                    + int(model.backend in ("clip", "generic")))
         if vision.attention_impl == "pallas" and n_vision > MAX_SEQ:
-            # the text towers stop at 77 (CLIP) and 64 (SigLIP) positions
+            # the text towers stop at 77 (CLIP) and 64 (SigLIP) positions;
+            # a generic one runs at the data's width
             raise NotImplementedError(
                 f"attention 'pallas' would train the vision tower at {n_vision} positions "
                 "through flash_attention, which is forward only (the JAX package cannot "

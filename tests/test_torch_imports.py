@@ -39,6 +39,7 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.ops.layers",
     "multimodal_content_moderation_tpu_torch.models.clip",
     "multimodal_content_moderation_tpu_torch.models.siglip",
+    "multimodal_content_moderation_tpu_torch.models.generic",
     "multimodal_content_moderation_tpu_torch.models.fusion",
     "multimodal_content_moderation_tpu_torch.models.multitask",
     "multimodal_content_moderation_tpu_torch.models.u8wire",

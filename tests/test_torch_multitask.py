@@ -495,8 +495,23 @@ def test_build_model_maps_backends_and_refuses_generic():
     _, ccfg = _configs("clip")
     m = model_io.build_model("mtl", "clip", TASKS[:3], 16, clip_config=ccfg, device="cpu")
     assert m.backend == "clip" and "fc" in m.head["heads"][2] and "log_vars" not in m.head
-    with pytest.raises(NotImplementedError, match="generic slice"):
-        model_io.build_model("mtl", "generic", TASKS, device="cpu")
+    # the generic backend keeps its name and pools its raw towers; a name
+    # that is no backend is refused
+    from multimodal_content_moderation_tpu_torch.models.generic import GenericDualConfig
+
+    small = GenericDualConfig.from_dict({
+        "text_config": {"vocab_size": 64, "hidden_size": 32, "num_hidden_layers": 1,
+                        "num_attention_heads": 2, "intermediate_size": 64,
+                        "max_position_embeddings": 16},
+        "vision_config": {"hidden_size": 48, "num_hidden_layers": 1,
+                          "num_attention_heads": 2, "intermediate_size": 64,
+                          "image_size": 32, "patch_size": 16},
+        "projection_dim": 24})
+    m = model_io.build_model("mtl", "generic", TASKS, 16, generic_config=small, device="cpu")
+    assert m.backend == "generic" and "text_projection" not in m.backbone
+    assert m.head["proj_t"]["w"].shape[0] == 32 and m.head["proj_i"]["w"].shape[0] == 48
+    with pytest.raises(ValueError, match="backend"):
+        model_io.build_model("fusion", "bogus", TASKS, device="cpu")
 
 
 def test_init_from_encoder_dir_drops_clip_projections(encoder_dir):

@@ -2,7 +2,15 @@
 token, on the fixture vocabularies of tests/test_tokenizer_json.py (each
 built with the Rust ``tokenizers`` library, the format's reference), and
 ``load_tokenizer``'s resolution: CLIP BPE files, a tokenizer.json in the
-supported subset, the Rust wheel for one outside it, nothing at all."""
+supported subset, the Rust wheel for one outside it, nothing at all.
+
+A BERT ``tokenizer.json`` (``BertNormalizer``, ``BertPreTokenizer``,
+WordPiece, the ``[CLS] $A [SEP]`` template), which the JAX package reads
+only through the wheel, loads in the port's engine with the wheel hidden
+and gives the wheel's ids token for token; its two components equal the
+wheel's on every code point of the scripts and symbol blocks a post
+carries (the wheel's older Unicode tables part from Python's only on code
+points later versions assigned or recategorised)."""
 
 import json
 
@@ -12,6 +20,9 @@ import pytest
 tokenizers = pytest.importorskip("tokenizers")
 
 from multimodal_content_moderation_tpu.data.tokenizer_json import JSONTokenizer as JJSON
+from multimodal_content_moderation_tpu.data.tokenizer_json import (
+    UnsupportedTokenizerJSON as JUnsupported,
+)
 from multimodal_content_moderation_tpu_torch.data import tokenizer as ttok
 from multimodal_content_moderation_tpu_torch.data.tokenizer_json import (
     JSONTokenizer,
@@ -132,8 +143,9 @@ def test_load_tokenizer_resolution(tmp_path, encoder_dir):
     rust = tmp_path / "rust"
     rust.mkdir()
     tk = Tokenizer(models.WordLevel({"<unk>": 0, "hate": 1}, unk_token="<unk>"))
-    tk.normalizer = normalizers.BertNormalizer()  # outside the engine's subset
-    tk.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tk.normalizer = normalizers.Lowercase()
+    # RoBERTa's byte-level pre-tokenizer: outside the engine's subset
+    tk.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
     tk.save(str(rust / "tokenizer.json"))
     with pytest.raises(UnsupportedTokenizerJSON):
         JSONTokenizer(str(rust / "tokenizer.json"))
@@ -143,3 +155,126 @@ def test_load_tokenizer_resolution(tmp_path, encoder_dir):
 
     with pytest.raises(FileNotFoundError, match="No tokenizer assets"):
         ttok.load_tokenizer(str(tmp_path))
+
+
+# ---------------------------------------------------------------- BERT
+
+
+BERT_TEXTS = [
+    "Hello, World! This is a TEST.",
+    "Héllo wörld — naïve café; ÀÉÎÕÜ ç",
+    "don't stop-believing... (really?) [yes] {no} <maybe> a+b=c $5 10.5% #tag @user",
+    "中文字符测试 and 日本語テキスト mixed with 한국어",
+    "ΟΔΟΣ Σίσυφος and Ελλάδα; Привет, МИР!",
+    "tabs\tand\nnewlines\r\nand\x0bvertical\x0cfeed \u00a0nbsp \u3000ideographic",
+    "zero\u200bwidth\u200djoiner\ufeffbom\x00null\ufffdreplacement\x7fdel",
+    "emoji 😀🔥 #hashtag ¿qué? «quoted» ‘curly’ “double” …",
+    "supercalifragilisticexpialidocious" * 5,
+    "İstanbul ß ﬁ ǅ Ǆ",
+    "",
+    "   ",
+    "unknownwordzzz qqq",
+]
+
+
+def _bert_tokenizer_json(directory, lowercase=True):
+    """A BERT WordPiece tokenizer.json written by ``transformers``'
+    ``BertTokenizerFast`` (the files of a BERT checkpoint)."""
+    transformers = pytest.importorskip("transformers")
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    words += sorted({w for t in BERT_TEXTS for w in t.lower().split()} | set(
+        "abcdefghijklmnopqrstuvwxyz0123456789.,!?;:'\"()[]{}<>+=$%#@-—…«»¿‘’“”"))
+    words += ["##" + c for c in "abcdefghijklmnopqrstuvwxyz"] + ["hel", "##lo", "wor", "##ld",
+                                                               "中", "文", "##s", "##ing"]
+    vocab = directory / "vocab.txt"
+    vocab.write_text("\n".join(dict.fromkeys(words)), encoding="utf-8")
+    tok = transformers.BertTokenizerFast(vocab_file=str(vocab), do_lower_case=lowercase)
+    tok.save_pretrained(str(directory))
+    return str(directory / "tokenizer.json")
+
+
+@pytest.mark.parametrize("lowercase", [True, False])
+def test_bert_tokenizer_json_matches_the_wheel_with_the_wheel_hidden(tmp_path, monkeypatch,
+                                                                      lowercase):
+    import sys
+
+    path = _bert_tokenizer_json(tmp_path, lowercase)
+    spec = json.loads(open(path, encoding="utf-8").read())
+    assert spec["normalizer"]["type"] == "BertNormalizer"
+    assert spec["pre_tokenizer"]["type"] == "BertPreTokenizer"
+    assert spec["model"]["type"] == "WordPiece"
+    wheel = ttok.RustTokenizer(path)
+    with pytest.raises(JUnsupported):  # the JAX engine needs the wheel
+        JJSON(path)
+    monkeypatch.setitem(sys.modules, "tokenizers", None)
+    mine = ttok.load_tokenizer(str(tmp_path))
+    assert isinstance(mine, JSONTokenizer)
+    assert mine.pad_token_id == wheel.pad_token_id == 0
+    for max_length in (77, 12):
+        ids, mask = mine.encode_batch(BERT_TEXTS, max_length=max_length)
+        want_ids, want_mask = wheel.encode_batch(BERT_TEXTS, max_length=max_length)
+        np.testing.assert_array_equal(ids, want_ids)
+        np.testing.assert_array_equal(mask, want_mask)
+    assert ids[-3, :2].tolist() == [2, 3]  # the empty text: [CLS] [SEP]
+
+
+# the blocks a post's text is drawn from: Latin, Greek, Cyrillic, Armenian,
+# Hebrew, Arabic, Devanagari, Thai, Hangul Jamo, general punctuation,
+# currency, letterlike symbols, arrows, math operators, CJK symbols, kana,
+# CJK ideographs, Hangul, the compatibility and half/full-width forms, emoji
+POST_BLOCKS = [(0x0000, 0x05FF), (0x0600, 0x06FF), (0x0900, 0x097F), (0x0E00, 0x0E7F),
+               (0x1100, 0x11FF), (0x2000, 0x22FF), (0x3000, 0x30FF), (0x3400, 0x4DBF),
+               (0x4E00, 0x9FFF), (0xAC00, 0xD7A3), (0xF900, 0xFAFF), (0xFE30, 0xFFEF),
+               (0x1F300, 0x1F64F)]
+
+
+def test_bert_normalizer_and_pre_tokenizer_match_the_wheel_per_code_point():
+    from tokenizers import normalizers, pre_tokenizers
+
+    from multimodal_content_moderation_tpu_torch.data import tokenizer_json as tj
+
+    spec = {"clean_text": True, "handle_chinese_chars": True, "strip_accents": None,
+            "lowercase": True}
+    wheel_n = normalizers.BertNormalizer(**spec)
+    wheel_p = pre_tokenizers.BertPreTokenizer()
+    mine_n = tj._bert_normalizer(spec)
+    n = 0
+    for lo, hi in POST_BLOCKS:
+        for cp in range(lo, hi + 1):
+            text = f"ab{chr(cp)}cd"
+            assert mine_n(text) == wheel_n.normalize_str(text), hex(cp)
+            wheel_pieces = [p for p, _ in wheel_p.pre_tokenize_str(text)]
+            if cp in VERSION_GAP:  # unassigned in the wheel: a letter-like piece
+                assert wheel_pieces == [text] and tj._bert_pre_tokenize(text) == [
+                    "ab", chr(cp), "cd"], hex(cp)
+                continue
+            assert tj._bert_pre_tokenize(text) == wheel_pieces, hex(cp)
+            n += 1
+    assert n == 43891  # every code point of the blocks but the gap
+
+
+# assigned after the wheel's Unicode tables: U+061D ARABIC END OF TEXT MARK
+# (Unicode 14.0, category Po in Python's 15.0 database)
+VERSION_GAP = {0x061D}
+
+
+def test_synthetic_bert_vocabulary_matches_the_wheel(tmp_path, monkeypatch):
+    """``testdata.write_bert_wordpiece`` (the 30,522-entry vocabulary the
+    card's smoke run tokenizes with) loads in the wheel and in the port's
+    engine, with the wheel hidden, and both give the same ids."""
+    import sys
+
+    from multimodal_content_moderation_tpu_torch.testdata import write_bert_wordpiece
+
+    vocab = write_bert_wordpiece(str(tmp_path), 30522, seed=0, words=["hate", "love"])
+    assert len(vocab) == 30522 and vocab["[CLS]"] == 101 and vocab["[SEP]"] == 102
+    wheel = ttok.RustTokenizer(str(tmp_path / "tokenizer.json"))
+    assert wheel.vocab_size == 30522
+    want = wheel.encode_batch(BERT_TEXTS, max_length=77)
+    monkeypatch.setitem(sys.modules, "tokenizers", None)
+    mine = ttok.load_tokenizer(str(tmp_path))
+    assert isinstance(mine, JSONTokenizer) and mine.pad_token_id == 0
+    got = mine.encode_batch(BERT_TEXTS, max_length=77)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert (got[0] > 103).sum() > 3 * len(BERT_TEXTS)  # real pieces, not [UNK] only

@@ -265,11 +265,14 @@ def test_mtl_run_directory_serves(mtl_run, monkeypatch):
 
 
 def test_mtl_on_the_generic_backend_names_the_generic_slice(config_file, tmp_path):
+    """The generic slice is ported (tests/test_torch_generic.py trains it on
+    a VisionTextDualEncoderModel directory); ``backend: generic`` over this
+    fixture's CLIP directory is refused, naming the tower it cannot read."""
     with open(config_file) as f:
         cfg = yaml.safe_load(f)
     cfg["model"].update(head="mtl", backend="generic")
     path = tmp_path / "generic.yaml"
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="generic slice"):
+    with pytest.raises(ValueError, match="generic backend: unsupported text tower"):
         t_train.main(["--config", str(path), "--saving.output_dir", str(tmp_path / "x"),
                       "--device", "cpu"])

@@ -363,8 +363,9 @@ def _tiny_siglip():
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     """Both wires and both backends train (tests/test_torch_pixel_path.py);
-    what stays refused names its slice: tensorboard events, the generic
-    backend, and a wire that does not exist."""
+    what stays refused names its slice: tensorboard events, and a wire that
+    does not exist. The generic backend is ported; a name that is no
+    backend is refused."""
     with pytest.raises(NotImplementedError, match="utils slice"):
         Trainer(_port_model(), _args(tmp_path, report_to="tensorboard"), TinyDataset(4, 0),
                 TinyDataset(4, 0), make_compute_metrics_multi(3), device="cpu")
@@ -376,5 +377,6 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     trainer = Trainer(siglip, _args(tmp_path), TinyDataset(4, 0), TinyDataset(4, 0),
                       make_compute_metrics_multi(3), device="cpu")
     assert trainer.patch_size == 16 and trainer.eval_logits is evaluate_logits
-    with pytest.raises(NotImplementedError, match="backend"):
-        model_io.resolve_backend(None, "generic")
+    assert model_io.resolve_backend(None, "generic") == "generic"
+    with pytest.raises(ValueError, match="backend"):
+        model_io.resolve_backend(None, "bert")
