@@ -29,13 +29,14 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    beside it on the same bf16 inputs, in the order SIMT, tensor cores,
    tensor cores, SIMT.
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
-   written as a reference-format checkpoint, loaded with ``load_checkpoint``,
+   written as a reference-format checkpoint (``models/export.py``, as every
+   reference checkpoint of this script), loaded with ``load_checkpoint``,
    run through ``FastInferenceEngine`` + ``evaluate_logits_u8`` in bf16 with
    the kernels, with text buckets off and on; the launch counters must show
    1 patch_embed_u8 and 24 attention_nhd launches per batch, every one of
    them on the tensor cores (``tensor_core_launches``); fp32 logits on
    the card must match the same model's CPU logits; the checkpoint written
-   again as ``model.safetensors`` (a writer in this script) must load
+   again as ``model.safetensors`` (``convert.write_safetensors``) must load
    through ``load_checkpoint`` without the ``safetensors`` package, with
    logits equal to the ``.bin``'s (difference 0.0); ``--engine standard``
    (``evaluate_logits_standard`` over float_nchw pixels made from the same
@@ -143,6 +144,22 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    generic backbone (2 u8 micro-steps, one eval batch); the endpoint over
    HTTP (fp32 card vs the CPU classifier within 1e-5, no bucket ladder) and
    the evaluate CLI over a CSV.
+10. The int8 fc1 tier (``--precision int8_mlp``: bf16_fast with int8
+   products in the (768, 3072) fc1 layers, ``ops/quant.py``) and the
+   export. (a) ``dense_int8`` at [7200, 768] x [768, 3072] and at 1, 16 and
+   17 rows: the card's output equal to the CPU's bit for bit, the
+   ``_int_mm`` accumulator equal to the fp32 product of the same int8
+   values; ``dense_int8``, ``_int_mm`` alone (with the column-major int8
+   weight, and row-major beside it) and the bf16 ``dense`` timed beside
+   their bounds. (b) CLIP ViT-B/32 fusion from an exported
+   checkpoint: 12 quantized layers, fp32 int8 card vs CPU, int8_mlp vs
+   bf16_fast, B=144 with 1 + 24 launches a batch and buckets equal to
+   none, staged samples/s of both tiers in turn. (c) SigLIP2-B/16-224 and
+   ViT-B/16 + BERT-base at int8_mlp, B=64: 24 quantized layers each, the
+   MAP head untouched. (d) The evaluate CLI over phase 7's CSV and
+   ``model_fn`` at int8_mlp. (e) ``cli/export.py`` on the run directories
+   that phases 6, 8 and 9 trained: each bundle's keys are its layout's, and
+   it reloads to the run's parameters and fp32 logits bit for bit.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -154,7 +171,6 @@ from __future__ import annotations
 import json
 import os
 import shutil
-import struct
 import subprocess
 import sys
 import time
@@ -745,122 +761,6 @@ HF_SIGLIP2_B16_224 = {
 }
 
 
-def reference_state_dict(model) -> dict:
-    """The port's parameter tree -> reference checkpoint keys, the layout
-    ``models/convert.py`` reads: a fusion model's ``backbone.*`` in the HF
-    CLIPModel or SiglipModel layout + its head; a multi-task model's bare
-    CLIP towers under ``tower_txt.text_model.*`` / ``tower_img.vision_model.*``
-    (or its SigLIP backbone under ``backbone.*``) + the reference
-    ``MultiTaskClassifier`` head (``shared_head.1``, ``heads.{j}`` or
-    ``heads.{j}.0`` / ``heads.{j}.3``, ``log_vars``)."""
-    import torch
-
-    bb, hd = model.backbone, model.head
-    sd = {}
-
-    def lin(prefix, p):
-        sd[f"{prefix}.weight"] = p["w"].t()
-        if "b" in p:
-            sd[f"{prefix}.bias"] = p["b"]
-
-    def ln(prefix, p):
-        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
-
-    def layers(prefix, ls):
-        for i, lp in enumerate(ls):
-            b = f"{prefix}.encoder.layers.{i}"
-            ln(f"{b}.layer_norm1", lp["ln1"])
-            for n, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
-                lin(f"{b}.self_attn.{hf}", lp["attn"][n])
-            ln(f"{b}.layer_norm2", lp["ln2"])
-            lin(f"{b}.mlp.fc1", lp["fc1"])
-            lin(f"{b}.mlp.fc2", lp["fc2"])
-
-    t, v = bb["text_model"], bb["vision_model"]
-    vc = model.encoder_config.vision
-    mtl = "shared_fc" in hd
-    towers = mtl and model.backend == "clip"  # the multi-task CLIP towers stand apart
-    tp = "tower_txt.text_model" if towers else "backbone.text_model"
-    vp = "tower_img.vision_model" if towers else "backbone.vision_model"
-    sd[f"{tp}.embeddings.token_embedding.weight"] = t["token_embedding"]
-    sd[f"{tp}.embeddings.position_embedding.weight"] = t["position_embedding"]
-    layers(tp, t["layers"])
-    ln(f"{tp}.final_layer_norm", t["final_ln"])
-    pe = v["patch_embedding"]
-    sd[f"{vp}.embeddings.patch_embedding.weight"] = pe["w"].t().reshape(
-        vc.hidden_size, vc.num_channels, vc.patch_size, vc.patch_size
-    )
-    if "b" in pe:
-        sd[f"{vp}.embeddings.patch_embedding.bias"] = pe["b"]
-    sd[f"{vp}.embeddings.position_embedding.weight"] = v["position_embedding"]
-    layers(vp, v["layers"])
-    ln(f"{vp}.post_layernorm", v["post_ln"])
-    if model.backend == "clip":
-        sd[f"{vp}.embeddings.class_embedding"] = v["class_embedding"]
-        ln(f"{vp}.pre_layrnorm", v["pre_ln"])
-        if not towers:
-            lin("backbone.text_projection", bb["text_projection"])
-            lin("backbone.visual_projection", bb["visual_projection"])
-            sd["backbone.logit_scale"] = bb["logit_scale"]
-    else:
-        lin(f"{tp}.head", t["head"])
-        mh = v["map_head"]
-        sd[f"{vp}.head.probe"] = mh["probe"]
-        attn = mh["attn"]
-        sd[f"{vp}.head.attention.in_proj_weight"] = torch.cat(
-            [attn[n]["w"].t() for n in ("q", "k", "v")])
-        sd[f"{vp}.head.attention.in_proj_bias"] = torch.cat(
-            [attn[n]["b"] for n in ("q", "k", "v")])
-        lin(f"{vp}.head.attention.out_proj", attn["o"])
-        ln(f"{vp}.head.layernorm", mh["ln"])
-        lin(f"{vp}.head.mlp.fc1", mh["fc1"])
-        lin(f"{vp}.head.mlp.fc2", mh["fc2"])
-        for name in ("logit_scale", "logit_bias"):  # HF keeps shape (1,)
-            sd[f"backbone.{name}"] = bb[name].reshape(1)
-    for n in ("proj_t", "proj_i", "g_t", "g_i", "gate"):
-        lin(n, hd[n])
-    if mtl:
-        lin("shared_head.1", hd["shared_fc"])
-        for j, task in enumerate(hd["heads"]):
-            if "fc" in task:
-                lin(f"heads.{j}", task["fc"])
-            else:
-                lin(f"heads.{j}.0", task["fc1"])
-                lin(f"heads.{j}.3", task["fc2"])
-        if "log_vars" in hd:
-            sd["log_vars"] = hd["log_vars"]
-    else:
-        ln("ln_fused", hd["ln_fused"])
-        ln("cls.0", hd["cls_ln"])
-        lin("cls.1", hd["cls_fc1"])
-        lin("cls.4", hd["cls_fc2"])
-    return {k: x.detach().cpu().contiguous().clone() for k, x in sd.items()}
-
-
-def save_safetensors(sd: dict, path: str) -> None:
-    """{name: tensor} -> a ``model.safetensors`` of fp32 tensors (what the
-    JAX package's export writes), with the standard library and numpy: an
-    8-byte little-endian header length, a JSON header of each tensor's
-    dtype, shape and data offsets, padded with spaces to 8 bytes, then the
-    raw little-endian data."""
-    import numpy as np
-
-    header, blobs, offset = {}, [], 0
-    for name in sorted(sd):
-        raw = np.ascontiguousarray(sd[name].detach().cpu().float().numpy(), "<f4").tobytes()
-        header[name] = {"dtype": "F32", "shape": list(sd[name].shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
-    head = json.dumps(header).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)))
-        f.write(head)
-        for raw in blobs:
-            f.write(raw)
-
-
 class InMemoryDataset:
     """Seeded uint8 crops and token ids with the ``.batches()`` contract of
     ``data.dataset.CSVDataset``. CLIP-style ids (the default): BOS, random
@@ -971,6 +871,7 @@ def full_model_phase(torch, card: str):
     import numpy as np
 
     from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import export
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
@@ -981,7 +882,7 @@ def full_model_phase(torch, card: str):
     shutil.rmtree(ckpt, ignore_errors=True)
     os.makedirs(ckpt)
     src = FusionModel.create("clip", num_labels=len(CLASSES), seed=0, device="cuda")
-    torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
+    torch.save(export.reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     with open(os.path.join(ckpt, "config.json"), "w") as f:
         json.dump(HF_CLIP_B32, f)
     with open(os.path.join(ckpt, "inference_config.json"), "w") as f:
@@ -1108,7 +1009,7 @@ def safetensors_checkpoint_check(torch, model, ckpt, rows):
     sd = torch.load(os.path.join(ckpt, "pytorch_model.bin"), map_location="cpu", weights_only=True)
     st_file = os.path.join(st_dir, "model.safetensors")
     t0 = time.perf_counter()
-    save_safetensors(sd, st_file)
+    convert.write_safetensors(sd, st_file)
     write_s = time.perf_counter() - t0
     del sd
     for name in ("config.json", "inference_config.json"):
@@ -1571,6 +1472,31 @@ def trainer_run(torch, model, args, train_ds, val_ds, want_fn, label, metrics=No
             "trainer_samples_per_s": result["train_samples_per_second"]}, trainer
 
 
+# the port run directories that phases 6, 8 and 9 train and phase 10 (e) exports
+EXPORT_ROOT = os.path.join(REPO, "build", "chip_smoke_export")
+
+
+def keep_run(out_dir: str, name: str, hf_cfg: dict, **inference):
+    """Move a ``Trainer`` run's newest ``checkpoint-N`` to
+    ``EXPORT_ROOT/name/`` as the port's run directory (``"format":
+    "torch"``, the encoder's ``config.json`` in the checkpoint), for phase
+    10 (e), and remove the rest of ``out_dir``."""
+    from multimodal_content_moderation_tpu_torch.training.checkpoints import list_checkpoints
+
+    ckpts = list_checkpoints(out_dir)
+    check(bool(ckpts), f"{name}: the Trainer wrote no checkpoint under {out_dir}")
+    run = os.path.join(EXPORT_ROOT, name)
+    shutil.rmtree(run, ignore_errors=True)
+    os.makedirs(run)
+    ckpt = shutil.move(ckpts[-1], os.path.join(run, os.path.basename(ckpts[-1])))
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(hf_cfg, f)
+    with open(os.path.join(run, "inference_config.json"), "w") as f:
+        json.dump({"fusion_dim": 512, "class_names": CLASSES, "max_text_length": 77,
+                   "format": "torch", **inference}, f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def clip_f32_train_phase(torch, card: str):
     """CLIP ViT-B/32 fine-tuning as ``config/clip_fusion.yaml`` ships it:
     the f32 wire (normalised pixels through the pixel path), the "xla"
@@ -1611,7 +1537,7 @@ def clip_f32_train_phase(torch, card: str):
     report, trainer = trainer_run(torch, new_model(compute_dtype="bfloat16"), args, train_ds,
                                   val_ds, lambda micro, evals: _counts(), "clip f32 training")
     del trainer
-    shutil.rmtree(out_dir, ignore_errors=True)
+    keep_run(out_dir, "clip_fusion", HF_CLIP_B32, backend="clip", head="fusion")
 
     # the f32 wire against the u8 wire: the same rows and dropout draw
     idx = np.arange(TRAIN_BATCH)
@@ -1733,6 +1659,7 @@ def siglip_phase(torch, card: str):
     import numpy as np
 
     from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import export
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
@@ -1744,7 +1671,7 @@ def siglip_phase(torch, card: str):
     cfg = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_384)
     src = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=0,
                              device="cuda")
-    torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
+    torch.save(export.reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     with open(os.path.join(ckpt, "config.json"), "w") as f:
         json.dump(HF_SIGLIP2_B16_384, f)
     with open(os.path.join(ckpt, "inference_config.json"), "w") as f:
@@ -1871,6 +1798,7 @@ def siglip224_phase(torch, card: str):
     import numpy as np
 
     from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import export
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
@@ -1882,7 +1810,7 @@ def siglip224_phase(torch, card: str):
     cfg = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224)
     src = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=0,
                              device="cuda")
-    torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
+    torch.save(export.reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     del src
     with open(os.path.join(ckpt, "config.json"), "w") as f:
         json.dump(HF_SIGLIP2_B16_224, f)
@@ -2036,6 +1964,7 @@ def write_serving_checkpoint(torch, root: str, hf_cfg: dict, device: str,
     tokenized by the port's own BPE: the fusion head, or with ``head="mtl"``
     the multi-task head at ``config/clip_mtl.yaml``'s settings."""
     from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import export
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.testdata import write_clip_bpe
 
@@ -2044,7 +1973,7 @@ def write_serving_checkpoint(torch, root: str, hf_cfg: dict, device: str,
     mtl = MTL_HEAD if head == "mtl" else {}
     src = model_io.build_model(head, "clip", CLASSES, seed=3, device=device,
                                clip_config=model_io.clip_config_from_dict(hf_cfg), **mtl)
-    torch.save(reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
+    torch.save(export.reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     del src
     size = hf_cfg["vision_config"]["image_size"]
     files = {
@@ -2622,7 +2551,7 @@ def serving_phase(torch, card: str, hf_cfg: dict = HF_CLIP_B32, device: str = "c
     loaded = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in HIDDEN_MODULES)
     check(not loaded, f"modules the card's path must not import were imported: {loaded}")
-    shutil.rmtree(root, ignore_errors=True)
+    # the checkpoint and the CSV stay for phase 10 (d), which removes them
     return report
 
 
@@ -2693,6 +2622,8 @@ def mtl_train_phase(torch, card: str):
         check(all(f"roc_{c}" in run["history"][0] for c in CLASSES),
               f"mtl {wire}: per-task metrics missing from {run['history'][0]}")
         del trainer
+        if wire == "u8":
+            keep_run(out_dir, "clip_mtl", HF_CLIP_B32, backend="clip", head="mtl", **MTL_HEAD)
         shutil.rmtree(out_dir, ignore_errors=True)
 
         model = new_model(seed=2, compute_dtype="bfloat16", attention_impl=impl)
@@ -2742,7 +2673,7 @@ def mtl_train_phase(torch, card: str):
 def mtl_eval_phase(torch, card: str, root: str):
     """(b) A reference-format CLIP ViT-B/32 multi-task checkpoint
     (``tower_txt.``/``tower_img.`` + the ``MultiTaskClassifier`` head, from
-    ``reference_state_dict``) through ``load_checkpoint`` ->
+    ``models/export.py``) through ``load_checkpoint`` ->
     ``FastInferenceEngine`` -> ``evaluate_logits_u8``: fp32 card against
     CPU logits (8 rows, atol 2e-3), fp32 buckets against none (atol 1e-5),
     and in bf16 with the kernels 1 ``patch_embed_u8`` and 24
@@ -2967,91 +2898,15 @@ DISTILBERT_BASE = {
 GENERIC_MICRO_STEPS = 4  # 2 optimizer steps of B=32 x 2 in each Trainer run
 
 
-def generic_reference_state_dict(model) -> dict:
-    """A generic fusion model -> the reference checkpoint's keys: the
-    ``VisionTextDualEncoderModel`` names under ``backbone.`` (BERT or
-    DistilBERT text, ViT vision, the projections, ``logit_scale``) + the
-    ``MultiModalFusionClassifier`` head, the layout ``models/convert.py``
-    reads."""
-    bb, hd = model.backbone, model.head
-    cfg = model.generic_config
-    sd = {}
-
-    def lin(prefix, p):
-        sd[f"{prefix}.weight"] = p["w"].t()
-        if "b" in p:
-            sd[f"{prefix}.bias"] = p["b"]
-
-    def ln(prefix, p):
-        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["scale"], p["bias"]
-
-    t, v = bb["text_model"], bb["vision_model"]
-    tp, vp = "backbone.text_model", "backbone.vision_model"
-    sd[f"{tp}.embeddings.word_embeddings.weight"] = t["word_embeddings"]
-    sd[f"{tp}.embeddings.position_embeddings.weight"] = t["position_embeddings"]
-    ln(f"{tp}.embeddings.LayerNorm", t["emb_ln"])
-    if "token_type_embeddings" in t:
-        sd[f"{tp}.embeddings.token_type_embeddings.weight"] = t["token_type_embeddings"]
-    distil = cfg.text.arch == "distilbert"
-    for i, lp in enumerate(t["layers"]):
-        if distil:
-            b = f"{tp}.transformer.layer.{i}"
-            for n, hf in (("q", "q_lin"), ("k", "k_lin"), ("v", "v_lin"), ("o", "out_lin")):
-                lin(f"{b}.attention.{hf}", lp["attn"][n])
-            ln(f"{b}.sa_layer_norm", lp["ln1"])
-            lin(f"{b}.ffn.lin1", lp["fc1"])
-            lin(f"{b}.ffn.lin2", lp["fc2"])
-            ln(f"{b}.output_layer_norm", lp["ln2"])
-        else:
-            b = f"{tp}.encoder.layer.{i}"
-            for n, hf in (("q", "query"), ("k", "key"), ("v", "value")):
-                lin(f"{b}.attention.self.{hf}", lp["attn"][n])
-            lin(f"{b}.attention.output.dense", lp["attn"]["o"])
-            ln(f"{b}.attention.output.LayerNorm", lp["ln1"])
-            lin(f"{b}.intermediate.dense", lp["fc1"])
-            lin(f"{b}.output.dense", lp["fc2"])
-            ln(f"{b}.output.LayerNorm", lp["ln2"])
-    if "pooler" in t:
-        lin(f"{tp}.pooler.dense", t["pooler"])
-    vc = cfg.vision
-    sd[f"{vp}.embeddings.cls_token"] = v["cls_token"]
-    sd[f"{vp}.embeddings.position_embeddings"] = v["position_embeddings"][None]
-    pe = v["patch_embedding"]
-    sd[f"{vp}.embeddings.patch_embeddings.projection.weight"] = pe["w"].t().reshape(
-        vc.hidden_size, vc.num_channels, vc.patch_size, vc.patch_size)
-    sd[f"{vp}.embeddings.patch_embeddings.projection.bias"] = pe["b"]
-    for i, lp in enumerate(v["layers"]):
-        b = f"{vp}.encoder.layer.{i}"
-        ln(f"{b}.layernorm_before", lp["ln1"])
-        for n, hf in (("q", "query"), ("k", "key"), ("v", "value")):
-            lin(f"{b}.attention.attention.{hf}", lp["attn"][n])
-        lin(f"{b}.attention.output.dense", lp["attn"]["o"])
-        ln(f"{b}.layernorm_after", lp["ln2"])
-        lin(f"{b}.intermediate.dense", lp["fc1"])
-        lin(f"{b}.output.dense", lp["fc2"])
-    ln(f"{vp}.layernorm", v["post_ln"])
-    if "pooler" in v:
-        lin(f"{vp}.pooler.dense", v["pooler"])
-    lin("backbone.text_projection", bb["text_projection"])
-    lin("backbone.visual_projection", bb["visual_projection"])
-    sd["backbone.logit_scale"] = bb["logit_scale"]
-    for n in ("proj_t", "proj_i", "g_t", "g_i", "gate"):
-        lin(n, hd[n])
-    ln("ln_fused", hd["ln_fused"])
-    ln("cls.0", hd["cls_ln"])
-    lin("cls.1", hd["cls_fc1"])
-    lin("cls.4", hd["cls_fc2"])
-    return {k: x.detach().cpu().contiguous().clone() for k, x in sd.items()}
-
-
 def write_generic_dirs(torch, root: str):
     """(encoder dir, checkpoint dir) of the full-width generic model: the
     encoder dir holds the ``vision-text-dual-encoder`` ``config.json``,
     ``preprocessor_config.json`` (224 px, 0.5 / 0.5) and a BERT WordPiece
     ``tokenizer.json`` over a synthetic 30,522-entry vocabulary; the
     checkpoint dir a reference-format fusion checkpoint (random weights
-    from a seed, written as ``model.safetensors`` by ``save_safetensors``)
+    from a seed, written as ``model.safetensors`` by ``models/export.py``)
     and its ``inference_config.json``. Returns the source model too."""
+    from multimodal_content_moderation_tpu_torch.models import export
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
     from multimodal_content_moderation_tpu_torch.models.generic import GenericDualConfig
     from multimodal_content_moderation_tpu_torch.testdata import write_bert_wordpiece
@@ -3074,7 +2929,7 @@ def write_generic_dirs(torch, root: str):
             json.dump(obj, f)
     src = FusionModel.create("generic", num_labels=len(CLASSES), seed=0, device="cuda",
                              generic_config=GenericDualConfig.from_dict(HF_VTDE_B16))
-    save_safetensors(generic_reference_state_dict(src), os.path.join(ckpt, "model.safetensors"))
+    export.export_safetensors(src, os.path.join(ckpt, "model.safetensors"))
     return enc, ckpt, src
 
 
@@ -3377,7 +3232,7 @@ def generic_mtl_phase(torch, card: str):
     check(all(f"roc_{c}" in run["history"][0] for c in CLASSES),
           f"generic mtl: per-task metrics missing from {run['history'][0]}")
     del trainer
-    shutil.rmtree(out_dir, ignore_errors=True)
+    keep_run(out_dir, "generic_mtl", HF_VTDE_B16, backend="generic", head="mtl", **MTL_HEAD)
     return run
 
 
@@ -3495,6 +3350,459 @@ def generic_phase(torch, card: str):
     report["serving"] = generic_serving_phase(torch, card, ckpt, root)
     report["serving_s"] = time.perf_counter() - t0
     shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the int8 fc1 tier (--precision int8_mlp) and the export
+# ---------------------------------------------------------------------------
+
+# one CLIP ViT-B/32 eval batch's vision fc1: B=144 x T=50 rows, [768, 3072]
+INT8_M, INT8_K, INT8_N = BATCH * 50, 768, 3072
+PEAK_INT8_OPS = 1979e12  # H100 SXM int8 dense, NVIDIA data sheet
+N_INT8_BATCHES = 4
+INT8_ROOT = os.path.join(REPO, "build", "chip_smoke_int8")
+# the leaves a generic multi-task export adds to JAX's (models/export.py)
+FAULT3 = {"backbone.text_projection.weight", "backbone.visual_projection.weight",
+          "backbone.logit_scale"}
+
+
+def int8_product_checks(torch, card: str):
+    """(a) ``ops.quant.dense_int8`` on the card at [7200, 768] x [768, 3072]
+    (a CLIP eval batch's vision fc1) and at 1, 16 and 17 rows (the card's
+    ``_int_mm`` takes more than 16; fewer are padded with zero rows), bf16
+    inputs: the weight's int8 values and scales equal the CPU's; the
+    ``_int_mm`` accumulator equals the fp32 product of the same int8 values
+    (exact: 768 x 127^2 < 2^24, TF32 off); the output equals the CPU's bit
+    for bit. Timed from CUDA graphs: ``dense_int8`` whole, ``_int_mm``
+    alone (and with the weight stored row-major, the layout
+    ``quantize_linear_int8`` does not use) and the bf16 ``dense`` of the
+    same shape, each beside its bound
+    (bytes over 3.35 TB/s, operations over 1,979 int8 TOPS or 989 bf16
+    TFLOPS, the larger)."""
+    from multimodal_content_moderation_tpu_torch.ops import layers
+    from multimodal_content_moderation_tpu_torch.ops.quant import (
+        dense_int8, quantize_linear_int8, quantize_rows_int8)
+
+    M, K, N = INT8_M, INT8_K, INT8_N
+    g = torch.Generator().manual_seed(10)
+    w = (torch.randn(K, N, generator=g) * 0.02).bfloat16()
+    b = (torch.randn(N, generator=g) * 0.01).bfloat16()
+    x_cpu = torch.randn(M, K, generator=g).bfloat16()
+    q_cpu = quantize_linear_int8({"w": w, "b": b})
+    q = quantize_linear_int8({"w": w.cuda(), "b": b.cuda()})
+    check(torch.equal(q["w_i8"].cpu(), q_cpu["w_i8"]) and torch.equal(q["scale"].cpu(),
+                                                                      q_cpu["scale"]),
+          "quantize_linear_int8 on the card differs from the CPU's")
+    x = x_cpu.cuda()
+    report = {"card": card, "shape": [M, K, N], "rows_equal_cpu_bitwise": {}}
+    for rows in (M, 1, 16, 17):
+        got = dense_int8(x[:rows], q)
+        same = torch.equal(got.cpu(), dense_int8(x_cpu[:rows], q_cpu))
+        check(same and got.dtype == torch.bfloat16,
+              f"dense_int8 at {rows} rows: the card's output differs from the CPU's")
+        report["rows_equal_cpu_bitwise"][rows] = same
+    x_i8, _ = quantize_rows_int8(x)
+    acc = torch._int_mm(x_i8, q["w_i8"])
+    exact = torch.equal(acc.float(), x_i8.float() @ q["w_i8"].float())
+    check(exact, "_int_mm differs from the fp32 product of the same int8 values")
+    report["int_mm_equals_fp32_product"] = exact
+    wb = {"w": w.cuda(), "b": b.cuda()}
+    w_rows = q["w_i8"].contiguous()
+    check(torch.equal(torch._int_mm(x_i8, w_rows), acc),
+          "_int_mm with a row-major weight differs from the column-major one")
+    ops = 2.0 * M * K * N
+    work = {
+        # name: (call, bytes moved, peak rate of its operations)
+        "dense_int8": (lambda: dense_int8(x, q),
+                       M * K * 2 + K * N + N * 4 + N * 2 + M * N * 2, PEAK_INT8_OPS),
+        "int_mm": (lambda: torch._int_mm(x_i8, q["w_i8"]), M * K + K * N + M * N * 4,
+                   PEAK_INT8_OPS),
+        # the same product with the weight stored row-major (the layout
+        # quantize_linear_int8 does not use)
+        "int_mm_row_major_w": (lambda: torch._int_mm(x_i8, w_rows), M * K + K * N + M * N * 4,
+                               PEAK_INT8_OPS),
+        "bf16_dense": (lambda: layers.dense(x, wb), M * K * 2 + K * N * 2 + N * 2 + M * N * 2,
+                       PEAK_FLOPS["bfloat16"]),
+    }
+    for name, (fn, nbytes, peak) in work.items():
+        case = {"bytes": nbytes, "operations": ops}
+        timed(case, "ms", fn)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+        case.update(bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        report[name] = case
+        print(f"int8 product {name:18s} [{M}, {K}] x [{K}, {N}]: {case['ms']:.4f} ms, bound "
+              f"{case['bound_ms']:.4f} ms ({case['bound_by']}) ({card})")
+    return report
+
+
+def _logits8(torch, model, mean, std, rows):
+    """fp32 logits of ``rows`` through a ``FastInferenceEngine`` of
+    ``model``, on the host."""
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+
+    eng = fi.FastInferenceEngine(model, mean, std)
+    return eng(rows["input_ids"], rows["attention_mask"],
+               eng.patches_from_hwc(rows["pixel_values"]),
+               rows["text_present"], rows["image_present"]).cpu()
+
+
+def alternating_rates(torch, engines: dict, ids, patches, mask, passes: int = 3):
+    """``staged_eval_rates`` of several engines, one pass of each in turn,
+    ``passes`` times: {name: {"median", "passes"}}."""
+    runs = {name: [] for name in engines}
+    for _ in range(passes):
+        for name, engine in engines.items():
+            runs[name] += staged_eval_rates(torch, engine, ids, patches, mask, passes=1)["passes"]
+    return {name: {"median": sorted(r)[len(r) // 2], "passes": r} for name, r in runs.items()}
+
+
+def clip_int8_phase(torch, card: str):
+    """(b) CLIP ViT-B/32 fusion at full width from an exported reference
+    checkpoint (``models/export.py``) through ``load_checkpoint`` ->
+    ``quantize_fc1_layers`` -> ``FastInferenceEngine``: 12 quantized fc1
+    layers (the vision tower's; the 512x2048 text ones stay); fp32 with
+    int8 fc1 on the card against the CPU (8 rows, within the CPU's own
+    int8-vs-fp32 difference); int8_mlp against bf16_fast on the same 8 rows within the
+    CPU's own difference + 3e-2 (phase 3's bf16 bound between two runs);
+    ``evaluate_logits_u8`` at int8_mlp, B=144, buckets off and on: 1
+    ``patch_embed_u8`` and 24 ``attention_nhd`` per batch on the tensor
+    cores, bucketed logits equal to unbucketed (the activation scales are
+    per row); staged samples/s of int8_mlp and bf16_fast in turn at seq 77
+    and 32 (median and range of 3 passes each) and a profiler breakdown of
+    each at seq 77."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import export
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.ops.quant import quantize_fc1_layers
+
+    report = {"card": card}
+    shutil.rmtree(INT8_ROOT, ignore_errors=True)
+    os.makedirs(INT8_ROOT)
+    src = FusionModel.create("clip", num_labels=len(CLASSES), seed=4, device="cuda")
+    export.export_safetensors(src, os.path.join(INT8_ROOT, "model.safetensors"))
+    del src
+    for name, obj in (("config.json", HF_CLIP_B32),
+                      ("inference_config.json", {"backend": "clip", "head": "fusion",
+                                                 "fusion_dim": 512, "class_names": CLASSES})):
+        with open(os.path.join(INT8_ROOT, name), "w") as f:
+            json.dump(obj, f)
+    model, _ = model_io.load_checkpoint(INT8_ROOT, device="cuda")
+    cpu_model, _ = model_io.load_checkpoint(INT8_ROOT, device="cpu")
+    shutil.rmtree(INT8_ROOT, ignore_errors=True)
+    rows = next(InMemoryDataset(8, seed=40).batches(8))
+    stats = (CLIP_MEAN, CLIP_STD)
+
+    def tiers(m):
+        """(fp32, fp32 int8, bf16_fast, int8_mlp) logits of the 8 rows; casts m."""
+        m32 = model_io.with_performance_options(m, attention_impl="pallas")
+        q32, n32 = quantize_fc1_layers(m32)
+        out = [_logits8(torch, m32, *stats, rows), _logits8(torch, q32, *stats, rows)]
+        bf16 = model_io.with_performance_options(
+            m, compute_dtype="bfloat16", scores_dtype="bfloat16", attention_impl="pallas",
+        ).to(torch.bfloat16)
+        q, n = quantize_fc1_layers(bf16)
+        check(n32 == n == 12, f"CLIP ViT-B/32: quantized {n32} / {n} fc1 layers, want 12")
+        return out + [_logits8(torch, bf16, *stats, rows), _logits8(torch, q, *stats, rows)], \
+            bf16, q, n
+
+    card_out, bf16, q, n = tiers(model)
+    cpu_out, *_ = tiers(cpu_model)
+    del cpu_model
+    # fp32: the int8 products are exact, but the card's and the CPU's fp32
+    # activations round apart in the last bit, so an element may land one
+    # int8 step away; quantizing moves every element by up to half a step,
+    # so the quantization's own effect on the CPU bounds the difference
+    err = float((card_out[1] - cpu_out[1]).abs().max())
+    d_q = float((cpu_out[1] - cpu_out[0]).abs().max())
+    check(err <= d_q and bool(card_out[1].isfinite().all()),
+          f"fp32 int8 logits on the card differ from the CPU's by {err} (bound: int8 vs "
+          f"fp32 on the CPU, {d_q})")
+    d_cpu = float((cpu_out[3] - cpu_out[2]).abs().max())
+    d_card = float((card_out[3] - card_out[2]).abs().max())
+    check(d_card <= d_cpu + 3e-2, f"int8_mlp vs bf16_fast on the card {d_card}, on the CPU "
+                                  f"{d_cpu} (bound: the CPU's + 3e-2)")
+    report.update(quantized_layers=n, fp32_int8_card_vs_cpu_max_abs_err=err,
+                  fp32_int8_vs_fp32_cpu_max_abs_err=d_q,
+                  fp32_card_vs_cpu_max_abs_err=float((card_out[0] - cpu_out[0]).abs().max()),
+                  int8_vs_bf16_fast_8_rows={"card": d_card, "cpu": d_cpu})
+
+    data = InMemoryDataset(N_INT8_BATCHES * BATCH - 5, seed=41)
+    engines = {"int8_mlp": fi.FastInferenceEngine(q, *stats),
+               "bf16_fast": fi.FastInferenceEngine(bf16, *stats)}
+    runs = {}
+    for name, engine, spec in (("int8_buckets_off", engines["int8_mlp"], "off"),
+                               ("int8_buckets_auto", engines["int8_mlp"], "auto"),
+                               ("bf16_fast_buckets_off", engines["bf16_fast"], "off")):
+        counts = _reset_counts()
+        logits, labels = fi.evaluate_logits_u8(engine, data, BATCH, num_workers=4,
+                                               seq_buckets=fi.parse_seq_buckets(spec))
+        launches = counts()
+        check(launches == _counts(patch_embed_u8=N_INT8_BATCHES,
+                                  attention_nhd=24 * N_INT8_BATCHES),
+              f"{name}: launches {launches} for {N_INT8_BATCHES} batches (want 1 and 24 a "
+              "batch, on the tensor cores)")
+        check(logits.shape == (len(data), len(CLASSES)) and np.isfinite(logits).all(),
+              f"{name}: logits {logits.shape}")
+        np.testing.assert_array_equal(labels, data.labels)
+        runs[name] = {"logits": logits, "launches": launches}
+    bucket_err = float(np.abs(runs["int8_buckets_auto"]["logits"]
+                              - runs["int8_buckets_off"]["logits"]).max())
+    check(bucket_err == 0.0, f"int8 bucketed logits differ from unbucketed by {bucket_err}")
+    report.update(
+        buckets_vs_full_max_abs_err=bucket_err, batches=N_INT8_BATCHES,
+        main_path_launches=runs["int8_buckets_off"]["launches"],
+        int8_vs_bf16_fast_max_abs_err=float(np.abs(
+            runs["int8_buckets_off"]["logits"] - runs["bf16_fast_buckets_off"]["logits"]).max()))
+
+    g = np.random.default_rng(42)
+    vocab = HF_CLIP_B32["text_config"]["vocab_size"]
+    patches = [torch.from_numpy(engines["int8_mlp"].patches_from_hwc(
+        g.integers(0, 256, size=(BATCH, 224, 224, 3), dtype=np.uint8))).cuda() for _ in range(4)]
+    ones = torch.ones(BATCH, device="cuda")
+    for width in (77, 32):
+        mask = torch.ones(BATCH, width, dtype=torch.int32, device="cuda")
+        ids = []
+        for _ in range(20):
+            x = g.integers(1, vocab - 2, size=(BATCH, 77)).astype(np.int32)
+            x[:, 30] = 49407
+            ids.append(torch.from_numpy(np.ascontiguousarray(x[:, :width])).cuda())
+        report[f"staged_samples_per_s_seq{width}"] = {
+            **alternating_rates(torch, engines, ids, patches, mask), "card": card}
+        if width == 77:
+            for name, engine in engines.items():
+                report[f"device_time_seq77_{name}"] = device_time_breakdown(
+                    torch, lambda: [engine(x, mask, patches[i % 4], ones, ones)
+                                    for i, x in enumerate(ids[:4])], 4)
+    return report
+
+
+def other_int8_phase(torch, card: str):
+    """(c) SigLIP2-B/16-224 and ViT-B/16 + BERT-base fusion at int8_mlp,
+    B=64, 2 batches each (text seq 64 / 77): 24 quantized fc1 layers each,
+    SigLIP's MAP head the source's own module and still float; 1
+    ``patch_embed_u8`` and 24 ``attention_nhd`` per batch on the tensor
+    cores; the largest logit difference from bf16_fast recorded."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
+    from multimodal_content_moderation_tpu_torch.ops.quant import quantize_fc1_layers
+
+    report = {"card": card}
+    B = SIGLIP_BATCH
+    fast = dict(compute_dtype="bfloat16", scores_dtype="bfloat16", attention_impl="pallas")
+    for name in ("siglip224", "generic"):
+        if name == "siglip224":
+            src = FusionModel.create(
+                "siglip", num_labels=len(CLASSES), seed=5, device="cuda",
+                siglip_config=model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224))
+            data = InMemoryDataset(2 * B, seed=43, T=64, siglip=True)
+        else:
+            src = _generic_model(torch, seed=5)
+            data = InMemoryDataset(2 * B, seed=44, T=GENERIC_TEXT_T, bert=True)
+        bf16 = model_io.with_performance_options(src, **fast).to(torch.bfloat16)
+        q, n = quantize_fc1_layers(bf16)
+        check(n == 24, f"{name}: quantized {n} fc1 layers, want 24")
+        if name == "siglip224":
+            head = q.backbone["vision_model"]["map_head"]
+            check(head is bf16.backbone["vision_model"]["map_head"] and "w" in head["fc1"],
+                  "siglip224: the MAP head was quantized")
+        batches = []
+        for i in range(2):
+            idx = np.arange(i * B, (i + 1) * B)
+            batches.append((data.input_ids[idx], data.attention_mask[idx],
+                            extract_patches_u8(data.images[idx], 16), data.text_present[idx],
+                            data.image_present[idx]))
+        outs = {}
+        for tier, m in (("int8_mlp", q), ("bf16_fast", bf16)):
+            engine = fi.FastInferenceEngine(m, SIGLIP_MEAN, SIGLIP_STD)
+            counts = _reset_counts()
+            outs[tier] = torch.cat([engine(*args) for args in batches])
+            if tier == "int8_mlp":
+                launches = counts()
+        check(launches == _counts(patch_embed_u8=2, attention_nhd=48),
+              f"{name}: int8 launches {launches} for 2 batches (want 1 and 24 a batch)")
+        check(bool(outs["int8_mlp"].isfinite().all()), f"{name}: non-finite int8 logits")
+        report[name] = {"quantized_layers": n, "launches": launches,
+                        "int8_vs_bf16_fast_max_abs_err": float(
+                            (outs["int8_mlp"] - outs["bf16_fast"]).abs().max())}
+        del src, bf16, q
+    return report
+
+
+def entry_points_int8_phase(torch, card: str):
+    """(d) The entry points at int8_mlp on phase 7's full-width CLIP
+    checkpoint and 281-row CSV: ``cli/evaluate.main`` (``--precision
+    int8_mlp --engine fast``, the kernels, native_scaled, buckets, the
+    pixel cache) says it quantized 12 fc1 layers and launches 1
+    ``patch_embed_u8`` and 24 ``attention_nhd`` per batch; ``model_fn``
+    with ``MMHARM_PRECISION=int8_mlp`` (pre-warmed) answers 40 requests in
+    2 batches with the same launches, and its probabilities are held
+    beside a bf16_fast endpoint's (the largest difference recorded).
+    Removes phase 7's directory."""
+    import base64
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.cli import evaluate
+    from multimodal_content_moderation_tpu_torch.serving import handler as h
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures
+
+    root = os.path.join(REPO, "build", "chip_smoke_serving")
+    ckpt, csv_path = os.path.join(root, "checkpoint"), os.path.join(root, "test.csv")
+    check(os.path.exists(csv_path), f"phase 7 left no CSV at {csv_path}")
+    report = {"card": card}
+    n_batches = -(-N_CSV_ROWS // SERVE_BATCH)
+    out = io.StringIO()
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        metrics = evaluate.main([
+            "--checkpoint", ckpt, "--test_csv", csv_path, "--image_root",
+            os.path.join(root, "images"), "--batch_size", str(SERVE_BATCH), "--engine", "fast",
+            "--image_backend", "native_scaled", "--attention", "pallas", "--precision",
+            "int8_mlp", "--seq_buckets", "auto", "--image_cache",
+            os.path.join(root, "pixel_cache"), "--device", "cuda",
+            "--output", os.path.join(root, "int8.json")])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    check("int8 MLP: quantized 12 fc1 layers" in out.getvalue(),
+          f"evaluate at int8_mlp did not quantize 12 layers: {out.getvalue()[-500:]}")
+    check(launches == _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches),
+          f"evaluate at int8_mlp: launches {launches} for {n_batches} batches")
+    check(np.isfinite(metrics["f1_macro"]) and np.isfinite(metrics["roc_auc_macro"]),
+          f"evaluate at int8_mlp: metrics {metrics}")
+    report["evaluate"] = {"rows": N_CSV_ROWS, "batches": n_batches, "launches": launches,
+                          "wall_s": wall, "f1_macro": metrics["f1_macro"],
+                          "roc_auc_macro": metrics["roc_auc_macro"],
+                          "samples_per_second": metrics["samples_per_second"]}
+
+    g = np.random.default_rng(12)
+    blobs = [base64.b64encode(p.read_bytes()).decode() for p in jpeg_fixtures().values()]
+    insts = [{"text": tweet(g), **({"image": blobs[i % len(blobs)]} if i % 6 != 5 else {})}
+             for i in range(40)]
+    env = dict(SERVE_ENV)
+    saved = {k: os.environ.get(k) for k in env}
+    probs = {}
+    try:
+        for tier in ("int8_mlp", "bf16_fast"):
+            os.environ.update(env, MMHARM_PRECISION=tier)
+            clf = h.model_fn(ckpt, device="cuda")
+            counts = _reset_counts()
+            preds = h.predict_fn(insts, clf)
+            if tier == "int8_mlp":
+                launches = counts()
+                check(clf.quantized_layers == 12,
+                      f"model_fn at int8_mlp quantized {clf.quantized_layers} layers")
+                check(launches == _counts(patch_embed_u8=2, attention_nhd=48),
+                      f"model_fn at int8_mlp: launches {launches} for 40 requests")
+            check(len(preds) == 40 and all(set(p) == {"class_predictions", "probabilities",
+                                                      "any_harmful"} for p in preds),
+                  f"model_fn at {tier}: answers {preds[:1]}")
+            probs[tier] = _probs(preds)
+            del clf
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(np.isfinite(probs["int8_mlp"]).all(), "model_fn at int8_mlp: non-finite answers")
+    report["model_fn"] = {"requests": 40, "launches": launches,
+                          "int8_vs_bf16_fast_max_abs_prob_diff": _max_diff(
+                              probs["int8_mlp"], probs["bf16_fast"])}
+    shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
+def _safetensors_names(path: str) -> set:
+    """The tensor names in a .safetensors file's header."""
+    import struct
+
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        return set(json.loads(f.read(n))) - {"__metadata__"}
+
+
+# each kept run's layout: the key prefixes its bundle holds
+EXPORT_LAYOUTS = {
+    "clip_fusion": ("backbone.text_model.", "backbone.vision_model.", "backbone.logit_scale",
+                    "backbone.text_projection.", "backbone.visual_projection.", "proj_t.",
+                    "proj_i.", "g_t.", "g_i.", "gate.", "ln_fused.", "cls."),
+    "clip_mtl": ("tower_txt.text_model.", "tower_img.vision_model.", "proj_t.", "proj_i.",
+                 "g_t.", "g_i.", "gate.", "shared_head.", "heads.", "log_vars"),
+    "generic_mtl": ("backbone.text_model.", "backbone.vision_model.", "proj_t.", "proj_i.",
+                    "g_t.", "g_i.", "gate.", "shared_head.", "heads.", "log_vars", *FAULT3),
+}
+
+
+def export_phase(torch, card: str):
+    """(e) ``cli/export.py`` on the card on the port run directories that
+    phase 6 (CLIP fusion), phase 8 (CLIP multi-task, u8 wire) and phase 9
+    (generic multi-task) trained: each bundle's keys are its layout's (the
+    generic multi-task one with the three leaves JAX's export drops), its
+    parameters through ``load_checkpoint`` equal the run checkpoint's, and
+    its fp32 logits (the kernels, 8 rows) equal the run checkpoint's bit for
+    bit."""
+    from multimodal_content_moderation_tpu_torch.cli import export as export_cli
+    from multimodal_content_moderation_tpu_torch.data.images import (
+        CLIP_MEAN, CLIP_STD, SIGLIP_MEAN, SIGLIP_STD)
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.training.checkpoints import list_checkpoints
+
+    report = {"card": card}
+    counts = _reset_counts()
+    for name, prefixes in EXPORT_LAYOUTS.items():
+        run = os.path.join(EXPORT_ROOT, name)
+        (ckpt,) = list_checkpoints(run)
+        out = run + "_exported"
+        t0 = time.perf_counter()
+        path = export_cli.main(["--checkpoint", ckpt, "--output_dir", out, "--device", "cuda"])
+        export_s = time.perf_counter() - t0
+        bundle = os.path.dirname(path)
+        names = _safetensors_names(path)
+        stray = sorted(k for k in names if not k.startswith(prefixes))
+        check(not stray, f"{name}: keys outside the layout: {stray[:5]}")
+        lacking = [p for p in prefixes if not any(k.startswith(p) for k in names)]
+        check(not lacking, f"{name}: the bundle has no key under {lacking}")
+        with open(os.path.join(out, "inference_config.json")) as f:
+            cfg = json.load(f)
+        check("format" not in cfg and cfg["best_checkpoint_dir"] == bundle,
+              f"{name}: exported inference_config {cfg}")
+        generic = name.startswith("generic")
+        rows = next(InMemoryDataset(8, seed=45, bert=generic).batches(8))
+        stats = (SIGLIP_MEAN, SIGLIP_STD) if generic else (CLIP_MEAN, CLIP_STD)
+        logits, sds = [], []
+        for d in (ckpt, bundle):
+            m, _ = model_io.load_checkpoint(d, device="cuda")
+            sds.append(m.state_dict())
+            logits.append(_logits8(torch, model_io.with_performance_options(
+                m, attention_impl="pallas"), *stats, rows))
+        check(sds[0].keys() == sds[1].keys()
+              and all(torch.equal(v, sds[1][k]) for k, v in sds[0].items()),
+              f"{name}: the bundle's parameters differ from the run checkpoint's")
+        diff = float((logits[0] - logits[1]).abs().max())
+        check(diff == 0.0 and bool(logits[0].isfinite().all()),
+              f"{name}: the bundle's fp32 logits differ from the run checkpoint's by {diff}")
+        report[name] = {"keys": len(names), "export_s": export_s,
+                        "bytes": os.path.getsize(path), "logits_max_abs_diff": diff}
+        del sds, logits
+    launches = counts()
+    check(launches == _counts(False, patch_embed_u8=6, attention_nhd=6 * 24),
+          f"export round trips: launches {launches} (want 1 + 24 per fp32 batch, 6 batches)")
+    report["launches"] = launches
+    shutil.rmtree(EXPORT_ROOT, ignore_errors=True)
     return report
 
 
@@ -3740,7 +4048,7 @@ def main() -> int:
     results["cases"] = cases
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
-    # phases 3-7: the paths through the entry points; each prints its report
+    # phases 3-10: the paths through the entry points; each prints its report
     paths = [
         (3, "model", lambda: full_model_phase(torch, card)),  # the CLIP eval path
         (4, "train", lambda: train_phase(torch, card)),  # the training path
@@ -3752,6 +4060,11 @@ def main() -> int:
         (7, "serving", lambda: serving_phase(torch, card)),  # the moderation endpoint
         (8, "mtl", lambda: mtl_phase(torch, card)),  # the multi-task head
         (9, "generic", lambda: generic_phase(torch, card)),  # ViT-B/16 + BERT-base
+        (10, "int8_product", lambda: int8_product_checks(torch, card)),  # dense_int8
+        (10, "int8_eval", lambda: clip_int8_phase(torch, card)),  # CLIP at int8_mlp
+        (10, "int8_other", lambda: other_int8_phase(torch, card)),  # SigLIP-224, generic
+        (10, "int8_entry_points", lambda: entry_points_int8_phase(torch, card)),
+        (10, "export", lambda: export_phase(torch, card)),  # trained runs -> reference
     ]
     for phase in sorted({p for p, *_ in paths}):
         t0 = time.perf_counter()
@@ -3766,6 +4079,8 @@ def main() -> int:
     siglip, siglip224, mha = results["siglip"], results["siglip224"], results["mha_dense_mask"]
     clip_f32, siglip_train = results["clip_f32_train"], results["siglip224_train"]
     serving, mtl, generic = results["serving"], results["mtl"], results["generic"]
+    int8 = {k: results[k] for k in ("int8_product", "int8_eval", "int8_other",
+                                    "int8_entry_points")}
     launches_by_path = {"siglip384": siglip["main_path_launches"],
                         "siglip224": siglip224["main_path_launches"],
                         "evaluate": report["main_path_launches"],
@@ -3776,14 +4091,17 @@ def main() -> int:
                         "mtl_train": mtl["train"]["main_path_launches"],
                         "mtl_evaluate": mtl["evaluate"]["main_path_launches"],
                         "generic_eval": generic["eval"]["main_path_launches"],
-                        "generic_train": generic["train"]["main_path_launches"]}
+                        "generic_train": generic["train"]["main_path_launches"],
+                        "int8_eval": int8["int8_eval"]["main_path_launches"],
+                        "export": results["export"]["launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,
                    "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
                    "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
-                   "generic": generic, "kernels": kernels},
+                   "generic": generic, **int8, "export": results["export"],
+                   "kernels": kernels},
                   f, indent=1)
 
     print(card)

@@ -24,12 +24,6 @@ import time
 
 import numpy as np
 
-# values the port refuses, with the slice that brings each
-_LATER = {
-    ("precision", "int8_mlp"): "the int8 fc1 tier comes with its own slice",
-}
-
-
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="Evaluate a multi-modal classifier (PyTorch/CUDA port)",
@@ -46,7 +40,8 @@ def parse_args(argv=None):
         choices=["fp32", "bf16", "bf16_fast", "int8_mlp"],
         default="fp32",
         help="fp32 = strict parity; bf16 = mixed precision; bf16_fast adds "
-        "bf16 attention scores on the 'xla' core; int8_mlp is not ported yet",
+        "bf16 attention scores on the 'xla' core; int8_mlp = bf16_fast + int8 "
+        "products in the (768, 3072) fc1 layers (ops/quant.py; eval-only)",
     )
     parser.add_argument(
         "--engine",
@@ -94,11 +89,7 @@ def parse_args(argv=None):
         default="cuda",
         help="where the model runs; cuda needs a card",
     )
-    args = parser.parse_args(argv)
-    for (name, value), why in _LATER.items():
-        if getattr(args, name) == value:
-            raise NotImplementedError(f"--{name} {value} is not ported yet: {why}")
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None):
@@ -134,12 +125,17 @@ def main(argv=None):
     model, config = model_io.load_checkpoint(
         args.checkpoint, args.encoder_dir, device=args.device
     )
-    if args.precision in ("bf16", "bf16_fast"):
+    if args.precision in ("bf16", "bf16_fast", "int8_mlp"):
         model = model_io.with_performance_options(
             model,
             compute_dtype="bfloat16",
             scores_dtype="bfloat16" if args.precision != "bf16" else None,
         ).to(torch.bfloat16)
+    if args.precision == "int8_mlp":
+        from multimodal_content_moderation_tpu_torch.ops.quant import quantize_fc1_layers
+
+        model, nq = quantize_fc1_layers(model)
+        print(f"int8 MLP: quantized {nq} fc1 layers (opt-in, eval-only)")
     if args.attention != "xla":
         model = model_io.with_performance_options(model, attention_impl=args.attention)
     class_names = config.get("class_names", ["harmful"])

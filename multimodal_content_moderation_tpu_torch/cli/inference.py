@@ -46,7 +46,9 @@ class MultiModalClassifier:
 
     ``predict`` returns per-class ``{label, probability, threshold}`` and
     ``any_harmful``. ``precision``: fp32 | bf16 | bf16_fast (bf16 attention
-    scores on the "xla" core); ``engine``: standard (normalised fp32 pixels)
+    scores on the "xla" core) | int8_mlp (bf16_fast with int8 products in
+    the (768, 3072) fc1 layers, ``ops/quant.py``; ``quantized_layers`` says
+    how many); ``engine``: standard (normalised fp32 pixels)
     | fast (the uint8 wire and the fused patch-embed kernel, with text
     buckets, except for the generic backend, whose tower may mean-pool over
     the pads); ``image_backend``: pil | native | native_scaled;
@@ -76,13 +78,8 @@ class MultiModalClassifier:
             parse_seq_buckets,
         )
 
-        if precision == "int8_mlp":
-            raise NotImplementedError(
-                "precision int8_mlp is not ported yet: the int8 fc1 tier (ops/quant.py) "
-                "comes with its own slice (ROADMAP.md queue 1, item 7)"
-            )
-        if precision not in ("fp32", "bf16", "bf16_fast"):
-            raise ValueError(f"precision {precision!r}: want fp32, bf16 or bf16_fast")
+        if precision not in ("fp32", "bf16", "bf16_fast", "int8_mlp"):
+            raise ValueError(f"precision {precision!r}: want fp32, bf16, bf16_fast or int8_mlp")
         model, self.config = model_io.load_checkpoint(
             checkpoint_dir, encoder_dir, dtype=dtype, device=device
         )
@@ -92,6 +89,13 @@ class MultiModalClassifier:
                 compute_dtype="bfloat16",
                 scores_dtype="bfloat16" if precision != "bf16" else None,
             ).to(torch.bfloat16)
+        self.quantized_layers = 0
+        if precision == "int8_mlp":
+            # bf16_fast + int8 products in the (768, 3072) fc1 layers, cast
+            # first and then quantized, as the JAX classifier does
+            from multimodal_content_moderation_tpu_torch.ops.quant import quantize_fc1_layers
+
+            model, self.quantized_layers = quantize_fc1_layers(model)
         if attention != "xla":
             model = model_io.with_performance_options(model, attention_impl=attention)
         self.model = model
@@ -362,7 +366,8 @@ def parse_args(argv=None):
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument(
         "--precision", choices=["fp32", "bf16", "bf16_fast", "int8_mlp"], default="fp32",
-        help="int8_mlp is not ported yet",
+        help="int8_mlp = bf16_fast + int8 products in the (768, 3072) fc1 layers "
+        "(ops/quant.py; eval-only)",
     )
     parser.add_argument(
         "--engine", choices=["standard", "fast"], default="standard",

@@ -16,7 +16,8 @@ in ``VisionTextDualEncoderModel`` names, read by
 
 ``model.safetensors`` is read with the ``safetensors`` package where it is
 installed, else with ``read_safetensors``, a reader of the format built from
-the standard library, so a checkpoint loads on a machine without the package.
+the standard library, so a checkpoint loads on a machine without the package;
+``write_safetensors`` writes one (``models/export.py``) without it.
 """
 
 from __future__ import annotations
@@ -302,6 +303,32 @@ def read_safetensors(path: str) -> Dict[str, Union[np.ndarray, torch.Tensor]]:
         else:
             out[name] = np.frombuffer(data, dtype=dt, count=count, offset=start).reshape(shape)
     return out
+
+
+def write_safetensors(sd: Dict[str, Union[np.ndarray, torch.Tensor]], path: str) -> str:
+    """{name: array or tensor} -> a .safetensors file of F32 tensors (what
+    the JAX package's export writes), with the standard library and numpy:
+    an 8-byte little-endian header length, a JSON header of each tensor's
+    dtype, shape and data offsets (names sorted), padded with spaces to 8
+    bytes, then the raw little-endian data."""
+    header, blobs, offset = {}, [], 0
+    for name in sorted(sd):
+        x = sd[name]
+        if isinstance(x, torch.Tensor):
+            x = x.detach().to("cpu", torch.float32).numpy()
+        raw = np.ascontiguousarray(x, "<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(np.shape(x)),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    return path
 
 
 def load_safetensors(path: str) -> Dict[str, Union[np.ndarray, torch.Tensor]]:

@@ -37,6 +37,7 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     ACTIVATIONS,
     checkpoint_replaying,
     dense,
+    dense_maybe_int8,
     dropout,
     layer_norm,
     mha,
@@ -271,7 +272,7 @@ def _postln_block(x, p, cfg: GenericTextConfig, key_mask, generator=None):
         )
         attn = dropout(attn, cfg.hidden_dropout_prob, g)
         x = layer_norm(x + attn, p["ln1"], cfg.layer_norm_eps)
-        y = ACTIVATIONS[cfg.hidden_act](dense(x, p["fc1"]))
+        y = ACTIVATIONS[cfg.hidden_act](dense_maybe_int8(x, p["fc1"]))
         y = dropout(dense(y, p["fc2"]), cfg.hidden_dropout_prob, g)
         return layer_norm(x + y, p["ln2"], cfg.layer_norm_eps)
 

@@ -28,8 +28,13 @@ class ParamTree(nn.Module):
     def __contains__(self, key: str) -> bool:
         return key in self._keys
 
+    def keys(self):
+        return list(self._keys)
+
 
 def _wrap(value):
+    if isinstance(value, (nn.Module, nn.Parameter)):  # shared with another tree
+        return value
     if isinstance(value, dict):
         return ParamTree(value)
     if isinstance(value, (list, tuple)):

@@ -33,6 +33,7 @@ from multimodal_content_moderation_tpu_torch.ops.cuda_attention import NEG_INF
 from multimodal_content_moderation_tpu_torch.ops.layers import (
     ACTIVATIONS,
     dense,
+    dense_maybe_int8,
     layer_norm,
     mha,
     patchify,
@@ -177,7 +178,7 @@ def _map_head(hidden: torch.Tensor, p, cfg: SigLIPVisionConfig) -> torch.Tensor:
     probe = p["probe"].to(hidden.dtype).expand(B, 1, cfg.hidden_size)
     x = mha(probe, hidden, p["attn"], cfg.num_heads)
     y = layer_norm(x, p["ln"], cfg.layer_norm_eps)
-    y = ACTIVATIONS[cfg.hidden_act](dense(y, p["fc1"]))
+    y = ACTIVATIONS[cfg.hidden_act](dense_maybe_int8(y, p["fc1"]))
     return (x + dense(y, p["fc2"]))[:, 0]
 
 

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ, attention_nhd_diff
 from multimodal_content_moderation_tpu_torch.ops.cuda_flash import fused_mha
+from multimodal_content_moderation_tpu_torch.ops.quant import dense_int8
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -91,6 +92,14 @@ def dense(x: torch.Tensor, p) -> torch.Tensor:
     if "b" in p and p["b"] is not None:
         y = y + p["b"].float()
     return y.to(x.dtype)
+
+
+def dense_maybe_int8(x: torch.Tensor, p) -> torch.Tensor:
+    """``dense``, or ``ops.quant.dense_int8`` for a leaf that
+    ``quantize_fc1_layers`` made int8 (``{"w_i8", "scale", "b"}``)."""
+    if "w_i8" in p:
+        return dense_int8(x, p)
+    return dense(x, p)
 
 
 def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
@@ -279,7 +288,7 @@ def transformer_block(
             causal=causal, key_mask=key_mask,
         )
         y = layer_norm(x, p["ln2"], eps)
-        y = activation(dense(y, p["fc1"]))
+        y = activation(dense_maybe_int8(y, p["fc1"]))
         return x + dense(y, p["fc2"])
 
     if remat and torch.is_grad_enabled():

@@ -33,7 +33,8 @@ def model_fn(model_dir: str, encoder_dir: Optional[str] = None, device: str = "c
 
     - ``MMHARM_ENGINE``: standard | fast (the uint8 wire + the patch-embed
       kernel);
-    - ``MMHARM_PRECISION``: fp32 | bf16 | bf16_fast;
+    - ``MMHARM_PRECISION``: fp32 | bf16 | bf16_fast | int8_mlp (bf16_fast
+      with int8 products in the (768, 3072) fc1 layers, ``ops/quant.py``);
     - ``MMHARM_IMAGE_BACKEND``: pil | native | native_scaled;
     - ``MMHARM_ATTENTION``: xla | pallas (the hand-written kernels);
     - ``MMHARM_SEQ_BUCKETS``: the fast engine's text buckets ('auto' =

@@ -80,11 +80,6 @@ def test_evaluate_cli_matches_jax(checkpoint, data_dir, tmp_path, attention, eng
         assert g["roc_auc"] == pytest.approx(w["roc_auc"], abs=1e-4)
 
 
-def test_evaluate_cli_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        t_eval.parse_args(["--checkpoint", "c", "--test_csv", "t.csv", "--precision", "int8_mlp"])
-
-
 @pytest.mark.parametrize("backend", ["native", "native_scaled"])
 def test_evaluate_cli_takes_the_native_backends(backend, tmp_path):
     """The native JPEG backends and the pixel cache are ported: the CLI

@@ -17,8 +17,8 @@ PORT = REPO / "multimodal_content_moderation_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 
 # what chip_smoke.py drives on the card: the CLIP and SigLIP eval paths, the
-# training path, the multi-task model, and the moderation endpoint with the evaluate CLI (CSV rows,
-# the CLIP BPE tokenizer, JPEG decode, the pixel cache)
+# training path, the multi-task model, the moderation endpoint with the evaluate CLI (CSV rows,
+# the CLIP BPE tokenizer, JPEG decode, the pixel cache), the int8 fc1 tier and the export
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.utils.compile_cache",
     "multimodal_content_moderation_tpu_torch.data.tokenizer",
@@ -28,6 +28,7 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.cli.common",
     "multimodal_content_moderation_tpu_torch.cli.evaluate",
     "multimodal_content_moderation_tpu_torch.cli.inference",
+    "multimodal_content_moderation_tpu_torch.cli.export",
     "multimodal_content_moderation_tpu_torch.serving",
     "multimodal_content_moderation_tpu_torch.serving.handler",
     "multimodal_content_moderation_tpu_torch.serving.server",
@@ -37,6 +38,7 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.ops.cuda_attention",
     "multimodal_content_moderation_tpu_torch.ops.cuda_flash",
     "multimodal_content_moderation_tpu_torch.ops.layers",
+    "multimodal_content_moderation_tpu_torch.ops.quant",
     "multimodal_content_moderation_tpu_torch.models.clip",
     "multimodal_content_moderation_tpu_torch.models.siglip",
     "multimodal_content_moderation_tpu_torch.models.generic",
@@ -46,6 +48,7 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.models.bridge",
     "multimodal_content_moderation_tpu_torch.models.convert",
     "multimodal_content_moderation_tpu_torch.models.model_io",
+    "multimodal_content_moderation_tpu_torch.models.export",
     "multimodal_content_moderation_tpu_torch.models.fast_infer",
     "multimodal_content_moderation_tpu_torch.data.pipeline",
     "multimodal_content_moderation_tpu_torch.data.images",

@@ -226,8 +226,15 @@ def test_warmup_builds_only_the_kernels_the_forward_launches(clip_checkpoint, si
 
 
 def test_int8_mlp_and_the_default_device(clip_checkpoint):
-    with pytest.raises(NotImplementedError, match="int8"):
-        t_inf.MultiModalClassifier(clip_checkpoint, precision="int8_mlp", device="cpu")
+    """int8_mlp loads as bf16_fast with the (768, 3072) fc1 layers in int8:
+    this checkpoint's towers are 32 wide, so none is quantized (the tier
+    against JAX's: tests/test_torch_quant.py)."""
+    tc = t_inf.MultiModalClassifier(clip_checkpoint, precision="int8_mlp", device="cpu")
+    assert tc.quantized_layers == 0
+    assert tc.model.encoder_config.vision.compute_dtype == "bfloat16"
+    assert tc.model.encoder_config.vision.scores_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="precision"):
+        t_inf.MultiModalClassifier(clip_checkpoint, precision="int4", device="cpu")
     if not torch.cuda.is_available():
         # the entry point runs on the card unless the caller asks for the CPU
         with pytest.raises(RuntimeError, match="device='cpu'"):

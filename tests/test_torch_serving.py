@@ -155,8 +155,9 @@ def test_model_fn_knobs(clip_checkpoint, monkeypatch):  # noqa: F811
     clf = th.model_fn(clip_checkpoint, device="cpu")
     assert clf.engine is not None and clf._bucket_ladder is None
     monkeypatch.setenv("MMHARM_PRECISION", "int8_mlp")
-    with pytest.raises(NotImplementedError):
-        th.model_fn(clip_checkpoint, device="cpu")
+    clf = th.model_fn(clip_checkpoint, device="cpu")
+    assert clf.quantized_layers == 0  # 32-wide towers: no (768, 3072) fc1
+    assert clf.model.encoder_config.text.compute_dtype == "bfloat16"
 
 
 def test_local_test_main(clip_checkpoint, capsys):  # noqa: F811
