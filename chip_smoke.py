@@ -160,6 +160,22 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``model_fn`` at int8_mlp. (e) ``cli/export.py`` on the run directories
    that phases 6, 8 and 9 trained: each bundle's keys are its layout's, and
    it reloads to the run's parameters and fp32 logits bit for bit.
+11. The deployment path at full CLIP ViT-B/32 width (random weights from a
+   seed; an encoder dir without weights, with the synthetic 49,408-entry
+   BPE), with yaml, PIL, pandas and ``regex`` hidden as in every phase:
+   (a) ``prepare_data.main`` on a raw MMHS150K directory (288 ids, three
+   annotators' indices 0-5, so that the reference's index quirk shows; the
+   JPEG fixtures as its images) and ``deploy prepare-data`` into channels;
+   (b) ``serving/entrypoint.train`` from ``SM_CHANNEL_*`` (4 micro-steps at
+   B=32, the f32 wire, no kernel), its ``resolved_config.yaml`` (the port's
+   emitter), ``hyperparameters.json``, ``final_metrics.json`` and
+   ``inference_config.json``; (c) the train CLI on a YAML file whose
+   ``_base_`` is ``config/clip_fusion.yaml`` (the stdlib reader), on the u8
+   wire with the kernels (exact launches, all on the tensor cores),
+   ``report_to: tensorboard`` (the event file's CRCs and tags) and
+   ``dump_test_predictions``; (d) ``deploy package`` of that run, extracted,
+   ``model_fn`` at bf16_fast with the kernels (cold start, exact launches
+   per served batch), its logits equal bit for bit to the unpacked run's.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3806,6 +3822,355 @@ def export_phase(torch, card: str):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the deployment path (data prep, the SageMaker entrypoint, the
+# train CLI on a YAML file, packaging and serving the package)
+# ---------------------------------------------------------------------------
+
+DEPLOY_ROOT = os.path.join(REPO, "build", "chip_smoke_deploy")
+DEPLOY_SPLITS = {"train": 5 * TRAIN_BATCH, "val": 64, "test": 64}  # MMHS150K split sizes, cut
+DEPLOY_STEPS = 4  # micro-steps of each training run (B=32)
+# the endpoint as phase 11 (d) serves the package
+DEPLOY_ENV = {"MMHARM_ENGINE": "fast", "MMHARM_ATTENTION": "pallas",
+              "MMHARM_PRECISION": "bf16_fast", "MMHARM_IMAGE_BACKEND": "native_scaled",
+              "MMHARM_SEQ_BUCKETS": "auto", "MMHARM_PREWARM": "1"}
+
+
+def write_clip_encoder_dir(directory: str) -> str:
+    """A CLIP ViT-B/32 encoder dir as a user downloads it, without weights
+    (the train CLI then keeps the model's seeded random init): the
+    ``config.json``, a synthetic 49,408-entry BPE vocabulary and the
+    preprocessor config."""
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.testdata import write_clip_bpe
+
+    os.makedirs(directory)
+    vocab = write_clip_bpe(directory, HF_CLIP_B32["text_config"]["vocab_size"], seed=0)
+    check(vocab["<|endoftext|>"] == HF_CLIP_B32["text_config"]["eos_token_id"],
+          "deploy: the synthetic vocabulary's EOS id differs from the config's")
+    for name, obj in (("config.json", HF_CLIP_B32),
+                      ("preprocessor_config.json", {
+                          "size": {"shortest_edge": 224},
+                          "crop_size": {"height": 224, "width": 224},
+                          "image_mean": list(CLIP_MEAN), "image_std": list(CLIP_STD)})):
+        with open(os.path.join(directory, name), "w") as f:
+            json.dump(obj, f)
+    return directory
+
+
+def write_mmhs_raw(root: str, g):
+    """A raw MMHS150K directory: ``MMHS150K_GT.json`` (tweet-length texts,
+    three annotators' label indices 0-5 each, so that the reference's
+    index quirk shows) and ``splits/{train,val,test}_ids.txt``. Returns the
+    rows' expected ``labels`` field by id (index 0 -> racist, 5 dropped)."""
+    raw = os.path.join(root, "raw")
+    os.makedirs(os.path.join(raw, "splits"))
+    gt, want, next_id = {}, {}, 1000000000000000000
+    for split, n in DEPLOY_SPLITS.items():
+        ids = []
+        for _ in range(n):
+            next_id += int(g.integers(1, 10**9))
+            labels = [int(i) for i in g.integers(0, 6, size=3)]
+            gt[str(next_id)] = {"img_url": f"http://pbs.twimg.com/{next_id}.jpg",
+                                "labels": labels, "tweet_text": tweet(g),
+                                "labels_str": [str(i) for i in labels]}
+            want[str(next_id)] = ",".join(CLASSES[i] for i in labels if i < len(CLASSES))
+            ids.append(str(next_id))
+        with open(os.path.join(raw, "splits", f"{split}_ids.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    with open(os.path.join(raw, "MMHS150K_GT.json"), "w") as f:
+        json.dump(gt, f)
+    return raw, want
+
+
+def deploy_data_prep(root: str, g):
+    """(a) ``prepare_data.main`` on a raw MMHS150K directory, the JPEG
+    fixtures placed as its images (every 17th missing), then ``deploy
+    prepare-data`` into SageMaker channels."""
+    import contextlib
+    import io
+
+    from multimodal_content_moderation_tpu_torch.cli import prepare_data
+    from multimodal_content_moderation_tpu_torch.data.dataset import read_csv
+    from multimodal_content_moderation_tpu_torch.serving import deploy
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures, pil_crops
+
+    raw, want = write_mmhs_raw(root, g)
+    data = os.path.join(root, "mmhs150k")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        prepare_data.main(["--dataset", "mmhs150k", "--raw_dir", raw, "--out_dir", data])
+    jpegs = [p for n, p in jpeg_fixtures().items() if pil_crops(n) is not None]
+    rows = {}
+    for split in DEPLOY_SPLITS:
+        table = read_csv(os.path.join(data, f"{split}.csv"))
+        check(table.columns == ["text", "image_path", "labels"],
+              f"prepare-data {split}.csv columns {table.columns}")
+        paths, labels = table.strings("image_path"), table.strings("labels")
+        check([want[p[:-4]] for p in paths] == labels,
+              f"prepare-data {split}.csv: labels differ from the index mapping")
+        for i, p in enumerate(paths):
+            if i % 17 != 16:
+                shutil.copy(jpegs[i % len(jpegs)], os.path.join(data, "images", p))
+        rows[split] = len(table)
+    check(rows == DEPLOY_SPLITS, f"prepare-data rows {rows}, want {DEPLOY_SPLITS}")
+    with open(os.path.join(data, "class_names.txt")) as f:
+        check(f.read().split() == CLASSES, "prepare-data class_names.txt")
+    with contextlib.redirect_stdout(out):
+        deploy.main(["prepare-data", "--train-csv", os.path.join(data, "train.csv"),
+                     "--val-csv", os.path.join(data, "val.csv"),
+                     "--test-csv", os.path.join(data, "test.csv"),
+                     "--image-root", os.path.join(data, "images"),
+                     "--output-dir", os.path.join(root, "channels")])
+    channels = {c: os.path.join(root, "channels", c) for c in
+                ("train", "validation", "test", "images")}
+    for c, split in (("train", "train"), ("validation", "val"), ("test", "test")):
+        with open(os.path.join(channels[c], "data.csv"), "rb") as a, \
+                open(os.path.join(data, f"{split}.csv"), "rb") as b:
+            check(a.read() == b.read(), f"deploy prepare-data: channel {c} differs")
+    n_images = len(os.listdir(channels["images"]))
+    print(f"deploy (a): prepare-data rows {rows}, {n_images} images in the channel")
+    return {"rows": rows, "images": n_images, "printed": out.getvalue().splitlines()}, channels
+
+
+def deploy_entrypoint(root: str, channels: dict, enc: str, card: str):
+    """(b) ``serving/entrypoint.train`` from ``SM_CHANNEL_*`` at full width:
+    B=32, ``DEPLOY_STEPS`` micro-steps, the native decoder, the entrypoint's
+    defaults otherwise (the f32 wire and the "xla" core: no kernel runs),
+    writing ``resolved_config.yaml`` with yaml hidden."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.serving import entrypoint
+    from multimodal_content_moderation_tpu_torch.utils import yaml_text
+
+    env = {"SM_CHANNEL_TRAIN": channels["train"], "SM_CHANNEL_VALIDATION": channels["validation"],
+           "SM_CHANNEL_TEST": channels["test"], "SM_CHANNEL_IMAGES": channels["images"],
+           "SM_CHANNEL_ENCODER": enc, "SM_MODEL_DIR": os.path.join(root, "sm_model"),
+           "SM_OUTPUT_DATA_DIR": os.path.join(root, "sm_output")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        counts = _reset_counts()
+        t0 = time.perf_counter()
+        out = entrypoint.train(["--max-steps", str(DEPLOY_STEPS), "--batch-size",
+                                str(TRAIN_BATCH), "--epochs", "1", "--image-backend", "native",
+                                "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        _restore_env(saved)
+    check(launches == _counts(), f"entrypoint (f32 wire, xla): launches {launches}, want none")
+    outdir, model_dir = env["SM_OUTPUT_DATA_DIR"], env["SM_MODEL_DIR"]
+    with open(os.path.join(outdir, "resolved_config.yaml")) as f:
+        resolved = yaml_text.loads(f.read(), "resolved_config.yaml")
+    check(resolved["data"]["train_csv"] == os.path.join(channels["train"], "data.csv")
+          and resolved["data"]["image_root"] == channels["images"]
+          and resolved["model"]["encoder_dir"] == enc
+          and resolved["training"]["lr_encoder"] == 1e-5
+          and isinstance(resolved["training"]["lr_encoder"], float)
+          and resolved["training"]["max_steps"] == DEPLOY_STEPS,
+          f"entrypoint: resolved_config.yaml {resolved}")
+    with open(os.path.join(outdir, "hyperparameters.json")) as f:
+        hp = json.load(f)
+    with open(os.path.join(outdir, "final_metrics.json")) as f:
+        final = json.load(f)
+    with open(os.path.join(model_dir, "inference_config.json")) as f:
+        inference = json.load(f)
+    check(hp["device"] == "cuda" and hp["max_steps"] == DEPLOY_STEPS,
+          f"entrypoint: hyperparameters.json {hp}")
+    check(final == out["val"] and all(np.isfinite(final[k]) for k in ("loss", "roc_macro")),
+          f"entrypoint: final_metrics.json {final}")
+    check(inference["format"] == "torch" and inference["class_names"] == CLASSES
+          and len(inference["thresholds"]) == len(CLASSES)
+          and os.path.isdir(inference["best_checkpoint_dir"]),
+          f"entrypoint: inference_config.json {inference}")
+    check(out["result"]["global_step"] == DEPLOY_STEPS,
+          f"entrypoint: {out['result']['global_step']} steps, want {DEPLOY_STEPS}")
+    sps = out["result"]["train_samples_per_second"]
+    print(f"deploy (b): entrypoint wall {wall:.1f} s, training {sps:.1f} samples/s "
+          f"(f32 wire, xla, B={TRAIN_BATCH}; {card})")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    return {"wall_s": wall, "train_samples_per_second": sps, "launches": launches,
+            "val": final, "resolved_keys": sorted(resolved)}
+
+
+def deploy_train_yaml(root: str, channels: dict, enc: str, card: str):
+    """(c) The train CLI on a YAML file whose ``_base_`` is the shipped
+    ``config/clip_fusion.yaml`` (B=32 x 2, bf16, ``text_fit``), read with
+    yaml hidden, on the u8 wire with the kernels, ``report_to:
+    tensorboard`` and ``dump_test_predictions``: exact launches (1 / 24 /
+    24 per micro-step, 1 + 24 per eval batch, every one on the tensor
+    cores), the event file's CRCs and tags, ``test_predictions.csv``."""
+    import glob
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.cli import train as train_cli
+    from multimodal_content_moderation_tpu_torch.data.dataset import read_csv
+    from multimodal_content_moderation_tpu_torch.utils import events
+    from multimodal_content_moderation_tpu_torch.utils.yaml_text import dumps
+
+    check(sys.modules.get("yaml", 0) is None, "deploy: yaml is not hidden from imports")
+    run = os.path.join(root, "run")
+    cfg = {
+        "_base_": os.path.join(REPO, "config", "clip_fusion.yaml"),
+        "model": {"encoder_dir": enc},
+        "data": {"train_csv": os.path.join(channels["train"], "data.csv"),
+                 "val_csv": os.path.join(channels["validation"], "data.csv"),
+                 "test_csv": os.path.join(channels["test"], "data.csv"),
+                 "image_root": channels["images"], "image_backend": "native"},
+        "training": {"wire": "u8", "attention": "pallas", "max_steps": DEPLOY_STEPS,
+                     "num_train_epochs": 1},
+        # the augmenting train transform (RandomResizedCrop + jitter) is PIL's
+        "augmentation": {"enabled": False},
+        "logging": {"report_to": "tensorboard", "logging_steps": 1},
+        "saving": {"output_dir": run},
+        "dump_test_predictions": True,
+    }
+    path = os.path.join(root, "clip_fusion_deploy.yaml")
+    with open(path, "w") as f:
+        f.write(dumps(cfg))
+    n_eval = 3 * -(-DEPLOY_SPLITS["val"] // 64) + 2 * -(-DEPLOY_SPLITS["test"] // 64)
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    out = train_cli.main(["--config", path, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = _counts(patch_embed_u8=DEPLOY_STEPS + n_eval,
+                   attention_nhd=24 * (DEPLOY_STEPS + n_eval),
+                   attention_nhd_bwd=24 * DEPLOY_STEPS)
+    check(launches == want, f"train CLI (u8, pallas): launches {launches}, want {want} for "
+                            f"{DEPLOY_STEPS} micro-steps and {n_eval} eval batches")
+    check(out["result"]["global_step"] == DEPLOY_STEPS and np.isfinite(out["val"]["loss"]),
+          f"train CLI: {out['result']['global_step']} steps, val {out['val']}")
+
+    (event_file,) = glob.glob(os.path.join(run, "logs", "events.out.tfevents.*"))
+    scalars = events.read_scalars(event_file)  # raises where a CRC does not hold
+    train_tags = [(t, s) for t, s, _ in scalars if t.startswith("train/")]
+    want_train = [(t, s) for s in range(1, DEPLOY_STEPS + 1)
+                  for t in ("train/loss", "train/samples_per_second")]
+    eval_tags = {t for t, s, _ in scalars if t.startswith("eval/") and s == DEPLOY_STEPS}
+    check(train_tags == want_train and {"eval/loss", "eval/roc_macro", "eval/f1_macro",
+                                        "eval/epoch", "eval/train_loss"} <= eval_tags
+          and all(np.isfinite(v) for _, _, v in scalars),
+          f"train CLI: event tags {sorted({t for t, _, _ in scalars})}")
+    table = read_csv(os.path.join(run, "test_predictions.csv"))
+    check(table.columns == [f"prob_{c}" for c in CLASSES] + [f"label_{c}" for c in CLASSES]
+          and len(table) == DEPLOY_SPLITS["test"],
+          f"train CLI: test_predictions.csv columns {table.columns}, {len(table)} rows")
+    probs = np.array([table.values(f"prob_{c}") for c in CLASSES], np.float64)
+    check(bool(((probs > 0) & (probs < 1)).all()), "train CLI: predictions outside (0, 1)")
+    sps = out["result"]["train_samples_per_second"]
+    print(f"deploy (c): train CLI on {os.path.basename(path)} wall {wall:.1f} s, training "
+          f"{sps:.1f} samples/s (u8 wire, pallas, B={TRAIN_BATCH} x 2), launches {launches}, "
+          f"{len(scalars)} scalar events; {card}")
+    return {"wall_s": wall, "train_samples_per_second": sps, "launches": launches,
+            "eval_batches": n_eval, "events": len(scalars), "event_tags": sorted(
+                {t for t, _, _ in scalars}), "val": out["val"]}, run
+
+
+def _restore_env(saved: dict) -> None:
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def deploy_serve(root: str, run: str, card: str):
+    """(d) ``deploy package`` on (c)'s run directory (its ``trainstate-*``,
+    which only resumes training, left out), extracted, and served by
+    ``model_fn`` on the card at bf16_fast with the kernels: the cold start,
+    exact launches per served batch, and logits equal bit for bit to a
+    classifier loaded from the unpacked run directory in the same process."""
+    import base64
+    import glob
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.serving import deploy
+    from multimodal_content_moderation_tpu_torch.serving import handler as h
+    from multimodal_content_moderation_tpu_torch.testdata import jpeg_fixtures
+
+    for state in glob.glob(os.path.join(run, "trainstate-*")):
+        shutil.rmtree(state)
+    tar = os.path.join(root, "model.tar.gz")
+    t0 = time.perf_counter()
+    deploy.main(["package", "--model-dir", run, "--output", tar])
+    package_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    target = deploy.extract_model_package(tar, os.path.join(root, "extracted"))
+    extract_s = time.perf_counter() - t0
+    check(os.path.exists(os.path.join(target, "inference_config.json"))
+          and glob.glob(os.path.join(target, "checkpoint-*", "params.pt")),
+          f"deploy: the package holds {os.listdir(target)}")
+
+    g = np.random.default_rng(31)
+    blobs = [base64.b64encode(p.read_bytes()).decode() for p in jpeg_fixtures().values()]
+    insts = [{"text": tweet(g), **({"image": blobs[i % len(blobs)]} if i % 5 != 4 else {})}
+             for i in range(40)]
+    saved = {k: os.environ.get(k) for k in DEPLOY_ENV}
+    os.environ.update(DEPLOY_ENV)
+    try:
+        counts = _reset_counts()
+        t0 = time.perf_counter()
+        served = h.model_fn(target, device="cuda")
+        cold_s = time.perf_counter() - t0
+        warm = counts()
+        counts = _reset_counts()
+        got = served_logits(h, served, insts)
+        launches = counts()
+        unpacked = h.model_fn(run, device="cuda")
+        want = served_logits(h, unpacked, insts)
+    finally:
+        _restore_env(saved)
+    check(warm["patch_embed_u8"] > 0 and warm["attention_nhd"] == 24 * warm["patch_embed_u8"]
+          and warm["patch_embed_u8_tensor_core"] == warm["patch_embed_u8"]
+          and warm["attention_nhd_tensor_core"] == warm["attention_nhd"],
+          f"deploy: model_fn's warm-up launches {warm}")
+    batches = -(-len(insts) // served.batch_size)
+    check(launches == _counts(patch_embed_u8=batches, attention_nhd=24 * batches),
+          f"deploy: launches {launches} for {batches} served batches")
+    check(got.shape == (len(insts), len(CLASSES)) and bool(np.isfinite(got).all()),
+          f"deploy: served logits {got.shape}")
+    check(np.array_equal(got, want), f"deploy: the package's logits differ from the unpacked "
+                                     f"run's by {float(np.abs(got - want).max())}")
+    size_mb = os.path.getsize(tar) / 1e6
+    print(f"deploy (d): package {size_mb:.1f} MB in {package_s:.1f} s, extract {extract_s:.1f} s,"
+          f" model_fn cold start {cold_s:.2f} s, {len(insts)} requests in {batches} batches, "
+          f"logits equal to the unpacked run's; {card}")
+    return {"package_mb": size_mb, "package_s": package_s, "extract_s": extract_s,
+            "model_fn_cold_start_s": cold_s, "warmup_launches": warm, "launches": launches,
+            "served_batches": batches, "logits_equal_to_unpacked_run": True}
+
+
+def deploy_phase(torch, card: str):
+    """Phase 11: data prep -> channels -> the entrypoint -> the train CLI on a
+    YAML file -> package -> serve, at full CLIP ViT-B/32 width, each step a
+    named range (``utils/profiling.annotate``). Removes its directory."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.utils.profiling import annotate
+
+    shutil.rmtree(DEPLOY_ROOT, ignore_errors=True)
+    os.makedirs(DEPLOY_ROOT)
+    g = np.random.default_rng(30)
+    report = {"card": card}
+    with annotate("deploy/encoder_dir"):
+        enc = write_clip_encoder_dir(os.path.join(DEPLOY_ROOT, "encoder"))
+    with annotate("deploy/prepare_data"):
+        report["prepare_data"], channels = deploy_data_prep(DEPLOY_ROOT, g)
+    with annotate("deploy/entrypoint"):
+        report["entrypoint"] = deploy_entrypoint(DEPLOY_ROOT, channels, enc, card)
+    with annotate("deploy/train_cli_yaml"):
+        report["train_cli"], run = deploy_train_yaml(DEPLOY_ROOT, channels, enc, card)
+    with annotate("deploy/package_and_serve"):
+        report["serve"] = deploy_serve(DEPLOY_ROOT, run, card)
+    report["launches"] = report["train_cli"]["launches"]
+    shutil.rmtree(DEPLOY_ROOT, ignore_errors=True)
+    return report
+
+
 # device-kernel name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = [
     ("attention_nhd_bwd", ("attention_nhd_bwd",)),
@@ -4048,7 +4413,7 @@ def main() -> int:
     results["cases"] = cases
     print(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
-    # phases 3-10: the paths through the entry points; each prints its report
+    # phases 3-11: the paths through the entry points; each prints its report
     paths = [
         (3, "model", lambda: full_model_phase(torch, card)),  # the CLIP eval path
         (4, "train", lambda: train_phase(torch, card)),  # the training path
@@ -4065,6 +4430,7 @@ def main() -> int:
         (10, "int8_other", lambda: other_int8_phase(torch, card)),  # SigLIP-224, generic
         (10, "int8_entry_points", lambda: entry_points_int8_phase(torch, card)),
         (10, "export", lambda: export_phase(torch, card)),  # trained runs -> reference
+        (11, "deploy", lambda: deploy_phase(torch, card)),  # prep -> train -> package -> serve
     ]
     for phase in sorted({p for p, *_ in paths}):
         t0 = time.perf_counter()
@@ -4093,7 +4459,8 @@ def main() -> int:
                         "generic_eval": generic["eval"]["main_path_launches"],
                         "generic_train": generic["train"]["main_path_launches"],
                         "int8_eval": int8["int8_eval"]["main_path_launches"],
-                        "export": results["export"]["launches"]}
+                        "export": results["export"]["launches"],
+                        "deploy": results["deploy"]["launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4101,7 +4468,7 @@ def main() -> int:
                    "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
                    "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
                    "generic": generic, **int8, "export": results["export"],
-                   "kernels": kernels},
+                   "deploy": results["deploy"], "kernels": kernels},
                   f, indent=1)
 
     print(card)

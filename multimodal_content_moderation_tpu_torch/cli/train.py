@@ -20,6 +20,11 @@ package). ``config/clip_fusion.yaml``,
 ``config/siglip_fusion.yaml`` and ``config/clip_mtl.yaml`` train as shipped
 (``model.head: mtl`` scores each epoch with the per-task metrics). The run
 directory records ``"format": "torch"`` and loads in the port's evaluate CLI.
+The config is read with PyYAML where it is installed and with the port's
+own reader where it is not (``utils/config.load_config``);
+``logging.report_to: tensorboard`` writes event files under ``logs/`` and
+``dump_test_predictions`` writes ``test_predictions.csv``, neither with
+a package beyond torch and numpy.
 """
 
 from __future__ import annotations
@@ -107,6 +112,16 @@ def override_config(config: Dict[str, Any], args) -> Dict[str, Any]:
     if args.seed is not None:
         config["seed"] = args.seed
     return config
+
+
+def dump_predictions(path: str, probs: np.ndarray, labels: np.ndarray, class_names) -> None:
+    """``test_predictions.csv``: every ``prob_<name>`` column, then every
+    ``label_<name>`` column, each value written as pandas writes its
+    column's dtype (the JAX CLI's ``DataFrame.to_csv``), with no pandas."""
+    from multimodal_content_moderation_tpu_torch.data.dataset import write_records
+
+    names = [f"prob_{n}" for n in class_names] + [f"label_{n}" for n in class_names]
+    write_records(path, [dict(zip(names, list(p) + list(y))) for p, y in zip(probs, labels)])
 
 
 def _refuse_unported(config, model_cfg, data_cfg) -> None:
@@ -300,14 +315,9 @@ def main(argv=None) -> Dict[str, Any]:
         save_json(test_results, os.path.join(output_dir, "test_metrics.json"))
         logger.info("test: %s", test_results)
         if config.get("dump_test_predictions", False):
-            import pandas as pd
-
             t_logits, t_labels = trainer.predict(test_ds)
-            t_probs = 1 / (1 + np.exp(-t_logits))
-            pred_df = pd.DataFrame({f"prob_{n}": t_probs[:, j] for j, n in enumerate(class_names)})
-            for j, n in enumerate(class_names):
-                pred_df[f"label_{n}"] = t_labels[:, j]
-            pred_df.to_csv(os.path.join(output_dir, "test_predictions.csv"), index=False)
+            dump_predictions(os.path.join(output_dir, "test_predictions.csv"),
+                             1 / (1 + np.exp(-t_logits)), t_labels, class_names)
 
     logits, labels = trainer.predict(val_ds)
     priors = [float(p) for p in np.asarray(train_ds.labels).mean(axis=0)]

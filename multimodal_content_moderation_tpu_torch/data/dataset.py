@@ -112,13 +112,8 @@ class CSVTable:
     def write(self, path: str, extra: Dict[str, List[Any]]) -> None:
         """``df.to_csv(path, index=False)`` of the table plus ``extra``
         columns (bools and floats, as the CSV mode of inference adds)."""
-        names = self.columns + list(extra)
         cols = [self._typed[n] for n in self.columns] + list(extra.values())
-        with open(path, "w", encoding="utf-8", newline="") as f:
-            w = csv.writer(f, lineterminator="\n")
-            w.writerow(names)
-            for i in range(self.n):
-                w.writerow([_as_str(c[i]) for c in cols])
+        _write_csv(path, self.columns + list(extra), zip(*cols))
 
 
 def read_csv(path: str) -> CSVTable:
@@ -140,6 +135,35 @@ def read_csv(path: str) -> CSVTable:
         r = r + [""] * (len(columns) - len(r))
         rows.append([None if v in NA_STRINGS else v for v in r])
     return CSVTable(columns, rows)
+
+
+def _csv_field(v: Any) -> str:
+    """pandas' ``to_csv`` text of one value: None and NaN empty, anything
+    else its ``str`` (a numpy scalar's own: a float32 column writes
+    ``0.12345679``, not the float64 ``0.12345679104328156``)."""
+    if v is None or (isinstance(v, (float, np.floating)) and v != v):
+        return ""
+    return str(v)
+
+
+def _write_csv(path: str, columns: List[str], rows) -> None:
+    """pandas' ``to_csv(index=False)`` layout: QUOTE_MINIMAL, ``\\n`` line
+    ends, each value as ``_csv_field`` writes it."""
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(columns)
+        w.writerows([_csv_field(v) for v in r] for r in rows)
+
+
+def write_records(path: str, records: Sequence[Dict[str, Any]]) -> None:
+    """``pd.DataFrame(records).to_csv(path, index=False)`` for records that
+    all have the same keys (the columns, in the first record's order) and
+    values of one type a column (a lone ``\\n`` for no records)."""
+    columns = list(records[0]) if records else []
+    for k, r in enumerate(records):
+        if list(r) != columns:
+            raise ValueError(f"record {k} has keys {list(r)}, the first {columns}")
+    _write_csv(path, columns, (r.values() for r in records))
 
 
 class CSVDataset:

@@ -294,7 +294,9 @@ def load_checkpoint(
 ) -> Tuple[Any, Dict[str, Any]]:
     """Checkpoint -> (model on ``device``, inference_config): a
     reference-format checkpoint, or a ``checkpoint-N`` of the port's own run
-    directory (``"format": "torch"``); a ``FusionModel``, or a
+    directory (``"format": "torch"``) or the run directory itself (its best
+    checkpoint, as ``training/checkpoints.run_checkpoint`` finds it: how a
+    model package of a run unpacks); a ``FusionModel``, or a
     ``MultiTaskModel`` where the config says ``"head": "mtl"`` (with its
     ``head_hidden_dim`` and ``learnable_task_weights``; a reference-format
     checkpoint's weights show both).
@@ -320,8 +322,12 @@ def load_checkpoint(
     cfg_kw = {config_field(backend): enc_cfg}
 
     if cfg.get("format") == "torch":
-        from multimodal_content_moderation_tpu_torch.training.checkpoints import load_params
+        from multimodal_content_moderation_tpu_torch.training.checkpoints import (
+            load_params,
+            run_checkpoint,
+        )
 
+        checkpoint_dir = run_checkpoint(checkpoint_dir, cfg.get("best_checkpoint_dir"))
         model = build_model(
             head, backend, class_names, cfg.get("fusion_dim", 512), device="cpu",
             head_hidden_dim=cfg.get("head_hidden_dim", 0) or 0,

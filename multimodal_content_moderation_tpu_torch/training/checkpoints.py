@@ -76,6 +76,24 @@ def save_checkpoint(
     return path
 
 
+def run_checkpoint(path: str, best_checkpoint_dir: Optional[str] = None) -> str:
+    """The ``checkpoint-<step>`` directory to load for ``path``: ``path``
+    itself where it holds parameters; for a run directory (as a model
+    package unpacks it), the checkpoint named like ``best_checkpoint_dir``
+    under it (the recorded path is the training machine's), else its newest
+    ``checkpoint-<step>``."""
+    if os.path.exists(os.path.join(path, PARAMS_FILE)):
+        return path
+    if best_checkpoint_dir:
+        best = os.path.join(path, os.path.basename(os.path.normpath(best_checkpoint_dir)))
+        if os.path.exists(os.path.join(best, PARAMS_FILE)):
+            return best
+    found = list_checkpoints(path)
+    if not found:
+        raise FileNotFoundError(f"{path}: no {PARAMS_FILE} and no checkpoint-<step> under it")
+    return found[-1]
+
+
 def load_params(path: str) -> Dict[str, torch.Tensor]:
     """The parameter ``state_dict`` saved by ``save_checkpoint`` (on the CPU)."""
     return torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu", weights_only=True)

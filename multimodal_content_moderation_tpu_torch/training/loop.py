@@ -20,7 +20,10 @@ package's ``training/loop.py``).
   path; ``wire: u8``: uint8 patch rows built on the host), per-epoch eval,
   checkpoints with ``save_total_limit``, best-metric tracking, early
   stopping, resume from ``trainstate-*`` and load-best-at-end, with the JAX
-  trainer's result dict.
+  trainer's result dict; with ``report_to: tensorboard`` the JAX trainer's
+  scalars (``train/loss`` and ``train/samples_per_second`` every logging
+  step, ``eval/<metric>`` after each eval) in an event file under
+  ``logging_dir`` (``utils/events.py``).
 
 Host batches are prepared on a background thread and copied from pinned
 memory without blocking. On the card the model's kernels run in both
@@ -56,6 +59,7 @@ from multimodal_content_moderation_tpu_torch.training.sampling import (
     weighted_sample_indices,
 )
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
+from multimodal_content_moderation_tpu_torch.utils.events import EventWriter
 from multimodal_content_moderation_tpu_torch.utils.profiling import StepTimer, assert_finite
 
 logger = logging.getLogger(__name__)
@@ -99,7 +103,7 @@ class TrainArgs:
     num_workers: int = 8
     freeze_text: bool = False
     freeze_image: bool = False
-    report_to: str = "none"  # "none" (tensorboard is not ported)
+    report_to: str = "none"  # "none" | "tensorboard" (utils/events.EventWriter)
     logging_dir: str = ""
     debug_nans: bool = False
     resume_from_checkpoint: str = ""  # "" | "auto" | explicit trainstate dir
@@ -241,11 +245,6 @@ class Trainer:
     ):
         if args.wire not in ("u8", "f32"):
             raise ValueError(f"wire {args.wire!r}: want 'f32' or 'u8'")
-        if args.report_to not in ("", "none"):
-            raise NotImplementedError(
-                f"report_to {args.report_to!r} is not ported yet (the utils slice "
-                "brings the event writer)"
-            )
         vision = model.encoder_config.vision
         # CLIP's and the ViT's class token
         n_vision = ((vision.image_size // vision.patch_size) ** 2
@@ -297,6 +296,12 @@ class Trainer:
         self.best_checkpoint: Optional[str] = None
         self.start_epoch = 0
         self._start_step = 0
+        self.writer = None
+        if args.report_to == "tensorboard":
+            self.writer = EventWriter(args.logging_dir or f"{args.output_dir}/logs")
+        elif args.report_to not in ("", "none"):
+            logger.warning("report_to %r: only 'tensorboard' writes anything (as in the "
+                           "JAX trainer)", args.report_to)
         if args.resume_from_checkpoint:
             self._maybe_resume(args.resume_from_checkpoint)
 
@@ -367,12 +372,14 @@ class Trainer:
                 if step % args.logging_steps == 0:
                     loss_val = float(loss)
                     losses.append(loss_val)
+                    sps = timer.samples_per_second(args.per_device_train_batch_size)
                     logger.info(
                         "step %d/%d loss %.4f (%.1f samples/s, %.0f ms/step)",
-                        step, self.total_steps, loss_val,
-                        timer.samples_per_second(args.per_device_train_batch_size),
-                        timer.mean_step_seconds * 1000,
+                        step, self.total_steps, loss_val, sps, timer.mean_step_seconds * 1000,
                     )
+                    if self.writer:
+                        self.writer.scalar("train/loss", loss_val, step)
+                        self.writer.scalar("train/samples_per_second", sps, step)
                 if 0 < args.max_steps <= step:
                     break
 
@@ -381,6 +388,11 @@ class Trainer:
             metrics["train_loss"] = float(np.mean(losses)) if losses else float(loss)
             history.append(metrics)
             logger.info("epoch %d eval: %s", epoch + 1, metrics)
+            if self.writer:
+                for k, v in metrics.items():
+                    if isinstance(v, (int, float)):
+                        self.writer.scalar(f"eval/{k}", v, step)
+                self.writer.flush()
 
             ckpt_path = ckpt_lib.save_checkpoint(
                 args.output_dir, self.model, step,

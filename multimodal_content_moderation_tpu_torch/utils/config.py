@@ -1,7 +1,9 @@
 """Config and small IO utilities (the reference's src/utils/helpers.py
 surface): YAML configs with ``_base_`` single inheritance and deep merge,
-label-list parsing, image-size inference and JSON artifacts. ``yaml`` is
-imported where a config is read."""
+label-list parsing, image-size inference and JSON artifacts. A config is
+read with ``yaml.safe_load`` where PyYAML is installed, and with the
+standard-library reader of ``utils/yaml_text.py`` (the block subset the
+configs use, PyYAML's YAML 1.1 scalar rules) where it is not."""
 
 from __future__ import annotations
 
@@ -62,14 +64,25 @@ def infer_size(proc: Any) -> Tuple[int, int]:
     return H, W
 
 
+def read_yaml(path: str) -> Any:
+    """One YAML file's value: ``yaml.safe_load`` where PyYAML is installed,
+    else ``yaml_text.loads``, which raises on anything outside its subset."""
+    with open(path, "r", encoding="utf-8") as f:
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        from multimodal_content_moderation_tpu_torch.utils import yaml_text
+
+        return yaml_text.loads(text, str(path))
+    return yaml.safe_load(text)
+
+
 def load_config(config_path: str) -> Dict[str, Any]:
     """Load a YAML config, resolving ``_base_`` single inheritance
     recursively (reference src/utils/helpers.py:87-110)."""
-    import yaml
-
     config_path = Path(config_path)
-    with open(config_path, "r", encoding="utf-8") as f:
-        config = yaml.safe_load(f) or {}
+    config = read_yaml(str(config_path)) or {}
     if "_base_" in config:
         base = load_config(str(config_path.parent / config.pop("_base_")))
         config = merge_configs(base, config)

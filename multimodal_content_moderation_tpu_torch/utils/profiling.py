@@ -1,5 +1,11 @@
-"""Step timing and finiteness checks (the JAX package's ``utils/profiling.py``
-``StepTimer`` and ``assert_finite``).
+"""Tracing, step timing and finiteness checks (the JAX package's
+``utils/profiling.py``: ``trace``, ``annotate``, ``StepTimer`` and
+``assert_finite``).
+
+``trace(log_dir)`` records ``torch.profiler`` (host and, with a card, CUDA
+activity) and writes a Chrome trace into ``log_dir`` (Perfetto and
+``chrome://tracing`` read it); ``annotate(name)`` names a host range in it,
+and on the card also an NVTX range.
 
 ``StepTimer`` measures host wall time between ticks. A tick placed after a
 step that was only enqueued on the card measures the enqueue rate, which
@@ -9,11 +15,50 @@ device time of one step synchronises before the tick.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block (CPU, and CUDA where a card is present) and write
+    ``trace_<pid>_<ns>.json`` (a Chrome trace) into ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named range in profiler traces (``record_function``), and an NVTX
+    range where a card is in use."""
+    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
 
 
 class StepTimer:

@@ -10,7 +10,8 @@ setup(
         "CLIP/SigLIP dual encoders with gated-fusion and multi-task heads in "
         "JAX/XLA/Pallas, trained and served over device meshes"
     ),
-    packages=find_packages(include=["multimodal_content_moderation_tpu*"]),
+    packages=find_packages(include=["multimodal_content_moderation_tpu*"],
+                           exclude=["multimodal_content_moderation_tpu_torch*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -18,9 +18,19 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 
 # what chip_smoke.py drives on the card: the CLIP and SigLIP eval paths, the
 # training path, the multi-task model, the moderation endpoint with the evaluate CLI (CSV rows,
-# the CLIP BPE tokenizer, JPEG decode, the pixel cache), the int8 fc1 tier and the export
+# the CLIP BPE tokenizer, JPEG decode, the pixel cache), the int8 fc1 tier and the export,
+# and the deployment path (data prep, the SageMaker entrypoint, the train CLI on a YAML
+# file with tensorboard events and predictions, packaging)
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.utils.compile_cache",
+    "multimodal_content_moderation_tpu_torch.utils.config",
+    "multimodal_content_moderation_tpu_torch.utils.yaml_text",
+    "multimodal_content_moderation_tpu_torch.utils.events",
+    "multimodal_content_moderation_tpu_torch.data.preprocessing",
+    "multimodal_content_moderation_tpu_torch.cli.prepare_data",
+    "multimodal_content_moderation_tpu_torch.cli.train",
+    "multimodal_content_moderation_tpu_torch.serving.deploy",
+    "multimodal_content_moderation_tpu_torch.serving.entrypoint",
     "multimodal_content_moderation_tpu_torch.data.tokenizer",
     "multimodal_content_moderation_tpu_torch.data.dataset",
     "multimodal_content_moderation_tpu_torch.data.native",

@@ -29,6 +29,13 @@ against the JAX package's, on the CPU.
   probabilities within 1e-2 (the bf16 logits bound, 3e-2, times the
   sigmoid's slope of at most 1/4) and the same labels wherever a
   probability is clear of its threshold by more than that.
+- Reference fault 11 at the shape that triggers it: a multi-task model
+  with ``fusion_dim: 768`` and ``head_hidden_dim: 3072`` (every task head's
+  fc1 is (768, 3072)) on the same wide tower. JAX's ``quantize_fc1_layers``
+  takes the task heads' fc1 too and its ``mtl_head_apply`` then raises
+  ``KeyError: 'w'`` in the evaluate CLI and the classifier; the port
+  quantizes the backbone only and scores, equal to the JAX package with
+  its selection held to the backbone (the bounds above).
 """
 
 import base64
@@ -47,6 +54,7 @@ from multimodal_content_moderation_tpu.cli import inference as j_inf
 from multimodal_content_moderation_tpu.models import FusionModel as JFusion
 from multimodal_content_moderation_tpu.models import MultiTaskModel as JMTL
 from multimodal_content_moderation_tpu.models import model_io as j_model_io
+from multimodal_content_moderation_tpu.models.export import export_safetensors as j_export
 from multimodal_content_moderation_tpu.models.convert import to_dtype as j_to_dtype
 from multimodal_content_moderation_tpu.ops import quant as jq
 from multimodal_content_moderation_tpu.serving import handler as jh
@@ -387,3 +395,110 @@ def test_handler_at_int8_mlp_matches_jax(wide_checkpoint, monkeypatch):
         return [[p["probabilities"][c] for c in CLASSES] for p in preds]
 
     _assert_probs_agree(probs(got), probs(want), tc.thresholds)
+
+
+# -- reference fault 11 -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def wide_mtl_checkpoint(wide_checkpoint, tmp_path_factory):
+    """A reference-format multi-task checkpoint that a JAX model exported, on
+    ``wide_checkpoint``'s encoder, at fault 11's shape: fusion 768 and
+    hidden task heads of 3072, so that each task head's fc1 is (768, 3072)."""
+    with open(f"{wide_checkpoint}/inference_config.json") as f:
+        enc = json.load(f)["encoder_dir"]
+    d = tmp_path_factory.mktemp("int8_mtl")
+    model = JMTL.create("clip", num_tasks=N, fusion_dim=768, head_hidden_dim=3072,
+                        learnable_task_weights=True,
+                        clip_config=j_model_io.load_encoder_config(enc, "clip"))
+    j_export(model.init(jax.random.key(13)), model, str(d / "model.safetensors"))
+    (d / "inference_config.json").write_text(json.dumps({
+        "backend": "clip", "head": "mtl", "fusion_dim": 768, "head_hidden_dim": 3072,
+        "learnable_task_weights": True, "class_names": CLASSES,
+        "thresholds": [0.5, 0.45, 0.5, 0.55, 0.5], "max_text_length": 16,
+        "encoder_dir": enc}))
+    return str(d)
+
+
+def _held_to_backbone(whole):
+    """JAX's ``quantize_fc1_layers`` held to ``params["backbone"]``, as the
+    port selects: the reference the port's scores are held to."""
+
+    def backbone_only(params, **kw):
+        backbone, n = whole(params["backbone"], **kw)
+        return {**params, "backbone": backbone}, n
+
+    return backbone_only
+
+
+@pytest.fixture
+def jax_backbone_only(monkeypatch):
+    monkeypatch.setattr(jq, "quantize_fc1_layers", _held_to_backbone(jq.quantize_fc1_layers))
+
+
+def test_jax_int8_selection_takes_the_wide_task_heads(wide_mtl_checkpoint):
+    _, params, _ = j_model_io.load_checkpoint(wide_mtl_checkpoint)
+    quantized, n = jq.quantize_fc1_layers(params)
+    assert n == 1 + N  # the vision layer and every task head
+    assert all("w_i8" in h["fc1"] for h in quantized["head"]["heads"])
+    model, _ = model_io.load_checkpoint(wide_mtl_checkpoint, device="cpu")
+    assert tq.quantize_fc1_layers(model)[1] == 1
+
+
+def test_evaluate_cli_scores_fault_11_shape(wide_mtl_checkpoint, data_dir, tmp_path, capsys,
+                                            monkeypatch):
+    """JAX's CLI raises at fault 11's shape; the port's scores every task.
+    The random multi-task head's scores lie close together, so one bf16
+    rounding can flip a label or a ranking: the probabilities are held to
+    JAX's in the classifier test below, and here the report's shape, its
+    supports and its finiteness."""
+    common = ["--checkpoint", wide_mtl_checkpoint, "--test_csv", f"{data_dir}/test.csv",
+              "--image_root", f"{data_dir}/images", "--batch_size", "8",
+              "--precision", "int8_mlp", "--engine", "fast", "--device", "cpu"]
+    with pytest.raises(KeyError, match="'w'"):
+        j_eval.main(common + ["--output", str(tmp_path / "jax_fails.json")])
+    monkeypatch.setattr(jq, "quantize_fc1_layers", _held_to_backbone(jq.quantize_fc1_layers))
+    want = j_eval.main(common + ["--output", str(tmp_path / "jax.json")])
+    capsys.readouterr()
+    got = t_eval.main(common + ["--attention", "pallas", "--output", str(tmp_path / "t.json")])
+    assert "int8 MLP: quantized 1 fc1 layers" in capsys.readouterr().out
+    assert set(got["per_class"]) == set(want["per_class"]) == set(CLASSES)
+    for name in CLASSES:
+        g, w = got["per_class"][name], want["per_class"][name]
+        assert g["support"] == w["support"]
+        assert all(np.isfinite(v) for v in g.values())
+    assert np.isfinite(got["f1_macro"]) and np.isfinite(got["roc_auc_macro"])
+
+
+def test_classifier_scores_fault_11_shape(wide_mtl_checkpoint, images):  # noqa: F811
+    root, rows = images
+    kw = dict(precision="int8_mlp", engine="fast", batch_size=4)
+    with pytest.raises(KeyError, match="'w'"):
+        j_inf.MultiModalClassifier(wide_mtl_checkpoint, **kw).predict_batch(
+            TEXTS, rows, image_root=root)
+    tc = t_inf.MultiModalClassifier(wide_mtl_checkpoint, device="cpu", attention="pallas", **kw)
+    assert tc.quantized_layers == 1
+    got = tc.predict_batch(TEXTS, rows, image_root=root)
+    assert all(set(r["predictions"]) == set(CLASSES) for r in got)
+
+
+def test_classifier_at_fault_11_shape_matches_jax_backbone_only(
+        wide_mtl_checkpoint, images, jax_backbone_only):  # noqa: F811
+    root, rows = images
+    kw = dict(precision="int8_mlp", engine="fast", batch_size=4)
+    jc = j_inf.MultiModalClassifier(wide_mtl_checkpoint, **kw)
+    tc = t_inf.MultiModalClassifier(wide_mtl_checkpoint, device="cpu", attention="pallas", **kw)
+    want = jc.predict_batch(TEXTS, rows, image_root=root)
+    got = tc.predict_batch(TEXTS, rows, image_root=root)
+
+    def probs(results):
+        return np.array([[r["predictions"][c]["probability"] for c in CLASSES]
+                         for r in results])
+
+    # the random task heads score near 0.5, so fewer than half the labels are
+    # clear of their thresholds: the labels are held where they are
+    got, want = probs(got), probs(want)
+    np.testing.assert_allclose(got, want, atol=PROB_TOL, rtol=0)
+    clear = np.abs(want - np.asarray(tc.thresholds)) > PROB_TOL
+    assert clear.any()
+    np.testing.assert_array_equal((got >= tc.thresholds)[clear], (want >= tc.thresholds)[clear])

@@ -363,12 +363,16 @@ def _tiny_siglip():
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     """Both wires and both backends train (tests/test_torch_pixel_path.py);
-    what stays refused names its slice: tensorboard events, and a wire that
-    does not exist. The generic backend is ported; a name that is no
-    backend is refused."""
-    with pytest.raises(NotImplementedError, match="utils slice"):
-        Trainer(_port_model(), _args(tmp_path, report_to="tensorboard"), TinyDataset(4, 0),
-                TinyDataset(4, 0), make_compute_metrics_multi(3), device="cpu")
+    a wire that does not exist is refused. ``report_to: tensorboard`` is
+    ported: the Trainer opens its event file under ``logging_dir`` (its
+    tags: tests/test_torch_events.py). The generic backend is ported; a
+    name that is no backend is refused."""
+    tb = Trainer(_port_model(), _args(tmp_path, report_to="tensorboard",
+                                      logging_dir=str(tmp_path / "tb")),
+                 TinyDataset(4, 0), TinyDataset(4, 0), make_compute_metrics_multi(3),
+                 device="cpu")
+    assert tb.writer is not None and os.path.dirname(tb.writer.path) == str(tmp_path / "tb")
+    tb.writer.close()
     with pytest.raises(ValueError, match="wire"):
         Trainer(_port_model(), _args(tmp_path, wire="u16"), TinyDataset(4, 0),
                 TinyDataset(4, 0), make_compute_metrics_multi(3), device="cpu")
