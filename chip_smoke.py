@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    process per source, started together), with their ``-Xptxas -v`` lines.
 2. Each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at the shapes of the eval, training, SigLIP-384, SigLIP-224,
-   SigLIP-224 training and generic (ViT-B/16 at T=197, BERT's non-causal
-   key-masked text at seq 77 with a one-token and a [CLS] [SEP] row) paths
+   SigLIP-224 training, generic (ViT-B/16 at T=197, BERT's non-causal
+   key-masked text at seq 77 with a one-token and a [CLS] [SEP] row) and
+   1x2 tensor-parallel training (half the heads of each tower) paths
    and a few edge shapes, each held to a stated
    tolerance, and timed (kernel, plain version, one PyTorch library call as
    a yardstick the port never calls) beside the card's bound for the same
@@ -176,6 +177,26 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``dump_test_predictions``; (d) ``deploy package`` of that run, extracted,
    ``model_fn`` at bf16_fast with the kernels (cold start, exact launches
    per served batch), its logits equal bit for bit to the unpacked run's.
+12. The mesh of processes (``parallel/``) at full CLIP ViT-B/32 width, on
+   one card: (a) this process in a one-rank NCCL group
+   (``init_distributed`` from ``RANK`` / ``WORLD_SIZE`` / ``MASTER_*``),
+   the Trainer on a ``parallel: {data: 1}`` mesh (u8 wire, bf16, the
+   kernels, B=32 x 2, ``text_fit`` 48, 4 micro-steps) equal bit for bit to
+   the Trainer without a mesh, its ``all_reduce`` calls counted; then two
+   gloo processes that share the card (``p12_worker``; NCCL takes one rank
+   per device, gloo takes CUDA tensors for ``all_reduce`` and
+   ``broadcast``), held to references computed here first: (b) DP 2x1,
+   16 rows a rank a micro-step: fp32 losses, averaged gradients and the
+   update against one process, the bf16 Trainer's losses, exact launches,
+   and the cost of drawing the global batch's dropout masks; (c) TP 1x2:
+   q.w [768, 384] / [512, 256], 6 vision and 4 text heads a rank through
+   the kernels (phase 2 holds those shapes), fp32 losses, gathered
+   gradients and the gathered checkpoint against one process, bf16
+   launches all on the tensor cores; (d) the fast engine over 2 data
+   ranks, B=144 with buckets, bf16 logits against one process; (e) the
+   train CLI launched as two processes on a ``_base_: clip_fusion.yaml``
+   file with ``parallel: {data: 2}``. Every rate of (b)-(e) is that of two
+   processes sharing one card, not a multi-GPU rate.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -228,6 +249,15 @@ GENERIC_SPECS = [
      "generic eval path: text tower, seq 77, key mask, not causal"),
     (TRAIN_BATCH, GENERIC_T, 768, 12, False, False,
      "generic train path: vision tower, ViT-B/16, T=197"),
+]
+
+
+# the attention shapes of one CLIP ViT-B/32 training micro-step on one rank
+# of a 1x2 tensor-parallel mesh (phase 12 (c)): half the heads of each tower
+TP_TRAIN_SPECS = [
+    (TRAIN_BATCH, 50, 384, 6, False, False, "tp train path: vision tower, 6 of 12 heads"),
+    (TRAIN_BATCH, TRAIN_SEQ, 256, 4, True, True,
+     f"tp train path: text tower, seq {TRAIN_SEQ}, 4 of 8 heads"),
 ]
 
 
@@ -306,7 +336,8 @@ def _paths(label: str, dtype: str):
     B=144), "train" (CLIP, B=32), "siglip384" and "siglip224" (SigLIP2-B/16
     at 384 and 224 px, B=64; "siglip text" is the text tower of both),
     "siglip224_train" (SigLIP2-B/16-224 training, B=24), "mha_dense_mask",
-    "generic_eval" and "generic_train" (ViT-B/16 + BERT-base, B=64 / 32)."""
+    "generic_eval" and "generic_train" (ViT-B/16 + BERT-base, B=64 / 32),
+    "tp_train" (CLIP, B=32, one rank of a 1x2 tensor-parallel mesh)."""
     if dtype != "bfloat16":
         return []
     return {"main path": ["evaluate"], "train path": ["train"],
@@ -315,7 +346,8 @@ def _paths(label: str, dtype: str):
             "siglip224 train path": ["siglip224_train"],
             "mha dense mask": ["mha_dense_mask"],
             "generic eval path": ["generic_eval"],
-            "generic train path": ["generic_train"]}.get(label.split(":")[0], [])
+            "generic train path": ["generic_train"],
+            "tp train path": ["tp_train"]}.get(label.split(":")[0], [])
 
 
 def simt_beside(case, new_fn, simt_fn, want, atol, rtol):
@@ -410,7 +442,10 @@ def patch_embed_cases(torch, g):
             case = {
                 "kernel": "patch_embed_u8", "case": f"{label}: R={R} K={K} D={D}",
                 "dtype": dtype, "max_abs_err": err, "atol": atol, "rtol": rtol,
-                "paths": _paths(label, dtype), "bound_ms": bms, "bound_by": by,
+                # the embedding stays whole under tensor parallelism
+                "paths": _paths(label, dtype) + (["tp_train"] if "train" in _paths(label, dtype)
+                                                 else []),
+                "bound_ms": bms, "bound_by": by,
             }
             timed(case, "ms", lambda: ci.patch_embed_u8(x, wf, bf, dt))
             timed(case, "plain_ms", lambda: ci.patch_embed_reference(x, wf, bf, dt))
@@ -446,6 +481,7 @@ def attention_cases(torch, g):
               (SIGLIP_BATCH, SIGLIP224_T, 768, 12, False, False, "siglip224 path: vision tower")]
     specs += SIGLIP224_TRAIN_SPECS
     specs += GENERIC_SPECS
+    specs += TP_TRAIN_SPECS
     # the shapes at which the earlier SIMT kernel is timed beside the new one
     simt_at = {"main path: vision tower", "main path: text tower, seq 77",
                "siglip224 path: vision tower"}
@@ -667,6 +703,7 @@ def attention_bwd_cases(torch, g):
     specs += [(16, T, 768, 12, False, True, f"key mask, seq {T}") for T in (131, 196, 197)]
     specs += [(4, 256, 256, 2, True, True, "seq 256, head dim 128")]
     specs += SIGLIP224_TRAIN_SPECS
+    specs += TP_TRAIN_SPECS
     # the generic training micro-step: only the vision tower takes the
     # kernels (the text tower's dropout takes the non-kernel core)
     specs += [spec for spec in GENERIC_SPECS if spec[-1].startswith("generic train")]
@@ -2086,8 +2123,8 @@ def decode_rates(card: str):
     return out
 
 
-def write_csv(root: str, g) -> str:
-    """``N_CSV_ROWS`` rows of tweet-length texts (with NA strings and empty
+def write_csv(root: str, g, n: int = N_CSV_ROWS) -> str:
+    """``n`` rows of tweet-length texts (with NA strings and empty
     texts), JPEG paths into ``root/images`` (some missing, some empty, one
     corrupt) and multi-label ``labels``."""
     import csv
@@ -2104,7 +2141,7 @@ def write_csv(root: str, g) -> str:
     with open(path, "w", newline="", encoding="utf-8") as f:
         w = csv.writer(f)
         w.writerow(["text", "image_path", "labels"])
-        for i in range(N_CSV_ROWS):
+        for i in range(n):
             text = NA_TEXTS[i // 11 % len(NA_TEXTS)] if i % 11 == 5 else tweet(g)
             image = ("" if i % 13 == 4 else f"missing_{i}.jpg" if i % 13 == 9
                      else names[i % len(names)])
@@ -4171,6 +4208,554 @@ def deploy_phase(torch, card: str):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh of processes (parallel/) on one card
+# ---------------------------------------------------------------------------
+
+P12_ROOT = os.path.join(REPO, "build", "chip_smoke_mesh")
+P12_MICRO = 4  # micro-steps of each Trainer run: 2 optimizer updates at accumulation 2
+P12_VAL = 64  # one eval batch (32 rows a rank under DP 2x1)
+P12_EVAL_ROWS = 2 * BATCH - 7  # the fast engine: two B=144 batches, the last one padded
+P12_BUCKETS = (32, 48, 64)
+P12_TIMEOUT_S = 300  # each spawned group's time limit (a rank that stops ends the group)
+# the fp32 parity steps: one optimizer update of two micro-steps, a constant
+# learning rate from the first step (no warmup), the Trainer's clipping
+P12_OPT = dict(lr_encoder=1e-5, lr_head=5e-4, weight_decay=0.02, max_grad_norm=1.0,
+               total_steps=100, warmup_ratio=0.0, schedule="constant", accumulation_steps=2)
+# bounds between two processes and one, on the card
+P12_GRAD_TOL = (1e-6, 1e-5)  # fp32 (TF32 off) gradients: the CPU tests' atol, rtol
+P12_BF16_LOSS_TOL = 1e-2  # bf16 training losses: 16 rows per GEMM instead of 32
+P12_BF16_LOGIT_TOL = 3e-2  # bf16 logits of 72-row batches against 144-row ones (phase 3's)
+
+
+def _p12_data():
+    """The Trainer's rows (text_fit 48) and the fast engine's rows."""
+    train = InMemoryDataset(P12_MICRO * TRAIN_BATCH, seed=3)
+    val = InMemoryDataset(P12_VAL, seed=4)
+    for d in (train, val):
+        d.truncate_text(TRAIN_SEQ)
+    return train, val, InMemoryDataset(P12_EVAL_ROWS, seed=5)
+
+
+def _p12_model(torch, dtype="float32", seed=0):
+    """Full-width CLIP ViT-B/32 fusion on the card, the kernels in both
+    passes, fp32 or bf16 towers."""
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+
+    m = FusionModel.create("clip", num_labels=len(CLASSES), seed=seed, device="cuda")
+    m = model_io.with_performance_options(m, compute_dtype=dtype, attention_impl="pallas")
+    return m.replace(image_mean=CLIP_MEAN, image_std=CLIP_STD)
+
+
+def _p12_args(out_dir):
+    from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs
+
+    return TrainArgs(output_dir=out_dir, num_train_epochs=1,
+                     per_device_train_batch_size=TRAIN_BATCH, per_device_eval_batch_size=64,
+                     gradient_accumulation_steps=TRAIN_ACCUM, logging_steps=1,
+                     save_total_limit=1, early_stopping=False, wire="u8", num_workers=4, seed=0)
+
+
+def _p12_trainer(torch, out_dir, mesh=None):
+    """``Trainer.train`` at phase 4's settings (u8 wire, bf16, pallas,
+    B=32 x 2, text_fit 48) for ``P12_MICRO`` micro-steps and one eval:
+    (per-step losses over the whole global batch, launches, trainer, wall s)."""
+    from multimodal_content_moderation_tpu_torch.training.loop import Trainer
+    from multimodal_content_moderation_tpu_torch.training.metrics import (
+        make_compute_metrics_multi)
+
+    train, val, _ = _p12_data()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    trainer = Trainer(_p12_model(torch, "bfloat16"), _p12_args(out_dir), train, val,
+                      make_compute_metrics_multi(len(CLASSES)), device="cuda", mesh=mesh)
+    losses, step = [], trainer.train_step
+
+    def counted(batch):
+        loss = step(batch)
+        losses.append(float(trainer._mean_loss(loss)))
+        return loss
+
+    trainer.train_step = counted
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    return losses, counts(), trainer, result, time.perf_counter() - t0
+
+
+def _p12_parity_steps(torch, mesh=None):
+    """Two micro-steps (one optimizer update) of the fp32 model with dropout
+    on the first 64 rows, this rank's rows of each global batch: (losses
+    over the global batch, the averaged gradients of the update, gathered
+    whole, the launches, the model)."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.parallel.sharding import (
+        gather_named,
+        shard_params,
+    )
+    from multimodal_content_moderation_tpu_torch.training.loop import make_train_step
+    from multimodal_content_moderation_tpu_torch.training.optim import AdamW
+
+    train, _, _ = _p12_data()
+    model = _p12_model(torch)
+    if mesh is not None:
+        mesh.activate()
+        mesh.replicate(model)
+        shard_params(model, mesh)
+    opt = AdamW(dict(model.named_parameters()), mesh=mesh, **P12_OPT)
+    grads, update = {}, opt._update
+
+    def record(g):
+        grads.update({n: t.detach().cpu() for n, t in gather_named(g, model).items()})
+        update(g)
+
+    opt._update = record
+    step = make_train_step(model, opt, generator=torch.Generator(device="cuda").manual_seed(0))
+    losses = []
+    counts = _reset_counts()
+    for s in range(2):
+        rows = np.arange(s * TRAIN_BATCH, (s + 1) * TRAIN_BATCH)
+        if mesh is not None:
+            rows = rows[mesh.rows(TRAIN_BATCH)]
+        loss = step(_device_batch(torch, train, rows, 32))
+        losses.append(float(loss if mesh is None else mesh.mean(loss)))
+    torch.cuda.synchronize()
+    return losses, grads, counts(), model
+
+
+def _p12_engine_logits(torch, mesh=None):
+    """bf16 fast-engine logits of the eval rows with buckets, B=144 (over
+    the mesh's data axis), the launches and the wall seconds."""
+    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fast_infer import (
+        FastInferenceEngine,
+        evaluate_logits_u8,
+    )
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+
+    _, _, rows = _p12_data()
+    m = FusionModel.create("clip", num_labels=len(CLASSES), seed=0, device="cuda")
+    m = model_io.with_performance_options(m, compute_dtype="bfloat16", scores_dtype="bfloat16",
+                                          attention_impl="pallas").to(torch.bfloat16)
+    engine = FastInferenceEngine(m, CLIP_MEAN, CLIP_STD, mesh=mesh)
+    evaluate_logits_u8(engine, rows, BATCH, num_workers=4, seq_buckets=P12_BUCKETS)  # warm
+    torch.cuda.synchronize()
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    logits, _ = evaluate_logits_u8(engine, rows, BATCH, num_workers=4, seq_buckets=P12_BUCKETS)
+    wall = time.perf_counter() - t0
+    return logits, counts(), wall, engine
+
+
+def _adam_rule(got, want, grads):
+    """Parameters after one update against one process's: atol 5e-5 where
+    that update's gradient is 0 or at least 100 eps, else within ``lr``
+    (Adam's first step is ill-conditioned on rounding noise). Returns the
+    largest difference and the count held to the looser bound."""
+    worst, loose = 0.0, 0
+    for name, w in want.items():
+        d = (got[name].float().cpu() - w.float()).abs()
+        ag = grads[name].abs()
+        tight = (ag == 0) | (ag >= 1e-6)
+        lr = P12_OPT["lr_encoder"] if name.startswith("backbone.") else P12_OPT["lr_head"]
+        check(bool((d[tight] <= 5e-5).all()) and bool((d[~tight] <= lr).all()),
+              f"mesh: {name} after one update differs from one process by {float(d.max())}")
+        worst, loose = max(worst, float(d.max())), loose + int((~tight).sum())
+    return worst, loose
+
+
+def _grad_err(got, want):
+    """The largest difference of the averaged gradients, checked leaf by leaf
+    to ``P12_GRAD_TOL`` (atol, rtol)."""
+    atol, rtol = P12_GRAD_TOL
+    worst = 0.0
+    for name, w in want.items():
+        d = (got[name] - w).abs()
+        check(bool((d <= atol + rtol * w.abs()).all()),
+              f"mesh: averaged gradient of {name} differs from one process by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def dropout_draw_cost(torch):
+    """Device ms of one ``ops.layers.dropout`` call on a rank's 16 rows when
+    the rank is one of two data ranks (the global 32 rows' mask is drawn,
+    its half kept) and alone: the fusion head's [16, 512] and the generic
+    text tower's [16, 77, 768] and attention weights [16, 12, 77, 77]."""
+    from multimodal_content_moderation_tpu_torch.ops.layers import dropout
+    from multimodal_content_moderation_tpu_torch.parallel import collectives
+
+    def events_ms(fn, iters=50):  # eager: a draw from a generator is not captured
+        for _ in range(3):
+            fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    out, before = {}, collectives.data_shard()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for shape in ((16, 512), (16, 77, 768), (16, 12, 77, 77)):
+        x = torch.ones(shape, device="cuda", dtype=torch.bfloat16)
+        row = {}
+        for label, shard in (("one_of_two", (0, 2)), ("alone", (0, 1))):
+            collectives.set_data_shard(*shard)
+            row[label] = events_ms(lambda: dropout(x, 0.1, g))
+        out["x".join(map(str, shape))] = row
+    collectives.set_data_shard(*before)
+    return out
+
+
+def p12_worker(argv=None) -> int:
+    """One rank of phase 12's two gloo processes that share the card:
+    ``p12_worker rank world port job.json``; writes its report as
+    ``rank<r>.json`` beside the job."""
+    rank, world, port, job_path = (argv or sys.argv[1:])[:4]
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, REPO)
+    sys.modules.update(dict.fromkeys(HIDDEN_MODULES))
+    import numpy as np
+    import torch
+
+    from multimodal_content_moderation_tpu_torch.parallel.mesh import (
+        build_mesh,
+        init_distributed,
+    )
+    from multimodal_content_moderation_tpu_torch.parallel.collectives import split_of
+    from multimodal_content_moderation_tpu_torch.training import checkpoints as ckpt_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(job_path) as f:
+        job = json.load(f)
+    report = {}
+    if job["what"] == "cli":
+        from multimodal_content_moderation_tpu_torch.cli import train as train_cli
+
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        # two processes on one card: gloo (NCCL takes one rank per device)
+        init_distributed(backend="gloo", device="cuda", timeout_s=P12_TIMEOUT_S)
+        counts = _reset_counts()
+        t0 = time.perf_counter()
+        out = train_cli.main(["--config", job["config"], "--device", "cuda"])
+        report = {"wall_s": time.perf_counter() - t0, "launches": counts(),
+                  "global_step": out["result"]["global_step"], "val_loss": out["val"]["loss"],
+                  "train_samples_per_s": out["result"]["train_samples_per_second"]}
+    else:
+        init_distributed(f"localhost:{port}", world, rank, backend="gloo", device="cuda",
+                         timeout_s=P12_TIMEOUT_S)
+        ref = torch.load(job["reference"], map_location="cpu", weights_only=True)
+        micro = _counts(False, patch_embed_u8=2, attention_nhd=48, attention_nhd_bwd=48)
+
+        # (b) DP 2x1, fp32: losses, the averaged gradients, the update
+        mesh = build_mesh(2, 1)
+        losses, grads, launches, model = _p12_parity_steps(torch, mesh)
+        check(launches == micro, f"mesh (b) fp32: rank {rank} launches {launches}, want {micro}")
+        np.testing.assert_allclose(losses, ref["losses"], rtol=1e-6)
+        report["dp_fp32"] = {"losses": losses, "launches": launches,
+                             "max_grad_err": _grad_err(grads, ref["grads"]),
+                             "max_param_err": _adam_rule(dict(model.named_parameters()),
+                                                         ref["params"], ref["grads"])}
+        del model, grads
+
+        # (b) DP 2x1, bf16: the Trainer, 16 rows a rank a micro-step
+        out = os.path.join(P12_ROOT, "dp_run")
+        losses, launches, trainer, result, wall = _p12_trainer(torch, out, mesh)
+        want = _counts(patch_embed_u8=P12_MICRO + 1, attention_nhd=24 * (P12_MICRO + 1),
+                       attention_nhd_bwd=24 * P12_MICRO)
+        check(launches == want, f"mesh (b) bf16: rank {rank} launches {launches}, want {want}")
+        dl = max(abs(a - b) for a, b in zip(losses, job["bf16_losses"]))
+        check(dl <= P12_BF16_LOSS_TOL, f"mesh (b) bf16: losses {losses} vs one process "
+                                       f"{job['bf16_losses']}")
+        report["dp_bf16"] = {"losses": losses, "max_loss_err": dl, "launches": launches,
+                             "trainer_samples_per_s": result["train_samples_per_second"],
+                             "train_wall_s": wall, "eval_loss": result["history"][0]["loss"]}
+        del trainer
+
+        report["dropout_draws"] = dropout_draw_cost(torch)
+
+        # (c) TP 1x2, fp32: each rank half the heads of every block
+        mesh = build_mesh(1, 2)
+        losses, grads, launches, model = _p12_parity_steps(torch, mesh)
+        qv = model.backbone["vision_model"]["layers"][0]["attn"]["q"]["w"]
+        qt = model.backbone["text_model"]["layers"][0]["attn"]["q"]["w"]
+        check(tuple(qv.shape) == (768, 384) and tuple(qt.shape) == (512, 256)
+              and split_of(qv).dim == 1,
+              f"mesh (c): rank {rank} holds q.w {tuple(qv.shape)} / {tuple(qt.shape)}")
+        check(launches == micro, f"mesh (c) fp32: rank {rank} launches {launches}, want {micro}")
+        np.testing.assert_allclose(losses, ref["losses"], rtol=1e-6)
+        ckpt = ckpt_lib.save_checkpoint(os.path.join(P12_ROOT, "tp_ckpt"), model, 2, mesh=mesh)
+        saved = ckpt_lib.load_params(ckpt)
+        check(all(tuple(saved[n].shape) == tuple(w.shape) for n, w in ref["params"].items()),
+              "mesh (c): the checkpoint holds shards, not the whole parameters")
+        report["tp_fp32"] = {"losses": losses, "launches": launches,
+                             "q_shapes": [list(qv.shape), list(qt.shape)],
+                             "max_grad_err": _grad_err(grads, ref["grads"]),
+                             "max_checkpoint_err": _adam_rule(saved, ref["params"], ref["grads"])}
+        del model, grads, saved, ref
+
+        # (c) TP 1x2, bf16: two micro-steps, every launch on the tensor cores
+        from multimodal_content_moderation_tpu_torch.parallel.sharding import shard_params
+        from multimodal_content_moderation_tpu_torch.training.loop import make_train_step
+        from multimodal_content_moderation_tpu_torch.training.optim import AdamW
+
+        train, _, _ = _p12_data()
+        model = _p12_model(torch, "bfloat16")
+        mesh.activate()
+        shard_params(model, mesh)
+        step = make_train_step(model, AdamW(dict(model.named_parameters()), mesh=mesh,
+                                            **P12_OPT),
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+        staged = [_device_batch(torch, train, np.arange(s * 32, (s + 1) * 32), 32)
+                  for s in range(2)]
+        counts = _reset_counts()
+        for b in staged:
+            step(b)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == _counts(patch_embed_u8=2, attention_nhd=48, attention_nhd_bwd=48),
+              f"mesh (c) bf16: rank {rank} launches {launches}")
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for b in staged:
+                step(b)
+        torch.cuda.synchronize()
+        report["tp_bf16"] = {"launches": launches,
+                             "staged_train_samples_per_s": 4 * 32 / (time.perf_counter() - t0)}
+        del model, step, staged
+
+        # (d) the fast engine over 2 data ranks: 72 rows a rank a batch
+        mesh = build_mesh(2, 1)
+        logits, launches, wall, engine = _p12_engine_logits(torch, mesh)
+        want_logits = np.load(job["logits"])
+        err = float(np.abs(logits - want_logits).max())
+        check(logits.shape == want_logits.shape and err <= P12_BF16_LOGIT_TOL,
+              f"mesh (d): rank {rank} logits {logits.shape} differ from one process by {err}")
+        ids = [torch.randint(1, 49406, (BATCH // 2, 77), device="cuda") for _ in range(4)]
+        patches = [torch.randint(0, 256, (BATCH // 2, 49, 3072), device="cuda",
+                                 dtype=torch.uint8) for _ in range(2)]
+        mask = torch.ones(BATCH // 2, 77, device="cuda", dtype=torch.int32)
+        mesh.barrier()  # both ranks time their share at once
+        rates = staged_eval_rates(torch, engine, ids, patches, mask)
+        report["fast_engine"] = {"max_abs_err": err, "launches": launches, "wall_s": wall,
+                                 "rows_per_s": P12_EVAL_ROWS / wall,
+                                 "staged_samples_per_s_rank": rates}
+    with open(os.path.join(os.path.dirname(job_path), f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def _p12_spawn(job: dict, name: str, world: int = 2):
+    """Run ``p12_worker`` in ``world`` processes over ``job``; returns each
+    rank's report. Every process is ended before this returns."""
+    import socket
+
+    root = os.path.join(P12_ROOT, name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    job_path = os.path.join(root, "job.json")
+    with open(job_path, "w") as f:
+        json.dump(job, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.p12_worker())")
+    logs = [os.path.join(root, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(r), str(world), str(port), job_path],
+                stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(P12_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            tail = f.read()[-3000:]
+        check(p.returncode == 0, f"mesh {name}: rank {r} exited {p.returncode}:\n{tail}")
+    reports = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def mesh_world1_phase(torch, card: str):
+    """(a) One process in a one-rank NCCL group: ``init_distributed`` from
+    the environment, the Trainer on a ``parallel: {data: 1}`` mesh against
+    the same Trainer with no mesh, bit for bit (an all_reduce over one rank
+    is the identity); the all_reduce calls counted."""
+    import socket
+
+    import torch.distributed as dist
+
+    from multimodal_content_moderation_tpu_torch.parallel.mesh import (
+        build_mesh,
+        init_distributed,
+    )
+
+    ref_losses, ref_launches, ref, _, ref_wall = _p12_trainer(
+        torch, os.path.join(P12_ROOT, "one_run"))
+    ref_params = {k: v.detach().clone() for k, v in ref.model.state_dict().items()}
+    del ref
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    reduce, calls = dist.all_reduce, []
+
+    def counted(*a, **kw):
+        calls.append(a[0].numel())
+        return reduce(*a, **kw)
+
+    try:
+        check(init_distributed(backend="nccl"), "mesh (a): no process group formed")
+        dist.all_reduce = counted
+        mesh = build_mesh(1, 1)
+        losses, launches, trainer, result, wall = _p12_trainer(
+            torch, os.path.join(P12_ROOT, "world1_run"), mesh)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.all_reduce = reduce
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        _restore_env(saved)
+    want = _counts(patch_embed_u8=P12_MICRO + 1, attention_nhd=24 * (P12_MICRO + 1),
+                   attention_nhd_bwd=24 * P12_MICRO)
+    check(launches == want == ref_launches,
+          f"mesh (a): launches {launches}, without a mesh {ref_launches}, want {want}")
+    check(losses == ref_losses, f"mesh (a): losses {losses} != {ref_losses} without a mesh")
+    differ = [k for k, v in trainer.model.state_dict().items() if not torch.equal(v, ref_params[k])]
+    check(not differ, f"mesh (a): {len(differ)} parameters differ from the run without a "
+                      f"mesh, e.g. {differ[:3]}")
+    check(backend == "nccl" and len(calls) >= TRAIN_ACCUM, f"mesh (a): {backend}, {calls}")
+    print(f"mesh (a): one-rank NCCL Trainer = no-mesh Trainer bit for bit ({len(losses)} "
+          f"losses, {len(ref_params)} parameters), {len(calls)} all_reduce calls "
+          f"({sum(calls)} elements); {card}")
+    return {"losses": losses, "launches": launches, "all_reduce_calls": len(calls),
+            "all_reduce_elements": sum(calls), "backend": backend, "wall_s": wall,
+            "wall_s_without_mesh": ref_wall,
+            "trainer_samples_per_s": result["train_samples_per_second"], "card": card}
+
+
+def mesh_cli_phase(torch, card: str):
+    """(e) The train CLI as two processes (``RANK`` / ``WORLD_SIZE`` /
+    ``MASTER_*``) on a YAML file whose ``_base_`` is ``config/clip_fusion.yaml``,
+    ``parallel: {data: 2}``, the u8 wire with the kernels."""
+    import glob
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.utils.yaml_text import dumps
+
+    root = os.path.join(P12_ROOT, "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    enc = write_clip_encoder_dir(os.path.join(root, "encoder"))
+    csv_path = write_csv(root, np.random.default_rng(12), n=2 * TRAIN_BATCH)
+    run = os.path.join(root, "run")
+    cfg = {
+        "_base_": os.path.join(REPO, "config", "clip_fusion.yaml"),
+        "model": {"encoder_dir": enc},
+        "data": {"train_csv": csv_path, "val_csv": csv_path, "test_csv": csv_path,
+                 "image_root": os.path.join(root, "images"), "image_backend": "native"},
+        "training": {"wire": "u8", "attention": "pallas", "max_steps": 2,
+                     "num_train_epochs": 1},
+        "augmentation": {"enabled": False},  # the augmenting transform is PIL's
+        "logging": {"report_to": "tensorboard", "logging_steps": 1},
+        "saving": {"output_dir": run},
+        "parallel": {"data": 2},
+        "dump_test_predictions": True,
+    }
+    path = os.path.join(root, "clip_fusion_mesh.yaml")
+    with open(path, "w") as f:
+        f.write(dumps(cfg))
+    reports = _p12_spawn({"what": "cli", "config": path}, "cli_ranks")
+    # 2 micro-steps; 5 evals of the 64 rows (the epoch's, val, test, the
+    # test predictions, the calibration), 32 rows = one batch a rank each
+    want = _counts(patch_embed_u8=2 + 5, attention_nhd=24 * (2 + 5), attention_nhd_bwd=48)
+    for r, rep in enumerate(reports):
+        check(rep["launches"] == want, f"mesh (e): rank {r} launches {rep['launches']}, "
+                                       f"want {want}")
+        check(rep["global_step"] == 2 and np.isfinite(rep["val_loss"]), f"mesh (e): {rep}")
+    for artifact in ("config.json", "val_report.json", "test_metrics.json",
+                     "inference_config.json", "label_map.json", "test_predictions.csv"):
+        check(os.path.exists(os.path.join(run, artifact)), f"mesh (e): no {artifact}")
+    check(len(glob.glob(os.path.join(run, "logs", "events.out.tfevents.*"))) == 1,
+          "mesh (e): not exactly one event file (rank 0's)")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"ranks": reports, "launches_per_rank": want}
+
+
+def mesh_phase(torch, card: str):
+    """Phase 12: the mesh of processes on one card. (a) in this process;
+    (b)-(d) in one group of two gloo processes that share the card, held to
+    references computed here first; (e) the train CLI as two processes."""
+    import numpy as np
+
+    report = {"card": card, "note": "two processes sharing one H100, not a multi-GPU rate"}
+    shutil.rmtree(P12_ROOT, ignore_errors=True)
+    os.makedirs(P12_ROOT)
+    report["world1"] = mesh_world1_phase(torch, card)
+
+    # one process's references for (b)-(d)
+    losses, grads, launches, model = _p12_parity_steps(torch)
+    check(launches == _counts(False, patch_embed_u8=2, attention_nhd=48, attention_nhd_bwd=48),
+          f"mesh: one-process parity launches {launches}")
+    ref_path = os.path.join(P12_ROOT, "reference.pt")
+    torch.save({"losses": losses, "grads": grads,
+                "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}, ref_path)
+    del model, grads
+    logits, launches, wall, _ = _p12_engine_logits(torch)
+    check(launches == _counts(patch_embed_u8=2, attention_nhd=48),
+          f"mesh: one-process engine launches {launches}")
+    logits_path = os.path.join(P12_ROOT, "logits.npy")
+    np.save(logits_path, logits)
+    report["one_process"] = {"losses": losses, "engine_rows_per_s": P12_EVAL_ROWS / wall}
+    torch.cuda.empty_cache()
+
+    ranks = _p12_spawn({"what": "paths", "reference": ref_path, "logits": logits_path,
+                        "bf16_losses": report["world1"]["losses"]}, "ranks")
+    report["ranks"] = ranks
+    for r, rep in enumerate(ranks):
+        print(f"mesh rank {r} of 2 (two processes sharing one H100): DP fp32 grads err "
+              f"{rep['dp_fp32']['max_grad_err']:.3g}, TP fp32 grads err "
+              f"{rep['tp_fp32']['max_grad_err']:.3g}, DP bf16 loss err "
+              f"{rep['dp_bf16']['max_loss_err']:.3g}, trainer "
+              f"{rep['dp_bf16']['trainer_samples_per_s']:.1f} samples/s, TP bf16 staged "
+              f"{rep['tp_bf16']['staged_train_samples_per_s']:.1f} samples/s, engine logits err "
+              f"{rep['fast_engine']['max_abs_err']:.3g}, staged engine "
+              f"{rep['fast_engine']['staged_samples_per_s_rank']['median']:.0f} samples/s; {card}")
+    report["main_path_launches"] = {
+        "dp_train": ranks[0]["dp_bf16"]["launches"], "tp_train": ranks[0]["tp_bf16"]["launches"],
+        "dp_evaluate": ranks[0]["fast_engine"]["launches"],
+    }
+    report["cli"] = mesh_cli_phase(torch, card)
+    shutil.rmtree(P12_ROOT, ignore_errors=True)
+    return report
+
+
 # device-kernel name fragments -> the layer they belong to, first match wins
 KERNEL_GROUPS = [
     ("attention_nhd_bwd", ("attention_nhd_bwd",)),
@@ -4244,6 +4829,8 @@ UNITS = {
     "generic_eval": "one ViT-B/16 + BERT-base eval batch, bf16, B=64, text seq 77",
     "generic_train": "one ViT-B/16 + BERT-base training micro-step, bf16, B=32, u8 wire (the "
                      "text tower's dropout keeps it on the non-kernel core)",
+    "tp_train": "one CLIP ViT-B/32 training micro-step on one rank of a 1x2 tensor-parallel "
+                "mesh (two processes sharing one card), bf16, B=32",
 }
 # the shared headers each kernel's source includes
 HEADERS = {
@@ -4262,6 +4849,7 @@ PER_UNIT = {
     "mha_dense_mask": {"attention_small": 1},
     "generic_eval": {"patch_embed_u8": 1, "attention_nhd": 24},
     "generic_train": {"patch_embed_u8": 1, "attention_nhd": 12, "attention_nhd_bwd": 12},
+    "tp_train": {"patch_embed_u8": 1, "attention_nhd": 24, "attention_nhd_bwd": 24},
 }
 WORK = {
     "siglip384": {
@@ -4300,6 +4888,11 @@ WORK = {
         "patch_embed_u8": "[6272, 768] x [768, 768] + bias",
         "attention_nhd": "12 vision [32,197,768]/12 heads",
         "attention_nhd_bwd": "12 vision [32,197,768]/12 heads",
+    },
+    "tp_train": {
+        "patch_embed_u8": "[1568, 3072] x [3072, 768] (replicated)",
+        "attention_nhd": "12 vision [32,50,384]/6 heads + 12 text [32,48,256]/4 heads",
+        "attention_nhd_bwd": "12 vision [32,50,384]/6 heads + 12 text [32,48,256]/4 heads",
     },
 }
 # the path whose numbers head each kernel's entry, fixed so that entries
@@ -4431,6 +5024,7 @@ def main() -> int:
         (10, "int8_entry_points", lambda: entry_points_int8_phase(torch, card)),
         (10, "export", lambda: export_phase(torch, card)),  # trained runs -> reference
         (11, "deploy", lambda: deploy_phase(torch, card)),  # prep -> train -> package -> serve
+        (12, "mesh", lambda: mesh_phase(torch, card)),  # parallel/: DP, TP, the CLI
     ]
     for phase in sorted({p for p, *_ in paths}):
         t0 = time.perf_counter()
@@ -4460,7 +5054,8 @@ def main() -> int:
                         "generic_train": generic["train"]["main_path_launches"],
                         "int8_eval": int8["int8_eval"]["main_path_launches"],
                         "export": results["export"]["launches"],
-                        "deploy": results["deploy"]["launches"]}
+                        "deploy": results["deploy"]["launches"],
+                        **results["mesh"]["main_path_launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4468,7 +5063,7 @@ def main() -> int:
                    "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
                    "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
                    "generic": generic, **int8, "export": results["export"],
-                   "deploy": results["deploy"], "kernels": kernels},
+                   "deploy": results["deploy"], "mesh": results["mesh"], "kernels": kernels},
                   f, indent=1)
 
     print(card)

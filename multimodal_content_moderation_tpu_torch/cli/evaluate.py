@@ -14,6 +14,11 @@ JPEGs without PIL, so the CLI runs on a machine that has none of them.
 
     python -m multimodal_content_moderation_tpu_torch.cli.evaluate \\
         --checkpoint RUN/checkpoint-N --test_csv test.csv --image_root images
+
+Started as several processes (``torchrun --nproc_per_node N``, which sets
+``WORLD_SIZE``), both engines split the rows over the processes, one card
+each (the JAX CLI's data mesh); every process computes the metrics on all
+the gathered logits and only rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -114,6 +119,11 @@ def main(argv=None):
         evaluate_logits_u8,
         parse_seq_buckets,
     )
+    from multimodal_content_moderation_tpu_torch.parallel.mesh import (
+        build_mesh,
+        init_distributed,
+        local_device,
+    )
     from multimodal_content_moderation_tpu_torch.training.loop import evaluate_logits_standard
     from multimodal_content_moderation_tpu_torch.training.metrics import (
         binary_f1,
@@ -121,10 +131,12 @@ def main(argv=None):
     )
     from multimodal_content_moderation_tpu_torch.utils.config import save_json
 
+    mesh, device = None, args.device
+    if int(os.environ.get("WORLD_SIZE") or 1) > 1:
+        init_distributed(device=args.device)
+        mesh, device = build_mesh(), local_device(args.device)
     print(f"Loading model from: {args.checkpoint}")
-    model, config = model_io.load_checkpoint(
-        args.checkpoint, args.encoder_dir, device=args.device
-    )
+    model, config = model_io.load_checkpoint(args.checkpoint, args.encoder_dir, device=device)
     if args.precision in ("bf16", "bf16_fast", "int8_mlp"):
         model = model_io.with_performance_options(
             model,
@@ -172,7 +184,7 @@ def main(argv=None):
                "mean-pool over the pads)")
         print(f"WARNING: seq_buckets={args.seq_buckets} ignored: {why}")
     if args.engine == "fast":
-        engine = FastInferenceEngine(model, mean, std)
+        engine = FastInferenceEngine(model, mean, std, mesh=mesh)
         t0 = time.time()
         logits, labels = evaluate_logits_u8(
             engine, test_ds, args.batch_size,
@@ -180,7 +192,7 @@ def main(argv=None):
         )
     else:
         t0 = time.time()
-        logits, labels = evaluate_logits_standard(model, test_ds, args.batch_size)
+        logits, labels = evaluate_logits_standard(model, test_ds, args.batch_size, mesh=mesh)
     dt = time.time() - t0
     if config.get("use_logit_adjustment") and config.get("priors"):
         # post-hoc logit adjustment: subtract log(p / (1 - p)) per class
@@ -214,8 +226,9 @@ def main(argv=None):
         )
 
     output_path = args.output or os.path.join(args.checkpoint, "eval_results.json")
-    save_json(metrics, output_path)
-    print(f"Results saved to: {output_path}")
+    if mesh is None or mesh.is_main:
+        save_json(metrics, output_path)
+        print(f"Results saved to: {output_path}")
     return metrics
 
 

@@ -3,11 +3,23 @@
 reference ``scripts/train.py``): the same ``--config`` + dotted
 ``--section.key`` overrides and the same five artifacts (config.json,
 val_report.json, test_metrics.json, inference_config.json, label_map.json),
-running the port's trainer on one device.
+running the port's trainer on one device or on a mesh of processes.
 
     python -m multimodal_content_moderation_tpu_torch.cli.train \\
         --config config/clip_fusion.yaml \\
         --model.encoder_dir /path/to/local/clip-vit-base-patch32
+
+The config's ``parallel: {data, model}`` section (``--parallel.data``,
+``--parallel.model``; JAX's defaults: ``data: -1`` is every process divided
+by ``model``) lays the processes out on a ("data", "model") mesh: one
+process per card, started by ``torchrun`` (``RANK`` / ``WORLD_SIZE`` /
+``LOCAL_RANK`` / ``MASTER_ADDR`` / ``MASTER_PORT``), NCCL between the cards
+(gloo with ``--device cpu``):
+
+    torchrun --nproc_per_node 4 -m multimodal_content_moderation_tpu_torch.cli.train \\
+        --config config/clip_fusion.yaml --parallel.model 2
+
+Only the process of rank 0 writes the run directory.
 
 Ported: the CLIP, SigLIP and generic (a ``VisionTextDualEncoderModel``
 encoder dir: BERT, RoBERTa or DistilBERT text + ViT; ``backend: auto``
@@ -75,7 +87,7 @@ def parse_args(argv=None):
     )
     parser.add_argument("--saving.output_dir", dest="output_dir", default=None)
     parser.add_argument("--seed", type=int, default=None)
-    # mesh shape (the JAX CLI's); the port trains on one device
+    # mesh shape (the JAX CLI's): data x model processes
     parser.add_argument("--parallel.data", dest="mesh_data", type=int, default=None)
     parser.add_argument("--parallel.model", dest="mesh_model", type=int, default=None)
     parser.add_argument(
@@ -124,13 +136,26 @@ def dump_predictions(path: str, probs: np.ndarray, labels: np.ndarray, class_nam
     write_records(path, [dict(zip(names, list(p) + list(y))) for p, y in zip(probs, labels)])
 
 
-def _refuse_unported(config, model_cfg, data_cfg) -> None:
-    par = config.get("parallel", {})
-    if (par.get("data") or -1) not in (-1, 1) or (par.get("model") or 1) != 1:
-        raise NotImplementedError(
-            f"parallel {par} is not ported yet: the port trains on one device "
-            "(multi-GPU comes in a later slice)"
-        )
+def build_run_mesh(config: Dict[str, Any], device: str):
+    """The mesh of the config's ``parallel`` section, or None for one
+    process on one device. Joins the process group first when ``WORLD_SIZE``
+    says there are several processes; a section that asks for more
+    processes than there are raises."""
+    from multimodal_content_moderation_tpu_torch.parallel.mesh import (
+        build_mesh,
+        init_distributed,
+        world_size,
+    )
+
+    par = config.get("parallel", {}) or {}
+    num_data, num_model = par.get("data", -1) or -1, par.get("model", 1) or 1
+    if int(os.environ.get("WORLD_SIZE") or 1) > 1:
+        init_distributed(device=device)
+    if world_size() == 1 and num_data in (-1, 1) and num_model == 1:
+        return None
+    mesh = build_mesh(num_data, num_model)
+    logger.info("mesh: data=%d model=%d (%r)", mesh.num_data, mesh.num_model, mesh)
+    return mesh
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -146,6 +171,7 @@ def main(argv=None) -> Dict[str, Any]:
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import config_field
     from multimodal_content_moderation_tpu_torch.ops.losses import logit_adjust
+    from multimodal_content_moderation_tpu_torch.parallel.mesh import local_device
     from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs, Trainer
     from multimodal_content_moderation_tpu_torch.training.metrics import (
         calibrate_thresholds,
@@ -170,15 +196,18 @@ def main(argv=None) -> Dict[str, Any]:
     early_cfg = config.get("early_stopping", {})
     seed = config.get("seed", 42)
 
+    mesh = build_run_mesh(config, args.device)
+    device = args.device if mesh is None else local_device(args.device)
+    is_main = mesh is None or mesh.is_main
     output_dir = save_cfg.get("output_dir", "runs/experiment")
     ensure_dir(output_dir)
-    save_json(config, os.path.join(output_dir, "config.json"))
+    if is_main:
+        save_json(config, os.path.join(output_dir, "config.json"))
     logger.info("output dir: %s", output_dir)
 
     # ---- assets & data -----------------------------------------------------
     enc_dir = resolve_encoder_dir(model_cfg)
     model_cfg["backend"] = model_io.resolve_backend(enc_dir, model_cfg.get("backend", "clip"))
-    _refuse_unported(config, model_cfg, data_cfg)
     tokenizer = build_tokenizer(model_cfg)
     wire = train_cfg.get("wire", "f32") or "f32"
     train_pp, eval_pp = build_preprocessors(
@@ -249,7 +278,7 @@ def main(argv=None) -> Dict[str, Any]:
         fusion_dim=model_cfg.get("fusion_dim", 512),
         loss_type=loss_cfg.get("type", "bce"),
         focal_gamma=loss_cfg.get("focal_gamma", 1.5),
-        seed=seed, device=args.device,
+        seed=seed, device=device,
         head_hidden_dim=model_cfg.get("head_hidden_dim", 0) or 0,
         learnable_task_weights=model_cfg.get("learnable_task_weights", False),
         **{config_field(backend): enc_config},
@@ -301,23 +330,27 @@ def main(argv=None) -> Dict[str, Any]:
         wire=wire,
         accumulator_dtype=train_cfg.get("accumulator_dtype", "") or "",
     )
-    trainer = Trainer(model, targs, train_ds, val_ds, compute_metrics, device=args.device)
+    trainer = Trainer(model, targs, train_ds, val_ds, compute_metrics, device=device, mesh=mesh)
     logger.info("starting training (%d total steps)", trainer.total_steps)
     result = trainer.train()
 
     # ---- final evaluation + artifacts (reference scripts/train.py:329-374) --
+    # every rank evaluates (the logits are gathered); rank 0 writes
     val_results = trainer.evaluate()
-    save_json(val_results, os.path.join(output_dir, "val_report.json"))
+    if is_main:
+        save_json(val_results, os.path.join(output_dir, "val_report.json"))
     logger.info("validation: %s", val_results)
     if test_ds is not None:
         tm = trainer.evaluate(test_ds)
         test_results = {f"test_{k}": v for k, v in tm.items()}
-        save_json(test_results, os.path.join(output_dir, "test_metrics.json"))
+        if is_main:
+            save_json(test_results, os.path.join(output_dir, "test_metrics.json"))
         logger.info("test: %s", test_results)
         if config.get("dump_test_predictions", False):
             t_logits, t_labels = trainer.predict(test_ds)
-            dump_predictions(os.path.join(output_dir, "test_predictions.csv"),
-                             1 / (1 + np.exp(-t_logits)), t_labels, class_names)
+            if is_main:
+                dump_predictions(os.path.join(output_dir, "test_predictions.csv"),
+                                 1 / (1 + np.exp(-t_logits)), t_labels, class_names)
 
     logits, labels = trainer.predict(val_ds)
     priors = [float(p) for p in np.asarray(train_ds.labels).mean(axis=0)]
@@ -349,9 +382,12 @@ def main(argv=None) -> Dict[str, Any]:
         "priors": priors,
         "format": "torch",
     }
-    save_json(inference_config, os.path.join(output_dir, "inference_config.json"))
-    save_json({i: name for i, name in enumerate(class_names)},
-              os.path.join(output_dir, "label_map.json"))
+    if is_main:
+        save_json(inference_config, os.path.join(output_dir, "inference_config.json"))
+        save_json({i: name for i, name in enumerate(class_names)},
+                  os.path.join(output_dir, "label_map.json"))
+    if mesh is not None:
+        mesh.barrier()  # the run directory is whole before any rank returns
     logger.info("training complete; best checkpoint: %s", result["best_checkpoint"])
     logger.info("calibrated thresholds: %s", thresholds)
     return {"result": result, "val": val_results, "thresholds": thresholds}

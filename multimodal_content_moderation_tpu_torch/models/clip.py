@@ -23,6 +23,7 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     patchify,
     transformer_block,
 )
+from multimodal_content_moderation_tpu_torch.parallel.collectives import vocab_parallel_lookup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +197,7 @@ def clip_text_hidden(
     """Final-LN'd hidden states [B, T, D] of the CLIP text tower."""
     p = params["text_model"]
     T = input_ids.shape[1]
-    x = p["token_embedding"][input_ids.long()] + p["position_embedding"][:T]
+    x = vocab_parallel_lookup(p["token_embedding"], input_ids) + p["position_embedding"][:T]
     x = x.to(getattr(torch, cfg.compute_dtype))
     if cfg.attention_impl == "pallas":
         # structured masks: causal and key padding are applied in the kernel

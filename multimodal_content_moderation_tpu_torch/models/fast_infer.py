@@ -7,7 +7,13 @@ through the engine with host preparation on a background thread, pinned
 host buffers, non-blocking copies and at most two batches in flight, with
 optional exact text-length buckets (with the SigLIP carry column).
 
-Single device. The multi-GPU engine comes with its own slice.
+Under a mesh (``parallel/mesh.py``) the rows are split over the data axis
+as the JAX engine's ``shard_map`` splits them: each data rank reads,
+prepares and runs its slice of every global batch, and the logits are
+gathered back in the dataset's row order on every rank (one ``all_reduce``
+of a zero-filled buffer). The ranks of one model group run the same rows
+through a model split over them. The rows a rank runs follow its data
+index on the grid, never its rank number or its device.
 """
 
 from __future__ import annotations
@@ -25,9 +31,12 @@ class FastInferenceEngine:
     model's device.
 
     On the card the patch embed is the ``patch_embed_u8`` kernel; the
-    attention core follows the model's ``attention_impl``."""
+    attention core follows the model's ``attention_impl``. A call runs the
+    rows it is given; with a ``mesh``, ``evaluate_logits_u8`` gives each
+    data rank its rows and gathers the logits."""
 
-    def __init__(self, model, mean: Sequence[float], std: Sequence[float]):
+    def __init__(self, model, mean: Sequence[float], std: Sequence[float], mesh=None):
+        self.mesh = mesh
         self.model = model.replace(
             image_mean=tuple(float(m) for m in mean),
             image_std=tuple(float(s) for s in std),
@@ -134,6 +143,31 @@ def bucket_batch_text(
     return ids_b, mask_b, ids.shape[1] - 1
 
 
+def rank_positions(mesh, n: int, batch_size: int):
+    """(positions, batch size): the positions of an order of ``n`` rows that
+    this data rank runs, in batches of its share of ``batch_size``; every
+    position in batches of ``batch_size`` without a mesh of several data
+    ranks. A ``batch_size`` that does not divide by the data axis raises."""
+    if mesh is None or mesh.num_data == 1:
+        return np.arange(n), batch_size
+    return mesh.positions(n, batch_size), batch_size // mesh.num_data
+
+
+def gather_rank_rows(mesh, logits: List[np.ndarray], labels: List[np.ndarray],
+                     positions: np.ndarray, n: int, device) -> Tuple[np.ndarray, np.ndarray]:
+    """Every data rank's (logits, labels) at their ``positions`` of an order
+    of ``n`` rows, on every rank, as host arrays (one ``all_reduce``). The
+    logits are as wide as the labels (the loss compares them element for
+    element), so a rank whose slices were all pads still knows the width."""
+    width = int(np.asarray(labels[0]).shape[1])
+    local = np.zeros((len(positions), 2 * width), np.float32)
+    if len(positions):
+        local[:, :width] = np.concatenate(logits)
+        local[:, width:] = np.concatenate(labels)
+    full = mesh.gather_rows(torch.from_numpy(local).to(device), positions, n).cpu().numpy()
+    return full[:, :width], full[:, width:]
+
+
 def evaluate_logits_u8(
     engine: FastInferenceEngine,
     dataset,
@@ -151,7 +185,11 @@ def evaluate_logits_u8(
     tower, first-EOS pooling) and SigLIP (masked keys, the carry column).
     The generic backend runs at the full width whatever ``seq_buckets``
     says, as in the JAX engine: its tower may mean-pool over every
-    position, pads included, so a narrower batch changes its features."""
+    position, pads included, so a narrower batch changes its features.
+
+    Under the engine's mesh each data rank runs its slice of every global
+    batch of ``batch_size`` rows (of the length-sorted order with buckets)
+    and every rank returns all the rows."""
     from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_producer
 
     indices = None
@@ -162,13 +200,18 @@ def evaluate_logits_u8(
         if ladder is not None:
             lengths = dataset.attention_mask.sum(axis=1)
             indices = np.argsort(lengths, kind="stable")
+    n = len(dataset)
+    positions, rank_batch = rank_positions(engine.mesh, n, batch_size)
+    split = rank_batch != batch_size  # several data ranks share the rows
+    order = np.arange(n) if indices is None else indices
+    rows = order[positions] if split or indices is not None else None
     pin = engine.device.type == "cuda"
 
     # Host preparation (decode, patch extraction, pinning) runs two batches
     # ahead on a background thread, overlapping the device work.
     def prep():
         for batch in dataset.batches(
-            batch_size, pad_to_batch=True, num_workers=num_workers, indices=indices,
+            rank_batch, pad_to_batch=True, num_workers=num_workers, indices=rows,
         ):
             valid = int(batch.pop("_valid"))
             labels = batch.pop("labels")[:valid]
@@ -210,8 +253,13 @@ def evaluate_logits_u8(
         cancel()
     all_logits.extend(o[0].cpu().numpy() for o in outs)
     all_logits = [lg[:v] for lg, v in zip(all_logits, valids)]
-    logits = np.concatenate(all_logits)
-    labels = np.concatenate(all_labels)
+    if split:
+        logits, labels = gather_rank_rows(
+            engine.mesh, all_logits, all_labels or [np.asarray(dataset.labels)[:0]],
+            positions, n, engine.device,
+        )
+    else:
+        logits, labels = np.concatenate(all_logits), np.concatenate(all_labels)
     if indices is not None:  # restore the dataset's natural row order
         inv = np.empty_like(indices)
         inv[indices] = np.arange(len(indices))

@@ -44,6 +44,7 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     patchify,
     transformer_block,
 )
+from multimodal_content_moderation_tpu_torch.parallel.collectives import vocab_parallel_lookup
 
 # the generic towers' additive key bias for a padded position (JAX's)
 NEG_INF = -1e9
@@ -316,7 +317,7 @@ def generic_text_hidden(
         pos = p["position_embeddings"][torch.cumsum(nonpad, dim=1) * nonpad + cfg.pad_token_id]
     else:
         pos = p["position_embeddings"][:T][None]
-    x = p["word_embeddings"][ids] + pos
+    x = vocab_parallel_lookup(p["word_embeddings"], ids) + pos
     if "token_type_embeddings" in p:
         x = x + p["token_type_embeddings"][0][None, None]
     x = layer_norm(x.to(getattr(torch, cfg.compute_dtype)), p["emb_ln"], cfg.layer_norm_eps)

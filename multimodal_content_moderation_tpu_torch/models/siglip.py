@@ -39,6 +39,7 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     patchify,
     transformer_block,
 )
+from multimodal_content_moderation_tpu_torch.parallel.collectives import vocab_parallel_lookup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +151,7 @@ def siglip_text_features(
         if position_ids is None
         else p["position_embedding"][position_ids.long()]
     )
-    x = p["token_embedding"][input_ids.long()] + pos
+    x = vocab_parallel_lookup(p["token_embedding"], input_ids) + pos
     x = x.to(getattr(torch, t.compute_dtype))
     mask, key_mask = None, None
     if attention_mask is not None:

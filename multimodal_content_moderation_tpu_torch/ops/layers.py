@@ -9,6 +9,15 @@ Numerics contract, as in the JAX package:
 
 Parameters are passed as mappings (``p["w"]``), which a
 ``models.params.ParamTree`` is.
+
+Tensor parallelism (``parallel/sharding.py``) is read off the parameters:
+a weight that carries a ``model_split`` is this rank's shard. A column
+shard (q, k, v, fc1) takes its input through ``copy_to_model_parallel``
+and gives this rank's columns; a row shard (o, fc2) gives an fp32 partial
+product that ``reduce_from_model_parallel`` sums over the model group
+before the replicated bias is added once and the sum is rounded once to
+the input's dtype, so a bf16 ``dense`` still rounds once. ``mha`` runs the
+heads its q shard holds.
 """
 
 from __future__ import annotations
@@ -24,6 +33,12 @@ from torch.utils.checkpoint import checkpoint
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ, attention_nhd_diff
 from multimodal_content_moderation_tpu_torch.ops.cuda_flash import fused_mha
 from multimodal_content_moderation_tpu_torch.ops.quant import dense_int8
+from multimodal_content_moderation_tpu_torch.parallel.collectives import (
+    copy_to_model_parallel,
+    data_shard,
+    reduce_from_model_parallel,
+    split_of,
+)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -84,11 +99,18 @@ def dense(x: torch.Tensor, p) -> torch.Tensor:
 
     The weight is cast to the activation dtype; the product accumulates in
     fp32 and stays fp32, the bias is added in fp32 and the result is rounded
-    once to x's dtype (JAX's ``preferred_element_type=float32`` dense)."""
+    once to x's dtype (JAX's ``preferred_element_type=float32`` dense).
+    A row shard's fp32 partial products are summed over its model group
+    before the bias."""
     w = p["w"]
+    split = split_of(w)
+    if split is not None and split.dim == 1:
+        x = copy_to_model_parallel(x, split.group)
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
     y = _matmul_f32(x, w)
+    if split is not None and split.dim == 0:
+        y = reduce_from_model_parallel(y.float(), split.group)
     if "b" in p and p["b"] is not None:
         y = y + p["b"].float()
     return y.to(x.dtype)
@@ -112,14 +134,30 @@ def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+    x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+    heads: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Inverted dropout from an explicit generator's stream. Identity when
-    ``generator is None`` (eval) or ``rate == 0``."""
+    ``generator is None`` (eval) or ``rate == 0``.
+
+    Under a mesh every rank draws the mask of the global batch (this rank's
+    rows are one of ``data_shard()``'s slices) and keeps its own rows, and
+    of [B, H, ...] attention weights whose heads are split (``heads``:
+    ``(first head, all heads)``) its own heads: a step then draws what one
+    process draws on the whole batch."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    index, size = data_shard()
+    shape = list(x.shape)
+    shape[0] *= size
+    if heads is not None:
+        shape[1] = heads[1]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if size > 1:
+        mask = mask.narrow(0, index * x.shape[0], x.shape[0])
+    if heads is not None:
+        mask = mask.narrow(1, heads[0], x.shape[1])
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -203,15 +241,19 @@ def mha(
     weights after the softmax, before the product with v (HF's
     attention-probability dropout). Active dropout takes the "xla" core
     whatever ``impl`` says, in every branch: the kernels have no dropout."""
-    B, Tq, D = x_q.shape
+    B, Tq, _ = x_q.shape
     Tk = x_kv.shape[1]
-    h = num_heads
-    dh = D // h
     drop = probs_dropout > 0.0 and generator is not None
 
     q3 = dense(x_q, p["q"])
     k3 = dense(x_kv, p["k"])
     v3 = dense(x_kv, p["v"])
+    # this rank's heads: all of them, or a column shard's run of them
+    split = split_of(p["q"]["w"])
+    h = num_heads if split is None else num_heads // split.size
+    heads = None if split is None else (split.index * h, num_heads)
+    D = q3.shape[-1]
+    dh = D // h
 
     if Tq == 1 and mask is None and key_mask is None and not causal and not drop:
         qh = q3.float().reshape(B, 1, h, dh)
@@ -255,7 +297,7 @@ def mha(
         logits = logits.masked_fill(~keep, float("-inf"))
     weights = torch.softmax(logits.float(), dim=-1).to(x_q.dtype)
     if drop:
-        weights = dropout(weights, probs_dropout, generator)
+        weights = dropout(weights, probs_dropout, generator, heads)
     out = torch.matmul(weights, v)
     out = out.transpose(1, 2).reshape(B, Tq, D)
     return dense(out, p["o"])

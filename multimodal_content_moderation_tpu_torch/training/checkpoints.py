@@ -13,6 +13,13 @@ package's pruning can delete it at ``save_total_limit`` 1 and then name it
 the best, so that load-best-at-end finds no files.
 
 Tensors are saved from the CPU and restored onto the model's device.
+
+Under a mesh (``mesh=``) every rank calls these functions: a model split
+over the model axis is gathered whole first (``parallel/sharding.py``), so
+a tensor-parallel run writes the same files as a one-device run; only the
+mesh's main rank writes, and every rank waits at a barrier until the files
+are there. A restore reads the full tensors on every rank, and each keeps
+its shards.
 """
 
 from __future__ import annotations
@@ -24,6 +31,13 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from multimodal_content_moderation_tpu_torch.parallel.sharding import (
+    gather_named,
+    gather_params,
+    load_full_state,
+    shard_like,
+)
 
 PARAMS_FILE = "params.pt"
 STATE_FILE = "state.pt"
@@ -55,14 +69,19 @@ def save_checkpoint(
     step: int,
     save_total_limit: Optional[int] = None,
     keep: Optional[str] = None,
+    mesh=None,
 ) -> str:
     """Save the model's parameters at ``checkpoint-<step>``; prune the oldest
     beyond the limit, never pruning ``keep`` or the new checkpoint."""
     path = os.path.join(os.path.abspath(output_dir), f"checkpoint-{step}")
+    state = gather_params(model)  # every rank takes part in the gather
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
+        return path
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    torch.save(_cpu(model.state_dict()), os.path.join(path, PARAMS_FILE))
+    torch.save(_cpu(state), os.path.join(path, PARAMS_FILE))
     if save_total_limit and save_total_limit > 0:
         existing = list_checkpoints(output_dir)
         # never the best so far, nor the one just written: it may become the
@@ -73,6 +92,8 @@ def save_checkpoint(
             victim = prunable.pop(0)
             existing.remove(victim)
             shutil.rmtree(victim, ignore_errors=True)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -100,8 +121,9 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
 
 
 def restore_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load ``checkpoint-<step>`` into ``model`` (strict, in place)."""
-    model.load_state_dict(load_params(path), strict=True)
+    """Load ``checkpoint-<step>`` into ``model`` (strict, in place; a model
+    split over the model axis keeps its shards)."""
+    load_full_state(model, load_params(path))
     return model
 
 
@@ -113,23 +135,28 @@ def save_train_state(
     generator: torch.Generator,
     meta: dict,
     keep_last: int = 1,
+    mesh=None,
 ) -> str:
     path = os.path.join(os.path.abspath(output_dir), f"trainstate-{step}")
+    opt = dict(optimizer.state_dict())
+    for key in ("mu", "nu", "acc"):
+        if opt.get(key) is not None:
+            opt[key] = gather_named(opt[key], model)
+    params = gather_params(model)
+    if mesh is not None and not mesh.is_main:
+        mesh.barrier()
+        return path
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    torch.save(
-        {
-            "params": _cpu(model.state_dict()),
-            "optimizer": _cpu(optimizer.state_dict()),
-            "generator": generator.get_state(),
-        },
-        os.path.join(path, STATE_FILE),
-    )
+    torch.save({"params": _cpu(params), "optimizer": _cpu(opt),
+                "generator": generator.get_state()}, os.path.join(path, STATE_FILE))
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
     for victim in _numbered(output_dir, "trainstate")[:-keep_last]:
         shutil.rmtree(victim, ignore_errors=True)
+    if mesh is not None:
+        mesh.barrier()
     return path
 
 
@@ -144,8 +171,12 @@ def restore_train_state(
     """Load a ``trainstate-<step>`` into the live objects (in place);
     returns its meta."""
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
-    model.load_state_dict(state["params"], strict=True)
-    optimizer.load_state_dict(state["optimizer"])
+    load_full_state(model, state["params"])
+    opt = dict(state["optimizer"])
+    for key in ("mu", "nu", "acc"):
+        if opt.get(key) is not None:
+            opt[key] = shard_like(opt[key], model)
+    optimizer.load_state_dict(opt)
     generator.set_state(state["generator"])
     with open(os.path.join(path, "meta.json")) as f:
         return json.load(f)

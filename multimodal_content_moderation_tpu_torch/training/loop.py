@@ -1,5 +1,5 @@
-"""Fine-tuning loop and streaming evaluation on one device (the JAX
-package's ``training/loop.py``).
+"""Fine-tuning loop and streaming evaluation (the JAX package's
+``training/loop.py``), on one device or over a mesh of processes.
 
 - ``make_train_step``: forward (dropout from the trainer's generator), loss,
   backward, then the optimizer (``training/optim.AdamW``: global-norm clip,
@@ -28,9 +28,19 @@ package's ``training/loop.py``).
 Host batches are prepared on a background thread and copied from pinned
 memory without blocking. On the card the model's kernels run in both
 passes (``patch_embed_u8`` on the u8 wire; ``attention_nhd`` and
-``attention_nhd_bwd`` with ``attention_impl="pallas"``). Multi-device meshes
-are not ported; the JAX package's ``enforce_gspmd_safe_kernels`` exists only
-for them.
+``attention_nhd_bwd`` with ``attention_impl="pallas"``).
+
+Under a mesh (``Trainer(..., mesh=)``, ``parallel/mesh.py``) the parameters
+are broadcast from the first rank and split over the model axis by the
+Megatron rules (``parallel/sharding.py``); ``per_device_train_batch_size``
+stays the global batch, as on a JAX single-process mesh, and each data rank
+prepares, copies and runs only its rows of it; dropout draws the global
+batch's masks; the optimizer averages the gradients over the data axis once
+per update; the logged loss is the data axis's mean; eval gathers the
+logits, so every rank computes the same metrics; only the main rank writes
+checkpoints, train states and events. Every rank runs the hand kernels on
+its local tensors (the JAX package's ``enforce_gspmd_safe_kernels`` swaps
+them out under GSPMD; nothing here needs that).
 """
 
 from __future__ import annotations
@@ -47,11 +57,15 @@ from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_produc
 from multimodal_content_moderation_tpu_torch.models.fast_infer import (
     FastInferenceEngine,
     evaluate_logits_u8,
+    gather_rank_rows,
+    rank_positions,
 )
 from multimodal_content_moderation_tpu_torch.models.u8wire import default_stats
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
 from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits
+from multimodal_content_moderation_tpu_torch.parallel.mesh import local_device
+from multimodal_content_moderation_tpu_torch.parallel.sharding import shard_params
 from multimodal_content_moderation_tpu_torch.training import checkpoints as ckpt_lib
 from multimodal_content_moderation_tpu_torch.training.optim import AdamW
 from multimodal_content_moderation_tpu_torch.training.sampling import (
@@ -118,12 +132,20 @@ class TrainArgs:
 
 
 def host_batches(
-    dataset, batch_size: int, patch_size: Optional[int], indices, num_workers: int = 8
+    dataset, batch_size: int, patch_size: Optional[int], indices, num_workers: int = 8,
+    mesh=None,
 ) -> Iterator[Dict[str, torch.Tensor]]:
     """Full training batches in ``indices`` order as {name: CPU tensor}. With
     a ``patch_size`` (the u8 wire) the uint8 HWC crops are cut into
     wire-format patch rows; without one (the f32 wire) the normalised
-    ``pixel_values`` go as they are."""
+    ``pixel_values`` go as they are. Under a ``mesh`` only this data rank's
+    rows of each global batch of ``batch_size`` are read."""
+    indices = np.asarray(indices)
+    if mesh is not None and mesh.num_data > 1:
+        n_batches = len(indices) // batch_size
+        sl = mesh.rows(batch_size)
+        indices = indices[: n_batches * batch_size].reshape(n_batches, batch_size)[:, sl]
+        indices, batch_size = indices.reshape(-1), sl.stop - sl.start
     for batch in dataset.batches(
         batch_size, drop_last=True, indices=indices, num_workers=num_workers
     ):
@@ -190,15 +212,23 @@ def make_train_step(
     return train_step
 
 
-def evaluate_logits_standard(model, dataset, batch_size: int, num_workers: int = 8):
+def evaluate_logits_standard(model, dataset, batch_size: int, num_workers: int = 8,
+                             mesh=None):
     """(logits, labels) host arrays of the dataset in its row order through
     ``model.forward`` on normalised fp32 ``pixel_values`` at the full text
     width (the JAX package's standard engine): the last batch padded to
-    ``batch_size`` and the pads trimmed on the host, two batches in flight."""
+    ``batch_size`` and the pads trimmed on the host, two batches in flight.
+    Under a ``mesh`` each data rank runs its slice of every batch and every
+    rank returns all the rows."""
     valids, labels = [], []
+    n = len(dataset)
+    positions, rank_batch = rank_positions(mesh, n, batch_size)
+    split = rank_batch != batch_size  # several data ranks share the rows
+    rows = positions if split else None
 
     def host():
-        for batch in dataset.batches(batch_size, pad_to_batch=True, num_workers=num_workers):
+        for batch in dataset.batches(rank_batch, pad_to_batch=True, num_workers=num_workers,
+                                     indices=rows):
             if batch["pixel_values"].dtype != np.float32:
                 raise ValueError(
                     "the standard engine takes normalised float32 NCHW pixel_values (a "
@@ -215,23 +245,29 @@ def evaluate_logits_standard(model, dataset, batch_size: int, num_workers: int =
             if len(outs) > 2:
                 logits.append(outs.pop(0).cpu().numpy())
         logits.extend(o.cpu().numpy() for o in outs)
-    return (np.concatenate([lg[:v] for lg, v in zip(logits, valids)]),
-            np.concatenate(labels))
+    logits = [lg[:v] for lg, v in zip(logits, valids)]
+    if split:
+        return gather_rank_rows(mesh, logits, labels or [np.asarray(dataset.labels)[:0]],
+                                positions, n, model.device)
+    return np.concatenate(logits), np.concatenate(labels)
 
 
-def evaluate_logits(model, dataset, batch_size: int, num_workers: int = 8):
+def evaluate_logits(model, dataset, batch_size: int, num_workers: int = 8, mesh=None):
     """(logits, labels) host arrays of the dataset in its row order, through
     the u8-wire eval engine (``models/fast_infer``, a dataset of uint8 HWC
     crops): the last batch padded to ``batch_size`` and the pads trimmed on
-    the host, two batches in flight."""
+    the host, two batches in flight; over the ``mesh``'s data axis."""
     mean, std = default_stats(model.backend)
-    engine = FastInferenceEngine(model, model.image_mean or mean, model.image_std or std)
+    engine = FastInferenceEngine(model, model.image_mean or mean, model.image_std or std,
+                                 mesh=mesh)
     return evaluate_logits_u8(engine, dataset, batch_size, num_workers=num_workers)
 
 
 class Trainer:
     """Epoch-driven fine-tuning with eval, checkpoint and early-stop
-    plumbing, on one device (``device``, the card by default)."""
+    plumbing, on one device (``device``, the card by default) or, with a
+    ``mesh``, as one rank of it (a bare ``"cuda"`` is then the card
+    ``LOCAL_RANK`` names, one card per process under ``torchrun``)."""
 
     def __init__(
         self,
@@ -242,6 +278,7 @@ class Trainer:
         compute_metrics: Callable,
         pos_weight: Optional[np.ndarray] = None,
         device="cuda",
+        mesh=None,
     ):
         if args.wire not in ("u8", "f32"):
             raise ValueError(f"wire {args.wire!r}: want 'f32' or 'u8'")
@@ -262,8 +299,14 @@ class Trainer:
         self.train_ds = train_dataset
         self.eval_ds = eval_dataset
         self.compute_metrics = compute_metrics
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else local_device(device))
         self.model = model.to(self.device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        if mesh is not None:
+            mesh.activate()
+            mesh.replicate(self.model)
+            shard_params(self.model, mesh)
         # the u8 wire cuts patch rows of the backend's own patch size
         self.patch_size = model.encoder_config.vision.patch_size if args.wire == "u8" else None
         self.eval_logits = evaluate_logits if args.wire == "u8" else evaluate_logits_standard
@@ -286,6 +329,7 @@ class Trainer:
             freeze_image=args.freeze_image,
             accumulator_dtype=args.accumulator_dtype or None,
             accumulation_steps=accum,
+            mesh=mesh,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(args.seed)
         self.train_step = make_train_step(
@@ -297,7 +341,7 @@ class Trainer:
         self.start_epoch = 0
         self._start_step = 0
         self.writer = None
-        if args.report_to == "tensorboard":
+        if args.report_to == "tensorboard" and self.is_main:
             self.writer = EventWriter(args.logging_dir or f"{args.output_dir}/logs")
         elif args.report_to not in ("", "none"):
             logger.warning("report_to %r: only 'tensorboard' writes anything (as in the "
@@ -327,7 +371,8 @@ class Trainer:
 
     def predict(self, dataset) -> Tuple[np.ndarray, np.ndarray]:
         return self.eval_logits(
-            self.model, dataset, self.args.per_device_eval_batch_size, self.args.num_workers
+            self.model, dataset, self.args.per_device_eval_batch_size, self.args.num_workers,
+            mesh=self.mesh,
         )
 
     def evaluate(self, dataset=None) -> Dict[str, float]:
@@ -341,6 +386,11 @@ class Trainer:
         metrics["runtime"] = dt
         metrics["samples_per_second"] = len(dataset) / dt if dt > 0 else 0.0
         return metrics
+
+    def _mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The step's loss over the whole global batch: the data axis's mean
+        of the ranks' losses (each over its equal share of the rows)."""
+        return loss if self.mesh is None else self.mesh.mean(loss)
 
     def _is_better(self, value: float) -> bool:
         if self.best_metric is None:
@@ -362,7 +412,7 @@ class Trainer:
             timer.reset_clock()
             items = host_batches(
                 self.train_ds, args.per_device_train_batch_size, self.patch_size,
-                self._epoch_indices(epoch), args.num_workers,
+                self._epoch_indices(epoch), args.num_workers, self.mesh,
             )
             losses = []
             for batch in prefetch_to_device(items, self.device, size=args.prefetch):
@@ -370,7 +420,7 @@ class Trainer:
                 step += 1
                 timer.tick()
                 if step % args.logging_steps == 0:
-                    loss_val = float(loss)
+                    loss_val = float(self._mean_loss(loss))
                     losses.append(loss_val)
                     sps = timer.samples_per_second(args.per_device_train_batch_size)
                     logger.info(
@@ -385,7 +435,8 @@ class Trainer:
 
             metrics = self.evaluate()
             metrics["epoch"] = epoch + 1
-            metrics["train_loss"] = float(np.mean(losses)) if losses else float(loss)
+            metrics["train_loss"] = (float(np.mean(losses)) if losses
+                                     else float(self._mean_loss(loss)))
             history.append(metrics)
             logger.info("epoch %d eval: %s", epoch + 1, metrics)
             if self.writer:
@@ -397,6 +448,7 @@ class Trainer:
             ckpt_path = ckpt_lib.save_checkpoint(
                 args.output_dir, self.model, step,
                 save_total_limit=args.save_total_limit, keep=self.best_checkpoint,
+                mesh=self.mesh,
             )
             value = metrics.get(args.metric_for_best_model)
             if value is not None and self._is_better(value):
@@ -414,6 +466,7 @@ class Trainer:
                     "best_metric": self.best_metric,
                     "best_checkpoint": self.best_checkpoint,
                 },
+                mesh=self.mesh,
             )
             if args.early_stopping and epochs_without_improvement >= args.early_stopping_patience:
                 logger.info("early stopping at epoch %d", epoch + 1)

@@ -24,6 +24,14 @@ It is written over the model's named parameters, not as ``torch.optim.AdamW``
 Parameters under ``backbone.`` take ``lr_encoder``; the rest take ``lr_head``.
 Updates are applied in place (``torch.no_grad``); nothing here synchronises
 with the device.
+
+Under a mesh (``parallel/mesh.py``) the gradients are averaged over the
+data axis once per optimizer update, after the accumulated micro-steps, in
+flat fp32 buckets (``all_reduce`` of a few large buffers, not one call per
+leaf). The global norm counts each leaf once: the squares of the leaves
+split over the model axis (``parallel/sharding.py``) are summed over the
+model group, the replicated leaves' (the same on every rank of the group)
+are added once. The moments are shaped like this rank's shards.
 """
 
 from __future__ import annotations
@@ -33,8 +41,13 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from multimodal_content_moderation_tpu_torch.parallel.collectives import split_of
 
 ENCODER, HEAD, FROZEN = "encoder", "head", "frozen"
+# elements at which a flat gradient bucket summed over the data axis closes (64 MiB of fp32)
+BUCKET_ELEMENTS = 1 << 24
 
 
 def label_for(name: str, freeze_text: bool = False, freeze_image: bool = False) -> str:
@@ -99,8 +112,10 @@ class AdamW:
         freeze_image: bool = False,
         accumulator_dtype: Optional[str] = None,
         accumulation_steps: int = 1,
+        mesh=None,
     ):
         self.params = dict(named_params)
+        self.mesh = mesh
         self.labels = {n: label_for(n, freeze_text, freeze_image) for n in self.params}
         self.lr = {
             ENCODER: make_schedule(lr_encoder, total_steps, warmup_ratio, schedule),
@@ -142,11 +157,46 @@ class AdamW:
                 self.mini_step += 1
                 return False
             grads = acc
+        self._average_over_data(grads)
         self._update(dict(zip(self.params, grads)))
         if self.acc is not None:
             self.mini_step = 0
             torch._foreach_zero_(list(self.acc.values()))
         return True
+
+    def _average_over_data(self, grads) -> None:
+        """The mean of every gradient over the data axis, in place: flat
+        fp32 buckets (each closes at the leaf that takes it to
+        ``BUCKET_ELEMENTS``), one ``all_reduce`` each, whenever the process
+        is in a group (a group of one sums nothing, but its collective
+        runs)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_group is None:
+            return
+        bucket, n = [], 0
+        for i, g in enumerate(grads):
+            bucket.append(g)
+            n += g.numel()
+            if n >= BUCKET_ELEMENTS or i == len(grads) - 1:
+                flat = torch.cat([t.reshape(-1) for t in bucket])
+                dist.all_reduce(flat, group=mesh.data_group)
+                flat.div_(mesh.num_data)
+                for t, piece in zip(bucket, flat.split([t.numel() for t in bucket])):
+                    t.copy_(piece.view_as(t))
+                bucket, n = [], 0
+
+    def _global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The norm of the whole model's gradient, each leaf counted once:
+        the split leaves' squares summed over their model group."""
+        splits = {n: split_of(self.params[n]) for n in grads}
+
+        def squares(gs):
+            return torch.stack(torch._foreach_norm(gs)).square().sum()
+
+        sq_split = squares([g for n, g in grads.items() if splits[n] is not None])
+        group = next(s.group for s in splits.values() if s is not None)
+        dist.all_reduce(sq_split, group=group)
+        return (squares([g for n, g in grads.items() if splits[n] is None]) + sq_split).sqrt()
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
         """One optimizer update from the (mean) gradients, which are clipped
@@ -156,7 +206,10 @@ class AdamW:
             # clip_by_global_norm over every leaf, frozen towers included:
             # g if norm < max_norm, else g * (max_norm / norm)
             g_all = list(grads.values())
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g_all)))
+            if any(split_of(p) is not None for p in self.params.values()):
+                norm = self._global_norm(grads)
+            else:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g_all)))
             scale = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
                                 self.max_grad_norm / norm)
             torch._foreach_mul_(g_all, scale)

@@ -73,7 +73,10 @@ from multimodal_content_moderation_tpu_torch.ops import layers  # noqa: E402
 from multimodal_content_moderation_tpu_torch.training.loop import make_train_step  # noqa: E402
 from multimodal_content_moderation_tpu_torch.training.optim import AdamW  # noqa: E402
 from test_torch_inference import TEXTS, images  # noqa: E402, F401  (fixture)
-from test_torch_pixel_path import assert_adam_step_matches  # noqa: E402
+from test_torch_pixel_path import (  # noqa: E402
+    assert_adam_step_matches,
+    assert_ill_conditioned_count,
+)
 
 TASKS = ["racist", "sexist", "homophobe", "religion", "otherhate"]
 N = len(TASKS)
@@ -418,8 +421,9 @@ def test_logits_and_grads_match_jax(head, wire):
 
 # elements of test_adamw_step_matches_jax held to the looser bound of
 # assert_adam_step_matches (0 < |clipped JAX gradient| < 100 eps), of the
-# tiny fusion model's 67,286: the towers' small gradients (none of them is
-# past atol 5e-5 here either)
+# tiny fusion model's 67,286, as one x86 CPU counted them: the towers'
+# small gradients (none of them is past atol 5e-5 here either). Another CPU
+# read 741: a ceiling (assert_ill_conditioned_count), not a pin
 ILL_CONDITIONED = 738
 
 
@@ -434,7 +438,8 @@ def test_adamw_step_matches_jax():
     want = flatten(jax.tree_util.tree_map(np.asarray, optax.apply_updates(jparams, upd)))
     step = make_train_step(tmodel, AdamW(dict(tmodel.named_parameters()), **kw))
     assert float(step(_tb(batch))) == pytest.approx(float(jloss), abs=1e-6)
-    assert assert_adam_step_matches(tmodel, want, g, kw) == ILL_CONDITIONED
+    n_loose = assert_adam_step_matches(tmodel, want, g, kw)
+    assert_ill_conditioned_count(n_loose, ILL_CONDITIONED, tmodel)
 
 
 # ---------------------------------------------------------------- mha and dropout

@@ -19,8 +19,8 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 # what chip_smoke.py drives on the card: the CLIP and SigLIP eval paths, the
 # training path, the multi-task model, the moderation endpoint with the evaluate CLI (CSV rows,
 # the CLIP BPE tokenizer, JPEG decode, the pixel cache), the int8 fc1 tier and the export,
-# and the deployment path (data prep, the SageMaker entrypoint, the train CLI on a YAML
-# file with tensorboard events and predictions, packaging)
+# the deployment path (data prep, the SageMaker entrypoint, the train CLI on a YAML
+# file with tensorboard events and predictions, packaging), and the mesh of processes
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.utils.compile_cache",
     "multimodal_content_moderation_tpu_torch.utils.config",
@@ -70,6 +70,10 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.training.metrics",
     "multimodal_content_moderation_tpu_torch.training.loop",
     "multimodal_content_moderation_tpu_torch.utils.profiling",
+    "multimodal_content_moderation_tpu_torch.parallel.collectives",
+    "multimodal_content_moderation_tpu_torch.parallel.mesh",
+    "multimodal_content_moderation_tpu_torch.parallel.sharding",
+    "multimodal_content_moderation_tpu_torch.parallel.dryrun",
     "chip_smoke",
 ]
 # the packages the card's path must import without

@@ -77,7 +77,7 @@ from multimodal_content_moderation_tpu_torch.training.loop import (
 from multimodal_content_moderation_tpu_torch.training.metrics import make_compute_metrics_mtl
 from multimodal_content_moderation_tpu_torch.training.optim import AdamW
 from test_torch_inference import TEXTS, images  # noqa: F401  (fixture)
-from test_torch_pixel_path import assert_adam_step_matches
+from test_torch_pixel_path import assert_adam_step_matches, assert_ill_conditioned_count
 
 TASKS = ["racist", "sexist", "homophobe", "religion", "otherhate"]
 N = len(TASKS)
@@ -317,8 +317,10 @@ def test_mtl_grads_match_jax(backend, wire):
 
 # elements of test_mtl_train_step_matches_jax held to the looser bound of
 # assert_adam_step_matches (0 < |clipped JAX gradient| < 100 eps), of
-# 123,482 (CLIP) and 56,940 (SigLIP): the towers' small gradients and the
-# MAP head's q and k weights; none of them is past atol 5e-5 today
+# 123,482 (CLIP) and 56,940 (SigLIP), as one x86 CPU counted them: the
+# towers' small gradients and the MAP head's q and k weights; none of them
+# is past atol 5e-5 today. Another CPU read 2047 and 2485: a ceiling
+# (assert_ill_conditioned_count), not a pin
 ILL_CONDITIONED = {"clip": 2044, "auto": 2482}
 
 
@@ -337,7 +339,8 @@ def test_mtl_train_step_matches_jax(backend):
     assert opt.labels["head.log_vars"] == "head"  # lr_head, with weight decay
     step = make_train_step(tmodel, opt, pos_weight=PW)
     assert float(step(_tb(batch))) == pytest.approx(float(jloss), abs=1e-6)
-    assert assert_adam_step_matches(tmodel, want, g, kw) == ILL_CONDITIONED[backend]
+    n_loose = assert_adam_step_matches(tmodel, want, g, kw)
+    assert_ill_conditioned_count(n_loose, ILL_CONDITIONED[backend], tmodel)
 
 
 # ---------------------------------------------------------------- engine

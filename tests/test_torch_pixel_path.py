@@ -219,17 +219,33 @@ def test_f32_wire_train_step_matches_jax(backend):
     step = make_train_step(tmodel, AdamW(dict(tmodel.named_parameters()), **kw), pos_weight=PW)
     assert float(step(_tb(batch))) == pytest.approx(float(jloss), abs=1e-6)
     n_loose = assert_adam_step_matches(tmodel, want, g, kw)
-    assert n_loose == ILL_CONDITIONED[backend]
+    assert_ill_conditioned_count(n_loose, ILL_CONDITIONED[backend], tmodel)
 
 
 # elements whose first Adam step is ill-conditioned (0 < |clipped JAX
 # gradient| < 100 eps) in test_f32_wire_train_step_matches_jax, of 67,316
-# (CLIP) and 56,693 (SigLIP): mostly the attention key biases, whose exact
-# gradient is 0 (softmax ignores a shift along the keys) and whose computed
-# one is rounding noise, and the SigLIP MAP head's q and k weights. Only one
-# of them is past atol 5e-5: head.cls_fc1.w[39, 14] for SigLIP (1 of that
-# leaf's 1280), gradient 3.5e-8, off by 8.8e-5
+# (CLIP) and 56,693 (SigLIP), as one x86 CPU counted them: mostly the
+# attention key biases, whose exact gradient is 0 (softmax ignores a shift
+# along the keys) and whose computed one is rounding noise, and the SigLIP
+# MAP head's q and k weights. How many of those noise values land on exactly
+# 0 depends on the CPU's vector width and the BLAS blocking (another CPU
+# read 323 and 1290), so the count is a ceiling, not a pin
+# (``assert_ill_conditioned_count``). Only one of them is past atol 5e-5:
+# head.cls_fc1.w[39, 14] for SigLIP (1 of that leaf's 1280), gradient
+# 3.5e-8, off by 8.8e-5
 ILL_CONDITIONED = {"clip": 318, "siglip": 1286}
+
+
+def assert_ill_conditioned_count(n_loose, recorded, tmodel):
+    """The number of elements ``assert_adam_step_matches`` held to the
+    looser bound: at most 1.1 times the ``recorded`` count and at most 5% of
+    the model's elements. The count moves between CPUs (rounding noise that
+    lands on exactly 0 on one and not on another); every element is checked
+    all the same, so only a count far past the record means that more of
+    the model is ill-conditioned than the rounding explains."""
+    total = sum(p.numel() for p in tmodel.parameters())
+    assert n_loose <= 1.1 * recorded, (n_loose, recorded)
+    assert n_loose <= 0.05 * total, (n_loose, total)
 
 
 def assert_adam_step_matches(tmodel, want, jgrads, kw, eps=1e-8):
@@ -253,6 +269,54 @@ def assert_adam_step_matches(tmodel, want, jgrads, kw, eps=1e-8):
         assert np.all(np.abs(got[~tight] - w[~tight]) <= lr), name
         n_loose += int(np.sum(~tight))
     return n_loose
+
+
+def test_adam_check_holds_when_noise_lands_on_zero():
+    """The same port step checked against two JAX gradients that differ only
+    in where rounding noise fell: in one, some of the noise elements are
+    exactly 0 (as on a CPU whose blocking cancels them), in the other none
+    are. The count of ill-conditioned elements moves, and every element
+    passes ``assert_adam_step_matches`` both times."""
+    rng = np.random.default_rng(5)
+    shapes = {"backbone": {"w": (16, 8), "b": (8,)}, "head": {"w": (8, 4)}}
+    init = {g: {k: rng.normal(size=s).astype(np.float32) for k, s in leaves.items()}
+            for g, leaves in shapes.items()}
+    grads = {g: {k: rng.normal(scale=1e-3, size=s).astype(np.float32)
+                 for k, s in leaves.items()} for g, leaves in shapes.items()}
+    # an attention key bias: its exact gradient is 0, the computed one noise
+    noise = rng.normal(scale=1e-11, size=8).astype(np.float32)
+    grads["backbone"]["b"] = noise
+    kw = dict(lr_encoder=1e-3, lr_head=1e-2, weight_decay=0.02, max_grad_norm=1.0,
+              total_steps=3, warmup_ratio=0.0, schedule="cosine")
+
+    module = torch.nn.Module()
+    named = {}
+    for g, leaves in init.items():
+        for k, v in leaves.items():
+            named[f"{g}.{k}"] = torch.nn.Parameter(torch.from_numpy(v.copy()))
+            module.register_parameter(f"{g}_{k}", named[f"{g}.{k}"])
+    for n, p in named.items():
+        g, k = n.split(".")
+        p.grad = torch.from_numpy(grads[g][k].copy())
+    AdamW(named, **kw).step()
+
+    class Named:
+        def named_parameters(self):
+            return named.items()
+
+    counts = []
+    for zeroed in (0, 3):
+        jgrads = {g: dict(v) for g, v in grads.items()}
+        b = noise * rng.uniform(0.5, 1.5, size=8).astype(np.float32)  # other noise
+        b[:zeroed] = 0.0
+        jgrads["backbone"]["b"] = b
+        jp = jax.tree_util.tree_map(jnp.asarray, init)
+        tx = build_optimizer(jp, **kw)
+        upd, _ = tx.update(jax.tree_util.tree_map(jnp.asarray, jgrads), tx.init(jp), jp)
+        want = flatten(jax.tree_util.tree_map(np.asarray, optax.apply_updates(jp, upd)))
+        counts.append(assert_adam_step_matches(Named(), want, jgrads, kw))
+    assert counts[0] - counts[1] == 3 and counts[1] >= 5  # the three zeros are tight
+    assert_ill_conditioned_count(counts[1], counts[0], module)
 
 
 class PixelDataset:
