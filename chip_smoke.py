@@ -197,6 +197,21 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    train CLI launched as two processes on a ``_base_: clip_fusion.yaml``
    file with ``parallel: {data: 2}``. Every rate of (b)-(e) is that of two
    processes sharing one card, not a multi-GPU rate.
+13. The measuring entry points (``bench_torch.py`` and
+   ``multimodal_content_moderation_tpu_torch/tools/``), each in a fresh
+   process (``p13_worker``: the same hidden modules, then the tool's
+   ``main``), at full width: ``bench_torch.py`` at its defaults twice (the
+   same-configuration spread), printed beside phase 3's in-process staged
+   rate (the phase-order pair); ``bench_eval`` for SigLIP2-B/16-224 and ViT-B/16
+   + BERT-base fusion at B=64 with both cores on the kernels;
+   ``bench_train`` for CLIP on the u8 wire with the kernels (B=32, text 48)
+   and SigLIP on the f32 wire with the "xla" core (B=24); ``bench_serving``
+   at 1 and 16 clients without micro-batching; ``bench_input``,
+   ``bench_attention``, ``bench_transfer``, ``profile_eval`` and
+   ``profile_e2e``. Counts are
+   cut where ``P13_CUTS`` says. Every JSON line must name the card, and its
+   launches must show its path's kernels (exact counts where the flags fix
+   them), every bf16 launch on the tensor cores.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -787,7 +802,6 @@ HF_CLIP_B32 = {  # openai/clip-vit-base-patch32 config.json (the dimensions)
         "num_channels": 3, "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5,
     },
 }
-CLASSES = ["racist", "sexist", "homophobe", "religion", "otherhate"]
 
 
 HF_SIGLIP2_B16_384 = {  # google/siglip2-base-patch16-384 config.json (the dimensions)
@@ -928,6 +942,7 @@ def full_model_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.tools._common import device_time_breakdown
     from multimodal_content_moderation_tpu_torch.training.metrics import compute_detailed_metrics
 
     report = {}
@@ -985,7 +1000,7 @@ def full_model_phase(torch, card: str):
     n_batches = -(-len(data) // BATCH)
     runs = {}
     for name, spec in (("seq_buckets_off", "off"), ("seq_buckets_auto", "auto")):
-        counts = _reset_counts()
+        counts = launch_counter()
         t0 = time.perf_counter()
         logits, labels = fi.evaluate_logits_u8(
             engine, data, BATCH, num_workers=4, seq_buckets=fi.parse_seq_buckets(spec)
@@ -1033,8 +1048,8 @@ def full_model_phase(torch, card: str):
         report[f"staged_samples_per_s_seq{width}"] = {
             **staged_eval_rates(torch, engine, ids, patches, mask), "card": card}
         report[f"device_time_seq{width}"] = device_time_breakdown(
-            torch, lambda: [engine(x, mask, patches[i % 4], ones, ones)
-                            for i, x in enumerate(ids[:4])], 4,
+            lambda: [engine(x, mask, patches[i % 4], ones, ones)
+                     for i, x in enumerate(ids[:4])], 4,
         )
     return report
 
@@ -1131,7 +1146,7 @@ def standard_engine_check(torch, model):
     float_data = InMemoryDataset(n, seed=12, stats=(CLIP_MEAN, CLIP_STD))
     fast, labels = fi.evaluate_logits_u8(fi.FastInferenceEngine(fp32, CLIP_MEAN, CLIP_STD),
                                          u8_data, 64, num_workers=2)
-    counts = _reset_counts()
+    counts = launch_counter()
     standard, labels_std = evaluate_logits_standard(fp32, float_data, 64, num_workers=2)
     launches = counts()
     check(launches == _counts(False, attention_nhd=24 * 2),
@@ -1152,47 +1167,12 @@ N_TRAIN_ROWS = 16 * TRAIN_BATCH  # 16 micro-steps (8 optimizer steps) an epoch
 N_VAL_ROWS = 2 * 64 - 7  # two eval batches, the last one padded
 
 
-def _wrappers():
-    from multimodal_content_moderation_tpu_torch.ops.cuda_attention import (
-        attention_nhd, attention_nhd_bwd)
-    from multimodal_content_moderation_tpu_torch.ops.cuda_flash import (
-        attention_small, flash_attention)
-    from multimodal_content_moderation_tpu_torch.ops.cuda_image import patch_embed_u8
-
-    return {"patch_embed_u8": patch_embed_u8, "attention_nhd": attention_nhd,
-            "attention_nhd_bwd": attention_nhd_bwd, "flash_attention": flash_attention,
-            "attention_small": attention_small}
-
-
-# kernels with a tensor_core_launches count: every bf16 launch goes there
-TENSOR_CORE = ["patch_embed_u8", "attention_nhd", "attention_nhd_bwd", "flash_attention",
-               "attention_small"]
-
-
-def _reset_counts():
-    """Set every kernel's launch count (and tensor-core launch count) to 0;
-    returns a reader of the counts."""
-    wrappers = _wrappers()
-    for name, fn in wrappers.items():
-        fn.launches = 0
-        if name in TENSOR_CORE:
-            fn.tensor_core_launches = 0
-
-    def read():
-        counts = {name: fn.launches for name, fn in wrappers.items()}
-        counts.update({f"{name}_tensor_core": wrappers[name].tensor_core_launches
-                       for name in TENSOR_CORE})
-        return counts
-
-    return read
-
-
 def _counts(tensor_cores: bool = True, **nonzero):
     """The expected counts: the given kernels, every other kernel 0; the
     tensor-core counts equal to the launches (a bf16 run) or 0 (fp32)."""
     counts = {name: nonzero.get(name, 0) for name in KERNELS}
     counts.update({f"{name}_tensor_core": counts[name] if tensor_cores else 0
-                   for name in TENSOR_CORE})
+                   for name in KERNELS})
     return counts
 
 
@@ -1269,6 +1249,7 @@ def staged_training(torch, model, staged, card, accum, batch_size, profile: bool
     the CUDA-event time of the forward, backward and optimizer per
     micro-step, and (``profile``) a profiler breakdown of one optimizer
     step."""
+    from multimodal_content_moderation_tpu_torch.tools._common import device_time_breakdown
     from multimodal_content_moderation_tpu_torch.training.loop import make_train_step
     from multimodal_content_moderation_tpu_torch.training.optim import AdamW
 
@@ -1291,7 +1272,7 @@ def staged_training(torch, model, staged, card, accum, batch_size, profile: bool
     }
     if profile:
         out["device_time_train"] = device_time_breakdown(
-            torch, lambda: [step(staged[i]) for i in range(accum)], 1)
+            lambda: [step(staged[i]) for i in range(accum)], 1)
     return out
 
 
@@ -1384,7 +1365,7 @@ def train_phase(torch, card: str):
     # the main path: Trainer.train for one epoch (an eval, a checkpoint and a
     # train state at its end), counted from 0
     trainer = Trainer(new_model(**bf16_pallas), args, train_ds, val_ds, metrics, device="cuda")
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     result = trainer.train()
     torch.cuda.synchronize()
@@ -1442,7 +1423,7 @@ def train_phase(torch, card: str):
         batch = _device_batch(torch, train_ds, rows, 32)
         if device == "cpu":
             batch = {k: v.cpu() for k, v in batch.items()}
-        counts = _reset_counts()
+        counts = launch_counter()
         grads[device] = _leaf_grads(m, batch)
         if device == "cuda":
             check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=24,
@@ -1504,7 +1485,7 @@ def trainer_run(torch, model, args, train_ds, val_ds, want_fn, label, metrics=No
                       metrics or make_compute_metrics_multi(len(CLASSES)), device="cuda")
     n_micro = len(train_ds) // args.per_device_train_batch_size
     eval_batches = -(-len(val_ds) // args.per_device_eval_batch_size)
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     result = trainer.train()
     torch.cuda.synchronize()
@@ -1692,7 +1673,7 @@ def siglip224_train_phase(torch, card: str):
         batch = _device_batch(torch, train_ds, np.arange(2))
         if device == "cpu":
             batch = {k: v.cpu() for k, v in batch.items()}
-        counts = _reset_counts()
+        counts = launch_counter()
         grads[device] = _leaf_grads(m, batch)
         if device == "cuda":
             check(counts() == _counts(False, attention_nhd=24, attention_nhd_bwd=24),
@@ -1716,6 +1697,7 @@ def siglip_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.tools._common import device_time_breakdown
 
     report = {}
     ckpt = os.path.join(REPO, "build", "chip_smoke_siglip")
@@ -1756,7 +1738,7 @@ def siglip_phase(torch, card: str):
         eng = fi.FastInferenceEngine(
             model_io.with_performance_options(m, attention_impl="pallas"), SIGLIP_MEAN, SIGLIP_STD
         )
-        counts = _reset_counts()
+        counts = launch_counter()
         outs.append(eng(rows["input_ids"], rows["attention_mask"],
                         eng.patches_from_hwc(rows["pixel_values"]),
                         rows["text_present"], rows["image_present"]).cpu())
@@ -1780,7 +1762,7 @@ def siglip_phase(torch, card: str):
     n_batches = -(-len(data) // SIGLIP_BATCH)
     runs = {}
     for name, spec in (("seq_buckets_off", "off"), ("seq_buckets_auto", "auto")):
-        counts = _reset_counts()
+        counts = launch_counter()
         t0 = time.perf_counter()
         logits, labels = fi.evaluate_logits_u8(
             engine, data, SIGLIP_BATCH, num_workers=4, seq_buckets=fi.parse_seq_buckets(spec)
@@ -1836,8 +1818,8 @@ def siglip_phase(torch, card: str):
             "median": sorted(rates)[1], "passes": rates, "card": card,
         }
         report[f"device_time_seq{width}"] = device_time_breakdown(
-            torch, lambda: [engine(x, mask, patches[i % 2], ones, ones, carry_pos=carry)
-                            for i, x in enumerate(ids[:2])], 2,
+            lambda: [engine(x, mask, patches[i % 2], ones, ones, carry_pos=carry)
+                     for i, x in enumerate(ids[:2])], 2,
         )
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return report
@@ -1855,6 +1837,7 @@ def siglip224_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.tools._common import device_time_breakdown
 
     report = {}
     ckpt = os.path.join(REPO, "build", "chip_smoke_siglip224")
@@ -1884,7 +1867,7 @@ def siglip224_phase(torch, card: str):
         eng = fi.FastInferenceEngine(
             model_io.with_performance_options(m, attention_impl="pallas"), SIGLIP_MEAN, SIGLIP_STD
         )
-        counts = _reset_counts()
+        counts = launch_counter()
         outs.append(eng(rows["input_ids"], rows["attention_mask"],
                         eng.patches_from_hwc(rows["pixel_values"]),
                         rows["text_present"], rows["image_present"]).cpu())
@@ -1917,7 +1900,7 @@ def siglip224_phase(torch, card: str):
           and bool(logits.float().isfinite().all()),
           f"siglip224 logits {tuple(logits.shape)}, finite={bool(logits.float().isfinite().all())}")
     # the path: 2 staged passes, counted from 0
-    counts = _reset_counts()
+    counts = launch_counter()
     rates = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1934,8 +1917,8 @@ def siglip224_phase(torch, card: str):
     report["staged_samples_per_s_seq64"] = {"mean_of_2": sum(rates) / 2, "passes": rates,
                                             "card": card}
     report["device_time_seq64"] = device_time_breakdown(
-        torch, lambda: [engine(x, mask, patches[i % 2], ones, ones)
-                        for i, x in enumerate(ids[:2])], 2,
+        lambda: [engine(x, mask, patches[i % 2], ones, ones)
+                 for i, x in enumerate(ids[:2])], 2,
     )
     return report
 
@@ -1960,7 +1943,7 @@ def mha_dense_mask_phase(torch):
     attention_mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).int()
     mask = _text_masks(attention_mask, attention_mask)  # [B, 1, T, T] fp32
     report = {"case": f"x [{B}, {T}, {D}], {h} heads, dense causal + padding mask"}
-    counts = _reset_counts()
+    counts = launch_counter()
     for dtype, atol, rtol in (("float32", 1e-4, 0.0), ("bfloat16", 1e-2, 2.0**-6)):
         dt = getattr(torch, dtype)
         pd = {n: {k: t.to(dt) for k, t in d.items()} for n, d in p.items()}
@@ -1993,6 +1976,18 @@ MICROBATCH_MS = "4"  # the JAX MicroBatcher's default window
 # what the card's path runs without: hidden from imports for the whole run
 HIDDEN_MODULES = ["jax", "jaxlib", "multimodal_content_moderation_tpu", "PIL", "pandas",
                   "regex", "yaml"]
+
+
+def _import_shared() -> None:
+    """Bind ``CLASSES``, ``KERNELS`` and ``launch_counter`` of the port's
+    tools (``tools/_common.py``) here; called once ``HIDDEN_MODULES`` are
+    hidden."""
+    global CLASSES, KERNELS, launch_counter
+    from multimodal_content_moderation_tpu_torch.tools._common import (
+        CLASSES,
+        KERNELS,
+        launch_counter,
+    )
 WORDS = ("the a you they this that is are was not just so really why how all people "
          "women men immigrants refugees neighbours go back home hate love stupid "
          "disgusting trash never always ever lol wtf smh rt #news #politics #tbt "
@@ -2177,7 +2172,7 @@ def csv_evaluate_checks(ckpt: str, root: str, g, device: str):
         for run in (1, 2):
             out = os.path.join(root, f"eval_results_{run}.json")
             decodes.clear()
-            counts = _reset_counts()
+            counts = launch_counter()
             t0 = time.perf_counter()
             metrics = evaluate.main([
                 "--checkpoint", ckpt, "--test_csv", csv_path, "--image_root",
@@ -2481,7 +2476,7 @@ def serving_phase(torch, card: str, hf_cfg: dict = HF_CLIP_B32, device: str = "c
     os.environ.pop("MMHARM_MICROBATCH_MS", None)
     server = None
     try:
-        counts = _reset_counts()
+        counts = launch_counter()
         t0 = time.perf_counter()
         server = srv.serve(ckpt, port=0, host="127.0.0.1", device=device)
         report["serve_s_warm_builds"] = time.perf_counter() - t0
@@ -2568,7 +2563,7 @@ def serving_phase(torch, card: str, hf_cfg: dict = HF_CLIP_B32, device: str = "c
 
         bf16.forward_batch = counted_forward
         bodies = [json.dumps(inst).encode() for inst in insts]
-        counts = _reset_counts()
+        counts = launch_counter()
         report["load"] = {}
         for label, window in (("microbatch_off", None), ("microbatch_on", MICROBATCH_MS)):
             if window:
@@ -2709,7 +2704,7 @@ def mtl_train_phase(torch, card: str):
         batch = _device_batch(torch, rows, np.arange(4), 32)
         if device == "cpu":
             batch = {k: v.cpu() for k, v in batch.items()}
-        counts = _reset_counts()
+        counts = launch_counter()
         grads[device] = _leaf_grads(m, batch)
         if device == "cuda":
             check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=24,
@@ -2781,7 +2776,7 @@ def mtl_eval_phase(torch, card: str, root: str):
     del model, fp32
     engine = fi.FastInferenceEngine(bf16, CLIP_MEAN, CLIP_STD)
     n_batches = -(-len(data) // BATCH)
-    counts = _reset_counts()
+    counts = launch_counter()
     logits, labels = fi.evaluate_logits_u8(engine, data, BATCH, num_workers=4,
                                            seq_buckets=fi.parse_seq_buckets("auto"))
     launches = counts()
@@ -2827,7 +2822,7 @@ def mtl_eval_phase(torch, card: str, root: str):
     torch.cuda.synchronize()
     check(tuple(out.shape) == (SIGLIP_BATCH, len(CLASSES)) and bool(out.isfinite().all()),
           f"mtl siglip224 logits {tuple(out.shape)}, finite={bool(out.isfinite().all())}")
-    counts = _reset_counts()
+    counts = launch_counter()
     rates = staged_eval_rates(torch, engine, ids, patches, mask)
     launches = counts()
     n = 3 * len(ids) + 1  # the passes and their warm-up call
@@ -2862,7 +2857,7 @@ def mtl_serving_phase(torch, card: str, ckpt: str):
     saved_env = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        counts = _reset_counts()
+        counts = launch_counter()
         classifier = h.model_fn(ckpt, device="cuda")
         one = h.predict_fn(insts[:1], classifier)
         batch = h.predict_fn(insts, classifier)
@@ -3061,7 +3056,7 @@ def generic_eval_phase(torch, card: str, enc: str, ckpt: str, src):
     fast, _ = fi.evaluate_logits_u8(fp32_engine, InMemoryDataset(GENERIC_BATCH, seed=39,
                                                                  bert=True), GENERIC_BATCH)
     one = InMemoryDataset(GENERIC_BATCH, seed=39, bert=True, stats=(SIGLIP_MEAN, SIGLIP_STD))
-    counts = _reset_counts()
+    counts = launch_counter()
     standard, _ = evaluate_logits_standard(fp32, one, GENERIC_BATCH, num_workers=2)
     launches = counts()
     check(launches == _counts(False, attention_nhd=24),
@@ -3077,7 +3072,7 @@ def generic_eval_phase(torch, card: str, enc: str, ckpt: str, src):
     engine = fi.FastInferenceEngine(bf16, SIGLIP_MEAN, SIGLIP_STD)
     widths = _full_width_spy(engine)
     n_batches = -(-len(data) // GENERIC_BATCH)
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     logits, labels = fi.evaluate_logits_u8(engine, data, GENERIC_BATCH, num_workers=4,
                                            seq_buckets=fi.parse_seq_buckets("auto"))
@@ -3195,7 +3190,7 @@ def generic_train_phase(torch, card: str):
         batch = _device_batch(torch, rows, np.arange(4), 16)
         if device == "cpu":
             batch = {k: v.cpu() for k, v in batch.items()}
-        counts = _reset_counts()
+        counts = launch_counter()
         grads[device] = _leaf_grads(m, batch)
         if device == "cuda":
             check(counts() == _counts(False, patch_embed_u8=1, attention_nhd=24,
@@ -3236,7 +3231,7 @@ def generic_towers_phase(torch, card: str):
         outs = []
         for m in (card_model, cpu):
             eng = fi.FastInferenceEngine(m, SIGLIP_MEAN, SIGLIP_STD)
-            counts = _reset_counts()
+            counts = launch_counter()
             outs.append(eng(ids, mask, eng.patches_from_hwc(crops), ones, ones).cpu())
             if m is card_model:
                 launches = counts()
@@ -3321,7 +3316,7 @@ def generic_serving_phase(torch, card: str, ckpt: str, root: str):
     os.environ.pop("MMHARM_MICROBATCH_MS", None)
     server = None
     try:
-        counts = _reset_counts()
+        counts = launch_counter()
         server = srv.serve(ckpt, port=0, host="127.0.0.1", device="cuda")
         classifier = server.state.classifier
         check(classifier._bucket_ladder is None,
@@ -3359,7 +3354,7 @@ def generic_serving_phase(torch, card: str, ckpt: str, root: str):
 
     csv_path = write_csv(root, g)
     n_batches = -(-N_CSV_ROWS // SERVE_BATCH)
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     metrics = evaluate.main([
         "--checkpoint", ckpt, "--test_csv", csv_path, "--image_root",
@@ -3533,6 +3528,7 @@ def clip_int8_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.models import model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
     from multimodal_content_moderation_tpu_torch.ops.quant import quantize_fc1_layers
+    from multimodal_content_moderation_tpu_torch.tools._common import device_time_breakdown
 
     report = {"card": card}
     shutil.rmtree(INT8_ROOT, ignore_errors=True)
@@ -3592,7 +3588,7 @@ def clip_int8_phase(torch, card: str):
     for name, engine, spec in (("int8_buckets_off", engines["int8_mlp"], "off"),
                                ("int8_buckets_auto", engines["int8_mlp"], "auto"),
                                ("bf16_fast_buckets_off", engines["bf16_fast"], "off")):
-        counts = _reset_counts()
+        counts = launch_counter()
         logits, labels = fi.evaluate_logits_u8(engine, data, BATCH, num_workers=4,
                                                seq_buckets=fi.parse_seq_buckets(spec))
         launches = counts()
@@ -3630,8 +3626,8 @@ def clip_int8_phase(torch, card: str):
         if width == 77:
             for name, engine in engines.items():
                 report[f"device_time_seq77_{name}"] = device_time_breakdown(
-                    torch, lambda: [engine(x, mask, patches[i % 4], ones, ones)
-                                    for i, x in enumerate(ids[:4])], 4)
+                    lambda: [engine(x, mask, patches[i % 4], ones, ones)
+                             for i, x in enumerate(ids[:4])], 4)
     return report
 
 
@@ -3678,7 +3674,7 @@ def other_int8_phase(torch, card: str):
         outs = {}
         for tier, m in (("int8_mlp", q), ("bf16_fast", bf16)):
             engine = fi.FastInferenceEngine(m, SIGLIP_MEAN, SIGLIP_STD)
-            counts = _reset_counts()
+            counts = launch_counter()
             outs[tier] = torch.cat([engine(*args) for args in batches])
             if tier == "int8_mlp":
                 launches = counts()
@@ -3718,7 +3714,7 @@ def entry_points_int8_phase(torch, card: str):
     report = {"card": card}
     n_batches = -(-N_CSV_ROWS // SERVE_BATCH)
     out = io.StringIO()
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         metrics = evaluate.main([
@@ -3752,7 +3748,7 @@ def entry_points_int8_phase(torch, card: str):
         for tier in ("int8_mlp", "bf16_fast"):
             os.environ.update(env, MMHARM_PRECISION=tier)
             clf = h.model_fn(ckpt, device="cuda")
-            counts = _reset_counts()
+            counts = launch_counter()
             preds = h.predict_fn(insts, clf)
             if tier == "int8_mlp":
                 launches = counts()
@@ -3815,7 +3811,7 @@ def export_phase(torch, card: str):
     from multimodal_content_moderation_tpu_torch.training.checkpoints import list_checkpoints
 
     report = {"card": card}
-    counts = _reset_counts()
+    counts = launch_counter()
     for name, prefixes in EXPORT_LAYOUTS.items():
         run = os.path.join(EXPORT_ROOT, name)
         (ckpt,) = list_checkpoints(run)
@@ -3871,28 +3867,6 @@ DEPLOY_STEPS = 4  # micro-steps of each training run (B=32)
 DEPLOY_ENV = {"MMHARM_ENGINE": "fast", "MMHARM_ATTENTION": "pallas",
               "MMHARM_PRECISION": "bf16_fast", "MMHARM_IMAGE_BACKEND": "native_scaled",
               "MMHARM_SEQ_BUCKETS": "auto", "MMHARM_PREWARM": "1"}
-
-
-def write_clip_encoder_dir(directory: str) -> str:
-    """A CLIP ViT-B/32 encoder dir as a user downloads it, without weights
-    (the train CLI then keeps the model's seeded random init): the
-    ``config.json``, a synthetic 49,408-entry BPE vocabulary and the
-    preprocessor config."""
-    from multimodal_content_moderation_tpu_torch.data.images import CLIP_MEAN, CLIP_STD
-    from multimodal_content_moderation_tpu_torch.testdata import write_clip_bpe
-
-    os.makedirs(directory)
-    vocab = write_clip_bpe(directory, HF_CLIP_B32["text_config"]["vocab_size"], seed=0)
-    check(vocab["<|endoftext|>"] == HF_CLIP_B32["text_config"]["eos_token_id"],
-          "deploy: the synthetic vocabulary's EOS id differs from the config's")
-    for name, obj in (("config.json", HF_CLIP_B32),
-                      ("preprocessor_config.json", {
-                          "size": {"shortest_edge": 224},
-                          "crop_size": {"height": 224, "width": 224},
-                          "image_mean": list(CLIP_MEAN), "image_std": list(CLIP_STD)})):
-        with open(os.path.join(directory, name), "w") as f:
-            json.dump(obj, f)
-    return directory
 
 
 def write_mmhs_raw(root: str, g):
@@ -3987,7 +3961,7 @@ def deploy_entrypoint(root: str, channels: dict, enc: str, card: str):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        counts = _reset_counts()
+        counts = launch_counter()
         t0 = time.perf_counter()
         out = entrypoint.train(["--max-steps", str(DEPLOY_STEPS), "--batch-size",
                                 str(TRAIN_BATCH), "--epochs", "1", "--image-backend", "native",
@@ -4068,7 +4042,7 @@ def deploy_train_yaml(root: str, channels: dict, enc: str, card: str):
     with open(path, "w") as f:
         f.write(dumps(cfg))
     n_eval = 3 * -(-DEPLOY_SPLITS["val"] // 64) + 2 * -(-DEPLOY_SPLITS["test"] // 64)
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     out = train_cli.main(["--config", path, "--device", "cuda"])
     wall = time.perf_counter() - t0
@@ -4149,12 +4123,12 @@ def deploy_serve(root: str, run: str, card: str):
     saved = {k: os.environ.get(k) for k in DEPLOY_ENV}
     os.environ.update(DEPLOY_ENV)
     try:
-        counts = _reset_counts()
+        counts = launch_counter()
         t0 = time.perf_counter()
         served = h.model_fn(target, device="cuda")
         cold_s = time.perf_counter() - t0
         warm = counts()
-        counts = _reset_counts()
+        counts = launch_counter()
         got = served_logits(h, served, insts)
         launches = counts()
         unpacked = h.model_fn(run, device="cuda")
@@ -4187,6 +4161,7 @@ def deploy_phase(torch, card: str):
     named range (``utils/profiling.annotate``). Removes its directory."""
     import numpy as np
 
+    from multimodal_content_moderation_tpu_torch.tools._common import write_clip_encoder_dir
     from multimodal_content_moderation_tpu_torch.utils.profiling import annotate
 
     shutil.rmtree(DEPLOY_ROOT, ignore_errors=True)
@@ -4194,7 +4169,7 @@ def deploy_phase(torch, card: str):
     g = np.random.default_rng(30)
     report = {"card": card}
     with annotate("deploy/encoder_dir"):
-        enc = write_clip_encoder_dir(os.path.join(DEPLOY_ROOT, "encoder"))
+        enc = write_clip_encoder_dir(os.path.join(DEPLOY_ROOT, "encoder"), HF_CLIP_B32)
     with annotate("deploy/prepare_data"):
         report["prepare_data"], channels = deploy_data_prep(DEPLOY_ROOT, g)
     with annotate("deploy/entrypoint"):
@@ -4278,7 +4253,7 @@ def _p12_trainer(torch, out_dir, mesh=None):
         return loss
 
     trainer.train_step = counted
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     result = trainer.train()
     torch.cuda.synchronize()
@@ -4315,7 +4290,7 @@ def _p12_parity_steps(torch, mesh=None):
     opt._update = record
     step = make_train_step(model, opt, generator=torch.Generator(device="cuda").manual_seed(0))
     losses = []
-    counts = _reset_counts()
+    counts = launch_counter()
     for s in range(2):
         rows = np.arange(s * TRAIN_BATCH, (s + 1) * TRAIN_BATCH)
         if mesh is not None:
@@ -4344,7 +4319,7 @@ def _p12_engine_logits(torch, mesh=None):
     engine = FastInferenceEngine(m, CLIP_MEAN, CLIP_STD, mesh=mesh)
     evaluate_logits_u8(engine, rows, BATCH, num_workers=4, seq_buckets=P12_BUCKETS)  # warm
     torch.cuda.synchronize()
-    counts = _reset_counts()
+    counts = launch_counter()
     t0 = time.perf_counter()
     logits, _ = evaluate_logits_u8(engine, rows, BATCH, num_workers=4, seq_buckets=P12_BUCKETS)
     wall = time.perf_counter() - t0
@@ -4422,6 +4397,7 @@ def p12_worker(argv=None) -> int:
     rank, world = int(rank), int(world)
     sys.path.insert(0, REPO)
     sys.modules.update(dict.fromkeys(HIDDEN_MODULES))
+    _import_shared()
     import numpy as np
     import torch
 
@@ -4444,7 +4420,7 @@ def p12_worker(argv=None) -> int:
                           MASTER_PORT=str(port))
         # two processes on one card: gloo (NCCL takes one rank per device)
         init_distributed(backend="gloo", device="cuda", timeout_s=P12_TIMEOUT_S)
-        counts = _reset_counts()
+        counts = launch_counter()
         t0 = time.perf_counter()
         out = train_cli.main(["--config", job["config"], "--device", "cuda"])
         report = {"wall_s": time.perf_counter() - t0, "launches": counts(),
@@ -4517,7 +4493,7 @@ def p12_worker(argv=None) -> int:
                                generator=torch.Generator(device="cuda").manual_seed(0))
         staged = [_device_batch(torch, train, np.arange(s * 32, (s + 1) * 32), 32)
                   for s in range(2)]
-        counts = _reset_counts()
+        counts = launch_counter()
         for b in staged:
             step(b)
         torch.cuda.synchronize()
@@ -4667,12 +4643,13 @@ def mesh_cli_phase(torch, card: str):
 
     import numpy as np
 
+    from multimodal_content_moderation_tpu_torch.tools._common import write_clip_encoder_dir
     from multimodal_content_moderation_tpu_torch.utils.yaml_text import dumps
 
     root = os.path.join(P12_ROOT, "cli")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    enc = write_clip_encoder_dir(os.path.join(root, "encoder"))
+    enc = write_clip_encoder_dir(os.path.join(root, "encoder"), HF_CLIP_B32)
     csv_path = write_csv(root, np.random.default_rng(12), n=2 * TRAIN_BATCH)
     run = os.path.join(root, "run")
     cfg = {
@@ -4756,61 +4733,176 @@ def mesh_phase(torch, card: str):
     return report
 
 
-# device-kernel name fragments -> the layer they belong to, first match wins
-KERNEL_GROUPS = [
-    ("attention_nhd_bwd", ("attention_nhd_bwd",)),
-    ("attention_nhd", ("attention_nhd",)),
-    ("flash_attention", ("flash_attention",)),
-    ("attention_small", ("attention_small",)),
-    ("patch_embed_u8", ("patch_embed_u8",)),
-    ("gemm (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma", "cublas")),
-    ("layer_norm", ("layer_norm",)),
-    ("dtype casts and copies", ("copy",)),
-    ("other elementwise", ("elementwise", "reduce", "index", "cat")),
+# ---------------------------------------------------------------------------
+# Phase 13: the measuring entry points, each in a fresh process
+# ---------------------------------------------------------------------------
+
+P13_ROOT = os.path.join(REPO, "build", "chip_smoke_tools")
+P13_TIMEOUT_S = 300
+# (label, tool, arguments): bench_torch.py at its defaults twice (the
+# same-configuration spread), the rest cut in count (never in width) so that
+# the phase stays near four minutes; P13_CUTS lists each cut
+P13_RUNS = [
+    ("bench_torch 1 of 2", "bench_torch", []),
+    ("bench_torch 2 of 2", "bench_torch", []),
+    ("bench_eval siglip fusion B=64 pallas", "bench_eval",
+     ["--backend", "siglip", "--batch", "64", "--n_samples", "1280",
+      "--vision_attention", "pallas", "--text_attention", "pallas"]),
+    ("bench_eval generic fusion B=64 pallas", "bench_eval",
+     ["--backend", "generic", "--batch", "64", "--n_samples", "1280",
+      "--vision_attention", "pallas", "--text_attention", "pallas"]),
+    ("bench_train clip u8 pallas B=32", "bench_train",
+     ["--backend", "clip", "--wire", "u8", "--attention", "pallas", "--batch", "32",
+      "--text_len", "48", "--steps", "8"]),
+    ("bench_train siglip f32 xla B=24", "bench_train",
+     ["--backend", "siglip", "--wire", "f32", "--attention", "xla", "--batch", "24",
+      "--steps", "8"]),
+    ("bench_serving 1 client", "bench_serving",
+     ["--clients", "1", "--latency_requests", "20", "--batch_requests", "4"]),
+    ("bench_serving 16 clients", "bench_serving",
+     ["--clients", "16", "--latency_requests", "10", "--batch_requests", "32"]),
+    ("bench_input", "bench_input", ["--n", "256", "--workers", "8"]),
+    ("bench_attention", "bench_attention", ["--iters", "10"]),
+    ("bench_transfer", "bench_transfer", []),
+    ("profile_eval", "profile_eval", ["--out", os.path.join(P13_ROOT, "profile_eval")]),
+    ("profile_e2e", "profile_e2e", ["--rows", "768", "--passes", "2"]),
 ]
+P13_CUTS = {
+    "bench_eval": "--n_samples 4800 -> 1280 (20 batches of 64 a pass, 3 passes)",
+    "bench_train": "--steps 20 -> 8 micro-steps a pass (3 passes)",
+    "bench_serving": "--latency_requests 40 -> 20 (1 client) / 10 (16 clients); "
+                     "--batch_requests 12 -> 4 / 32 (at least one a client)",
+    "bench_input": "--n 512 -> 256, --workers 16 -> 8 (the machine's cores)",
+    "bench_attention": "--iters 20 -> 10",
+    "profile_e2e": "--rows 1536 -> 768, --passes 3 -> 2",
+}
+# env of a fresh tool process: none of this script's endpoint knobs or rank
+P13_DROP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
-def device_time_breakdown(torch, run, n_batches: int):
-    """Device time per batch by kernel (torch.profiler over ``run``), the
-    share of the wall time the device was busy, and the top kernels. Says
-    "not measured" where the profiler reports no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def p13_worker(argv=None) -> int:
+    """One tool of phase 13 in a fresh process: ``p13_worker tool [args]``.
+    Hides ``HIDDEN_MODULES`` before anything is imported, then runs the
+    tool's ``main(args)`` (``bench_torch`` is the script at the root), which
+    prints its JSON line last."""
+    import importlib
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
-        if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    busy_ms = sum(ms for _, ms, _ in rows)
-    if busy_ms == 0:
-        return "not measured (the profiler reported no device time)"
-    rows.sort(key=lambda r: -r[1])
-    groups = {}
-    for name, ms, _ in rows:
-        low = name.lower()
-        group = next(
-            (g for g, keys in KERNEL_GROUPS if any(k in low for k in keys)), "other"
-        )
-        groups[group] = groups.get(group, 0.0) + ms / n_batches
-    return {
-        "wall_ms_per_batch": wall_ms / n_batches,
-        "device_busy_ms_per_batch": busy_ms / n_batches,
-        "device_busy_share_of_wall": busy_ms / wall_ms,
-        "groups_ms_per_batch": groups,
-        "top_kernels_ms_per_batch": [
-            [name[:90], ms / n_batches, count // n_batches] for name, ms, count in rows[:12]
-        ],
+    tool, *args = argv or sys.argv[1:]
+    sys.path.insert(0, REPO)
+    sys.modules.update(dict.fromkeys(HIDDEN_MODULES))
+    name = "bench_torch" if tool == "bench_torch" else f"{PKG}.tools.{tool}"
+    importlib.import_module(name).main(args)
+    return 0
+
+
+def _p13_run(label: str, tool: str, args):
+    """Run one tool in a fresh process; returns its JSON line and wall
+    seconds. A tool that exits non-zero, or prints no JSON line, fails."""
+    slug = label.replace(" ", "_").replace("=", "")
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.p13_worker())")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MMHARM_") and k not in P13_DROP_ENV}
+    t0 = time.perf_counter()
+    with open(os.path.join(P13_ROOT, f"{slug}.log"), "w") as log:
+        proc = subprocess.run([sys.executable, "-c", code, tool, *args], stdout=subprocess.PIPE,
+                              stderr=log, text=True, cwd=REPO, env=env, timeout=P13_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(P13_ROOT, f"{slug}.log")) as f:
+        tail = f.read()[-3000:]
+    check(proc.returncode == 0, f"tools: {label} exited {proc.returncode}:\n{tail}")
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines), f"tools: {label} printed no JSON line:\n{tail}")
+    return json.loads(lines[-1]), wall
+
+
+def _p13_check(label: str, line: dict, card: str) -> None:
+    """Each line names the card, and its launches show the kernels of its
+    path ran (every bf16 launch on the tensor cores), exactly where the
+    count follows from the flags."""
+    check(line.get("device") == card, f"tools: {label}: device {line.get('device')!r}, "
+                                      f"want {card!r}")
+    n = line["launches"]
+    if n is not None:
+        for name in KERNELS:
+            check(n[f"{name}_tensor_core"] == n[name],
+                  f"tools: {label}: {name} launches {n[name]}, on the tensor cores "
+                  f"{n[f'{name}_tensor_core']}")
+    if label.startswith("bench_torch"):
+        batches = len(line["passes_samples_per_s"]) * line["n_samples"] // line["batch"]
+        check(n == _counts(patch_embed_u8=batches, attention_nhd=24 * batches),
+              f"tools: {label}: launches {n} for {batches} batches (1 and 24 a batch)")
+        check(line["value"] > 0 and line["value_bucketed"] > 0
+              and line["e2e_samples_per_s"] > 0, f"tools: {label}: rates {line}")
+    elif label.startswith("bench_eval"):
+        batches = len(line["passes_samples_per_s"]) * line["n_samples"] // line["batch"]
+        check(n == _counts(patch_embed_u8=batches, attention_nhd=24 * batches),
+              f"tools: {label}: launches {n} for {batches} batches (1 and 24 a batch)")
+    elif label == "bench_train clip u8 pallas B=32":
+        steps = len(line["passes_samples_per_s"]) * line["steps"]
+        check(n == _counts(patch_embed_u8=steps, attention_nhd=24 * steps,
+                           attention_nhd_bwd=24 * steps),
+              f"tools: {label}: launches {n} for {steps} micro-steps (1 / 24 / 24 each)")
+    elif label.startswith("bench_train"):
+        check(n == _counts(), f"tools: {label}: the xla core on the f32 wire launched {n}")
+    elif label.startswith("bench_serving"):
+        check(n["patch_embed_u8"] > 0 and n["attention_nhd"] == 24 * n["patch_embed_u8"]
+              and n == _counts(patch_embed_u8=n["patch_embed_u8"],
+                               attention_nhd=n["attention_nhd"]),
+              f"tools: {label}: launches {n} (1 and 24 a served batch)")
+    elif label == "bench_attention":
+        check(n["flash_attention"] > 0 and n["attention_nhd"] > 0,
+              f"tools: {label}: launches {n}")
+    elif label == "profile_eval":
+        batches = line["batches"]
+        check(n == _counts(patch_embed_u8=batches, attention_nhd=24 * batches)
+              and line["trace_files"] >= 1, f"tools: {label}: launches {n}, traces "
+                                            f"{line['trace_paths']}")
+        dt = line["device_time"]
+        check(isinstance(dt, str) or 0 < dt["device_busy_share_of_wall"] <= 1,
+              f"tools: {label}: device busy share {dt}")
+    elif label == "bench_input":
+        check(line["decoder"] in ("libjpeg", "nvjpeg") and line.get("native_scaled_w1", 0) > 0,
+              f"tools: {label}: decoder {line['decoder']}, {line}")
+    elif label == "profile_e2e":
+        passes = 1 + len(line["warm_all_rows_per_s"])
+        batches = passes * -(-line["rows"] // line["batch"])
+        check(n == _counts(patch_embed_u8=batches, attention_nhd=24 * batches),
+              f"tools: {label}: launches {n} for {batches} batches")
+    elif label == "bench_transfer":
+        check(all(r["mb_per_s"] > 0 and r["pageable_mb_per_s"] > 0 for r in line["single_put"])
+              and line["pinned"], f"tools: {label}: {line}")
+
+
+def tools_phase(torch, card: str, in_process: dict):
+    """Phase 13: the port's measuring entry points on the card, each in a
+    fresh process (``p13_worker``), in ``P13_RUNS``' order. ``in_process``
+    is phase 3's staged CLIP rate at B=144 and seq 77, printed beside the
+    two fresh-process ``bench_torch.py`` values."""
+    shutil.rmtree(P13_ROOT, ignore_errors=True)
+    os.makedirs(P13_ROOT)
+    torch.cuda.empty_cache()  # what this process's earlier phases no longer hold
+    runs = []
+    for label, tool, args in P13_RUNS:
+        line, wall = _p13_run(label, tool, args)
+        _p13_check(label, line, card)
+        runs.append({"label": label, "tool": tool, "args": args, "wall_s": wall, "line": line})
+        print(f"tools {label} ({wall:.1f} s): {json.dumps(line)}")
+    heads = [r["line"] for r in runs if r["tool"] == "bench_torch"]
+    pair = {
+        "in_process_phase3_staged_samples_per_s": in_process,
+        "fresh_process_bench_torch_values": [h["value"] for h in heads],
+        "fresh_process_bench_torch_ranges": [[h["value_min"], h["value_max"]] for h in heads],
+        "card": card,
     }
+    print(f"phase-order pair, CLIP B=144 seq 77 staged samples/s: phase 3 in process "
+          f"{in_process['median']:.1f} (passes {in_process['passes']}) | bench_torch.py in "
+          f"fresh processes {heads[0]['value']:.1f} / {heads[1]['value']:.1f}; {card}")
+    shutil.rmtree(os.path.join(P13_ROOT, "profile_eval"), ignore_errors=True)
+    return {"runs": runs, "cuts": P13_CUTS, "phase_order": pair,
+            "main_path_launches": heads[0]["launches"]}
 
 
-KERNELS = ["patch_embed_u8", "attention_nhd", "attention_nhd_bwd", "flash_attention",
-           "attention_small"]
 REPLACES = {
     "patch_embed_u8": "multimodal_content_moderation_tpu/ops/pallas_image.py:93",
     "attention_nhd": "multimodal_content_moderation_tpu/ops/pallas_attention.py:318",
@@ -4967,6 +5059,7 @@ def main() -> int:
                  if m != "multimodal_content_moderation_tpu" and importlib.util.find_spec(m)]
     print(f"installed here, hidden from imports for this run: {installed}")
     sys.modules.update(dict.fromkeys(HIDDEN_MODULES))
+    _import_shared()
     from multimodal_content_moderation_tpu_torch.ops import _build
 
     # fp32 products stay fp32 (no TF32) wherever a comparison is made
@@ -5025,6 +5118,8 @@ def main() -> int:
         (10, "export", lambda: export_phase(torch, card)),  # trained runs -> reference
         (11, "deploy", lambda: deploy_phase(torch, card)),  # prep -> train -> package -> serve
         (12, "mesh", lambda: mesh_phase(torch, card)),  # parallel/: DP, TP, the CLI
+        (13, "tools", lambda: tools_phase(  # the measuring entry points, fresh processes
+            torch, card, results["model"]["staged_samples_per_s_seq77"])),
     ]
     for phase in sorted({p for p, *_ in paths}):
         t0 = time.perf_counter()
@@ -5055,7 +5150,8 @@ def main() -> int:
                         "int8_eval": int8["int8_eval"]["main_path_launches"],
                         "export": results["export"]["launches"],
                         "deploy": results["deploy"]["launches"],
-                        **results["mesh"]["main_path_launches"]}
+                        **results["mesh"]["main_path_launches"],
+                        "bench": results["tools"]["main_path_launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -5063,7 +5159,8 @@ def main() -> int:
                    "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
                    "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
                    "generic": generic, **int8, "export": results["export"],
-                   "deploy": results["deploy"], "mesh": results["mesh"], "kernels": kernels},
+                   "deploy": results["deploy"], "mesh": results["mesh"],
+                   "tools": results["tools"], "kernels": kernels},
                   f, indent=1)
 
     print(card)

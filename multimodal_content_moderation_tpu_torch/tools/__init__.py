@@ -1,0 +1,14 @@
+"""The port's measuring entry points, one configuration per process, each
+printing one JSON line (the JAX package's ``bench.py`` and ``tools/bench_*``,
+``tools/profile_*``):
+
+    python bench_torch.py                      # the headline eval bench
+    python -m multimodal_content_moderation_tpu_torch.tools.bench_eval --backend siglip
+
+Every tool runs on the card unless it is given ``--device cpu``, takes
+``--tiny`` (narrow two-layer towers and a few small batches: a smoke size,
+not a measurement) and ``--seed`` (which makes every input), and adds to its
+JAX counterpart's keys ``device`` (the card's name and power limit, or
+"cpu"), ``launches`` (each kernel wrapper's launches over the timed window,
+and how many ran on the tensor cores) and ``seed``.
+"""

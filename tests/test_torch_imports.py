@@ -1,4 +1,4 @@
-"""The port stands alone: no file of it (or chip_smoke.py) imports JAX or
+"""The port stands alone: no file of it (or chip_smoke.py, or bench_torch.py) imports JAX or
 the JAX package, and the modules on the card's path import without pandas,
 PIL, sklearn, yaml, regex or transformers (which the card machine lacks) and
 without safetensors (which the port must not need: it reads the format
@@ -20,7 +20,8 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 # training path, the multi-task model, the moderation endpoint with the evaluate CLI (CSV rows,
 # the CLIP BPE tokenizer, JPEG decode, the pixel cache), the int8 fc1 tier and the export,
 # the deployment path (data prep, the SageMaker entrypoint, the train CLI on a YAML
-# file with tensorboard events and predictions, packaging), and the mesh of processes
+# file with tensorboard events and predictions, packaging), the mesh of processes, and
+# the measuring entry points (bench_torch.py and tools/, each run in its own process)
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.utils.compile_cache",
     "multimodal_content_moderation_tpu_torch.utils.config",
@@ -74,6 +75,17 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.parallel.mesh",
     "multimodal_content_moderation_tpu_torch.parallel.sharding",
     "multimodal_content_moderation_tpu_torch.parallel.dryrun",
+    "multimodal_content_moderation_tpu_torch.tools._common",
+    "multimodal_content_moderation_tpu_torch.tools.bench",
+    "multimodal_content_moderation_tpu_torch.tools.bench_eval",
+    "multimodal_content_moderation_tpu_torch.tools.bench_train",
+    "multimodal_content_moderation_tpu_torch.tools.bench_serving",
+    "multimodal_content_moderation_tpu_torch.tools.bench_input",
+    "multimodal_content_moderation_tpu_torch.tools.profile_eval",
+    "multimodal_content_moderation_tpu_torch.tools.profile_e2e",
+    "multimodal_content_moderation_tpu_torch.tools.bench_attention",
+    "multimodal_content_moderation_tpu_torch.tools.bench_transfer",
+    "bench_torch",
     "chip_smoke",
 ]
 # the packages the card's path must import without
@@ -95,7 +107,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "bench_torch.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import(path):
