@@ -200,10 +200,10 @@ Phases, each of which fails the run (non-zero exit) on a miss:
 13. The measuring entry points (``bench_torch.py`` and
    ``multimodal_content_moderation_tpu_torch/tools/``), each in a fresh
    process (``p13_worker``: the same hidden modules, then the tool's
-   ``main``), at full width: ``bench_torch.py`` at its defaults twice (the
-   same-configuration spread), printed beside phase 3's in-process staged
-   rate (the phase-order pair); ``bench_eval`` for SigLIP2-B/16-224 and ViT-B/16
-   + BERT-base fusion at B=64 with both cores on the kernels;
+   ``main``), at full width: ``bench_torch.py`` at its defaults, printed
+   beside phase 3's in-process staged rate (the phase-order pair);
+   ``bench_eval`` for SigLIP2-B/16-224 and ViT-B/16 + BERT-base fusion at
+   B=64 with both cores on the kernels;
    ``bench_train`` for CLIP on the u8 wire with the kernels (B=32, text 48)
    and SigLIP on the f32 wire with the "xla" core (B=24); ``bench_serving``
    at 1 and 16 clients without micro-batching; ``bench_input``,
@@ -212,6 +212,29 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    cut where ``P13_CUTS`` says. Every JSON line must name the card, and its
    launches must show its path's kernels (exact counts where the flags fix
    them), every bf16 launch on the tensor cores.
+14. The quality-parity and scaling tools, each in a fresh process at full
+   width (``P14_RUNS``; counts cut where ``P14_CUTS`` says, never widths):
+   ``tools/run_fullscale_quality_parity.py --fast`` at its defaults (400 /
+   96 synthetic MMHS rows over the committed JPEG fixtures, 2 epochs at B=8
+   = 100 steps, lr 1e-4, fusion_dim 512): (a) CLIP ViT-B/32 fusion and (c)
+   SigLIP-B/16-224 fusion with ``--int8_eval``, each against the port's
+   fp32 oracle; (b) the multi-task head against the HF reference model
+   (``--oracle reference``, transformers is on the card) with
+   ``--reference_bf16``, the reference itself trained in bf16 from the same
+   start. The port's side trains on the fast recipe (u8 wire, bf16 with the
+   kernels in both passes, bf16 Adam moments, ``text_fit``) from the
+   oracle's weights and data order: 100 steps, |delta f1_macro| and |delta
+   roc_macro| within 0.005 of the oracle ((a), (c)) or, in (b), of the
+   reference's bf16 run (bf16 compute moves that head out of the band
+   against fp32 in the reference's code as in the port's; PERF.md,
+   Findings), the largest per-step loss delta under 0.05, every loss
+   falling, exact launches on the port's side (1 / 24 / 24 a micro-step, 1
+   + 24 an eval batch, all on the tensor cores), none on the oracle's or
+   the bf16 reference's, 24 int8 fc1 layers in (c), and each tool's exit
+   code what its report says.
+   (d) ``tools/sim_multicore_e2e.py`` at its defaults: the measured decode
+   rate, the curve over 1-16 cores and none, 1 + 24 launches a batch, and
+   every run's outputs equal to the engine's own logits.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1974,8 +1997,8 @@ SERVE_ENV = {"MMHARM_ENGINE": "fast", "MMHARM_ATTENTION": "pallas",
              "MMHARM_SEQ_BUCKETS": "auto", "MMHARM_PREWARM": "1"}
 MICROBATCH_MS = "4"  # the JAX MicroBatcher's default window
 # what the card's path runs without: hidden from imports for the whole run
-HIDDEN_MODULES = ["jax", "jaxlib", "multimodal_content_moderation_tpu", "PIL", "pandas",
-                  "regex", "yaml"]
+JAX_MODULES = ["jax", "jaxlib", "multimodal_content_moderation_tpu"]
+HIDDEN_MODULES = JAX_MODULES + ["PIL", "pandas", "regex", "yaml"]
 
 
 def _import_shared() -> None:
@@ -4739,12 +4762,11 @@ def mesh_phase(torch, card: str):
 
 P13_ROOT = os.path.join(REPO, "build", "chip_smoke_tools")
 P13_TIMEOUT_S = 300
-# (label, tool, arguments): bench_torch.py at its defaults twice (the
-# same-configuration spread), the rest cut in count (never in width) so that
-# the phase stays near four minutes; P13_CUTS lists each cut
+# (label, tool, arguments): bench_torch.py at its defaults, the rest cut in
+# count (never in width) so that the phase stays near three and a half
+# minutes; P13_CUTS lists each cut
 P13_RUNS = [
-    ("bench_torch 1 of 2", "bench_torch", []),
-    ("bench_torch 2 of 2", "bench_torch", []),
+    ("bench_torch", "bench_torch", []),
     ("bench_eval siglip fusion B=64 pallas", "bench_eval",
      ["--backend", "siglip", "--batch", "64", "--n_samples", "1280",
       "--vision_attention", "pallas", "--text_attention", "pallas"]),
@@ -4768,6 +4790,8 @@ P13_RUNS = [
     ("profile_e2e", "profile_e2e", ["--rows", "768", "--passes", "2"]),
 ]
 P13_CUTS = {
+    "bench_torch": "one fresh process, was two (the same-configuration spread over "
+                   "seven processes is in PERF.md section 5)",
     "bench_eval": "--n_samples 4800 -> 1280 (20 batches of 64 a pass, 3 passes)",
     "bench_train": "--steps 20 -> 8 micro-steps a pass (3 passes)",
     "bench_serving": "--latency_requests 40 -> 20 (1 client) / 10 (16 clients); "
@@ -4780,36 +4804,45 @@ P13_CUTS = {
 P13_DROP_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
-def p13_worker(argv=None) -> int:
-    """One tool of phase 13 in a fresh process: ``p13_worker tool [args]``.
-    Hides ``HIDDEN_MODULES`` before anything is imported, then runs the
-    tool's ``main(args)`` (``bench_torch`` is the script at the root), which
-    prints its JSON line last."""
+def p13_worker(argv=None, hidden=None) -> int:
+    """One tool of phases 13 and 14 in a fresh process: ``p13_worker tool
+    [args]``. Hides ``hidden`` (default ``HIDDEN_MODULES``) before anything
+    is imported, then runs the tool's ``main(args)`` (``bench_torch`` is the
+    script at the root): a measuring tool prints its JSON line last; a tool
+    whose ``main`` returns an exit code exits with it."""
     import importlib
 
     tool, *args = argv or sys.argv[1:]
     sys.path.insert(0, REPO)
-    sys.modules.update(dict.fromkeys(HIDDEN_MODULES))
+    sys.modules.update(dict.fromkeys(HIDDEN_MODULES if hidden is None else hidden))
     name = "bench_torch" if tool == "bench_torch" else f"{PKG}.tools.{tool}"
-    importlib.import_module(name).main(args)
-    return 0
+    out = importlib.import_module(name).main(args)
+    return out if isinstance(out, int) else 0
+
+
+def _spawn_tool(root: str, label: str, tool: str, args, timeout: float, hidden=None):
+    """Run one tool in a fresh process (``p13_worker``, hiding ``hidden``),
+    its stderr into ``root/<label>.log``; returns (process, wall seconds,
+    the log's tail)."""
+    slug = label.replace(" ", "_").replace("=", "")
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+            f"sys.exit(chip_smoke.p13_worker(hidden={hidden!r}))")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MMHARM_") and k not in P13_DROP_ENV}
+    t0 = time.perf_counter()
+    with open(os.path.join(root, f"{slug}.log"), "w") as log:
+        proc = subprocess.run([sys.executable, "-c", code, tool, *args], stdout=subprocess.PIPE,
+                              stderr=log, text=True, cwd=REPO, env=env, timeout=timeout)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, f"{slug}.log")) as f:
+        tail = f.read()[-3000:]
+    return proc, wall, tail
 
 
 def _p13_run(label: str, tool: str, args):
     """Run one tool in a fresh process; returns its JSON line and wall
     seconds. A tool that exits non-zero, or prints no JSON line, fails."""
-    slug = label.replace(" ", "_").replace("=", "")
-    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
-            "sys.exit(chip_smoke.p13_worker())")
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("MMHARM_") and k not in P13_DROP_ENV}
-    t0 = time.perf_counter()
-    with open(os.path.join(P13_ROOT, f"{slug}.log"), "w") as log:
-        proc = subprocess.run([sys.executable, "-c", code, tool, *args], stdout=subprocess.PIPE,
-                              stderr=log, text=True, cwd=REPO, env=env, timeout=P13_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    with open(os.path.join(P13_ROOT, f"{slug}.log")) as f:
-        tail = f.read()[-3000:]
+    proc, wall, tail = _spawn_tool(P13_ROOT, label, tool, args, P13_TIMEOUT_S)
     check(proc.returncode == 0, f"tools: {label} exited {proc.returncode}:\n{tail}")
     lines = proc.stdout.strip().splitlines()
     check(bool(lines), f"tools: {label} printed no JSON line:\n{tail}")
@@ -4897,10 +4930,164 @@ def tools_phase(torch, card: str, in_process: dict):
     }
     print(f"phase-order pair, CLIP B=144 seq 77 staged samples/s: phase 3 in process "
           f"{in_process['median']:.1f} (passes {in_process['passes']}) | bench_torch.py in "
-          f"fresh processes {heads[0]['value']:.1f} / {heads[1]['value']:.1f}; {card}")
+          f"a fresh process {heads[0]['value']:.1f}; {card}")
     shutil.rmtree(os.path.join(P13_ROOT, "profile_eval"), ignore_errors=True)
     return {"runs": runs, "cuts": P13_CUTS, "phase_order": pair,
             "main_path_launches": heads[0]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the quality-parity and scaling tools, each in a fresh process
+# ---------------------------------------------------------------------------
+
+P14_ROOT = os.path.join(REPO, "build", "chip_smoke_quality")
+P14_TIMEOUT_S = 400
+P14_BAND = 0.005  # the tool's own |delta f1_macro| and |delta roc_macro| bound
+P14_LOSS_DELTA = 0.05  # JAX's bound on its fast recipe's per-step loss delta
+P14_N_TRAIN, P14_N_VAL, P14_BATCH = 400, 96, 8  # the tool's defaults: 2 epochs = 100 steps
+# (label, arguments of run_fullscale_quality_parity, what its band is held
+# against): at the tool's defaults, the port's side on the fast recipe. (b)
+# trains against the HF reference model (transformers is on the card) and,
+# with --reference_bf16, the reference itself in bf16 from the same start:
+# bf16 compute moves the multi-task head out of the band against fp32 in
+# the reference's own code as in the port's (PERF.md, Findings), so (b)'s
+# band is held against that bf16 run and its miss against fp32 is reported.
+# (b)'s process hides JAX alone (JAX_MODULES): transformers needs yaml, and
+# the port's fast side runs without the other modules in (a) and (c).
+P14_RUNS = [
+    ("quality_parity clip fusion fast", ["--backend", "clip", "--head", "fusion", "--fast",
+                                         "--oracle", "fp32"], "oracle"),
+    ("quality_parity clip mtl fast", ["--backend", "clip", "--head", "mtl", "--fast",
+                                      "--oracle", "reference", "--reference_bf16"],
+     "reference_bf16"),
+    ("quality_parity siglip fusion fast int8", ["--backend", "siglip", "--head", "fusion",
+                                                "--fast", "--oracle", "fp32", "--int8_eval"],
+     "oracle"),
+]
+P14_SIM_ARGS = []  # sim_multicore_e2e at its defaults: B=144, 12 batches, 6 core counts
+P14_CUTS = {}
+
+
+def _p14_band(label: str, delta: dict, against: str) -> None:
+    for key in ("f1_macro", "roc_macro"):
+        check(delta[key] <= P14_BAND,
+              f"quality: {label}: |delta {key}| {delta[key]} against {against} over {P14_BAND}")
+
+
+def _p14_quality_check(label: str, r: dict, card: str, against: str) -> None:
+    """A run's gates: 100 steps, the band against ``against`` (the oracle,
+    or the reference's own bf16 run), the per-step loss delta, every
+    side's loss falling, exact launches on the port's side (1 / 24 / 24 a
+    micro-step, 1 + 24 an eval batch, all on the tensor cores) and none on
+    the oracle's or the bf16 reference's."""
+    check(r["device"] == card, f"quality: {label}: device {r['device']!r}, want {card!r}")
+    steps = 2 * (P14_N_TRAIN // P14_BATCH)
+    check(r["steps"] == steps, f"quality: {label}: {r['steps']} steps, want {steps}")
+    check(r["max_step_loss_delta"] < P14_LOSS_DELTA,
+          f"quality: {label}: max step loss delta {r['max_step_loss_delta']}")
+    losses = dict(r["losses"])
+    if against == "oracle":
+        _p14_band(label, r["delta"], "the oracle")
+    else:
+        w = r[against]
+        _p14_band(label, w["delta_vs_port"], "the reference's bf16 run")
+        check(w["max_step_loss_delta_vs_oracle"] < P14_LOSS_DELTA,
+              f"quality: {label}: the bf16 reference's max step loss delta "
+              f"{w['max_step_loss_delta_vs_oracle']}")
+        check(w["launches"] == _counts(tensor_cores=False),
+              f"quality: {label}: the bf16 reference launched {w['launches']}")
+        losses[against] = w["losses"]
+    for side, ls in losses.items():
+        check(ls[-1] < ls[0], f"quality: {label}: the {side}'s loss went {ls[0]} -> {ls[-1]}")
+    evals = P14_N_VAL // P14_BATCH
+    want = _counts(patch_embed_u8=steps + evals, attention_nhd=24 * (steps + evals),
+                   attention_nhd_bwd=24 * steps)
+    check(r["launches"]["port"] == want,
+          f"quality: {label}: port launches {r['launches']['port']}, want {want}")
+    check(r["launches"]["oracle"] == _counts(tensor_cores=False),
+          f"quality: {label}: the oracle launched {r['launches']['oracle']}")
+    if "int8_mlp" in r:
+        q = r["int8_mlp"]
+        check(q["quantized_fc1_layers"] == 24,
+              f"quality: {label}: {q['quantized_fc1_layers']} int8 fc1 layers, want 24")
+        check(q["launches"] == _counts(patch_embed_u8=evals, attention_nhd=24 * evals),
+              f"quality: {label}: int8 eval launches {q['launches']}")
+        check(q["delta_vs_port"]["roc_macro"] <= P14_BAND,
+              f"quality: {label}: int8 vs its own model {q['delta_vs_port']}")
+
+
+def _p14_sim_check(line: dict, card: str) -> None:
+    check(line["device"] == card, f"sim: device {line['device']!r}, want {card!r}")
+    check(line["decode_rate_measured"] and line["per_core_decode_rate_img_s"] > 0,
+          f"sim: decode rate {line['per_core_decode_rate_img_s']}")
+    check(len(line["curve"]) == 6 and all(p["rows_per_s"] > 0 for p in line["curve"]),
+          f"sim: curve {line['curve']}")
+    batches = line["n_batches"] * line["runs_per_core_count"] * len(line["curve"])
+    check(line["launches"] == _counts(patch_embed_u8=batches, attention_nhd=24 * batches),
+          f"sim: launches {line['launches']} for {batches} batches (1 and 24 a batch)")
+    check(line["outputs_max_abs_diff_vs_engine"] == 0,
+          f"sim: outputs differ from the engine's own by {line['outputs_max_abs_diff_vs_engine']}")
+
+
+def quality_phase(torch, card: str):
+    """Phase 14: ``run_fullscale_quality_parity`` (``P14_RUNS``) and
+    ``sim_multicore_e2e``, each in a fresh process (``p13_worker``) at full
+    width. A missed band fails the phase: it is a finding, never a retry.
+    Each tool's exit code must say what its report says (0 when the band
+    against its oracle holds)."""
+    import importlib.util
+
+    shutil.rmtree(P14_ROOT, ignore_errors=True)
+    os.makedirs(P14_ROOT)
+    torch.cuda.empty_cache()
+    has_tf = importlib.util.find_spec("transformers") is not None
+    print(f"quality: transformers installed here: {has_tf} ((b)'s oracle and bf16 reference "
+          f"need it); cuts {P14_CUTS}")
+    runs = []
+    for label, args, against in P14_RUNS:
+        out = os.path.join(P14_ROOT, label.replace(" ", "_") + ".json")
+        proc, wall, tail = _spawn_tool(
+            P14_ROOT, label, "run_fullscale_quality_parity", args + ["--output", out],
+            P14_TIMEOUT_S, hidden=JAX_MODULES if "reference" in args else None)
+        check(os.path.exists(out), f"quality: {label} exited {proc.returncode} with no "
+                                   f"report:\n{tail}")
+        with open(out) as f:
+            r = json.load(f)
+        w = r.get("reference_bf16")
+        print(f"quality {label} ({wall:.1f} s, exit {proc.returncode}): steps {r['steps']}, "
+              f"oracle {r['oracle_kind']} {r['oracle']}, port {r['port']}, delta {r['delta']}, "
+              f"max step loss delta {r['max_step_loss_delta']:.5f}, max val logit delta "
+              f"{r['max_val_logit_delta']:.5f}, samples/s {r['trained_samples_per_s']}, "
+              f"int8 {r.get('int8_mlp')}; {card}")
+        if w:
+            print(f"quality {label}: the reference in bf16: {w['metrics']}, delta vs the "
+                  f"oracle {w['delta_vs_oracle']}, vs the port {w['delta_vs_port']}, max step "
+                  f"loss delta vs the oracle {w['max_step_loss_delta_vs_oracle']:.5f}, max val "
+                  f"logit delta vs the oracle {w['max_val_logit_delta_vs_oracle']:.5f}, "
+                  f"{w['wall_s']:.1f} s; {card}")
+        _p14_quality_check(label, r, card, against)
+        in_band = all(r["delta"][k] <= P14_BAND for k in ("f1_macro", "roc_macro"))
+        check(proc.returncode == (0 if in_band else 1),
+              f"quality: {label} exited {proc.returncode} with the band against its oracle "
+              f"{'held' if in_band else 'missed'}:\n{tail}")
+        r.pop("losses")  # the JSON file keeps them
+        if w:
+            w.pop("losses")
+        runs.append({"label": label, "args": args, "wall_s": wall, "report": r,
+                     "band_against": against})
+    proc, wall, tail = _spawn_tool(P14_ROOT, "sim_multicore_e2e", "sim_multicore_e2e",
+                                   P14_SIM_ARGS, P14_TIMEOUT_S)
+    check(proc.returncode == 0, f"sim: exited {proc.returncode}:\n{tail}")
+    sim = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"sim ({wall:.1f} s): decode {sim['per_core_decode_rate_img_s']:.1f} images/s a "
+          f"core, curve {sim['curve']}; {card}")
+    _p14_sim_check(sim, card)
+    launches = {name: sum(r["report"]["launches"]["port"][name]
+                          + r["report"].get("int8_mlp", {}).get("launches", {}).get(name, 0)
+                          for r in runs) for name in runs[0]["report"]["launches"]["port"]}
+    return {"quality_parity": {"runs": runs, "main_path_launches": launches},
+            "sim_e2e": {"line": sim, "wall_s": wall, "main_path_launches": sim["launches"]},
+            "cuts": P14_CUTS, "transformers_installed": has_tf}
 
 
 REPLACES = {
@@ -5120,6 +5307,7 @@ def main() -> int:
         (12, "mesh", lambda: mesh_phase(torch, card)),  # parallel/: DP, TP, the CLI
         (13, "tools", lambda: tools_phase(  # the measuring entry points, fresh processes
             torch, card, results["model"]["staged_samples_per_s_seq77"])),
+        (14, "quality", lambda: quality_phase(torch, card)),  # quality parity, the sim
     ]
     for phase in sorted({p for p, *_ in paths}):
         t0 = time.perf_counter()
@@ -5151,7 +5339,10 @@ def main() -> int:
                         "export": results["export"]["launches"],
                         "deploy": results["deploy"]["launches"],
                         **results["mesh"]["main_path_launches"],
-                        "bench": results["tools"]["main_path_launches"]}
+                        "bench": results["tools"]["main_path_launches"],
+                        "quality_parity": results["quality"]["quality_parity"][
+                            "main_path_launches"],
+                        "sim_e2e": results["quality"]["sim_e2e"]["main_path_launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -5160,7 +5351,10 @@ def main() -> int:
                    "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
                    "generic": generic, **int8, "export": results["export"],
                    "deploy": results["deploy"], "mesh": results["mesh"],
-                   "tools": results["tools"], "kernels": kernels},
+                   "tools": results["tools"],
+                   "quality_parity": results["quality"]["quality_parity"],
+                   "sim_e2e": results["quality"]["sim_e2e"],
+                   "quality_cuts": results["quality"]["cuts"], "kernels": kernels},
                   f, indent=1)
 
     print(card)

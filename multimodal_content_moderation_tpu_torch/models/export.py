@@ -222,6 +222,15 @@ def _mtl_head_out(sd: StateDict, h) -> None:
         sd["log_vars"] = _f32(h["log_vars"])
 
 
+def encoder_state_dict(model) -> StateDict:
+    """A model's backbone alone under its Hugging Face encoder's own names
+    (``CLIPModel``, ``SiglipModel``, ``VisionTextDualEncoderModel``): the
+    ``model.safetensors`` of an encoder directory."""
+    sd: StateDict = {}
+    _backbone_out(sd, model, "")
+    return sd
+
+
 def fusion_model_to_torch(model) -> StateDict:
     """A ``FusionModel`` -> ``backbone.*`` + the fusion head's keys."""
     sd: StateDict = {}

@@ -198,6 +198,14 @@ def encoder_config(backend: str, tiny: bool = False):
     )
 
 
+def hf_features(out) -> torch.Tensor:
+    """A ``transformers`` ``get_text_features`` / ``get_image_features``
+    result as the features tensor: transformers 4 returns the tensor itself,
+    transformers 5 a ``BaseModelOutputWithPooling`` whose ``pooler_output``
+    holds it."""
+    return out if isinstance(out, torch.Tensor) else out.pooler_output
+
+
 def config_kwargs(backend: str, cfg) -> dict:
     """``{"clip_config": cfg}`` (or siglip / generic) for the model
     constructors."""
@@ -229,6 +237,76 @@ def hf_clip_config(cfg) -> dict:
             "layer_norm_eps": v.layer_norm_eps,
         },
     }
+
+
+def hf_siglip_config(cfg) -> dict:
+    """The ``config.json`` of a SigLIP encoder directory (a
+    ``SigLIPConfig``'s dimensions, in Hugging Face's names)."""
+    t, v = cfg.text, cfg.vision
+    return {
+        "model_type": "siglip",
+        "text_config": {
+            "vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
+            "num_hidden_layers": t.num_layers, "num_attention_heads": t.num_heads,
+            "intermediate_size": t.intermediate_size,
+            "max_position_embeddings": t.max_positions, "projection_size": t.projection_size,
+            "hidden_act": t.hidden_act, "layer_norm_eps": t.layer_norm_eps,
+        },
+        "vision_config": {
+            "hidden_size": v.hidden_size, "num_hidden_layers": v.num_layers,
+            "num_attention_heads": v.num_heads, "intermediate_size": v.intermediate_size,
+            "image_size": v.image_size, "patch_size": v.patch_size,
+            "num_channels": v.num_channels, "hidden_act": v.hidden_act,
+            "layer_norm_eps": v.layer_norm_eps,
+        },
+    }
+
+
+# the words of the synthetic SigLIP vocabulary, before its filler entries
+SIGLIP_WORDS = ["<unk>", "<pad>", "hate", "love", "people", "you", "stop", "go", "bad",
+                "good"]
+
+
+def write_siglip_encoder_dir(directory: str, cfg) -> str:
+    """A SigLIP encoder dir without weights: the ``config.json`` of ``cfg``,
+    a WordLevel ``tokenizer.json`` of its vocabulary size (``SIGLIP_WORDS``,
+    then ``fill<i>`` entries; lowercase, split on whitespace), ``<pad>`` as
+    the pad token, and SigLIP's 0.5 / 0.5 preprocessor config."""
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+
+    os.makedirs(directory)
+    vocab = {w: i for i, w in enumerate(SIGLIP_WORDS)}
+    i = 0
+    while len(vocab) < cfg.text.vocab_size:
+        vocab.setdefault(f"fill{i}", len(vocab))
+        i += 1
+    size = cfg.vision.image_size
+    files = {
+        "config.json": hf_siglip_config(cfg),
+        "tokenizer.json": {
+            "version": "1.0", "normalizer": {"type": "Lowercase"},
+            "pre_tokenizer": {"type": "Whitespace"},
+            "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"},
+            "added_tokens": [], "post_processor": None, "decoder": None,
+        },
+        "tokenizer_config.json": {"pad_token": "<pad>"},
+        "preprocessor_config.json": {"size": {"height": size, "width": size},
+                                     "image_mean": list(SIGLIP_MEAN),
+                                     "image_std": list(SIGLIP_STD)},
+    }
+    for name, obj in files.items():
+        with open(os.path.join(directory, name), "w") as f:
+            json.dump(obj, f)
+    return directory
+
+
+def write_encoder_weights(model, directory: str) -> str:
+    """``directory/model.safetensors``: ``model``'s backbone in its Hugging
+    Face encoder's layout (``models/export.encoder_state_dict``)."""
+    from multimodal_content_moderation_tpu_torch.models import convert, export
+
+    return convert.write_safetensors(export.encoder_state_dict(model),
+                                     os.path.join(directory, "model.safetensors"))
 
 
 def write_clip_encoder_dir(directory: str, hf: Optional[dict] = None) -> str:

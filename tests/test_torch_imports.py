@@ -20,8 +20,10 @@ FORBIDDEN_ROOTS = ("jax", "jaxlib", "multimodal_content_moderation_tpu")
 # training path, the multi-task model, the moderation endpoint with the evaluate CLI (CSV rows,
 # the CLIP BPE tokenizer, JPEG decode, the pixel cache), the int8 fc1 tier and the export,
 # the deployment path (data prep, the SageMaker entrypoint, the train CLI on a YAML
-# file with tensorboard events and predictions, packaging), the mesh of processes, and
-# the measuring entry points (bench_torch.py and tools/, each run in its own process)
+# file with tensorboard events and predictions, packaging), the mesh of processes,
+# the measuring entry points (bench_torch.py and tools/, each run in its own process), and
+# the quality-parity and scaling tools (parity_check and --oracle reference import
+# transformers only inside the functions that need it)
 CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.utils.compile_cache",
     "multimodal_content_moderation_tpu_torch.utils.config",
@@ -85,6 +87,10 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.tools.profile_e2e",
     "multimodal_content_moderation_tpu_torch.tools.bench_attention",
     "multimodal_content_moderation_tpu_torch.tools.bench_transfer",
+    "multimodal_content_moderation_tpu_torch.tools.quality_parity",
+    "multimodal_content_moderation_tpu_torch.tools.run_fullscale_quality_parity",
+    "multimodal_content_moderation_tpu_torch.tools.sim_multicore_e2e",
+    "multimodal_content_moderation_tpu_torch.tools.parity_check",
     "bench_torch",
     "chip_smoke",
 ]
