@@ -11,6 +11,8 @@ import queue
 import threading
 from typing import Any, Callable, Iterator, Tuple
 
+from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, current_span
+
 _SENTINEL = object()
 
 
@@ -28,23 +30,29 @@ def bounded_producer(
     thread. Producer exceptions are appended to the returned error list and
     should be re-raised by the consumer when it sees the sentinel.
 
+    While a recording is open (``utils/profiling``), each item's put loop is
+    a ``pipeline.put_wait`` span (``batch`` = the item's index), a child of
+    the span open where ``bounded_producer`` was called.
+
     Returns ``(queue, sentinel, errors, cancel)``.
     """
     q: queue.Queue = queue.Queue(maxsize=size)
     err: list = []
     cancelled = threading.Event()
+    parent = current_span()  # the caller's span, for the worker's put waits
 
     def worker():
         try:
-            for item in produce():
+            for i, item in enumerate(produce()):
                 # bounded put that re-checks cancellation: if the consumer
                 # died, a plain q.put could block forever (bounded queue)
-                while not cancelled.is_set():
-                    try:
-                        q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                with annotate("pipeline.put_wait", parent=parent, batch=i):
+                    while not cancelled.is_set():
+                        try:
+                            q.put(item, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
                 if cancelled.is_set():
                     return
         except BaseException as e:  # propagate into the consumer

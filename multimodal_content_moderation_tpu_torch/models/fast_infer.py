@@ -18,12 +18,14 @@ index on the grid, never its rank number or its device.
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
+from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, count, is_recording
 
 
 class FastInferenceEngine:
@@ -168,6 +170,23 @@ def gather_rank_rows(mesh, logits: List[np.ndarray], labels: List[np.ndarray],
     return full[:, :width], full[:, width:]
 
 
+def _count_batch(host, valid: int, width: int) -> None:
+    """A recorded batch's counters (``utils/profiling.count``)."""
+    mask = host["attention_mask"]
+    count("score.batches")
+    count("score.rows", valid)
+    count("score.pad_rows", mask.shape[0] - valid)
+    count(f"score.bucket.{width}")
+    count("score.text_tokens", int(mask.sum()))
+    count("score.text_slots", mask.numel())
+    count("score.h2d_bytes", sum(v.numel() * v.element_size() for v in host.values()))
+
+
+def _readback(logits, host, batch: int, width: int) -> np.ndarray:
+    with annotate("score.readback", batch=batch, width=width):
+        return logits.cpu().numpy()
+
+
 def evaluate_logits_u8(
     engine: FastInferenceEngine,
     dataset,
@@ -190,6 +209,13 @@ def evaluate_logits_u8(
     Under the engine's mesh each data rank runs its slice of every global
     batch of ``batch_size`` rows (of the length-sorted order with buckets)
     and every rank returns all the rows."""
+    with annotate("score.evaluate", rows=len(dataset), batch_size=batch_size) as root:
+        return _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root.id)
+
+
+def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
+    """``evaluate_logits_u8`` inside its ``score.evaluate`` span (``root``,
+    the parent of the prep thread's spans)."""
     from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_producer
 
     indices = None
@@ -209,49 +235,66 @@ def evaluate_logits_u8(
 
     # Host preparation (decode, patch extraction, pinning) runs two batches
     # ahead on a background thread, overlapping the device work.
+    n_batches = -(-(n if rows is None else len(rows)) // rank_batch)
+
     def prep():
-        for batch in dataset.batches(
+        batches = dataset.batches(
             rank_batch, pad_to_batch=True, num_workers=num_workers, indices=rows,
-        ):
+        )
+        for i in range(n_batches):
+            with annotate("prep.load", parent=root, batch=i) as load:
+                batch = next(batches)
             valid = int(batch.pop("_valid"))
             labels = batch.pop("labels")[:valid]
-            patches = engine.patches_from_hwc(batch.pop("pixel_values"))
-            carry = None
-            if indices is not None:
-                b = bucket_for(batch["attention_mask"], ladder, extra=0 if backend == "clip" else 1)
-                batch["input_ids"], batch["attention_mask"], carry = bucket_batch_text(
-                    batch["input_ids"], batch["attention_mask"], b, backend
-                )
-            host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
-            host["patches_u8"] = torch.from_numpy(patches)
-            if pin:
-                host = {k: v.pin_memory() for k, v in host.items()}
-            yield valid, labels, host, carry
+            with annotate("prep.patches", parent=root, batch=i) as patch:
+                patches = engine.patches_from_hwc(batch.pop("pixel_values"))
+            carry, width = None, batch["input_ids"].shape[1]
+            with annotate("prep.bucket", parent=root, batch=i) as bucket:
+                if indices is not None:
+                    width = bucket_for(batch["attention_mask"], ladder,
+                                       extra=0 if backend == "clip" else 1)
+                    batch["input_ids"], batch["attention_mask"], carry = bucket_batch_text(
+                        batch["input_ids"], batch["attention_mask"], width, backend
+                    )
+            with annotate("prep.pin", parent=root, batch=i, width=width):
+                host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+                host["patches_u8"] = torch.from_numpy(patches)
+                if pin:
+                    host = {k: v.pin_memory() for k, v in host.items()}
+            if is_recording():
+                for span in (load, patch, bucket):
+                    span.set(width=width)
+                _count_batch(host, valid, width)
+            yield valid, labels, host, carry, width
+        batches.close()  # the dataset's pool, as its end would
 
     q, _END, err, cancel = bounded_producer(prep, size=2)
 
     all_logits, all_labels, valids, outs = [], [], [], []
     try:
-        while True:
-            item = q.get()
+        for i in itertools.count():
+            with annotate("score.wait_batch", batch=i) as wait:
+                item = q.get()
             if item is _END:
                 if err:
                     raise err[0]
                 break
-            valid, labels, host, carry = item
+            valid, labels, host, carry, width = item
+            wait.set(width=width)
             valids.append(valid)
             all_labels.append(labels)
-            logits = engine(
-                host["input_ids"], host["attention_mask"], host["patches_u8"],
-                host["text_present"], host["image_present"], carry_pos=carry,
-            )
+            with annotate("engine.call", batch=i, width=width):
+                logits = engine(
+                    host["input_ids"], host["attention_mask"], host["patches_u8"],
+                    host["text_present"], host["image_present"], carry_pos=carry,
+                )
             # the pinned host buffers stay referenced until their batch is read
-            outs.append((logits, host))
+            outs.append((logits, host, i, width))
             if len(outs) > 2:
-                all_logits.append(outs.pop(0)[0].cpu().numpy())
+                all_logits.append(_readback(*outs.pop(0)))
     finally:
         cancel()
-    all_logits.extend(o[0].cpu().numpy() for o in outs)
+    all_logits.extend(_readback(*o) for o in outs)
     all_logits = [lg[:v] for lg, v in zip(all_logits, valids)]
     if split:
         logits, labels = gather_rank_rows(

@@ -1,14 +1,17 @@
 """Wall-clock attribution of the end-to-end evaluation loop (the JAX
-package's ``tools/profile_e2e.py``): the pipeline of
-``models/fast_infer.evaluate_logits_u8`` over the CSV of ``bench_torch.py``'s
-end-to-end slice (the committed JPEG fixtures in turn), with its stages
-timed on the host clock:
+package's ``tools/profile_e2e.py``): ``models/fast_infer.evaluate_logits_u8``
+itself over the CSV of ``bench_torch.py``'s end-to-end slice (the committed
+JPEG fixtures in turn), each pass inside ``utils/profiling.recording()``,
+its stages the sums of the pipeline's own spans:
 
-  producer thread: cache read or batch assembly | patch extraction |
-                   the queue-put wait
-  consumer thread: the engine call (the host-to-card copy of the batch
-                   included) | the logits fetch (two batches behind, as
-                   evaluate_logits_u8 reads them) | the queue-get wait
+  producer thread: cache read or batch assembly (``prep.load``) | patch
+                   extraction (``prep.patches``) | buckets (``prep.bucket``)
+                   | host tensors and pinning (``prep.pin``) | the
+                   queue-put wait (``pipeline.put_wait``)
+  consumer thread: the engine call (``engine.call``: the host-to-card copy
+                   of the batch and the forward's launches) | the logits
+                   fetch two batches behind (``score.readback``) | the
+                   queue-get wait (``score.wait_batch``)
 
 The first pass decodes and fills the pixel cache; the warm passes read it.
 Prints one JSON line with each stage's seconds and the rows/s.
@@ -17,16 +20,26 @@ Prints one JSON line with each stage's seconds and the rows/s.
 from __future__ import annotations
 
 import argparse
-import queue
 import shutil
 import tempfile
-import threading
-import time
 
+from multimodal_content_moderation_tpu_torch.models.fast_infer import evaluate_logits_u8
 from multimodal_content_moderation_tpu_torch.tools import _common as c
 from multimodal_content_moderation_tpu_torch.tools import bench
+from multimodal_content_moderation_tpu_torch.utils.profiling import recording
 
 DECODE_WORKERS = 8  # evaluate_logits_u8's default
+# each stage's key and the span it sums
+STAGES = {
+    "producer_batch_assembly_s": "prep.load",
+    "producer_patch_extract_s": "prep.patches",
+    "producer_bucket_s": "prep.bucket",
+    "producer_pin_s": "prep.pin",
+    "producer_qput_wait_s": "pipeline.put_wait",
+    "consumer_qget_wait_s": "score.wait_batch",
+    "consumer_dispatch_s": "engine.call",
+    "consumer_fetch_s": "score.readback",
+}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,65 +56,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def instrumented_pass(engine, ds, batch: int, rows: int) -> dict:
-    stats = {
-        "producer_batch_assembly_s": 0.0,
-        "producer_patch_extract_s": 0.0,
-        "producer_qput_wait_s": 0.0,
-        "consumer_qget_wait_s": 0.0,
-        "consumer_dispatch_s": 0.0,
-        "consumer_fetch_s": 0.0,
-    }
-    q: queue.Queue = queue.Queue(maxsize=2)
-    end = object()
-
-    def producer():
-        it = ds.batches(batch, pad_to_batch=True, num_workers=DECODE_WORKERS)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                b = next(it)
-            except StopIteration:
-                break
-            t1 = time.perf_counter()
-            stats["producer_batch_assembly_s"] += t1 - t0
-            b.pop("_valid")
-            b.pop("labels")
-            patches = engine.patches_from_hwc(b.pop("pixel_values"))
-            t2 = time.perf_counter()
-            stats["producer_patch_extract_s"] += t2 - t1
-            q.put((b, patches))
-            stats["producer_qput_wait_s"] += time.perf_counter() - t2
-        q.put(end)
-
-    threading.Thread(target=producer, daemon=True).start()
-    outs = []
-    n_fetch = 0
-    t_pass = time.perf_counter()
-    while True:
-        t0 = time.perf_counter()
-        item = q.get()
-        t1 = time.perf_counter()
-        stats["consumer_qget_wait_s"] += t1 - t0
-        if item is end:
-            break
-        b, patches = item
-        outs.append(engine(b["input_ids"], b["attention_mask"], patches, b["text_present"],
-                           b["image_present"]))
-        t2 = time.perf_counter()
-        stats["consumer_dispatch_s"] += t2 - t1
-        if len(outs) > 2:
-            outs.pop(0).cpu().numpy()
-            n_fetch += 1
-            stats["consumer_fetch_s"] += time.perf_counter() - t2
-    t0 = time.perf_counter()
-    for o in outs:
-        o.cpu().numpy()
-        n_fetch += 1
-    stats["consumer_fetch_s"] += time.perf_counter() - t0
-    stats["total_s"] = time.perf_counter() - t_pass
+def recorded_pass(engine, ds, batch: int, rows: int) -> dict:
+    with recording() as rec:
+        evaluate_logits_u8(engine, ds, batch, num_workers=DECODE_WORKERS)
+    stats = {key: rec.seconds(span) for key, span in STAGES.items()}
+    stats["total_s"] = rec.seconds("score.evaluate")
     stats["rows_per_s"] = rows / stats["total_s"]
-    stats["n_fetches"] = n_fetch
+    stats["n_fetches"] = len(rec.named("score.readback"))
     return stats
 
 
@@ -115,8 +76,8 @@ def main(argv=None) -> dict:
         csv_path = c.write_e2e_csv(tmp, args.rows)
         ds = c.e2e_dataset(tmp, csv_path, seq, engine.model.image_size, cache=True)
         counts = c.launch_counter()
-        cold = instrumented_pass(engine, ds, args.batch, args.rows)
-        warm = [instrumented_pass(engine, ds, args.batch, args.rows) for _ in range(args.passes)]
+        cold = recorded_pass(engine, ds, args.batch, args.rows)
+        warm = [recorded_pass(engine, ds, args.batch, args.rows) for _ in range(args.passes)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return c.emit({

@@ -79,6 +79,11 @@ def test_tool_cpu_tiny_line(tool, tmp_path, capsys):
         assert {"producer_batch_assembly_s", "producer_patch_extract_s",
                 "producer_qput_wait_s", "consumer_qget_wait_s", "consumer_dispatch_s",
                 "consumer_fetch_s", "rows_per_s"} <= set(line["cold"])
+        for stats in (line["cold"], line["warm_best"]):
+            for thread in ("producer_", "consumer_"):
+                stages = [v for k, v in stats.items() if k.startswith(thread)]
+                assert len(stages) == (5 if thread == "producer_" else 3)
+                assert 0 < sum(stages) <= stats["total_s"], (thread, stats)
     if tool == "profile_eval":
         assert line["trace_files"] == 1 and line["device_time"] == _common.NOT_MEASURED
 

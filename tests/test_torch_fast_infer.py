@@ -3,10 +3,19 @@ shared ``encoder_dir`` / ``data_dir`` fixtures (same weights through the
 bridge, each package's own tokenizer, images and dataset), with text
 buckets off and on, rows in natural order.
 
-Tolerance: fp32 atol 1e-4 on the logits."""
+Tolerance: fp32 atol 1e-4 on the logits.
+
+Recorded (``utils/profiling.recording``), on tiny CLIP and SigLIP models,
+buckets off and on: the logits equal the unrecorded ones bit for bit; each
+batch gets one span of each pipeline stage, the launching thread one more
+queue wait for the end, every span descends from ``score.evaluate``; the
+counters hold the rows, the pads and each bucket width's batches."""
+
+import collections
 
 import jax
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -21,7 +30,9 @@ from multimodal_content_moderation_tpu_torch.data.images import ImagePreprocesso
 from multimodal_content_moderation_tpu_torch.data.tokenizer import load_tokenizer
 from multimodal_content_moderation_tpu_torch.models import fast_infer as tfi
 from multimodal_content_moderation_tpu_torch.models import model_io
+from multimodal_content_moderation_tpu_torch.models import siglip as tsig
 from multimodal_content_moderation_tpu_torch.models.bridge import load_jax_params
+from multimodal_content_moderation_tpu_torch.utils import profiling
 
 MEAN = (0.48145466, 0.4578275, 0.40821073)
 STD = (0.26862954, 0.26130258, 0.27577711)
@@ -89,3 +100,79 @@ def test_bucket_helpers_match_jax():
             for x, y in zip(tfi.bucket_batch_text(ids[rows], mask[rows], b, "clip"),
                             jfi.bucket_batch_text(ids[rows], mask[rows], b, "clip")):
                 np.testing.assert_array_equal(x, y)
+
+
+def _tiny_engine(backend, encoder_dir):
+    if backend == "clip":
+        model = model_io.build_model("fusion", "clip", CLASSES, fusion_dim=16, device="cpu",
+                                     clip_config=model_io.load_encoder_config(encoder_dir, "clip"))
+    else:
+        tower = dict(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64)
+        cfg = tsig.SigLIPConfig(
+            text=tsig.SigLIPTextConfig(vocab_size=600, max_positions=16, projection_size=32,
+                                       **tower),
+            vision=tsig.SigLIPVisionConfig(image_size=32, patch_size=8, **tower))
+        model = model_io.build_model("fusion", "siglip", CLASSES, fusion_dim=16, device="cpu",
+                                     siglip_config=cfg)
+    return tfi.FastInferenceEngine(model, MEAN, STD)
+
+
+PER_BATCH = ["prep.load", "prep.patches", "prep.bucket", "prep.pin", "pipeline.put_wait",
+             "engine.call", "score.readback"]
+
+
+@pytest.mark.parametrize("buckets", [None, (10, 14)])
+@pytest.mark.parametrize("backend", ["clip", "siglip"])
+def test_evaluate_logits_u8_recorded(encoder_dir, data_dir, tmp_path, backend, buckets):
+    engine = _tiny_engine(backend, encoder_dir)
+    # 1 to 16 words a row, so that the batches fall in several buckets
+    rows = pd.read_csv(f"{data_dir}/test.csv")
+    rows["text"] = [" ".join(["hate", "love"][i % 2] for _ in range(i + 1))
+                    for i in range(len(rows))]
+    rows.to_csv(tmp_path / "test.csv", index=False)
+    ds = CSVDataset(
+        str(tmp_path / "test.csv"), f"{data_dir}/images", load_tokenizer(encoder_dir),
+        ImagePreprocessor(32, 32, MEAN, STD, output="uint8_hwc"), 16, class_names=CLASSES,
+    )
+    B, n = 6, len(ds)
+    off, off_labels = tfi.evaluate_logits_u8(engine, ds, B, num_workers=2, seq_buckets=buckets)
+    with profiling.recording() as rec:
+        on, on_labels = tfi.evaluate_logits_u8(engine, ds, B, num_workers=2,
+                                               seq_buckets=buckets)
+    np.testing.assert_array_equal(on, off)
+    np.testing.assert_array_equal(on_labels, off_labels)
+
+    batches = -(-n // B)
+    names = collections.Counter(s.name for s in rec.spans)
+    assert names == {"score.evaluate": 1, "score.wait_batch": batches + 1,
+                     **{k: batches for k in PER_BATCH}}
+    (root,) = rec.named("score.evaluate")
+    by_id = {s.id: s for s in rec.spans}
+    for s in rec.spans:
+        top = s
+        while top.parent is not None:
+            top = by_id[top.parent]
+        assert top is root, s
+        launching = not s.name.startswith(("prep.", "pipeline."))
+        assert (s.thread == root.thread) == launching, s
+
+    if buckets:
+        ladder = tfi.bucket_ladder(buckets, 16)
+        order = np.argsort(ds.attention_mask.sum(axis=1), kind="stable")
+        widths = [tfi.bucket_for(ds.attention_mask[order[i:i + B]], ladder,
+                                 extra=0 if backend == "clip" else 1) for i in range(0, n, B)]
+    else:
+        widths = [16] * batches
+    for name in PER_BATCH[:4] + PER_BATCH[5:] + ["score.wait_batch"]:
+        got = sorted((s.attrs["batch"], s.attrs.get("width")) for s in rec.named(name))
+        assert got[:batches] == list(enumerate(widths)), name
+    assert sorted(s.attrs["batch"] for s in rec.named("pipeline.put_wait")) == list(range(batches))
+
+    c = rec.counters
+    buckets_seen = {k: v for k, v in c.items() if k.startswith("score.bucket.")}
+    assert buckets_seen == {f"score.bucket.{w}": k for w, k in collections.Counter(widths).items()}
+    assert sum(buckets_seen.values()) == c["score.batches"] == batches
+    assert c["score.rows"] == n and c["score.pad_rows"] == batches * B - n
+    assert c["score.text_tokens"] == int(ds.attention_mask.sum())
+    assert c["score.text_slots"] == B * sum(widths)
+    assert c["score.h2d_bytes"] > 0
