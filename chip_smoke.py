@@ -28,14 +28,20 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    [B, 1, T, S] mask, and the contiguous [B*H, T, S] form of the JAX
    contract) the earlier SIMT kernel (still built, for fp32) is timed
    beside it on the same bf16 inputs, in the order SIMT, tensor cores,
-   tensor cores, SIMT.
+   tensor cores, SIMT. ``add_layer_norm`` (``ADD_LN_SPECS``: the rows of a
+   SigLIP2-B/16-224 eval batch and the text buckets 32 and 48, with and
+   without the residual add) against its plain version: the sum bit for
+   bit, the normalised rows bf16 atol 1e-3 + rtol 2^-7; its yardstick is
+   ``x + d`` then ``F.layer_norm`` in bf16, its bound the bytes.
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
    written as a reference-format checkpoint (``models/export.py``, as every
    reference checkpoint of this script), loaded with ``load_checkpoint``,
    run through ``FastInferenceEngine`` + ``evaluate_logits_u8`` in bf16 with
    the kernels, with text buckets off and on; the launch counters must show
    1 patch_embed_u8 and 24 attention_nhd launches per batch, every one of
-   them on the tensor cores (``tensor_core_launches``); fp32 logits on
+   them on the tensor cores (``tensor_core_launches``), and 53
+   ``add_layer_norm`` (``ADD_LN_PER_BATCH``: every LayerNorm of the bf16
+   forward, with the residual add before the second of a block); fp32 logits on
    the card must match the same model's CPU logits; the checkpoint written
    again as ``model.safetensors`` (``convert.write_safetensors``) must load
    through ``load_checkpoint`` without the ``safetensors`` package, with
@@ -70,8 +76,9 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    (``config/siglip_fusion.yaml``: ``google/siglip2-base-patch16-224``'s
    dimensions) through ``load_checkpoint`` -> ``FastInferenceEngine``, B=64,
    text seq 64, 2 staged passes: 1 ``patch_embed_u8`` and 24
-   ``attention_nhd`` (vision T=196 and text), all on the tensor cores, and no
-   ``flash_attention`` per batch, samples/s and a profiler breakdown. Then
+   ``attention_nhd`` (vision T=196 and text), all on the tensor cores, 53
+   ``add_layer_norm`` and no ``flash_attention`` per batch, samples/s and a
+   profiler breakdown. Then
    ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
    ``attention_small`` once per call (the bf16 call on the tensor cores),
    against the "xla" core.
@@ -106,7 +113,7 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    micro-batching off and on, then requests/s and p50 / p99 latency over
    ``LOAD_WINDOW_S`` of load at 1, 4 and 16 clients, off and on, with 1
    ``patch_embed_u8`` and 24 ``attention_nhd`` launches per served batch,
-   all on the tensor cores.
+   all on the tensor cores, and 53 ``add_layer_norm``.
 8. The multi-task head (``config/clip_mtl.yaml``: 5 tasks, fusion 512,
    hidden task heads of 256, learned task weights) on CLIP ViT-B/32's bare
    towers, random weights from a seed: ``Trainer.train`` at B=32 x 2 as
@@ -806,6 +813,98 @@ def attention_bwd_cases(torch, g):
     return cases
 
 
+# add_layer_norm at the bf16 eval paths' rows: (rows, D, with the residual
+# add, launches of it in one SigLIP2-B/16-224 eval batch at text seq 64,
+# label). A batch's 53 (``ADD_LN_PER_BATCH``): each tower's 12 ln1 and its
+# final or post LayerNorm, its 12 residual adds with ln2, the MAP head's
+# LayerNorm and the fusion head's two; the text buckets 32 and 48 are
+# checked and timed, outside that batch
+ADD_LN_SPECS = [
+    (SIGLIP_BATCH * SIGLIP224_T, 768, False, 13, "siglip224 path: vision ln1 and post-LN"),
+    (SIGLIP_BATCH * SIGLIP224_T, 768, True, 12, "siglip224 path: vision residual + ln2"),
+    (SIGLIP_BATCH * 64, 768, False, 13, "siglip224 path: text ln1 and final LN, seq 64"),
+    (SIGLIP_BATCH * 64, 768, True, 12, "siglip224 path: text residual + ln2, seq 64"),
+    (SIGLIP_BATCH, 768, False, 1, "siglip224 path: MAP head LN"),
+    (SIGLIP_BATCH, 512, False, 1, "siglip224 path: fusion head ln_fused"),
+    (SIGLIP_BATCH, 2560, False, 1, "siglip224 path: fusion head cls_ln"),
+] + [(SIGLIP_BATCH * T, 768, add, 0, f"text bucket: seq {T}{' residual + ln2' if add else ''}")
+     for T in (32, 48) for add in (False, True)]
+
+
+def add_layer_norm_cases(torch, g):
+    """``cuda_norm.add_layer_norm`` on the card against its plain version
+    on the same inputs (``ADD_LN_SPECS``): the rounded sum bit for bit, the
+    normalised rows within one bf16 rounding; timed beside the plain
+    version, the library's ``x + d`` then ``F.layer_norm`` in bf16, and the
+    bytes bound (8 bytes an element with the add, 4 without)."""
+    import torch.nn.functional as F
+
+    from multimodal_content_moderation_tpu_torch.ops import cuda_norm as cn
+
+    atol, rtol, eps = 1e-3, 2.0**-7, 1e-6
+    cases = []
+    for R, D, add, per_unit, label in ADD_LN_SPECS:
+        x = (torch.randn(R, D, generator=g, device="cuda") * 3 + 1).bfloat16()
+        d = torch.randn(R, D, generator=g, device="cuda").bfloat16() if add else None
+        scale = (1 + 0.2 * torch.randn(D, generator=g, device="cuda")).bfloat16()
+        bias = (0.2 * torch.randn(D, generator=g, device="cuda")).bfloat16()
+        before = cn.add_layer_norm.launches
+        s, y = cn.add_layer_norm(x, d, scale, bias, eps)
+        want_s, want_y = cn.add_layer_norm_reference(x, d, scale, bias, eps)
+        torch.cuda.synchronize()
+        check(cn.add_layer_norm.launches == before + 1,
+              f"add_layer_norm {label}: {cn.add_layer_norm.launches - before} launches, want 1")
+        check(torch.equal(s, want_s), f"add_layer_norm {label}: the sum differs from x + d")
+        err, ok = max_err_within(y, want_y, atol, rtol)
+        check(ok, f"add_layer_norm {label}: max abs err {err} beyond atol {atol} + rtol {rtol}")
+        bms, by = bound_ms(R * D * 2 * (4 if add else 2) + 2 * D * 2, 8.0 * R * D, "bfloat16")
+        case = {
+            "kernel": "add_layer_norm", "case": f"{label}: R={R} D={D}", "dtype": "bfloat16",
+            "max_abs_err": err, "atol": atol, "rtol": rtol,
+            "paths": ["siglip224"] if per_unit else [], "per_unit": per_unit,
+            "bound_ms": bms, "bound_by": by,
+        }
+        timed(case, "ms", lambda: cn.add_layer_norm(x, d, scale, bias, eps))
+        timed(case, "plain_ms", lambda: cn.add_layer_norm_reference(x, d, scale, bias, eps))
+        timed(case, "library_ms",
+              lambda: F.layer_norm(x if d is None else x + d, (D,), scale, bias, eps))
+        cases.append(case)
+    return cases
+
+
+def add_layer_norm_entry(cases, launches_by_path):
+    """``add_layer_norm``'s entry of the ``{"kernels": ...}`` line, in the
+    form of ``kernel_entry``'s: one SigLIP2-B/16-224 eval batch, each case
+    times its launches in the batch. Its launches are counted on every
+    bf16 eval path; it has no tensor-core count and no SIMT twin."""
+    main = [c for c in cases if c["kernel"] == "add_layer_norm" and c["per_unit"]]
+    keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+    unit = {k: sum(c["per_unit"] * c[k] for c in main) for k in keys}
+    return {
+        "name": "add_layer_norm",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/add_layer_norm.cu",
+        "headers": [],
+        "replaces": "none: XLA fuses the residual add and the LayerNorm on the TPU",
+        "launches": launches_by_path["siglip224"]["add_layer_norm"],
+        "tensor_core_launches": None,
+        "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "add_layer_norm"),
+        "ms": unit["ms"],
+        "plain_ms": unit["plain_ms"],
+        "bound_ms": unit["bound_ms"],
+        "bound_by": max(main, key=lambda c: c["bound_ms"])["bound_by"],
+        "library_ms": unit["library_ms"],
+        "simt_ms": None,
+        "timed_by": {k: _how(*(c["timed_by"][k] for c in main)) for k in keys if k != "bound_ms"},
+        "work": f"{UNITS['siglip224']}: {sum(c['per_unit'] for c in main)} launches, "
+                "[12544, 768] and [4096, 768] each 13 without the add and 12 with it, "
+                "[64, 768], [64, 512], [64, 2560] once",
+        "launches_by_path": {path: counts["add_layer_norm"] for path, counts
+                             in launches_by_path.items() if "add_layer_norm" in counts},
+        "other_paths": {},
+    }
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the full-width model
 # ---------------------------------------------------------------------------
@@ -1023,7 +1122,7 @@ def full_model_phase(torch, card: str):
     n_batches = -(-len(data) // BATCH)
     runs = {}
     for name, spec in (("seq_buckets_off", "off"), ("seq_buckets_auto", "auto")):
-        counts = launch_counter()
+        counts, add_ln = launch_counter(), add_ln_counter()
         t0 = time.perf_counter()
         logits, labels = fi.evaluate_logits_u8(
             engine, data, BATCH, num_workers=4, seq_buckets=fi.parse_seq_buckets(spec)
@@ -1032,6 +1131,10 @@ def full_model_phase(torch, card: str):
         launches = counts()
         check(launches == _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches),
               f"{name}: launches {launches} for {n_batches} batches (want 1 and 24 per batch)")
+        launches["add_layer_norm"] = add_ln()
+        check(launches["add_layer_norm"] == ADD_LN_PER_BATCH * n_batches,
+              f"{name}: add_layer_norm launches {launches['add_layer_norm']} for {n_batches} "
+              f"batches (want {ADD_LN_PER_BATCH} per batch)")
         check(logits.shape == (len(data), len(CLASSES)) and np.isfinite(logits).all(),
               f"{name}: logits {logits.shape}, finite={np.isfinite(logits).all()}")
         np.testing.assert_array_equal(labels, data.labels)
@@ -1197,6 +1300,21 @@ def _counts(tensor_cores: bool = True, **nonzero):
     counts.update({f"{name}_tensor_core": counts[name] if tensor_cores else 0
                    for name in KERNELS})
     return counts
+
+
+# add_layer_norm launches a bf16 fusion forward (CLIP ViT-B/32 or SigLIP2-B/16):
+# 2 a block over the towers' 24, the towers' other 3 (CLIP's final, pre and
+# post; SigLIP's final, post and MAP head's), the fusion head's 2
+ADD_LN_PER_BATCH = 24 * 2 + 3 + 2
+
+
+def add_ln_counter():
+    """A reader of the ``add_layer_norm`` launches from now on (a kernel with
+    no tensor-core count, so outside ``KERNELS`` and ``_counts``)."""
+    from multimodal_content_moderation_tpu_torch.ops import cuda_norm
+
+    start = cuda_norm.add_layer_norm.launches
+    return lambda: cuda_norm.add_layer_norm.launches - start
 
 
 def _device_batch(torch, data, idx, patch_size=None):
@@ -1923,7 +2041,7 @@ def siglip224_phase(torch, card: str):
           and bool(logits.float().isfinite().all()),
           f"siglip224 logits {tuple(logits.shape)}, finite={bool(logits.float().isfinite().all())}")
     # the path: 2 staged passes, counted from 0
-    counts = launch_counter()
+    counts, add_ln = launch_counter(), add_ln_counter()
     rates = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1935,6 +2053,10 @@ def siglip224_phase(torch, card: str):
     n_batches = 2 * len(ids)
     want = _counts(patch_embed_u8=n_batches, attention_nhd=24 * n_batches)
     check(launches == want, f"siglip224: launches {launches}, want {want}")
+    launches["add_layer_norm"] = add_ln()
+    check(launches["add_layer_norm"] == ADD_LN_PER_BATCH * n_batches,
+          f"siglip224: add_layer_norm launches {launches['add_layer_norm']} for {n_batches} "
+          f"batches (want {ADD_LN_PER_BATCH} per batch)")
     report["main_path_launches"] = launches
     report["main_path_batches"] = n_batches
     report["staged_samples_per_s_seq64"] = {"mean_of_2": sum(rates) / 2, "passes": rates,
@@ -2435,10 +2557,12 @@ def cold_start(ckpt: str, root: str, device: str):
         check(status == 200 and len(out["predictions"]) == 1, f"cold server: {status} {out}")
         built = sorted(os.path.relpath(os.path.join(d, f), cache)
                        for d, _, fs in os.walk(cache) for f in fs if f.endswith(".so"))
-        check(len(built) == 3 and any(b.startswith("native/") for b in built)
+        check(len(built) == 4 and any(b.startswith("native/") for b in built)
+              and any("add_layer_norm" in b for b in built)
               and not any("flash_attention" in b for b in built),
-              f"cold server built {built}: want patch_embed_u8, attention_nhd and the image "
-              "library (CLIP never launches flash_attention)")
+              f"cold server built {built}: want patch_embed_u8, attention_nhd, add_layer_norm "
+              "(the bf16 forward's LayerNorms) and the image library (CLIP never launches "
+              "flash_attention)")
         return {"seconds_to_ping_200": ping_s, "first_request_ms": first_ms, "built": built}
     finally:
         proc.terminate()
@@ -2586,7 +2710,7 @@ def serving_phase(torch, card: str, hf_cfg: dict = HF_CLIP_B32, device: str = "c
 
         bf16.forward_batch = counted_forward
         bodies = [json.dumps(inst).encode() for inst in insts]
-        counts = launch_counter()
+        counts, add_ln = launch_counter(), add_ln_counter()
         report["load"] = {}
         for label, window in (("microbatch_off", None), ("microbatch_on", MICROBATCH_MS)):
             if window:
@@ -2603,6 +2727,10 @@ def serving_phase(torch, card: str, hf_cfg: dict = HF_CLIP_B32, device: str = "c
         check(launches == _counts(patch_embed_u8=len(served), attention_nhd=24 * len(served)),
               f"serving: launches {launches} for {len(served)} served batches (want 1 and 24 "
               "per batch, all on the tensor cores)")
+        launches["add_layer_norm"] = add_ln()
+        check(launches["add_layer_norm"] == ADD_LN_PER_BATCH * len(served),
+              f"serving: add_layer_norm launches {launches['add_layer_norm']} for "
+              f"{len(served)} served batches (want {ADD_LN_PER_BATCH} per batch)")
         bf16.forward_batch = real_forward
     finally:
         if server is not None:
@@ -5270,7 +5398,8 @@ def main() -> int:
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = (patch_embed_cases(torch, g) + attention_cases(torch, g) + flash_cases(torch, g)
-             + small_cases(torch, g) + attention_bwd_cases(torch, g))
+             + small_cases(torch, g) + attention_bwd_cases(torch, g)
+             + add_layer_norm_cases(torch, g))
     for c in cases:
         print(
             f"{c['kernel']:17s} {c['dtype']:8s} {c['case']:60s} err {c['max_abs_err']:.3g} "
@@ -5344,6 +5473,7 @@ def main() -> int:
                             "main_path_launches"],
                         "sim_e2e": results["quality"]["sim_e2e"]["main_path_launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
+    kernels.append(add_layer_norm_entry(cases, launches_by_path))
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,

@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from multimodal_content_moderation_tpu_torch.models.u8wire import fold_for_model
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
 from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, count, is_recording
 
@@ -32,17 +33,22 @@ class FastInferenceEngine:
     """u8-wire forward of a ``FusionModel`` or a ``MultiTaskModel`` on the
     model's device.
 
-    On the card the patch embed is the ``patch_embed_u8`` kernel; the
-    attention core follows the model's ``attention_impl``. A call runs the
+    On the card the patch embed is the ``patch_embed_u8`` kernel, with the
+    normalisation folded into its weight once, here; the attention core
+    follows the model's ``attention_impl``. A call runs the
     rows it is given; with a ``mesh``, ``evaluate_logits_u8`` gives each
     data rank its rows and gathers the logits."""
 
     def __init__(self, model, mean: Sequence[float], std: Sequence[float], mesh=None):
         self.mesh = mesh
-        self.model = model.replace(
+        model = model.replace(
             image_mean=tuple(float(m) for m in mean),
             image_std=tuple(float(s) for s in std),
         )
+        # the weights are fixed for the engine's life: fold once, not on
+        # every call (the fold's stats cross to the card synchronously)
+        with torch.no_grad():
+            self.model = model.replace(patch_fold=fold_for_model(model, model.backbone))
         self.device = model.device
         self.patch_size = self.model.encoder_config.vision.patch_size
 
@@ -77,7 +83,7 @@ class FastInferenceEngine:
         if carry_pos is not None:
             T = batch["input_ids"].shape[1]
             pos = torch.arange(T, device=self.device)
-            pos[-1] = carry_pos
+            pos[-1:].fill_(carry_pos)  # an assignment would copy the int over, synchronously
             batch["position_ids"] = pos
         return self.model(batch)["logits"].float()
 

@@ -147,6 +147,11 @@ class DualEncoderModel(nn.Module):
     ``generic_config``), a head whose ``proj_t`` holds the device, and
     config fields that ``replace`` swaps."""
 
+    # the u8 wire's folded patch embedding (``models/u8wire.fold_for_model``),
+    # stored by a ``FastInferenceEngine`` on its own copy; None: folded on
+    # every forward, as training needs
+    patch_fold = None
+
     def replace(self, **fields):
         """A copy with other config fields that shares these parameters."""
         new = copy.copy(self)

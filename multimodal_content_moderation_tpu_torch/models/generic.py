@@ -35,6 +35,7 @@ import torch
 from multimodal_content_moderation_tpu_torch.models.convert import _linear, _ln, _t
 from multimodal_content_moderation_tpu_torch.ops.layers import (
     ACTIVATIONS,
+    add_layer_norm,
     checkpoint_replaying,
     dense,
     dense_maybe_int8,
@@ -272,10 +273,10 @@ def _postln_block(x, p, cfg: GenericTextConfig, key_mask, generator=None):
             probs_dropout=cfg.attention_probs_dropout_prob, generator=g,
         )
         attn = dropout(attn, cfg.hidden_dropout_prob, g)
-        x = layer_norm(x + attn, p["ln1"], cfg.layer_norm_eps)
+        x = add_layer_norm(x, attn, p["ln1"], cfg.layer_norm_eps)[1]
         y = ACTIVATIONS[cfg.hidden_act](dense_maybe_int8(x, p["fc1"]))
         y = dropout(dense(y, p["fc2"]), cfg.hidden_dropout_prob, g)
-        return layer_norm(x + y, p["ln2"], cfg.layer_norm_eps)
+        return add_layer_norm(x, y, p["ln2"], cfg.layer_norm_eps)[1]
 
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint_replaying(block, x, generator)

@@ -7,7 +7,7 @@ themselves: the u8 wire trains as well as it evaluates."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple
 
 import torch
 
@@ -28,39 +28,53 @@ def default_stats(backend: str):
     return (CLIP_MEAN, CLIP_STD) if backend == "clip" else (SIGLIP_MEAN, SIGLIP_STD)
 
 
-def embed_for_model(model, backbone, patches_u8: torch.Tensor) -> torch.Tensor:
-    """Model-aware u8 embed, for a ``FusionModel`` or a ``MultiTaskModel``:
-    the vision config and normalisation stats (model fields, else the
-    backend's defaults; "auto", the multi-task SigLIP backbone, and the
-    generic ViT take SigLIP's 0.5 / 0.5)."""
+class PatchFold(NamedTuple):
+    """A folded patch embedding and the ``stamp`` of what it was folded from."""
+
+    w: torch.Tensor
+    b: torch.Tensor
+    stamp: tuple
+
+
+def _stamp(model, pe) -> tuple:
+    """What a fold depends on: the stats and, for each leaf of the patch
+    embedding, its address and version counter (which every in-place write
+    bumps; an inference tensor keeps none and gives None)."""
+    leaves = (pe[k] for k in ("w", "b") if k in pe)
+    return (model.image_mean, model.image_std,
+            *(None if t.is_inference() else (t.data_ptr(), t._version) for t in leaves))
+
+
+def fold_for_model(model, backbone) -> PatchFold:
+    """The model's normalisation folded into its patch embedding: fp32
+    (w_folded, b_folded) from the stored weight and bias (``fold_norm_into_embed``),
+    with the model's stats (model fields, else the backend's defaults;
+    "auto", the multi-task SigLIP backbone, and the generic ViT take
+    SigLIP's 0.5 / 0.5)."""
     dmean, dstd = default_stats(model.backend)
-    return embed_patches_u8(
-        backbone,
-        patches_u8,
-        model.encoder_config.vision,
-        model.image_mean or dmean,
-        model.image_std or dstd,
-    )
-
-
-def embed_patches_u8(
-    backbone,
-    patches_u8: torch.Tensor,
-    vision_cfg,
-    image_mean: Optional[Sequence[float]],
-    image_std: Optional[Sequence[float]],
-) -> torch.Tensor:
-    """[B, N, C*p*p] uint8 patch rows -> embedded tokens [B, N, D] in the
-    tower's compute dtype. The fold runs in fp32 from the stored weight."""
+    vision = model.encoder_config.vision
     pe = backbone["vision_model"]["patch_embedding"]
     wf, bf = fold_norm_into_embed(
         pe["w"].float(),
         pe["b"].float() if "b" in pe else None,
-        image_mean,
-        image_std,
-        vision_cfg.patch_size,
-        vision_cfg.num_channels,
+        model.image_mean or dmean,
+        model.image_std or dstd,
+        vision.patch_size,
+        vision.num_channels,
     )
+    return PatchFold(wf.contiguous(), bf.contiguous(), _stamp(model, pe))
+
+
+def embed_for_model(model, backbone, patches_u8: torch.Tensor) -> torch.Tensor:
+    """Model-aware u8 embed, for a ``FusionModel`` or a ``MultiTaskModel``:
+    [B, N, C*p*p] uint8 patch rows -> embedded tokens [B, N, D] in the
+    tower's compute dtype. The fold is the model's ``patch_fold`` where an
+    engine stored one (``FastInferenceEngine``) and nothing it was folded
+    from has changed since, else ``fold_for_model`` on this call, inside the
+    autograd graph (training: the weights change every step)."""
+    fold = model.patch_fold
+    if fold is None or fold.stamp != _stamp(model, backbone["vision_model"]["patch_embedding"]):
+        fold = fold_for_model(model, backbone)
     return patch_embed_u8_train(
-        patches_u8, wf.contiguous(), bf.contiguous(), getattr(torch, vision_cfg.compute_dtype)
+        patches_u8, fold.w, fold.b, getattr(torch, model.encoder_config.vision.compute_dtype)
     )

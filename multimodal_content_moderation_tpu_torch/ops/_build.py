@@ -125,6 +125,9 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 
 def stream_ptr(device) -> ctypes.c_void_p:
+    """The current CUDA stream of ``device``, read through PyTorch's raw
+    accessor (a ``torch.cuda.Stream`` object costs microseconds a launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))

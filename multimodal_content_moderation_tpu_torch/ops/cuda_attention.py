@@ -332,7 +332,11 @@ def attention_nhd_diff(
 ) -> torch.Tensor:
     """Differentiable ``attention_nhd``: the forward kernel, and the
     recompute backward kernel for dq/dk/dv (the cotangent is cast to q's
-    dtype first, as in JAX). The key mask is not trained."""
+    dtype first, as in JAX). The key mask is not trained. With gradients
+    off it is ``attention_nhd`` itself (the Function's bookkeeping costs the
+    host more than the launch)."""
+    if not torch.is_grad_enabled():
+        return attention_nhd(q, k, v, num_heads, key_mask, causal)
     return _AttentionNHD.apply(q, k, v, key_mask, num_heads, causal)
 
 

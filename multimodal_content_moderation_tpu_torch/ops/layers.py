@@ -10,6 +10,17 @@ Numerics contract, as in the JAX package:
 Parameters are passed as mappings (``p["w"]``), which a
 ``models.params.ParamTree`` is.
 
+Inference on the card in bf16 (``fused``: gradients off, no model split,
+every leaf already bf16) takes a shorter schedule of the same arithmetic:
+a dense is one ``torch.addmm`` (fp32 accumulation, the bias added in fp32
+in cuBLASLt's epilogue, one rounding to bf16; partial sums of a split-K
+product kept in fp32 for that call alone), and a LayerNorm, with the residual add before it,
+is one launch of ``ops/cuda_norm.add_layer_norm``. Everything else (the
+CPU, fp32, training, a model split, int8 leaves) keeps the plain code.
+``utils/profiling.count`` records which path each dense and LayerNorm took
+(``model.dense.fused`` / ``.plain``, ``model.add_ln.fused`` /
+``model.layer_norm.plain``).
+
 Tensor parallelism (``parallel/sharding.py``) is read off the parameters:
 a weight that carries a ``model_split`` is this rank's shard. A column
 shard (q, k, v, fc1) takes its input through ``copy_to_model_parallel``
@@ -23,13 +34,14 @@ heads its q shard holds.
 from __future__ import annotations
 
 import hashlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from multimodal_content_moderation_tpu_torch.ops import cuda_norm
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ, attention_nhd_diff
 from multimodal_content_moderation_tpu_torch.ops.cuda_flash import fused_mha
 from multimodal_content_moderation_tpu_torch.ops.quant import dense_int8
@@ -39,6 +51,7 @@ from multimodal_content_moderation_tpu_torch.parallel.collectives import (
     reduce_from_model_parallel,
     split_of,
 )
+from multimodal_content_moderation_tpu_torch.utils.profiling import count
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -94,6 +107,41 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
+def fused(x: torch.Tensor, *leaves: Optional[torch.Tensor]) -> bool:
+    """Whether ``x`` with these parameter leaves takes the fused schedule:
+    bf16 on the card, gradients off, every leaf bf16 (None is no leaf) and
+    none split over a model group."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16) or torch.is_grad_enabled():
+        return False
+    for t in leaves:
+        if t is not None and (t.dtype != torch.bfloat16 or split_of(t) is not None):
+            return False
+    return True
+
+
+# the setting's getter returns (reduced precision, split-K) or, in older
+# PyTorch, the bool alone; the setter takes the same arguments back
+_get_bf16_reduction = torch._C._get_cublas_allow_bf16_reduced_precision_reduction
+_set_bf16_reduction = torch._C._set_cublas_allow_bf16_reduced_precision_reduction
+
+
+def _product_fp32_sums(x2: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]):
+    """``b + x2 @ w`` (``x2 @ w`` without b) in one cuBLAS call, its split-K
+    partial sums kept in fp32: PyTorch's process-wide
+    ``allow_bf16_reduced_precision_reduction`` (on by default) is off for
+    this call alone and set back after it, so every other product in the
+    process (training's among them) keeps the setting it had."""
+    before = _get_bf16_reduction()
+    before = before if isinstance(before, tuple) else (before,)
+    if before[0]:
+        _set_bf16_reduction(False, *before[1:])
+    try:
+        return torch.mm(x2, w) if b is None else torch.addmm(b, x2, w)
+    finally:
+        if before[0]:
+            _set_bf16_reduction(*before)
+
+
 def dense(x: torch.Tensor, p) -> torch.Tensor:
     """Affine layer: ``p = {"w": (in, out), "b": (out,)}`` (b optional).
 
@@ -101,8 +149,15 @@ def dense(x: torch.Tensor, p) -> torch.Tensor:
     fp32 and stays fp32, the bias is added in fp32 and the result is rounded
     once to x's dtype (JAX's ``preferred_element_type=float32`` dense).
     A row shard's fp32 partial products are summed over its model group
-    before the bias."""
+    before the bias. On the ``fused`` schedule the same arithmetic is one
+    ``addmm`` (``mm`` without a bias) in cuBLAS."""
     w = p["w"]
+    b = p["b"] if "b" in p else None
+    if fused(x, w, b):
+        count("model.dense.fused")
+        y = _product_fp32_sums(x.reshape(-1, x.shape[-1]), w, b)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    count("model.dense.plain")
     split = split_of(w)
     if split is not None and split.dim == 1:
         x = copy_to_model_parallel(x, split.group)
@@ -111,8 +166,8 @@ def dense(x: torch.Tensor, p) -> torch.Tensor:
     y = _matmul_f32(x, w)
     if split is not None and split.dim == 0:
         y = reduce_from_model_parallel(y.float(), split.group)
-    if "b" in p and p["b"] is not None:
-        y = y + p["b"].float()
+    if b is not None:
+        y = y + b.float()
     return y.to(x.dtype)
 
 
@@ -124,13 +179,27 @@ def dense_maybe_int8(x: torch.Tensor, p) -> torch.Tensor:
     return dense(x, p)
 
 
+def add_layer_norm(
+    x: torch.Tensor, delta: Optional[torch.Tensor], p, eps: float = 1e-5
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s, y): the residual sum s = x + delta in x's dtype (x itself without
+    delta) and y = LayerNorm(s) with fp32 statistics (biased variance, eps
+    inside the sqrt), rounded once to x's dtype. ``p = {"scale": (d,),
+    "bias": (d,)}``. On the ``fused`` schedule, for a width the kernel
+    takes (``ops/cuda_norm.takes``), one launch of its kernel; an operand
+    whose layout it does not read is copied to a contiguous one first."""
+    scale, bias = p["scale"], p["bias"]
+    if fused(x, delta, scale, bias) and cuda_norm.takes(x, delta, scale, bias):
+        count("model.add_ln.fused")
+        return cuda_norm.launch(*(cuda_norm.laid_out(t) for t in (x, delta, scale, bias)), eps)
+    count("model.layer_norm.plain")
+    return cuda_norm.add_layer_norm_reference(x, delta, scale, bias, eps)
+
+
 def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics (biased variance,
     eps inside the sqrt). ``p = {"scale": (d,), "bias": (d,)}``."""
-    y = F.layer_norm(
-        x.float(), (x.shape[-1],), p["scale"].float(), p["bias"].float(), eps
-    )
-    return y.to(x.dtype)
+    return add_layer_norm(x, None, p, eps)[1]
 
 
 def dropout(
@@ -324,12 +393,12 @@ def transformer_block(
 
     def block(x):
         y = layer_norm(x, p["ln1"], eps)
-        x = x + mha(
+        a = mha(
             y, y, p["attn"], num_heads, mask,
             impl=attention_impl, scores_dtype=scores_dtype,
             causal=causal, key_mask=key_mask,
         )
-        y = layer_norm(x, p["ln2"], eps)
+        x, y = add_layer_norm(x, a, p["ln2"], eps)
         y = activation(dense_maybe_int8(y, p["fc1"]))
         return x + dense(y, p["fc2"])
 

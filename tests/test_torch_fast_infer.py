@@ -176,3 +176,34 @@ def test_evaluate_logits_u8_recorded(encoder_dir, data_dir, tmp_path, backend, b
     assert c["score.text_tokens"] == int(ds.attention_mask.sum())
     assert c["score.text_slots"] == B * sum(widths)
     assert c["score.h2d_bytes"] > 0
+
+
+@pytest.mark.parametrize("backend", ["clip", "siglip"])
+def test_engine_folds_the_patch_embedding_once(encoder_dir, monkeypatch, backend):
+    """The engine folds the normalisation into the patch embedding when it is
+    made, not on each call; a write into that weight afterwards (a loaded
+    checkpoint, say) makes the next call fold again, so its logits equal a
+    new engine's."""
+    from multimodal_content_moderation_tpu_torch.models import u8wire
+
+    folds = []
+    real = u8wire.fold_norm_into_embed
+    monkeypatch.setattr(u8wire, "fold_norm_into_embed",
+                        lambda *a, **k: folds.append(1) or real(*a, **k))
+    engine = _tiny_engine(backend, encoder_dir)
+    vision = engine.model.encoder_config.vision
+    g = np.random.default_rng(4)
+    ids = g.integers(2, 500, size=(3, 8)).astype(np.int64)
+    mask = np.ones((3, 8), np.int64)
+    patches = engine.patches_from_hwc(
+        g.integers(0, 256, size=(3, vision.image_size, vision.image_size, 3), dtype=np.uint8))
+    flags = np.ones(3, np.float32)
+    run = lambda e: e(ids, mask, patches, flags, flags)  # noqa: E731
+    first = run(engine)
+    assert torch.equal(run(engine), first) and len(folds) == 1
+    w = engine.model.backbone["vision_model"]["patch_embedding"]["w"]
+    with torch.no_grad():
+        w.mul_(1.5)
+    moved = run(engine)
+    assert len(folds) == 2 and not torch.equal(moved, first)
+    assert torch.equal(moved, run(tfi.FastInferenceEngine(engine.model, MEAN, STD)))

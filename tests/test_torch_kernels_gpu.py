@@ -19,7 +19,14 @@ bf16 ``patch_embed_u8``, ``attention_nhd``, ``attention_nhd_bwd``,
 ``flash_attention`` and ``attention_small`` calls run the tensor-core kernels (``csrc/mma_common.cuh``,
 ``csrc/attention_mma.cuh``) and fp32 calls the SIMT ones: every call adds
 one to the wrapper's ``launches``, and a bf16 call one to its
-``tensor_core_launches`` too."""
+``tensor_core_launches`` too.
+
+``add_layer_norm`` against its plain version: the rounded sum bit for bit,
+the normalised rows bf16 rtol 2^-7 + atol 1e-3 (fp32 statistics summed in
+another order can flip one rounding). The fused bf16 forward of a
+full-width SigLIP2-B/16-224, CLIP ViT-B/32 and ViT-B/16 + BERT-base engine
+against the plain schedule of the same engine: logits atol 0.03 (the GEMMs' sums in another order, rounded to bf16
+at every layer over 12 blocks)."""
 
 import pytest
 import torch
@@ -27,6 +34,7 @@ import torch
 from multimodal_content_moderation_tpu_torch.ops import cuda_attention as ca
 from multimodal_content_moderation_tpu_torch.ops import cuda_flash as cf
 from multimodal_content_moderation_tpu_torch.ops import cuda_image as ci
+from multimodal_content_moderation_tpu_torch.ops import cuda_norm as cn
 from multimodal_content_moderation_tpu_torch.ops import layers
 
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-3, 2.0**-7)}
@@ -538,3 +546,228 @@ def test_wrappers_refuse_bad_inputs():
         cf.flash_attention(q4, q4, q4, key_mask=torch.zeros(1, 300, device="cuda").bfloat16())
     with pytest.raises(ValueError):  # the last axis is contiguous
         cf.flash_attention(q4.transpose(2, 3), q4.transpose(2, 3), q4.transpose(2, 3))
+
+
+NORM_SHAPES = [
+    # R, D: the SigLIP2-B/16-224 vision tower (B=64 x 196), its text tower at
+    # the bucket widths 32 / 48 / 64, the fusion head's 512 and 5 x 512
+    (64 * 196, 768), (64 * 32, 768), (64 * 48, 768), (64 * 64, 768),
+    (64, 512), (64, 2560), (77, 1024), (3, 24), (1, 3072),
+]
+
+
+@pytest.mark.parametrize("with_delta", [False, True])
+@pytest.mark.parametrize("R,D", NORM_SHAPES)
+def test_add_layer_norm_kernel(R, D, with_delta):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(R + D)
+    x = (torch.randn(R, D, generator=g, device="cuda") * 3 + 1).bfloat16()
+    d = torch.randn(R, D, generator=g, device="cuda").bfloat16() if with_delta else None
+    scale = (1 + 0.2 * torch.randn(D, generator=g, device="cuda")).bfloat16()
+    bias = (0.2 * torch.randn(D, generator=g, device="cuda")).bfloat16()
+    before = cn.add_layer_norm.launches
+    s, y = cn.add_layer_norm(x, d, scale, bias, 1e-6)
+    assert cn.add_layer_norm.launches == before + 1
+    want_s, want_y = cn.add_layer_norm_reference(x, d, scale, bias, 1e-6)
+    assert torch.equal(s, want_s)
+    _assert_close(y, want_y)
+
+
+def test_add_layer_norm_reads_row_strided_views():
+    """A [B, D] view of every row's first token (CLIP's post-LN input) and
+    a delta of the same layout; a layout it does not take raises, a scale
+    or bias off 16 bytes among them (the kernel reads them 16 bytes at a
+    time)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    full = torch.randn(8, 50, 768, generator=g, device="cuda").bfloat16()
+    scale = torch.randn(768, generator=g, device="cuda").bfloat16()
+    bias = torch.randn(768, generator=g, device="cuda").bfloat16()
+    x, d = full[:, 0], full[:, 1]
+    assert cn.fits(x) and not x.is_contiguous()
+    for got, want in zip(cn.add_layer_norm(x, d, scale, bias, 1e-5),
+                         cn.add_layer_norm_reference(x, d, scale, bias, 1e-5)):
+        _assert_close(got, want)
+    odd = torch.zeros(4, 100, device="cuda").bfloat16()
+    for bad in (full.transpose(0, 1), odd, full.float()):
+        with pytest.raises(ValueError):
+            cn.add_layer_norm(bad, None, scale[:bad.shape[-1]], bias[:bad.shape[-1]], 1e-5)
+    off = torch.randn(769, generator=g, device="cuda").bfloat16()[1:]  # 2 bytes past 16
+    assert off.is_contiguous() and not cn.fits(off)
+    for sc, bi in ((off, bias), (scale, off)):
+        with pytest.raises(ValueError):
+            cn.add_layer_norm(x, d, sc, bi, 1e-5)
+    torch.cuda.synchronize()  # the refusals launched nothing that faults
+
+
+def test_dispatch_lays_out_what_the_kernel_cannot_read():
+    """``layers.add_layer_norm`` on the fused schedule launches the kernel
+    for operands it cannot read as they lie (rows and a scale 2 bytes off
+    16, a transposed delta), copied to contiguous ones, and gives the plain
+    version's result; the plain code runs only for a width it does not
+    take."""
+    from multimodal_content_moderation_tpu_torch.utils import profiling
+
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    R, D = 300, 768
+    x = torch.randn(R * D + 1, generator=g, device="cuda").bfloat16()[1:].view(R, D)
+    d = torch.randn(D, R, generator=g, device="cuda").bfloat16().t()
+    scale = (1 + 0.2 * torch.randn(D + 1, generator=g, device="cuda")).bfloat16()[1:]
+    bias = (0.2 * torch.randn(D, generator=g, device="cuda")).bfloat16()
+    assert not (cn.fits(x) or cn.fits(d) or cn.fits(scale))
+    before = cn.add_layer_norm.launches
+    with torch.no_grad(), profiling.recording() as rec:
+        s, y = layers.add_layer_norm(x, d, {"scale": scale, "bias": bias}, 1e-5)
+    assert cn.add_layer_norm.launches == before + 1
+    assert rec.counters == {"model.add_ln.fused": 1}
+    want_s, want_y = cn.add_layer_norm_reference(x, d, scale, bias, 1e-5)
+    assert torch.equal(s, want_s)
+    _assert_close(y, want_y)
+    narrow = torch.randn(R, 100, generator=g, device="cuda").bfloat16()
+    p100 = {"scale": scale[:100], "bias": bias[:100]}
+    with torch.no_grad(), profiling.recording() as rec:
+        got = layers.layer_norm(narrow, p100, 1e-5)
+    assert rec.counters == {"model.layer_norm.plain": 1}
+    assert cn.add_layer_norm.launches == before + 1
+    assert torch.equal(got, cn.add_layer_norm_reference(narrow, None, *p100.values(), 1e-5)[1])
+
+
+def test_training_products_ignore_an_earlier_eval():
+    """A fused dense turns cuBLAS's bf16 reduced-precision reductions off
+    for its own product alone: a bf16 training step's gradients are the
+    same bit for bit before and after an evaluation under ``no_grad``,
+    and the process-wide setting is as it was."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    # a long reduction over few outputs, where cuBLAS splits K
+    x = torch.randn(32, 49, 8192, generator=g, device="cuda").bfloat16()
+    p = {"w": (torch.randn(8192, 64, generator=g, device="cuda") * 0.01).bfloat16(),
+         "b": torch.randn(64, generator=g, device="cuda").bfloat16()}
+    gy = torch.randn(32, 49, 64, generator=g, device="cuda").bfloat16()
+
+    def step():
+        leaves = [x.clone().requires_grad_(), p["w"].clone().requires_grad_()]
+        y = layers.dense(leaves[0], {"w": leaves[1], "b": p["b"]})
+        return (y.detach(),) + torch.autograd.grad(y, leaves, gy)
+
+    setting = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    first = step()
+    with torch.no_grad():
+        layers.dense(x, p)  # the fused schedule
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == setting
+    for a, b in zip(first, step()):
+        assert torch.equal(a, b)
+
+
+def _engine(backend="siglip", seed=0):
+    """A full-width fusion engine at ``bf16_fast`` with the attention kernels
+    (random bf16 weights from ``seed``): SigLIP2-B/16-224, CLIP ViT-B/32, or
+    ViT-B/16 + BERT-base ("generic")."""
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.fast_infer import FastInferenceEngine
+    from multimodal_content_moderation_tpu_torch.models.u8wire import default_stats
+    from multimodal_content_moderation_tpu_torch.tools import _common
+
+    model = model_io.build_model(
+        "fusion", backend, _common.CLASSES, seed=seed, device="cuda",
+        **_common.config_kwargs(backend, _common.encoder_config(backend)))
+    model = model_io.with_performance_options(
+        model, compute_dtype="bfloat16", scores_dtype="bfloat16", attention_impl="pallas",
+    ).to(torch.bfloat16)
+    return FastInferenceEngine(model, *default_stats(backend))
+
+
+# text widths a backend's batches run at: SigLIP's buckets (the carry column
+# below 64), CLIP's bucket 32 and full 77, the generic towers' full width
+WIDTHS = {"siglip": (64, (32, 48, 64)), "clip": (77, (32, 77)), "generic": (64, (64,))}
+
+
+def _bucket_batches(engine, B=64, seed=0):
+    """Pinned host batches at the backend's text widths (``WIDTHS``), ids and
+    lengths drawn from ``seed``."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.models.fast_infer import bucket_batch_text
+
+    backend = engine.model.backend
+    T, widths = WIDTHS[backend]
+    vocab = engine.model.encoder_config.text.vocab_size
+    size = engine.model.image_size
+    g = np.random.default_rng(seed)
+    out = []
+    for width in widths:
+        top = width - 1 if backend == "siglip" and width < T else width
+        lengths = g.integers(3, top + 1, size=B)
+        ids = g.integers(2, vocab - 2, size=(B, T)).astype(np.int64)
+        mask = (np.arange(T)[None] < lengths[:, None]).astype(np.int64)
+        ids = ids * mask + (1 - mask)  # PAD id 1 past each row
+        if backend == "clip":  # EOS, where CLIP pools, ends each row
+            ids[np.arange(B), lengths - 1] = vocab - 1
+        ids_b, mask_b, carry = bucket_batch_text(ids, mask, width, backend)
+        patches = engine.patches_from_hwc(
+            g.integers(0, 256, size=(B, size, size, 3), dtype=np.uint8))
+        host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in
+                (ids_b, mask_b, patches, np.ones(B, np.float32),
+                 (g.random(B) < 0.9).astype(np.float32))]
+        out.append((width, host, carry))
+    return out
+
+
+# the schedule counters of one forward. CLIP ViT-B/32: 12 + 12 blocks x 6
+# dense, two projections, the fusion head's 7; 2 LayerNorms a block, the
+# final, pre and post ones, the head's 2. SigLIP2-B/16-224: the text head and
+# the MAP head's 6 in place of the projections; its final, post and MAP
+# LayerNorms. ViT-B/16 + BERT-base: two poolers, the embedding and post
+# LayerNorms; its towers pool in fp32 (the reference's pooling), so its
+# fusion head runs in fp32, on the plain code.
+COUNTS = {
+    "clip": {"model.dense.fused": 24 * 6 + 2 + 7, "model.add_ln.fused": 24 * 2 + 3 + 2},
+    "siglip": {"model.dense.fused": 24 * 6 + 6 + 1 + 7, "model.add_ln.fused": 24 * 2 + 3 + 2},
+    "generic": {"model.dense.fused": 24 * 6 + 2, "model.add_ln.fused": 24 * 2 + 2,
+                "model.dense.plain": 7, "model.layer_norm.plain": 2},
+}
+
+
+@pytest.mark.parametrize("backend", ["siglip", "clip", "generic"])
+def test_fused_forward_matches_the_plain_schedule(backend):
+    """Every dense and LayerNorm of the engine's bf16 forward takes the fused
+    schedule (the counters; the generic head's fp32 ones the plain code),
+    and its logits stay within 0.03 of the plain schedule's (the same
+    engine's model called with gradients on) at each text width."""
+    from multimodal_content_moderation_tpu_torch.utils import profiling
+
+    _need_card()
+    engine = _engine(backend)
+    for width, host, carry in _bucket_batches(engine):
+        with profiling.recording() as rec:
+            got = engine(*host, carry_pos=carry)
+        assert rec.counters == COUNTS[backend]
+        batch = {k: t.to("cuda") for k, t in zip(
+            ("input_ids", "attention_mask", "patches_u8", "text_present", "image_present"),
+            host)}
+        if carry is not None:
+            pos = torch.arange(width, device="cuda")
+            pos[-1] = carry
+            batch["position_ids"] = pos
+        with torch.enable_grad():
+            want = engine.model(batch)["logits"].float()
+        gap = float((got - want.detach()).abs().max())
+        print(f"{backend} fused vs plain schedule, width {width}: max |logit gap| {gap:.5f}")
+        assert gap <= 0.03
+
+
+def test_engine_call_does_not_synchronise():
+    """One engine call on pinned host inputs enqueues its copies and its
+    forward without a synchronising operation (the fold is the engine's)."""
+    _need_card()
+    engine = _engine(seed=1)
+    width, host, carry = _bucket_batches(engine, seed=1)[0]
+    engine(*host, carry_pos=carry)  # loads the kernels, warms cuBLAS
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = engine(*host, carry_pos=carry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(logits.isfinite().all())

@@ -5,14 +5,21 @@ Tolerances: fp32 atol 1e-5 (same math, other summation order); bf16 atol
 3e-2 plus rtol 1/64, two bf16 ulps (activations are rounded to bf16 between
 ops, at |x| of a few units)."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from multimodal_content_moderation_tpu.ops import layers as jl
 from multimodal_content_moderation_tpu_torch.models.params import map_leaves
+from multimodal_content_moderation_tpu_torch.ops import cuda_norm
 from multimodal_content_moderation_tpu_torch.ops import layers as tl
+from multimodal_content_moderation_tpu_torch.ops.quant import quantize_linear_int8
+from multimodal_content_moderation_tpu_torch.parallel.collectives import ModelSplit
+from multimodal_content_moderation_tpu_torch.utils import profiling
 
 NEG_INF = -3.4028235e38
 TOL = {"float32": (1e-5, 0), "bfloat16": (3e-2, 1 / 64)}
@@ -214,3 +221,160 @@ def test_dense_bf16_gradients():
     for got, want in ((xt.grad, gx), (tp["w"].grad, gp["w"]), (tp["b"].grad, gp["b"])):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want).astype(np.float32),
                                    atol=1e-2, rtol=2.0**-7)
+
+
+def _ln_today(x, scale, bias, eps):
+    """The bf16 LayerNorm as the port wrote it before the fused schedule:
+    widen, normalise in fp32, round once."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("case", ["random", "rounded_sum", "no_delta"])
+def test_add_layer_norm_plain_is_the_composition(case):
+    """The add + LayerNorm kernel's plain version, and the CPU dispatch,
+    equal ``x + d`` then the LayerNorm, in bf16, bit for bit. In
+    "rounded_sum" the residual is near 100 (a bf16 ulp of 0.5) and the
+    delta under 1, so the fp32 sum and the rounded one normalise to other
+    bf16 values: the rounded sum is the one normalised."""
+    g = np.random.default_rng(11)
+    D, eps = 64, 1e-6
+    x = g.normal(size=(5, 3, D)).astype(np.float32)
+    d = g.normal(size=(5, 3, D)).astype(np.float32)
+    if case == "rounded_sum":
+        x, d = 100.0 + 4.0 * x, 0.3 * d
+    xt, dt = (torch.from_numpy(a).bfloat16() for a in (x, d))
+    p = {"scale": torch.from_numpy(1 + 0.1 * g.normal(size=(D,))).bfloat16(),
+         "bias": torch.from_numpy(0.1 * g.normal(size=(D,))).bfloat16()}
+    delta = None if case == "no_delta" else dt
+    want_s = xt if delta is None else xt + dt
+    want_y = _ln_today(want_s, p["scale"], p["bias"], eps)
+    for s, y in (cuda_norm.add_layer_norm_reference(xt, delta, p["scale"], p["bias"], eps),
+                 cuda_norm.add_layer_norm(xt, delta, p["scale"], p["bias"], eps),
+                 tl.add_layer_norm(xt, delta, p, eps)):
+        assert s.dtype == y.dtype == torch.bfloat16
+        assert torch.equal(s, want_s) and torch.equal(y, want_y)
+    if case == "rounded_sum":
+        unrounded = F.layer_norm(xt.float() + dt.float(), (D,), p["scale"].float(),
+                                 p["bias"].float(), eps).bfloat16()
+        assert not torch.equal(unrounded, want_y)
+        assert not torch.equal(xt.float() + dt.float(), want_s.float())
+
+
+def _card_stand_in(dtype):
+    """What ``layers.fused`` reads of a CUDA activation (this machine has no
+    card): the selection alone, no launch."""
+    return types.SimpleNamespace(is_cuda=True, dtype=dtype)
+
+
+@pytest.mark.parametrize("case", ["cpu", "fp32", "grad", "split", "int8", "fp32_leaf",
+                                  "card_bf16_no_grad"])
+def test_fused_schedule_is_chosen_by_what_the_call_shows(case):
+    """Only a bf16 activation on the card with gradients off and bf16,
+    unsplit leaves takes the fused dense and LayerNorm; the CPU, fp32,
+    training, a model split, an int8 leaf and fp32 master weights keep the
+    plain code, which the counters show on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(16, 8, generator=g).bfloat16()
+    b = torch.randn(8, generator=g).bfloat16()
+    x = torch.randn(4, 16, generator=g).bfloat16()
+    want = case == "card_bf16_no_grad"
+    with torch.no_grad():
+        if case == "cpu":
+            assert not tl.fused(x, w, b)
+            with profiling.recording() as rec:
+                y = tl.dense(x, {"w": w, "b": b})
+                tl.layer_norm(y, {"scale": b, "bias": b})
+            assert rec.counters == {"model.dense.plain": 1, "model.layer_norm.plain": 1}
+            want_y = (torch.matmul(x.float(), w.float()) + b.float()).bfloat16()
+            assert torch.equal(y, want_y)
+            return
+        if case == "int8":
+            q = quantize_linear_int8({"w": w.float(), "b": b})
+            assert not tl.fused(_card_stand_in(torch.bfloat16), q["w_i8"], q["b"])
+            with profiling.recording() as rec:
+                tl.dense_maybe_int8(x, q)
+            assert rec.counters == {}  # the int8 route never reaches dense
+            return
+        leaves = {"fp32": (w.float(), b.float()), "fp32_leaf": (w.float(), b)}.get(case, (w, b))
+        if case == "split":
+            leaves[0].model_split = ModelSplit(dim=1, group=None, index=0, size=2)
+        dtype = torch.float32 if case == "fp32" else torch.bfloat16
+        with torch.enable_grad() if case == "grad" else torch.no_grad():
+            assert tl.fused(_card_stand_in(dtype), *leaves) == want
+        if want:
+            assert tl.fused(_card_stand_in(dtype), w, None)  # a dense without a bias
+            with torch.enable_grad():
+                assert not tl.fused(_card_stand_in(dtype), w, b)
+
+
+@pytest.mark.parametrize("start", ["on", "off", "raises"])
+def test_fused_dense_keeps_its_reduction_setting_to_itself(start, monkeypatch):
+    """The fused dense's product runs with cuBLAS's bf16 reduced-precision
+    reductions off, and the process-wide setting is as it found it after
+    the call (after a product that raises too), so training's products
+    never see it. The CPU stands in for the card: ``fused`` is forced, the
+    setting is read inside the product."""
+    get = torch._C._get_cublas_allow_bf16_reduced_precision_reduction
+    set_ = torch._C._set_cublas_allow_bf16_reduced_precision_reduction
+    saved = get()
+    saved = saved if isinstance(saved, tuple) else (saved,)
+    seen = []
+    addmm = torch.addmm
+
+    def spy(*args, **kwargs):
+        now = get()
+        seen.append(now[0] if isinstance(now, tuple) else now)
+        return addmm(*args, **kwargs)
+
+    monkeypatch.setattr(tl, "fused", lambda *leaves: True)
+    monkeypatch.setattr(torch, "addmm", spy)
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(3, 5, 16, generator=g).bfloat16()
+    p = {"w": torch.randn(16 if start != "raises" else 15, 8, generator=g).bfloat16(),
+         "b": torch.randn(8, generator=g).bfloat16()}
+    try:
+        set_(start != "off", *saved[1:])
+        before = get()
+        if start == "raises":
+            with pytest.raises(RuntimeError):
+                tl.dense(x, p)
+        else:
+            y = tl.dense(x, p)
+            assert y.shape == (3, 5, 8) and y.dtype == torch.bfloat16
+        assert seen == [False]
+        assert get() == before
+    finally:
+        set_(*saved)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "row_strided", "offset_rows", "transposed",
+                                  "offset_scale", "narrow_width", "wide_width",
+                                  "delta_shape", "scale_shape"])
+def test_norm_dispatch_lays_out_or_declines(case):
+    """``cuda_norm.laid_out`` hands the kernel an operand as it lies where
+    the kernel reads its layout and a contiguous copy where it does not;
+    ``cuda_norm.takes`` declines only a width or shape the kernel cannot
+    take (the dispatch's one check; the plain code runs those)."""
+    g = torch.Generator().manual_seed(8)
+    D = {"narrow_width": 100, "wide_width": cuda_norm.MAX_D + 8}.get(case, 64)
+    full = torch.randn(6, 10, D, generator=g).bfloat16()
+    x = {"row_strided": full[:, 0],
+         "offset_rows": full.flatten()[1:1 + 6 * D].view(6, D),
+         "transposed": full[0, :6].t().contiguous().t()}.get(case, full[:, 0].contiguous())
+    scale = full.flatten()[1:1 + D] if case == "offset_scale" else full[0, 0].clone()
+    bias = full[0, 1].clone() if case != "scale_shape" else full[0, 1, :D - 8].clone()
+    delta = torch.zeros(x.shape[0] + (case == "delta_shape"), D).bfloat16()
+    takes = cuda_norm.takes(x, delta, scale, bias)
+    assert takes == (case not in ("narrow_width", "wide_width", "delta_shape", "scale_shape"))
+    if not takes:
+        return
+    for t in (x, scale):
+        out = cuda_norm.laid_out(t)
+        if cuda_norm.fits(t):
+            assert out is t
+        else:
+            assert out.is_contiguous() and cuda_norm.fits(out) and torch.equal(out, t)
+    assert cuda_norm.fits(x) == (case in ("contiguous", "row_strided", "offset_scale"))
+    assert cuda_norm.fits(scale) == (case != "offset_scale")
+    assert cuda_norm.laid_out(None) is None
