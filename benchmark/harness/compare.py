@@ -1,8 +1,9 @@
 """The reference's answers for rows the program answered: the plain fp32
-model (``benchmark/reference``) over the same texts and JPEG fixtures, from
-the same seed's weights, which it draws again itself, tokenised by its own
-tokenizer and decoded by PIL. Computed in blocks of rows, once the window
-has closed and the program's state is freed."""
+model (the family's ``features`` and ``benchmark/reference``) over the same
+texts and JPEG fixtures, from the same seed's weights, which it draws again
+itself, tokenised by its own tokenizer and decoded by PIL. Computed in
+blocks of rows, once the window has closed and the program's state is
+freed."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from benchmark.harness import weights
+from benchmark.harness import spec, weights
 from benchmark.reference import models as ref
 from benchmark.reference import pixels, tokenizers
 
@@ -20,14 +21,17 @@ BLOCK = 256
 
 class Reference:
     def __init__(self, cfg: Dict, seed: int, enc_dir: str, device, lowp: Optional[str] = None,
-                 weight_dtype=torch.float32):
+                 weight_dtype=torch.float32, grad: bool = False):
         ref.fp32_only()
         self.cfg = cfg
         self.device = device
         self.lowp = lowp
-        # the weights the program was given, drawn again (in the dtype the
-        # program got them), held in fp32
-        self.P = ref.as_fp32(weights.draw(cfg, seed, device, weight_dtype))
+        self.features = spec.family(cfg).features
+        # the weights the program was given, drawn again in the dtype the
+        # program got them: read as fp32 leaf by leaf, or, to train
+        # (``grad``), an fp32 copy whose leaves take gradients
+        drawn = weights.draw(cfg, seed, device, weight_dtype)
+        self.P = ref.as_fp32(drawn, requires_grad=True) if grad else ref.Fp32(drawn)
         self.tok = tokenizers.load(cfg["tokenizer"], enc_dir)
         self.crops = pixels.pil_crops()
 
@@ -53,7 +57,8 @@ class Reference:
         out: List[np.ndarray] = []
         for s in range(0, len(texts), BLOCK):
             b = self.batch(texts[s:s + BLOCK], images[s:s + BLOCK])
-            out.append(ref.logits(self.cfg, self.P, b, self.lowp).float().cpu().numpy())
+            y = ref.logits(self.features, self.cfg, self.P, b, self.lowp)
+            out.append(y.float().cpu().numpy())
         return np.concatenate(out)
 
     def text_tokens(self, texts: Sequence[str]) -> np.ndarray:

@@ -6,22 +6,21 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from benchmark.harness import assets, spec
+
 
 def encoder_config(cfg, **tower):
-    """The port's encoder config of a configuration file, with ``tower``
-    fields (compute dtype, attention core) set in both towers."""
+    """The port's encoder config of a configuration file, as the port's own
+    ``model_io.load_encoder_config`` parses the encoder's ``config.json``
+    for the family's backend, with ``tower`` fields (compute dtype,
+    attention core) set in both towers."""
     from multimodal_content_moderation_tpu_torch.models import model_io
 
-    d = {"text_config": cfg["text_config"], "vision_config": cfg["vision_config"]}
-    if "projection_dim" in cfg:
-        d["projection_dim"] = cfg["projection_dim"]
-    make = (model_io.clip_config_from_dict if cfg["family"] == "clip"
-            else model_io.siglip_config_from_dict)
-    c = make(d)
+    c = model_io.load_encoder_config(assets.encoder_dir(cfg), spec.family(cfg).backend)
     if tower:
         c = dataclasses.replace(c, text=dataclasses.replace(c.text, **tower),
                                 vision=dataclasses.replace(c.vision, **tower))
@@ -44,16 +43,17 @@ def fusion_model(cfg, sd: Dict[str, torch.Tensor], device, recipe: Dict, train: 
     from multimodal_content_moderation_tpu_torch.models import convert, model_io
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel, config_field
 
-    family = cfg["family"]
+    backend = spec.family(cfg).backend
     tower = {}
     if train and recipe.get("precision") == "bf16":
         tower["compute_dtype"] = "bfloat16"
     if train and recipe.get("attention", "xla") != "xla":
         tower["attention_impl"] = recipe["attention"]
     enc = encoder_config(cfg, **tower)
-    field = config_field(family)
-    params = convert.fusion_model_from_torch(sd, family, **{field.replace("_config", "_cfg"): enc})
-    model = FusionModel(params, family, num_labels=len(cfg["head"]["class_names"]),
+    field = config_field(backend)
+    params = convert.fusion_model_from_torch(sd, backend,
+                                             **{field.replace("_config", "_cfg"): enc})
+    model = FusionModel(params, backend, num_labels=len(cfg["head"]["class_names"]),
                         fusion_dim=cfg["head"]["fusion_dim"], **{field: enc}).to(device)
     if train:
         return model.replace(image_mean=tuple(cfg["image"]["mean"]),
@@ -100,11 +100,6 @@ _RULES = [
     (r"\.final_layer_norm\.", ".final_ln."),
     (r"\.pre_layrnorm\.", ".pre_ln."),
     (r"\.post_layernorm\.", ".post_ln."),
-    (r"vision_model\.head\.probe$", "vision_model.map_head.probe"),
-    (r"vision_model\.head\.attention\.out_proj\.", "vision_model.map_head.attn.o."),
-    (r"vision_model\.head\.layernorm\.", "vision_model.map_head.ln."),
-    (r"vision_model\.head\.mlp\.", "vision_model.map_head."),
-    (r"text_model\.head\.", "text_model.head."),
     (r"^cls\.0\.", "cls_ln."),
     (r"^cls\.1\.", "cls_fc1."),
     (r"^cls\.4\.", "cls_fc2."),
@@ -112,16 +107,12 @@ _RULES = [
 _NORMS = {"ln1", "ln2", "final_ln", "pre_ln", "post_ln", "ln", "ln_fused", "cls_ln"}
 
 
-def port_names(hf_name: str) -> List[str]:
-    """The port's parameter paths that hold a reference-layout leaf (the
-    MAP head's packed q/k/v projection is three of them)."""
-    m = re.match(r"(.*vision_model)\.head\.attention\.in_proj_(weight|bias)$", hf_name)
-    if m:
-        base = m.group(1) + ".map_head.attn"
-        leaf = "w" if m.group(2) == "weight" else "b"
-        return [f"{base}.{x}.{leaf}" for x in ("q", "k", "v")]
+def port_names(hf_name: str, rules: Sequence[Tuple[str, str]] = ()) -> List[str]:
+    """The port's parameter path of a reference-layout leaf of the shared
+    encoder layout and the fusion head, renamed by a family's own ``rules``
+    (regular expression, replacement) first."""
     name = hf_name
-    for pat, rep in _RULES:
+    for pat, rep in [*rules, *_RULES]:
         name = re.sub(pat, rep, name)
     if not name.startswith("backbone."):
         name = "head." + name

@@ -18,24 +18,26 @@ import numpy as np
 import torch
 
 from benchmark.flops import model as model_flops
-from benchmark.harness import assets, compare, env, port, trace, traffic, weights
+from benchmark.harness import assets, compare, env, port, spec, trace, traffic, weights
 
 
-def _prep(engine, ds, batch, workers, ladder, backend):
+def _prep(engine, ds, batch, workers, ladder, extra):
     """The host half of ``evaluate_logits_u8`` for one pass: batches from the
-    dataset's threads, patch rows, buckets, pinned buffers."""
+    dataset's threads, patch rows, buckets (``extra``: the family's
+    ``bucket_extra``), pinned buffers."""
     from multimodal_content_moderation_tpu_torch.models.fast_infer import (
         bucket_batch_text,
         bucket_for,
     )
 
+    backend = engine.model.backend
     order = np.argsort(ds.attention_mask.sum(axis=1), kind="stable")
     pin = engine.device.type == "cuda"
     for b in ds.batches(batch, pad_to_batch=True, num_workers=workers, indices=order):
         b.pop("_valid")
         b.pop("labels")
         patches = engine.patches_from_hwc(b.pop("pixel_values"))
-        w = bucket_for(b["attention_mask"], ladder, extra=0 if backend == "clip" else 1)
+        w = bucket_for(b["attention_mask"], ladder, extra=extra)
         ids, mask, carry = bucket_batch_text(b["input_ids"], b["attention_mask"], w, backend)
         host = {"input_ids": ids, "attention_mask": mask, "patches_u8": patches,
                 "text_present": b["text_present"], "image_present": b["image_present"]}
@@ -112,13 +114,14 @@ def run(r, tmp: str, proc_start: float) -> None:
 
     if r.trace:
         # the host input alone: one pass of the prep, same workers, no device
+        extra = spec.family(cfg).bucket_extra(cfg)
         t = time.perf_counter()
-        for _ in _prep(engine, ds, B, workers, ladder, model.backend):
+        for _ in _prep(engine, ds, B, workers, ladder, extra):
             pass
         r.measured["host_prep_rows_per_s"] = n / (time.perf_counter() - t)
         # the engine alone over the pass's batches already on the card
         staged = [({k: v.to(dev, non_blocking=True) for k, v in h.items()}, c)
-                  for h, c in _prep(engine, ds, B, workers, ladder, model.backend)]
+                  for h, c in _prep(engine, ds, B, workers, ladder, extra)]
 
         def run_staged():
             for h, c in staged:

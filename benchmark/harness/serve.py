@@ -26,7 +26,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark.harness import assets, compare, port, trace, traffic, weights
+from benchmark.harness import assets, compare, port, spec, trace, traffic, weights
 
 LOADGEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "loadgen.py")
 
@@ -52,7 +52,7 @@ def write_model_dir(cfg, sd: Dict[str, torch.Tensor], path: str) -> str:
     shutil.copytree(enc, path)
     classes = cfg["head"]["class_names"]
     with open(os.path.join(path, "inference_config.json"), "w") as f:
-        json.dump({"backend": cfg["family"], "head": "fusion",
+        json.dump({"backend": spec.family(cfg).backend, "head": "fusion",
                    "fusion_dim": cfg["head"]["fusion_dim"], "class_names": classes,
                    "thresholds": [0.5] * len(classes),
                    "max_text_length": cfg["max_text_length"]}, f)

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from benchmark.flops import model as model_flops
-from benchmark.harness import assets, compare, port, trace, traffic, weights
+from benchmark.harness import assets, compare, port, spec, trace, traffic, weights
 from benchmark.reference import models as ref
 from benchmark.reference import optim as ref_optim
 
@@ -80,11 +80,12 @@ def lr_gap(seen, recipe, first: int, updates: int, total: int) -> float:
     return gap
 
 
-def _port_leaf_norms(named: Dict[str, torch.Tensor], hf_names) -> Dict[str, float]:
-    """Norms of reference-layout leaves from the port's leaves."""
+def _port_leaf_norms(named: Dict[str, torch.Tensor], hf_names, port_names) -> Dict[str, float]:
+    """Norms of reference-layout leaves from the port's leaves
+    (``port_names``: the family's map from one to the other)."""
     out = {}
     for n in hf_names:
-        sq = sum(float(named[p].double().pow(2).sum()) for p in port.port_names(n))
+        sq = sum(float(named[p].double().pow(2).sum()) for p in port_names(n))
         out[n] = math.sqrt(sq)
     return out
 
@@ -141,13 +142,15 @@ def run(r, tmp: str, proc_start: float) -> None:
     # the checked updates, on the window's own trainer and feed
     p0 = {k: p.detach().clone() for k, p in opt.params.items()}
     hf_names = [name for name, _, _, _ in weights.spec(cfg)]
+    port_names = spec.family(cfg).port_names
     losses, first_grad = [], None
     for i in range(checked * accum):
         losses.append(float(trainer.train_step(next(feed))))
         if i == accum - 1:
             first_grad = _port_leaf_norms({k: m / (1 - opt.b1) for k, m in opt.mu.items()},
-                                          hf_names)
-    change = _port_leaf_norms({k: p.detach() - p0[k] for k, p in opt.params.items()}, hf_names)
+                                          hf_names, port_names)
+    change = _port_leaf_norms({k: p.detach() - p0[k] for k, p in opt.params.items()}, hf_names,
+                              port_names)
     del p0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -198,7 +201,7 @@ def run(r, tmp: str, proc_start: float) -> None:
     del trainer, model, opt, ds
     compare.free_device()
 
-    reference = compare.Reference(cfg, r.seed, enc, dev)
+    reference = compare.Reference(cfg, r.seed, enc, dev, grad=True)
     want = follow(cfg, recipe, reference, data, order, B, accum, checked, trainer_seed, n, dev)
     used = [k for k in hf_names if want["first_grad"][k] >= 1e-3 * np.median(
         list(want["first_grad"].values()))]
@@ -226,10 +229,9 @@ def follow(cfg, recipe, reference, data, order, B, accum, updates, trainer_seed,
     """The reference's first ``updates`` optimizer updates on the rows
     ``order`` feeds first, with the dropout masks the trainer's seed draws:
     each micro-step's loss, the first update's per-leaf gradient norms and
-    each leaf's change after the last update."""
+    each leaf's change after the last update. ``reference`` holds its
+    weights to train (``grad``)."""
     P = reference.P
-    for t in P.values():
-        t.requires_grad_(True)
     p0 = {k: t.detach().clone() for k, t in P.items()}
     total = -(-(n // B) * int(recipe["num_train_epochs"]) // accum)
     opt = ref_optim.AdamW(P, float(recipe["lr_encoder"]), float(recipe["lr_head"]),
@@ -243,7 +245,8 @@ def follow(cfg, recipe, reference, data, order, B, accum, updates, trainer_seed,
         batch = reference.batch([data["texts"][j] for j in rows], [data["images"][j] for j in rows])
         keep = torch.rand([B, fusion], generator=gen, device=dev) < 0.8
         y = torch.as_tensor(data["labels"][rows], device=dev)
-        loss = ref.bce(ref.logits(cfg, P, batch, lowp, drop_mask=keep), y)
+        out = ref.logits(reference.features, cfg, P, batch, lowp, drop_mask=keep)
+        loss = ref.bce(out, y)
         loss.backward()
         losses.append(float(loss.detach()))
         opt.step()

@@ -1,20 +1,25 @@
 """Plain fp32 PyTorch of the benchmark's models, read from Hugging Face
-state-dict names: CLIP ViT-B/32 and SigLIP2-B/16 dual encoders (as
-``transformers.CLIPModel`` and ``SiglipModel`` compute them) under
-``backbone.``, and the gated fusion head of the reference
-``MultiModalFusionClassifier`` at the top level, with its BCE loss.
+state-dict names: the primitives the model families' references are built
+of (``families/<family>.py``'s ``features``: a dual encoder's text and
+image features from the leaves under ``backbone.``), and the gated fusion
+head of the reference ``MultiModalFusionClassifier`` at the top level, with
+its BCE loss. A new family is a new file under ``families/``; nothing here
+changes.
 
-Nothing here imports the measured program. ``P`` is a dict of fp32 tensors
-keyed by the state-dict names; the forward is functional, so the same code
-trains (leaves with ``requires_grad``) and scores. ``lowp="fp8"`` rounds both
-operands of every matrix product, and the gradient flowing back into them,
-to float8 e4m3 with a per-tensor scale: the correctness control, one
-precision below the bf16 that the configurations state.
+Nothing here imports the measured program. ``P`` maps the state-dict names
+to fp32 tensors: a dict of fp32 leaves with ``requires_grad`` to train, or
+``Fp32``, which casts each leaf of the drawn weights where it is read, to
+score. The forward is functional, so the same code trains and scores.
+``lowp="fp8"`` rounds both operands of every matrix product, and the
+gradient flowing back into them, to float8 e4m3 with a per-tensor scale:
+the correctness control, one precision below the bf16 that the
+configurations state.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from collections.abc import Iterator, Mapping
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -118,76 +123,6 @@ def patches(pr, pixels, P, name, patch, bias):
     return y + P[f"{name}.bias"] if bias else y
 
 
-def clip_features(pr, cfg, P, ids, mask, pixels):
-    """(text, image) features of ``transformers.CLIPModel``."""
-    t, v = cfg["text_config"], cfg["vision_config"]
-    T = ids.shape[1]
-    pre = "backbone.text_model"
-    x = P[f"{pre}.embeddings.token_embedding.weight"][ids] + \
-        P[f"{pre}.embeddings.position_embedding.weight"][:T]
-    bias = (1.0 - mask.float()) * NEG
-    x = encoder(pr, x, P, f"{pre}.encoder", t["num_hidden_layers"], t["num_attention_heads"],
-                quick_gelu, t["layer_norm_eps"], bias, causal=True)
-    x = ln(x, P, f"{pre}.final_layer_norm", t["layer_norm_eps"])
-    eos = torch.argmax((ids == t["eos_token_id"]).int(), dim=-1)
-    tfeat = linear(pr, x[torch.arange(x.shape[0], device=x.device), eos], P,
-                   "backbone.text_projection", bias=False)
-
-    pre = "backbone.vision_model"
-    y = patches(pr, pixels, P, f"{pre}.embeddings.patch_embedding", v["patch_size"], bias=False)
-    cls = P[f"{pre}.embeddings.class_embedding"].expand(y.shape[0], 1, -1)
-    y = torch.cat([cls, y], dim=1) + P[f"{pre}.embeddings.position_embedding.weight"]
-    y = ln(y, P, f"{pre}.pre_layrnorm", v["layer_norm_eps"])
-    y = encoder(pr, y, P, f"{pre}.encoder", v["num_hidden_layers"], v["num_attention_heads"],
-                quick_gelu, v["layer_norm_eps"])
-    y = ln(y[:, 0], P, f"{pre}.post_layernorm", v["layer_norm_eps"])
-    vfeat = linear(pr, y, P, "backbone.visual_projection", bias=False)
-    return tfeat, vfeat
-
-
-def siglip_features(pr, cfg, P, ids, mask, pixels):
-    """(text, image) features of ``transformers.SiglipModel``: the text
-    tower's last position through its head; the vision tower's MAP head."""
-    t, v = cfg["text_config"], cfg["vision_config"]
-    T = ids.shape[1]
-    pre = "backbone.text_model"
-    x = P[f"{pre}.embeddings.token_embedding.weight"][ids] + \
-        P[f"{pre}.embeddings.position_embedding.weight"][:T]
-    bias = (1.0 - mask.float()) * NEG
-    x = encoder(pr, x, P, f"{pre}.encoder", t["num_hidden_layers"], t["num_attention_heads"],
-                gelu_tanh, t["layer_norm_eps"], bias)
-    x = ln(x, P, f"{pre}.final_layer_norm", t["layer_norm_eps"])
-    tfeat = linear(pr, x[:, -1], P, f"{pre}.head")
-
-    pre = "backbone.vision_model"
-    eps = v["layer_norm_eps"]
-    y = patches(pr, pixels, P, f"{pre}.embeddings.patch_embedding", v["patch_size"], bias=True)
-    y = y + P[f"{pre}.embeddings.position_embedding.weight"]
-    y = encoder(pr, y, P, f"{pre}.encoder", v["num_hidden_layers"], v["num_attention_heads"],
-                gelu_tanh, eps)
-    y = ln(y, P, f"{pre}.post_layernorm", eps)
-    # the MAP head: nn.MultiheadAttention with a learned probe as the query
-    h = f"{pre}.head"
-    D = y.shape[-1]
-    w_in, b_in = P[f"{h}.attention.in_proj_weight"], P[f"{h}.attention.in_proj_bias"]
-    probe = P[f"{h}.probe"].expand(y.shape[0], 1, D)
-    heads = v["num_attention_heads"]
-    dh = D // heads
-    B, N = y.shape[0], y.shape[1]
-    q = (pr.mm(probe, w_in[:D].t()) + b_in[:D]).view(B, 1, heads, dh).transpose(1, 2)
-    k = (pr.mm(y, w_in[D:2 * D].t()) + b_in[D:2 * D]).view(B, N, heads, dh).transpose(1, 2)
-    vv = (pr.mm(y, w_in[2 * D:].t()) + b_in[2 * D:]).view(B, N, heads, dh).transpose(1, 2)
-    w = torch.softmax(pr.mm(q, k.transpose(-1, -2)) * dh ** -0.5, dim=-1)
-    a = pr.mm(w, vv).transpose(1, 2).reshape(B, 1, D)
-    a = linear(pr, a, P, f"{h}.attention.out_proj")
-    z = ln(a, P, f"{h}.layernorm", eps)
-    z = linear(pr, gelu_tanh(linear(pr, z, P, f"{h}.mlp.fc1")), P, f"{h}.mlp.fc2")
-    return tfeat, (a + z)[:, 0]
-
-
-FEATURES = {"clip": clip_features, "siglip": siglip_features}
-
-
 def fusion_head(pr, P, tfeat, vfeat, text_present, image_present, drop_mask=None):
     """The gated fusion head: L2-normalised features masked by presence,
     projections, tanh branches, a sigmoid gate that sees both projections and
@@ -212,12 +147,13 @@ def fusion_head(pr, P, tfeat, vfeat, text_present, image_present, drop_mask=None
     return linear(pr, y, P, "cls.4")
 
 
-def logits(cfg, P, batch, lowp: Optional[str] = None, drop_mask=None) -> torch.Tensor:
+def logits(features: Callable, cfg, P, batch, lowp: Optional[str] = None,
+           drop_mask=None) -> torch.Tensor:
     """Logits [B, labels] of a batch {ids, mask, pixels (normalised fp32
-    NCHW), text_present, image_present}."""
+    NCHW), text_present, image_present}; ``features`` is the family's
+    ``features(pr, cfg, P, ids, mask, pixels) -> (text, image)``."""
     pr = Precision(lowp)
-    tfeat, vfeat = FEATURES[cfg["family"]](pr, cfg, P, batch["ids"], batch["mask"],
-                                           batch["pixels"])
+    tfeat, vfeat = features(pr, cfg, P, batch["ids"], batch["mask"], batch["pixels"])
     return fusion_head(pr, P, tfeat, vfeat, batch["text_present"], batch["image_present"],
                        drop_mask)
 
@@ -235,3 +171,21 @@ def as_fp32(sd: Dict[str, torch.Tensor], requires_grad: bool = False) -> Dict[st
         out[k] = c.requires_grad_(requires_grad)
     return out
 
+
+class Fp32(Mapping):
+    """A state dict read in float32: each leaf is cast to a new fp32
+    tensor where it is read, so the reference holds the drawn weights in
+    their own dtype and one leaf at a time in fp32. The cast from bf16 is
+    exact, so every product sees what an fp32 copy would hold."""
+
+    def __init__(self, sd: Dict[str, torch.Tensor]):
+        self.sd = sd
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.sd[name].to(torch.float32, copy=True)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.sd)
+
+    def __len__(self) -> int:
+        return len(self.sd)

@@ -1,6 +1,7 @@
 """The operation and byte counts against hand counts at the shapes of the
 port's kernel table (a CLIP ViT-B/32 eval batch, B=144; a SigLIP-224
-micro-step, B=24), and the model counts against the widths."""
+micro-step, B=24), and the model counts, through the families' files,
+against the widths."""
 
 import json
 import os
@@ -9,6 +10,7 @@ import pytest
 
 from harness_util import ROOT
 from benchmark.flops import attention_nhd, attention_nhd_bwd, model, peaks
+from benchmark.harness import spec
 
 
 def test_attention_nhd_clip_batch_bound():
@@ -49,5 +51,5 @@ def test_model_forward_hand_count():
 
 def test_siglip_counts_the_map_head():
     cfg = json.load(open(os.path.join(ROOT, "benchmark/configs/siglip2-b16-224-fusion.json")))
-    assert model.vision_tokens(cfg) == 196
+    assert spec.family(cfg).vision_tokens(cfg) == 196
     assert 35e9 < model.forward(cfg, 20) < 45e9

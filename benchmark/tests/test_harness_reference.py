@@ -60,17 +60,49 @@ def test_fp32_training_steps_match(cell):
 
 def test_every_leaf_maps_to_the_port():
     from multimodal_content_moderation_tpu_torch.models import convert
+    from multimodal_content_moderation_tpu_torch.models.fusion import config_field
     from multimodal_content_moderation_tpu_torch.models.params import flatten
 
     from benchmark.harness import port, weights
 
     for cell in ("tiny-clip.score", "tiny-siglip.score"):
         cfg = spec.load_cell(cell, TINY).config
+        family = spec.family(cfg)
         sd = weights.draw(cfg, 1, torch.device("cpu"))
         enc = port.encoder_config(cfg)
-        kw = {"clip_cfg" if cfg["family"] == "clip" else "siglip_cfg": enc}
-        tree = flatten(convert.fusion_model_from_torch(sd, cfg["family"], **kw))
-        mapped = [p for n in sd for p in port.port_names(n)]
+        kw = {config_field(family.backend).replace("_config", "_cfg"): enc}
+        tree = flatten(convert.fusion_model_from_torch(sd, family.backend, **kw))
+        mapped = [p for n in sd for p in family.port_names(n)]
         assert sorted(mapped) == sorted(tree)
         for n, t in sd.items():
-            assert sum(tree[p].numel() for p in port.port_names(n)) == t.numel()
+            assert sum(tree[p].numel() for p in family.port_names(n)) == t.numel()
+
+
+@pytest.mark.parametrize("file", ["tests/tiny/configs/tiny-clip.json",
+                                  "tests/tiny/configs/tiny-siglip.json",
+                                  "configs/clip-vit-b32-fusion.json",
+                                  "configs/siglip2-b16-224-fusion.json"])
+def test_encoder_config_is_the_ports_parse(file):
+    # the port's parse of the encoder directory equals the config the
+    # harness built from the configuration file by its family's name
+    import dataclasses
+    import json
+    import os
+
+    from multimodal_content_moderation_tpu_torch.models import model_io
+
+    from benchmark.harness import port
+    from harness_util import ROOT
+
+    cfg = json.load(open(os.path.join(ROOT, "benchmark", file)))
+    d = {"text_config": cfg["text_config"], "vision_config": cfg["vision_config"]}
+    if "projection_dim" in cfg:
+        d["projection_dim"] = cfg["projection_dim"]
+    make = {"clip": model_io.clip_config_from_dict,
+            "siglip": model_io.siglip_config_from_dict}[cfg["family"]]
+    want = make(d)
+    assert port.encoder_config(cfg) == want
+    tower = {"compute_dtype": "bfloat16", "attention_impl": "pallas"}
+    assert port.encoder_config(cfg, **tower) == dataclasses.replace(
+        want, text=dataclasses.replace(want.text, **tower),
+        vision=dataclasses.replace(want.vision, **tower))

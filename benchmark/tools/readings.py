@@ -48,7 +48,7 @@ def control(cell, seed: int, device, seconds: float):
         tseed = int(seed) % (1 << 62)
         out = {}
         for lowp in (None, "fp8"):
-            ref = compare.Reference(cfg, seed, enc, device)
+            ref = compare.Reference(cfg, seed, enc, device, grad=True)
             out[lowp] = train.follow(cfg, recipe, ref, data, order, B, accum,
                                      int(mix["checked_updates"]), tseed, n, device, lowp)
             del ref
