@@ -33,6 +33,13 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    without the residual add) against its plain version: the sum bit for
    bit, the normalised rows bf16 atol 1e-3 + rtol 2^-7; its yardstick is
    ``x + d`` then ``F.layer_norm`` in bf16, its bound the bytes.
+   ``add_rms_norm`` (``ADD_RMS_SPECS``) the same way at DeepSeek-V2-Lite's
+   rows, and the expert layer of ``csrc/moe.cu`` (``moe_cases``: routing
+   against ``route_reference``, the two ``moe_grouped`` launches against
+   the plain per-expert path, the layer against ``moe_reference``) at its
+   published widths over 4,170 tokens, timed beside ``torch._grouped_mm``
+   as the yardstick; ``dsv2_entries`` put both in the ``kernels`` line for
+   one DeepSeek-V2-Lite forward, timed by the launches phase 5 counts.
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
    written as a reference-format checkpoint (``models/export.py``, as every
    reference checkpoint of this script), loaded with ``load_checkpoint``,
@@ -78,7 +85,14 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    text seq 64, 2 staged passes: 1 ``patch_embed_u8`` and 24
    ``attention_nhd`` (vision T=196 and text), all on the tensor cores, 53
    ``add_layer_norm`` and no ``flash_attention`` per batch, samples/s and a
-   profiler breakdown. Then
+   profiler breakdown. Then DeepSeek-V2-Lite's text tower beside that
+   vision tower at the published widths (``dsv2_phase``: 15.6 B parameters
+   drawn in bf16 on the card) through ``evaluate_logits_u8`` at B=256 over
+   the buckets 32 / 48 / 64, its launch counters zeroed first: 26
+   ``moe_route``, 52 ``moe_grouped``, 26 ``moe_combine``, 82 RMSNorms and 28
+   LayerNorms, 1 ``patch_embed_u8`` and 12 ``attention_nhd`` a batch, no
+   plain expert layer or RMSNorm; its first batch's logits against the plain
+   path's (every layer's plain version) within the cell's 0.15. Then
    ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
    ``attention_small`` once per call (the bf16 call on the tensor cores),
    against the "xla" core.
@@ -905,6 +919,175 @@ def add_layer_norm_entry(cases, launches_by_path):
     }
 
 
+# DeepSeek-V2-Lite's expert layer and RMSNorms at the deepseek_v2 scoring
+# path's shapes (benchmark cell dsv2-lite.score-b256: a batch of 256 rows
+# keeps about 4,170 tokens); d, F, experts, k. The launches of one forward
+# are counted in phase 5 (``dsv2_phase``) and ``dsv2_entries`` times them.
+DSV2_TOKENS = 4170
+DSV2_MOE = (2048, 1408, 64, 6)
+# add_rms_norm at that path's rows: (rows, D, with the residual add, launches
+# in one forward, label): each layer's input RMSNorm (layer 0's without the
+# add), post-attention RMSNorm and latent RMSNorm, and the final one on the
+# pooled tokens; their sum is held to phase 5's count
+ADD_RMS_SPECS = [
+    (DSV2_TOKENS, 2048, True, 26 + 27, "dsv2 path: residual + input / post-attention RMSNorm"),
+    (DSV2_TOKENS, 2048, False, 1, "dsv2 path: layer 0's input RMSNorm"),
+    (DSV2_TOKENS, 512, False, 27, "dsv2 path: the MLA latent's RMSNorm"),
+    (256, 2048, True, 1, "dsv2 path: final RMSNorm of the pooled tokens"),
+]
+
+
+def add_rms_norm_cases(torch, g):
+    """``cuda_norm.add_rms_norm`` on the card against its plain version
+    (``ADD_RMS_SPECS``): the rounded sum bit for bit, the normalised rows
+    within one bf16 rounding; timed beside the plain version, the library's
+    ``x + d`` then ``F.rms_norm`` in bf16, and the bytes bound (8 bytes an
+    element with the add, 4 without)."""
+    import torch.nn.functional as F
+
+    from multimodal_content_moderation_tpu_torch.ops import cuda_norm as cn
+
+    atol, rtol, eps = 1e-3, 2.0**-7, 1e-6
+    cases = []
+    for R, D, add, per_unit, label in ADD_RMS_SPECS:
+        x = (torch.randn(R, D, generator=g, device="cuda") * 3 + 1).bfloat16()
+        d = torch.randn(R, D, generator=g, device="cuda").bfloat16() if add else None
+        w = (1 + 0.2 * torch.randn(D, generator=g, device="cuda")).bfloat16()
+        s, y = cn.add_rms_norm(x, d, w, eps)
+        want_s, want_y = cn.add_rms_norm_reference(x, d, w, eps)
+        torch.cuda.synchronize()
+        check(torch.equal(s, want_s), f"add_rms_norm {label}: the sum differs from x + d")
+        err, ok = max_err_within(y, want_y, atol, rtol)
+        check(ok, f"add_rms_norm {label}: max abs err {err} beyond atol {atol} + rtol {rtol}")
+        bms, by = bound_ms(R * D * 2 * (4 if add else 2) + D * 2, 4.0 * R * D, "bfloat16")
+        case = {"kernel": "add_rms_norm", "case": f"{label}: R={R} D={D}", "dtype": "bfloat16",
+                "max_abs_err": err, "atol": atol, "rtol": rtol, "paths": ["dsv2"],
+                "per_unit": per_unit, "bound_ms": bms, "bound_by": by}
+        timed(case, "ms", lambda: cn.add_rms_norm(x, d, w, eps))
+        timed(case, "plain_ms", lambda: cn.add_rms_norm_reference(x, d, w, eps))
+        try:
+            timed(case, "library_ms",
+                  lambda: F.rms_norm(x if d is None else x + d, (D,), w, eps))
+        except Exception as exc:  # a yardstick this PyTorch build lacks
+            case["library_ms"], case["library_error"] = None, repr(exc)[:200]
+        cases.append(case)
+    return cases
+
+
+def moe_cases(torch, g):
+    """``ops/moe`` on the card at DeepSeek-V2-Lite's widths over
+    ``DSV2_TOKENS`` tokens and a random gate: ``moe_route`` against
+    ``route_reference`` (the same top-k), the two ``moe_grouped`` launches
+    against the plain per-expert path (bf16 rtol 2^-7 + atol 1e-3), the
+    layer against ``moe_reference`` (atol 3e-3). Timed: the two grouped
+    launches (kernel), the plain per-expert path, and ``torch._grouped_mm``
+    over the same sorted rows (the gather, gate+up, the SiLU product, down)
+    as the yardstick, which the port never calls; the route + permutation
+    and the combine on their own. Bound: max(operations / 989 TFLOP/s, bytes
+    / 3.35 TB/s) of the routed work as ``benchmark/flops/moe_grouped.py``
+    counts it (every expert's weights read once, each slot's rows in and
+    out)."""
+    from multimodal_content_moderation_tpu_torch.ops import moe
+
+    D, F, E, k = DSV2_MOE
+    N = DSV2_TOKENS
+    x = torch.randn(N, D, generator=g, device="cuda").bfloat16()
+    gate = (torch.randn(D, E, generator=g, device="cuda") * D ** -0.5).bfloat16()
+    w_gu = (torch.randn(E, 2 * F, D, generator=g, device="cuda") * D ** -0.5).bfloat16()
+    w_down = (torch.randn(E, D, F, generator=g, device="cuda") * F ** -0.5).bfloat16()
+    p = {"gate": {"w": gate}, "experts": {"gate_up": w_gu, "down": w_down}}
+    logits = torch.mm(x, gate, out_dtype=torch.float32)
+
+    def route():
+        return moe.route(logits, k, 1.0, torch.zeros(E, dtype=torch.int32, device="cuda"))
+
+    r = route()
+    idx, weight = moe.route_reference(logits, k, 1.0)
+    check(torch.equal(r.idx.long(), idx), "moe_route: another top-k than route_reference")
+    h = moe.grouped(True, x, r, w_gu)
+    y = moe.grouped(False, h, r, w_down)
+    want = moe.experts_reference(x, idx, weight, w_gu, w_down)
+    err, ok = max_err_within(y[r.slot_pos.long()], want, 1e-3, 2.0**-7)
+    check(ok, f"moe_grouped: max abs err {err} beyond atol 1e-3 + rtol 2^-7")
+    with torch.inference_mode():
+        layer_err, layer_ok = max_err_within(moe.moe_layer(x, p, k, 1.0),
+                                             moe.moe_reference(x, p, k, 1.0), 3e-3, 2.0**-7)
+    check(layer_ok, f"moe layer: max abs err {layer_err} beyond atol 3e-3 + rtol 2^-7")
+    S = N * k
+    flops = 6.0 * D * F * S
+    nbytes = 2.0 * E * 3 * D * F + 2.0 * S * (2 * D + 2 * F)
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    case = {"kernel": "moe_grouped", "case": f"gate+up and down: N={N} tokens, k={k}, E={E}, "
+            f"d={D}, F={F}", "dtype": "bfloat16", "max_abs_err": err, "atol": 1e-3,
+            "rtol": 2.0**-7, "layer_max_abs_err": layer_err, "paths": ["dsv2"],
+            "per_unit": None, "bound_ms": bms, "bound_by": by,
+            "counts_max_min": [int(c) for c in torch.bincount(idx.reshape(-1), minlength=E)
+                               .aminmax()][::-1]}
+    timed(case, "ms", lambda: moe.grouped(False, moe.grouped(True, x, r, w_gu), r, w_down))
+    timed(case, "plain_ms", lambda: moe.experts_reference(x, idx, weight, w_gu, w_down), iters=3)
+    offs = r.offsets[1:]
+    w_gu_t, w_down_t = w_gu.transpose(1, 2), w_down.transpose(1, 2)
+
+    def library():
+        xs = x.index_select(0, r.rows.long())
+        gu = torch._grouped_mm(xs, w_gu_t, offs=offs)
+        gu = gu.view(S, F // 8, 2, 8)
+        hs = (torch.nn.functional.silu(gu[:, :, 0]) * gu[:, :, 1]).reshape(S, F)
+        return torch._grouped_mm(hs, w_down_t, offs=offs)
+
+    try:
+        timed(case, "library_ms", library)
+    except Exception as exc:  # a yardstick this PyTorch build lacks
+        case["library_ms"], case["library_error"] = None, repr(exc)[:200]
+    timed(case, "route_ms", route)
+    timed(case, "combine_ms", lambda: moe.combine(y, r.slot_pos, None))
+    return [case]
+
+
+def dsv2_entries(cases, dsv2):
+    """The ``{"kernels": ...}`` line's entries of ``add_rms_norm`` and
+    ``moe_grouped`` (with the route and the combine beside it), each for one
+    DeepSeek-V2-Lite forward at the dsv2 path's shapes: its cases times the
+    launches that phase 5 counted in a forward (``dsv2``, its report). The
+    RMSNorm cases split that count by shape (``ADD_RMS_SPECS``), and must
+    add up to it."""
+    per_batch = dsv2["launches_per_batch"]
+    rms = [c for c in cases if c["kernel"] == "add_rms_norm"]
+    check(sum(c["per_unit"] for c in rms) == per_batch["add_rms_norm"],
+          f"ADD_RMS_SPECS count {sum(c['per_unit'] for c in rms)} RMSNorms a forward, phase 5 "
+          f"counted {per_batch['add_rms_norm']}")
+    layers = per_batch["moe_route"]
+    for c in cases:
+        if c["kernel"] == "moe_grouped":
+            c["per_unit"] = per_batch["moe_grouped"] // 2
+    out = []
+    for name, source, work in (
+            ("add_rms_norm", "add_layer_norm.cu",
+             f"{per_batch['add_rms_norm']} launches of the RMS instantiation: "
+             "[4170, 2048] x 53 with the add, x 1 without, [4170, 512] x 27, [256, 2048] x 1"),
+            ("moe_grouped", "moe.cu", f"{layers} expert layers x 2 launches over "
+             f"{DSV2_TOKENS} tokens x 6 slots")):
+        main = [c for c in cases if c["kernel"] == name]
+        keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
+        unit = {key: (None if any(c[key] is None for c in main)
+                      else sum(c["per_unit"] * c[key] for c in main)) for key in keys}
+        entry = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+                 "headers": [f"{PKG}/csrc/mma_common.cuh"] if name == "moe_grouped" else [],
+                 "replaces": "none: the JAX package has no DeepSeek-V2 tower",
+                 "launches": dsv2["main_path_launches"][name],
+                 "launches_per_batch": per_batch[name],
+                 "max_abs_err": max(c["max_abs_err"] for c in main),
+                 **unit, "bound_by": max(main, key=lambda c: c["bound_ms"])["bound_by"],
+                 "timed_by": {k: _how(*(c["timed_by"][k] for c in main if k in c["timed_by"]))
+                              for k in keys if k != "bound_ms"},
+                 "work": f"one DeepSeek-V2-Lite forward, bf16, B=256: {work}"}
+        if name == "moe_grouped":
+            entry["route_ms"] = layers * main[0]["route_ms"]
+            entry["combine_ms"] = per_batch["moe_combine"] * main[0]["combine_ms"]
+        out.append(entry)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the full-width model
 # ---------------------------------------------------------------------------
@@ -956,14 +1139,15 @@ class InMemoryDataset:
     tokens, EOS at a position between 8 and 40, EOS padding, 224x224 crops.
     SigLIP-style (``siglip=True``): 8 to 60 random tokens then PAD (id 0)
     padding, so the rows fall in the 32, 48 and 64 text buckets, and
-    ``image_size`` crops. BERT-style (``bert=True``): [CLS], word pieces,
+    ``image_size`` crops (``vocab``: the ids' range, SigLIP's 256,000 by
+    default). BERT-style (``bert=True``): [CLS], word pieces,
     [SEP] (8 to 60 in all), [PAD] padding. With ``stats`` (mean, std) the batches carry the
     crops as normalised float32 CHW pixels (a float_nchw preprocessor's
     output, through ``data.images.normalize_crop``), else as the uint8
     crops."""
 
     def __init__(self, n: int, seed: int, T: int = 77, siglip: bool = False,
-                 image_size: int = 224, stats=None, bert: bool = False):
+                 image_size: int = 224, stats=None, bert: bool = False, vocab: int = 256000):
         import numpy as np
 
         self.stats = stats
@@ -978,7 +1162,7 @@ class InMemoryDataset:
         elif siglip:
             self.input_ids = np.zeros((n, T), np.int32)
             for i, length in enumerate(g.integers(8, 61, size=n)):
-                self.input_ids[i, :length] = g.integers(2, 256000, size=length)
+                self.input_ids[i, :length] = g.integers(2, vocab, size=length)
                 self.attention_mask[i, :length] = 1
         else:
             self.input_ids = np.full((n, T), 49407, np.int32)
@@ -2065,6 +2249,128 @@ def siglip224_phase(torch, card: str):
         lambda: [engine(x, mask, patches[i % 2], ones, ones)
                  for i, x in enumerate(ids[:2])], 2,
     )
+    return report
+
+
+DSV2_BATCH = 256  # the benchmark cell dsv2-lite.score-b256's batch
+DSV2_BATCHES = 3  # 3 x 256 - 5 rows: a padded last batch
+# the fused forward's logits against the plain path's, both bf16: the cell's
+# limit against the fp32 reference (benchmark/limits/dsv2-lite.score-b256.json)
+DSV2_LOGIT_TOL = 0.15
+
+
+def dsv2_per_batch(cfg) -> dict:
+    """A DeepSeek-V2 + SigLIP fusion forward's launches, from its
+    configuration: each expert layer's route, two grouped products and
+    combine; three RMSNorms a decoder layer (input, post-attention, the MLA
+    latent) and the final one; the vision tower's two LayerNorms a layer,
+    its post-LN and MAP head LN, the fusion head's two."""
+    t, v = cfg.text, cfg.vision
+    return {"moe_route": t.moe_layers, "moe_grouped": 2 * t.moe_layers,
+            "moe_combine": t.moe_layers, "add_rms_norm": 3 * t.num_layers + 1,
+            "add_layer_norm": 2 * v.num_layers + 2 + 2}
+
+
+def dsv2_phase(torch, card: str):
+    """DeepSeek-V2-Lite's text tower beside SigLIP2-B/16-224's vision tower at
+    the published widths (the benchmark's ``deepseek-v2-lite-siglip2-224-
+    fusion``: 15.6 B parameters, drawn in bf16 from a seed on the card)
+    through ``FastInferenceEngine`` + ``evaluate_logits_u8`` at B=256 with
+    the text buckets 32 / 48 / 64, the launch counters of the expert layer
+    and the norms zeroed just before: each batch must launch what
+    ``dsv2_per_batch`` gives, never the plain expert layer or RMSNorm, and
+    the vision tower's 1 patch_embed_u8 and 12 attention_nhd on the tensor
+    cores. Then the first batch at full width through the plain path
+    (gradients on, which no parameter takes, send every layer to its plain
+    version): its logits within ``DSV2_LOGIT_TOL`` of the engine's."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.images import SIGLIP_MEAN, SIGLIP_STD
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import DeepSeekV2Config
+    from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+    from multimodal_content_moderation_tpu_torch.ops import cuda_norm, moe
+    from multimodal_content_moderation_tpu_torch.utils import profiling
+
+    report = {}
+    cfg = DeepSeekV2Config.lite_siglip2_224()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FusionModel.create("deepseek_v2", num_labels=len(CLASSES), seed=0, device="cuda",
+                               dtype=torch.bfloat16, deepseek_config=cfg)
+    model = model_io.with_performance_options(model, compute_dtype="bfloat16",
+                                              attention_impl="pallas")
+    for p in model.parameters():
+        p.requires_grad_(False)
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    report["parameters"] = sum(p.numel() for p in model.parameters())
+    report["weights_gib"] = torch.cuda.memory_allocated() / 2**30
+    check(model.backend == "deepseek_v2" and report["parameters"] > 15.5e9,
+          f"dsv2: backend {model.backend}, {report['parameters']} parameters")
+    engine = fi.FastInferenceEngine(model, SIGLIP_MEAN, SIGLIP_STD)
+    data = InMemoryDataset(DSV2_BATCHES * DSV2_BATCH - 5, seed=12, T=64, siglip=True,
+                           vocab=cfg.text.vocab_size)
+    buckets = (32, 48, 64)
+    fi.evaluate_logits_u8(engine, data, DSV2_BATCH, num_workers=4, seq_buckets=buckets)  # builds
+    torch.cuda.synchronize()
+
+    moe.route.launches = moe.grouped.launches = moe.combine.launches = 0
+    cuda_norm.add_rms_norm.launches = 0
+    counts, add_ln = launch_counter(), add_ln_counter()
+    t0 = time.perf_counter()
+    with profiling.recording() as rec:
+        logits, labels = fi.evaluate_logits_u8(engine, data, DSV2_BATCH, num_workers=4,
+                                               seq_buckets=buckets)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = _counts(patch_embed_u8=DSV2_BATCHES, attention_nhd=12 * DSV2_BATCHES)
+    check(launches == want, f"dsv2: launches {launches}, want {want}")
+    launches.update(moe_route=moe.route.launches, moe_grouped=moe.grouped.launches,
+                    moe_combine=moe.combine.launches,
+                    add_rms_norm=cuda_norm.add_rms_norm.launches, add_layer_norm=add_ln())
+    per_batch = dsv2_per_batch(cfg)
+    for name, n in per_batch.items():
+        check(launches[name] == n * DSV2_BATCHES,
+              f"dsv2: {name} launches {launches[name]} for {DSV2_BATCHES} batches (want {n} "
+              "per batch)")
+    c = rec.counters
+    check(c.get("moe.layers") == cfg.text.moe_layers * DSV2_BATCHES and "moe.plain" not in c
+          and "model.rms_norm.plain" not in c,
+          f"dsv2: counters {dict(c)}: an expert layer or an RMSNorm left the fused schedule")
+    check(logits.shape == (len(data), len(CLASSES)) and np.isfinite(logits).all(),
+          f"dsv2: logits {logits.shape}, finite={np.isfinite(logits).all()}")
+    np.testing.assert_array_equal(labels, data.labels)
+    report["main_path_launches"] = launches
+    report["main_path_batches"] = DSV2_BATCHES
+    report["launches_per_batch"] = per_batch
+    report["counters"] = {k: c[k] for k in ("text.kept_tokens", "text.positions",
+                                            "moe.routed_slots", "moe.max_expert_slots",
+                                            "model.attention.plain", "model.dense.plain",
+                                            "model.layer_norm.plain") if k in c}
+    report["evaluate_rows_per_s_incl_host_prep"] = len(data) / wall
+    report["card"] = card
+
+    # the plain path on the first batch, at full width
+    rows = next(data.batches(DSV2_BATCH))
+    batch = {"input_ids": rows["input_ids"], "attention_mask": rows["attention_mask"],
+             "patches_u8": engine.patches_from_hwc(rows["pixel_values"]),
+             "text_present": rows["text_present"], "image_present": rows["image_present"]}
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in batch.items()}
+    with torch.enable_grad(), profiling.recording() as plain_rec:
+        plain = model(batch)["logits"].float().cpu().numpy()
+    check(plain_rec.counters.get("moe.plain") == cfg.text.moe_layers
+          and "model.add_rms.fused" not in plain_rec.counters,
+          f"dsv2 plain path: counters {dict(plain_rec.counters)}")
+    err = float(np.abs(plain - logits[:DSV2_BATCH]).max())
+    report["fused_vs_plain_max_abs_logit_err"] = err
+    check(err <= DSV2_LOGIT_TOL,
+          f"dsv2: the engine's logits differ from the plain path's by {err} "
+          f"(limit {DSV2_LOGIT_TOL})")
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del engine, model, batch
+    torch.cuda.empty_cache()
     return report
 
 
@@ -5399,12 +5705,13 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = (patch_embed_cases(torch, g) + attention_cases(torch, g) + flash_cases(torch, g)
              + small_cases(torch, g) + attention_bwd_cases(torch, g)
-             + add_layer_norm_cases(torch, g))
+             + add_layer_norm_cases(torch, g) + add_rms_norm_cases(torch, g)
+             + moe_cases(torch, g))
     for c in cases:
         print(
             f"{c['kernel']:17s} {c['dtype']:8s} {c['case']:60s} err {c['max_abs_err']:.3g} "
             f"(atol {c['atol']:g} rtol {c['rtol']:.3g}) kernel {c['ms']:.4f} ms "
-            f"plain {c['plain_ms']:.4f} ms library {c['library_ms']:.4f} ms "
+            f"plain {c['plain_ms']:.4f} ms library {c['library_ms'] or float('nan'):.4f} ms "
             f"bound {c['bound_ms']:.4f} ms ({c['bound_by']})"
             + (f" JAX estimate {c['jax_estimate_ms']:.4f} ms" if "jax_estimate_ms" in c else "")
             + (f" SIMT {c['simt_ms']:.4f} ms (SIMT new new SIMT "
@@ -5421,6 +5728,7 @@ def main() -> int:
         (4, "train", lambda: train_phase(torch, card)),  # the training path
         (5, "siglip", lambda: siglip_phase(torch, card)),  # SigLIP-384 eval
         (5, "siglip224", lambda: siglip224_phase(torch, card)),  # SigLIP-224 eval
+        (5, "dsv2", lambda: dsv2_phase(torch, card)),  # DeepSeek-V2-Lite + SigLIP-224 eval
         (5, "mha_dense_mask", lambda: mha_dense_mask_phase(torch)),  # attention_small
         (6, "clip_f32_train", lambda: clip_f32_train_phase(torch, card)),
         (6, "siglip224_train", lambda: siglip224_train_phase(torch, card)),
@@ -5455,6 +5763,7 @@ def main() -> int:
                                     "int8_entry_points")}
     launches_by_path = {"siglip384": siglip["main_path_launches"],
                         "siglip224": siglip224["main_path_launches"],
+                        "dsv2": results["dsv2"]["main_path_launches"],
                         "evaluate": report["main_path_launches"],
                         "train": train["main_path_launches"],
                         "siglip224_train": siglip_train["pallas"]["main_path_launches"],
@@ -5474,10 +5783,12 @@ def main() -> int:
                         "sim_e2e": results["quality"]["sim_e2e"]["main_path_launches"]}
     kernels = [kernel_entry(name, cases, launches_by_path) for name in KERNELS]
     kernels.append(add_layer_norm_entry(cases, launches_by_path))
+    kernels += dsv2_entries(cases, results["dsv2"])
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "cases": cases, "model": report, "train": train, "siglip": siglip,
-                   "siglip224": siglip224, "mha_dense_mask": mha, "clip_f32_train": clip_f32,
+                   "siglip224": siglip224, "dsv2": results["dsv2"], "mha_dense_mask": mha,
+                   "clip_f32_train": clip_f32,
                    "siglip224_train": siglip_train, "serving": serving, "mtl": mtl,
                    "generic": generic, **int8, "export": results["export"],
                    "deploy": results["deploy"], "mesh": results["mesh"],

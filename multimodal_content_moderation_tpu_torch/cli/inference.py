@@ -248,6 +248,7 @@ class MultiModalClassifier:
         if self.engine is not None:
             from multimodal_content_moderation_tpu_torch.models.fast_infer import (
                 bucket_batch_text,
+                bucket_extra,
                 bucket_for,
             )
 
@@ -255,8 +256,7 @@ class MultiModalClassifier:
             ids, mask = batch["input_ids"], batch["attention_mask"]
             carry = None
             if self._bucket_ladder:
-                b = bucket_for(mask, self._bucket_ladder,
-                               extra=0 if self.backend == "clip" else 1)
+                b = bucket_for(mask, self._bucket_ladder, extra=bucket_extra(self.backend))
                 ids, mask, carry = bucket_batch_text(ids, mask, b, self.backend)
             logits = self.engine(
                 np.ascontiguousarray(ids), np.ascontiguousarray(mask), patches,
@@ -290,6 +290,8 @@ class MultiModalClassifier:
             kernels.append("attention_nhd")
             if max(positions, self.max_len) > MAX_SEQ:
                 kernels.append("flash_attention")
+        if self.backend == "deepseek_v2":  # its RMSNorms and its expert layer
+            kernels += ["add_layer_norm", "moe"]
         return kernels
 
     def warmup(self) -> int:
@@ -305,9 +307,11 @@ class MultiModalClassifier:
             _build.build(self.eval_kernels())
         self.preproc.warmup()
         widths = list(self._bucket_ladder) if self._bucket_ladder else [self.max_len]
+        from multimodal_content_moderation_tpu_torch.models.fast_infer import bucket_extra
+
         # SigLIP rungs reserve one carry column: a row of w-1 real tokens
         # lands exactly on rung w
-        extra = 0 if self.backend == "clip" else 1
+        extra = bucket_extra(self.backend)
         zero_pix = self.preproc.zero_output()
         for w in widths:
             mask = np.zeros((self.batch_size, self.max_len), np.int32)

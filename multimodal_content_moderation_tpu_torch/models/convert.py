@@ -130,16 +130,6 @@ def siglip_params_from_torch(sd: Dict, cfg: SigLIPConfig, prefix: str = "") -> d
     """Full SiglipModel state dict -> parameter tree."""
     s = _strip_prefix(sd, prefix)
     t = _strip_prefix(s, "text_model.")
-    v = _strip_prefix(s, "vision_model.")
-
-    in_w = _t(v["head.attention.in_proj_weight"])  # (3d, d)
-    in_b = _t(v["head.attention.in_proj_bias"])  # (3d,)
-    d = in_w.shape[1]
-    attn = {
-        n: {"w": in_w[i * d : (i + 1) * d].t().contiguous(), "b": in_b[i * d : (i + 1) * d].clone()}
-        for i, n in enumerate(("q", "k", "v"))
-    }
-    attn["o"] = _linear(v, "head.attention.out_proj")
     out = {
         "text_model": {
             "token_embedding": _t(t["embeddings.token_embedding.weight"]),
@@ -148,25 +138,40 @@ def siglip_params_from_torch(sd: Dict, cfg: SigLIPConfig, prefix: str = "") -> d
             "final_ln": _ln(t, "final_layer_norm"),
             "head": _linear(t, "head"),
         },
-        "vision_model": {
-            "patch_embedding": _conv_patch_embed(v, "embeddings.patch_embedding", bias=True),
-            "position_embedding": _t(v["embeddings.position_embedding.weight"]),
-            "layers": _encoder_layers(v, "encoder", cfg.vision.num_layers),
-            "post_ln": _ln(v, "post_layernorm"),
-            "map_head": {
-                "probe": _t(v["head.probe"]),
-                "attn": attn,
-                "ln": _ln(v, "head.layernorm"),
-                "fc1": _linear(v, "head.mlp.fc1"),
-                "fc2": _linear(v, "head.mlp.fc2"),
-            },
-        },
+        "vision_model": siglip_vision_from_torch(s, cfg.vision.num_layers),
     }
     # HF SigLIP stores these as shape-(1,) parameters: scalars here
     for name in ("logit_scale", "logit_bias"):
         if name in s:
             out[name] = _t(s[name]).reshape(())
     return out
+
+
+def siglip_vision_from_torch(sd: Dict, num_layers: int, prefix: str = "vision_model.") -> dict:
+    """A SigLIP vision tower (``SiglipVisionTransformer`` names under
+    ``prefix``) -> its parameter tree."""
+    v = _strip_prefix(sd, prefix)
+    in_w = _t(v["head.attention.in_proj_weight"])  # (3d, d)
+    in_b = _t(v["head.attention.in_proj_bias"])  # (3d,)
+    d = in_w.shape[1]
+    attn = {
+        n: {"w": in_w[i * d : (i + 1) * d].t().contiguous(), "b": in_b[i * d : (i + 1) * d].clone()}
+        for i, n in enumerate(("q", "k", "v"))
+    }
+    attn["o"] = _linear(v, "head.attention.out_proj")
+    return {
+        "patch_embedding": _conv_patch_embed(v, "embeddings.patch_embedding", bias=True),
+        "position_embedding": _t(v["embeddings.position_embedding.weight"]),
+        "layers": _encoder_layers(v, "encoder", num_layers),
+        "post_ln": _ln(v, "post_layernorm"),
+        "map_head": {
+            "probe": _t(v["head.probe"]),
+            "attn": attn,
+            "ln": _ln(v, "head.layernorm"),
+            "fc1": _linear(v, "head.mlp.fc1"),
+            "fc2": _linear(v, "head.mlp.fc2"),
+        },
+    }
 
 
 def fusion_head_from_torch(sd: Dict) -> dict:
@@ -187,12 +192,22 @@ def fusion_head_from_torch(sd: Dict) -> dict:
 
 def fusion_model_from_torch(
     sd: Dict, backend: str, clip_cfg: Optional[CLIPConfig] = None,
-    siglip_cfg: Optional[SigLIPConfig] = None, generic_cfg=None,
+    siglip_cfg: Optional[SigLIPConfig] = None, generic_cfg=None, deepseek_cfg=None,
 ) -> dict:
-    """Full reference fusion checkpoint (backbone.* + head); any backend
-    other than CLIP and generic is the SigLIP family, as in the JAX
-    package."""
-    if backend == "clip":
+    """Full reference fusion checkpoint (backbone.* + head): CLIP, generic,
+    DeepSeek-V2 (``models/deepseek_v2.deepseek_v2_params_from_torch``, its
+    text tower converted on the state dict's device) or the SigLIP family
+    ("siglip", "auto"); another name raises."""
+    from multimodal_content_moderation_tpu_torch.models.fusion import _check_backend
+
+    backend = _check_backend(backend)
+    if backend == "deepseek_v2":
+        from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import (
+            deepseek_v2_params_from_torch,
+        )
+
+        backbone = deepseek_v2_params_from_torch(sd, deepseek_cfg, prefix="backbone.")
+    elif backend == "clip":
         backbone = clip_params_from_torch(sd, clip_cfg, prefix="backbone.")
     elif backend == "generic":
         from multimodal_content_moderation_tpu_torch.models.generic import (
@@ -237,7 +252,10 @@ def mtl_model_from_torch(
     ``tower_txt.text_model.*`` and ``tower_img.vision_model.*``; the shared
     SigLIP backbone ("auto", "siglip") and the generic one lie under
     ``backbone.*``, the generic one read without its projections and
-    ``logit_scale`` (the multi-task model pools the raw towers)."""
+    ``logit_scale`` (the multi-task model pools the raw towers). The
+    multi-task head has no deepseek_v2 backbone."""
+    if backend == "deepseek_v2":
+        raise NotImplementedError("the multi-task head has no deepseek_v2 backbone")
     if backend == "clip":
         backbone = {
             "text_model": clip_text_tower_from_torch(

@@ -184,6 +184,13 @@ def _backbone_out(sd: StateDict, model, prefix: str) -> None:
     if model.backend == "clip":
         _text_out(sd, f"{prefix}text_model", t, head=False)
         _clip_vision_out(sd, f"{prefix}vision_model", v, cfg.vision)
+    elif model.backend == "deepseek_v2":
+        from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import (
+            deepseek_v2_text_to_torch,
+        )
+
+        sd.update(deepseek_v2_text_to_torch(bp, cfg, prefix))
+        _siglip_vision_out(sd, f"{prefix}vision_model", v, cfg.vision)
     elif model.backend == "generic":
         _bert_text_out(sd, f"{prefix}text_model", t, cfg.text.arch)
         _vit_vision_out(sd, f"{prefix}vision_model", v, cfg.vision)

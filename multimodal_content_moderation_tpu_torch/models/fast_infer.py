@@ -5,7 +5,8 @@ pixels); the fused normalise + patch-embed kernel embeds them and the rest
 of the towers run as usual. ``evaluate_logits_u8`` streams a dataset
 through the engine with host preparation on a background thread, pinned
 host buffers, non-blocking copies and at most two batches in flight, with
-optional exact text-length buckets (with the SigLIP carry column).
+optional exact text-length buckets (with the SigLIP carry column; CLIP's
+and DeepSeek-V2's causal towers truncate).
 
 Under a mesh (``parallel/mesh.py``) the rows are split over the data axis
 as the JAX engine's ``shard_map`` splits them: each data rank reads,
@@ -38,6 +39,10 @@ class FastInferenceEngine:
     follows the model's ``attention_impl``. A call runs the
     rows it is given; with a ``mesh``, ``evaluate_logits_u8`` gives each
     data rank its rows and gathers the logits."""
+
+    # the device scalars the last call's forward left for an open recording
+    # (a packing tower's ``moe.max_expert_slots``), read with its logits
+    last_counters = None
 
     def __init__(self, model, mean: Sequence[float], std: Sequence[float], mesh=None):
         self.mesh = mesh
@@ -85,7 +90,16 @@ class FastInferenceEngine:
             pos = torch.arange(T, device=self.device)
             pos[-1:].fill_(carry_pos)  # an assignment would copy the int over, synchronously
             batch["position_ids"] = pos
-        return self.model(batch)["logits"].float()
+        if packs_text(self.model.backend):
+            # the packed tower's token count, from the host's mask where it
+            # is on the host (a read of the card's copy would wait for it)
+            if not (isinstance(mask, torch.Tensor) and mask.device.type != "cpu"):
+                batch["text_kept"] = int(np.asarray(mask).sum())
+            if is_recording():
+                batch["counters"] = {}
+        logits = self.model(batch)["logits"].float()
+        self.last_counters = batch.get("counters")
+        return logits
 
 
 def parse_seq_buckets(spec: Optional[str]) -> Optional[Tuple[int, ...]]:
@@ -106,10 +120,29 @@ def parse_seq_buckets(spec: Optional[str]) -> Optional[Tuple[int, ...]]:
 
 
 def buckets_exact(backend: str) -> bool:
-    """Whether text buckets leave a backend's logits as they are: CLIP and
-    SigLIP, not the generic towers (a mean over every position, pads
-    included)."""
+    """Whether text buckets leave a backend's logits as they are: CLIP,
+    SigLIP and DeepSeek-V2, not the generic towers (a mean over every
+    position, pads included)."""
     return backend != "generic"
+
+
+def truncates(backend: str) -> bool:
+    """Whether a backend's bucket is a plain truncation (a causal tower
+    pooled at a real token never sees the dropped trailing pads: CLIP,
+    DeepSeek-V2) rather than SigLIP's carry column."""
+    return backend in ("clip", "deepseek_v2")
+
+
+def bucket_extra(backend: str) -> int:
+    """The columns a bucket reserves beside the longest row: SigLIP's carry
+    column, none where the bucket truncates."""
+    return 0 if truncates(backend) else 1
+
+
+def packs_text(backend: str) -> bool:
+    """Whether the text tower packs the kept tokens (DeepSeek-V2), so the
+    engine hands it the mask's sum from the host."""
+    return backend == "deepseek_v2"
 
 
 def bucket_ladder(buckets: Sequence[int], full_T: int) -> Optional[List[int]]:
@@ -136,15 +169,16 @@ def bucket_batch_text(
     """Shrink a right-padded [B, T] ids/mask pair to bucket width ``b``:
     (ids_b, mask_b, carry_pos).
 
-    CLIP: plain truncation (the causal tower pooled at the first EOS never
-    sees the dropped columns), carry_pos None. SigLIP: b-1 real columns plus
+    CLIP and DeepSeek-V2 (``truncates``): plain truncation (a causal tower
+    pooled at the first EOS or the last kept token never sees the dropped
+    columns), carry_pos None. SigLIP: b-1 real columns plus
     a carry column, the row's last column (a PAD, since ``bucket_for(...,
     extra=1)`` fits every row in b-1) with mask 0, embedded at position T-1
     (carry_pos): the tower pools the last column and masked keys are inert
     at any width, so this is exact."""
     if b >= ids.shape[1]:
         return ids, mask, None
-    if backend == "clip":
+    if truncates(backend):
         return np.ascontiguousarray(ids[:, :b]), np.ascontiguousarray(mask[:, :b]), None
     ids_b = np.concatenate([ids[:, : b - 1], ids[:, -1:]], axis=1)
     mask_b = np.concatenate([mask[:, : b - 1], np.zeros((mask.shape[0], 1), mask.dtype)], axis=1)
@@ -176,9 +210,14 @@ def gather_rank_rows(mesh, logits: List[np.ndarray], labels: List[np.ndarray],
     return full[:, :width], full[:, width:]
 
 
-def _count_batch(host, valid: int, width: int) -> None:
-    """A recorded batch's counters (``utils/profiling.count``)."""
+def _count_batch(model, host, valid: int, width: int) -> None:
+    """A recorded batch's counters (``utils/profiling.count``); a packing
+    tower's from the host's mask too (``deepseek_v2.count_packing``)."""
     mask = host["attention_mask"]
+    if packs_text(model.backend):
+        from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import count_packing
+
+        count_packing(model.encoder_config, mask)
     count("score.batches")
     count("score.rows", valid)
     count("score.pad_rows", mask.shape[0] - valid)
@@ -188,9 +227,14 @@ def _count_batch(host, valid: int, width: int) -> None:
     count("score.h2d_bytes", sum(v.numel() * v.element_size() for v in host.values()))
 
 
-def _readback(logits, host, batch: int, width: int) -> np.ndarray:
+def _readback(logits, host, batch: int, width: int, counters=None) -> np.ndarray:
+    """The batch's logits on the host, and the device counters its forward
+    left (``FastInferenceEngine.last_counters``), read once the logits are."""
     with annotate("score.readback", batch=batch, width=width):
-        return logits.cpu().numpy()
+        out = logits.cpu().numpy()
+        for name, value in (counters or {}).items():
+            count(name, int(value))
+        return out
 
 
 def evaluate_logits_u8(
@@ -258,7 +302,7 @@ def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
             with annotate("prep.bucket", parent=root, batch=i) as bucket:
                 if indices is not None:
                     width = bucket_for(batch["attention_mask"], ladder,
-                                       extra=0 if backend == "clip" else 1)
+                                       extra=bucket_extra(backend))
                     batch["input_ids"], batch["attention_mask"], carry = bucket_batch_text(
                         batch["input_ids"], batch["attention_mask"], width, backend
                     )
@@ -270,7 +314,7 @@ def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
             if is_recording():
                 for span in (load, patch, bucket):
                     span.set(width=width)
-                _count_batch(host, valid, width)
+                _count_batch(engine.model, host, valid, width)
             yield valid, labels, host, carry, width
         batches.close()  # the dataset's pool, as its end would
 
@@ -295,7 +339,7 @@ def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
                     host["text_present"], host["image_present"], carry_pos=carry,
                 )
             # the pinned host buffers stay referenced until their batch is read
-            outs.append((logits, host, i, width))
+            outs.append((logits, host, i, width, engine.last_counters))
             if len(outs) > 2:
                 all_logits.append(_readback(*outs.pop(0)))
     finally:

@@ -1,5 +1,6 @@
-"""Gated late-fusion multi-label classifier over the CLIP, SigLIP or generic
-(BERT-family + ViT) dual encoder.
+"""Gated late-fusion multi-label classifier over the CLIP, SigLIP, generic
+(BERT-family + ViT) or DeepSeek-V2 (a sparse decoder beside SigLIP's vision
+tower) dual encoder.
 
 Same math as the JAX package's ``models/fusion.py`` (the reference
 ``MultiModalFusionClassifier``): L2-normalised encoder features masked by
@@ -21,6 +22,7 @@ import torch
 from torch import nn
 
 from multimodal_content_moderation_tpu_torch.models import clip as clip_mod
+from multimodal_content_moderation_tpu_torch.models import deepseek_v2 as ds_mod
 from multimodal_content_moderation_tpu_torch.models import generic as generic_mod
 from multimodal_content_moderation_tpu_torch.models import siglip as siglip_mod
 from multimodal_content_moderation_tpu_torch.models.params import ParamTree
@@ -108,28 +110,37 @@ def fusion_head_apply(
     return dense(y, params["cls_fc2"])
 
 
+BACKENDS = ("clip", "siglip", "auto", "generic", "deepseek_v2")
+# each backend's config field; "siglip" and "auto" share SigLIP's
+CONFIG_FIELDS = {"clip": "clip_config", "siglip": "siglip_config", "auto": "siglip_config",
+                 "generic": "generic_config", "deepseek_v2": "deepseek_config"}
+
+
 def _check_backend(backend: str) -> str:
     backend = backend.lower()
-    if backend not in ("clip", "siglip", "auto", "generic"):
-        raise ValueError(f"backend {backend!r}: want clip, siglip, auto or generic")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: want one of {', '.join(BACKENDS)}")
     return backend
 
 
 def config_field(backend: str) -> str:
     """The model field that holds a backend's encoder config."""
-    return {"clip": "clip_config", "generic": "generic_config"}.get(backend, "siglip_config")
+    return CONFIG_FIELDS[_check_backend(backend)]
 
 
-def encoder_configs(backend, clip_config=None, siglip_config=None, generic_config=None):
-    """The three config fields of a model: the backend's (its canonical
-    architecture where none is given), the other two None."""
-    cfgs = dict.fromkeys(("clip_config", "siglip_config", "generic_config"))
-    if backend == "clip":
-        cfgs["clip_config"] = clip_config or clip_mod.CLIPConfig.base_patch32()
-    elif backend == "generic":
-        cfgs["generic_config"] = generic_config or generic_mod.GenericDualConfig()
-    else:
-        cfgs["siglip_config"] = siglip_config or siglip_mod.SigLIPConfig.base_patch16_224()
+def encoder_configs(backend, clip_config=None, siglip_config=None, generic_config=None,
+                    deepseek_config=None):
+    """The four config fields of a model: the backend's (its canonical
+    architecture where none is given), the others None."""
+    cfgs = dict.fromkeys(("clip_config", "siglip_config", "generic_config", "deepseek_config"))
+    field = config_field(backend)
+    given = {"clip_config": clip_config, "siglip_config": siglip_config,
+             "generic_config": generic_config, "deepseek_config": deepseek_config}[field]
+    canonical = {"clip_config": clip_mod.CLIPConfig.base_patch32,
+                 "siglip_config": siglip_mod.SigLIPConfig.base_patch16_224,
+                 "generic_config": generic_mod.GenericDualConfig,
+                 "deepseek_config": ds_mod.DeepSeekV2Config.lite_siglip2_224}[field]
+    cfgs[field] = given or canonical()
     return cfgs
 
 
@@ -163,8 +174,8 @@ class DualEncoderModel(nn.Module):
 
     @property
     def encoder_config(self):
-        """The backbone's config: a ``CLIPConfig``, a ``SigLIPConfig`` or a
-        ``GenericDualConfig``."""
+        """The backbone's config: a ``CLIPConfig``, a ``SigLIPConfig``, a
+        ``GenericDualConfig`` or a ``DeepSeekV2Config``."""
         return getattr(self, config_field(self.backend))
 
     @property
@@ -179,17 +190,22 @@ class DualEncoderModel(nn.Module):
     def device(self) -> torch.device:
         return self.head["proj_t"]["w"].device
 
-    def _set_encoder_config(self, backend, clip_config, siglip_config, generic_config):
+    def _set_encoder_config(self, backend, clip_config, siglip_config, generic_config,
+                            deepseek_config=None):
         self.backend = backend
         for name, cfg in encoder_configs(backend, clip_config, siglip_config,
-                                         generic_config).items():
+                                         generic_config, deepseek_config).items():
             setattr(self, name, cfg)
 
 
-def fusion_feature_dim(backend, clip_config=None, siglip_config=None, generic_config=None):
+def fusion_feature_dim(backend, clip_config=None, siglip_config=None, generic_config=None,
+                       deepseek_config=None):
     """The width of the features the fusion head takes."""
     if backend == "clip":
         return clip_config.projection_dim
+    if backend == "deepseek_v2":
+        # text_projection's width, which SigLIP's MAP feature has too
+        return deepseek_config.projection_dim
     if backend == "generic":
         # the reference's probe: projection_dim, else the text width, else
         # the vision width
@@ -208,8 +224,11 @@ class FusionModel(DualEncoderModel):
     a bucket's carry column).
 
     ``backend`` is "clip", "siglip" ("auto" is SigLIP, as in the JAX
-    package, for a checkpoint whose inference config kept it) or "generic"
-    (``generic_config``: a BERT-family text tower and a ViT).
+    package, for a checkpoint whose inference config kept it), "generic"
+    (``generic_config``: a BERT-family text tower and a ViT) or
+    "deepseek_v2" (``deepseek_config``: ``models/deepseek_v2.py``'s sparse
+    decoder beside a SigLIP vision tower; the port's own, no JAX
+    counterpart).
 
     Parameters live in ``backbone`` and ``head`` (``ParamTree``s), so the
     ``state_dict`` keys are the JAX pytree paths
@@ -228,10 +247,11 @@ class FusionModel(DualEncoderModel):
         focal_gamma: float = 1.5,
         siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
         generic_config: Optional[generic_mod.GenericDualConfig] = None,
+        deepseek_config: Optional[ds_mod.DeepSeekV2Config] = None,
     ):
         super().__init__()
         self._set_encoder_config(_check_backend(backend), clip_config, siglip_config,
-                                 generic_config)
+                                 generic_config, deepseek_config)
         self.num_labels = num_labels
         self.fusion_dim = fusion_dim
         self.image_mean = image_mean
@@ -254,15 +274,19 @@ class FusionModel(DualEncoderModel):
         focal_gamma: float = 1.5,
         siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
         generic_config: Optional[generic_mod.GenericDualConfig] = None,
+        deepseek_config: Optional[ds_mod.DeepSeekV2Config] = None,
     ) -> "FusionModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
         backend = _check_backend(backend)
-        cfgs = encoder_configs(backend, clip_config, siglip_config, generic_config)
+        cfgs = encoder_configs(backend, clip_config, siglip_config, generic_config,
+                               deepseek_config)
         g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         if backend == "clip":
             backbone = clip_mod.clip_init(g, cfgs["clip_config"], dtype)
         elif backend == "generic":
             backbone = generic_mod.generic_init(g, cfgs["generic_config"], dtype)
+        elif backend == "deepseek_v2":
+            backbone = ds_mod.deepseek_v2_init(g, cfgs["deepseek_config"], dtype)
         else:
             backbone = siglip_mod.siglip_init(g, cfgs["siglip_config"], dtype)
         head = fusion_head_init(g, fusion_feature_dim(backend, **cfgs), num_labels, fusion_dim,
@@ -275,18 +299,33 @@ class FusionModel(DualEncoderModel):
     @property
     def feature_dim(self) -> int:
         return fusion_feature_dim(self.backend, self.clip_config, self.siglip_config,
-                                  self.generic_config)
+                                  self.generic_config, self.deepseek_config)
 
     def encode(self, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None):
         """(text features, image features): the image from ``patches_u8``
         (the uint8 wire) where the batch carries them, else from
         ``pixel_values`` (normalised fp32 [B, C, H, W], the pixel path).
-        ``generator`` turns on the generic text tower's dropout."""
+        ``generator`` turns on the generic text tower's dropout. The
+        DeepSeek-V2 tower reads the batch's ``text_kept`` (the mask's sum,
+        from the host) and fills its ``counters`` dict where it has one."""
         from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
 
         bp = self.backbone
         u8 = batch.get("patches_u8")
+        if self.backend == "deepseek_v2":
+            cfg = self.deepseek_config
+            t = ds_mod.deepseek_text_features(
+                bp, batch["input_ids"], batch.get("attention_mask"), cfg,
+                kept=batch.get("text_kept"), counters=batch.get("counters"),
+            )
+            if u8 is not None:  # SigLIP's vision tower reads cfg.vision alone
+                v = siglip_mod.siglip_image_features_from_tokens(
+                    bp, embed_for_model(self, bp, u8), cfg
+                )
+            else:
+                v = siglip_mod.siglip_image_features(bp, batch["pixel_values"], cfg)
+            return t, v
         if self.backend == "generic":
             cfg = self.generic_config
             t = generic_mod.generic_text_features(

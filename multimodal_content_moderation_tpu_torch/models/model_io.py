@@ -36,7 +36,8 @@ from multimodal_content_moderation_tpu_torch.models.clip import (
     CLIPTextConfig,
     CLIPVisionConfig,
 )
-from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel, config_field
+from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import DeepSeekV2Config
+from multimodal_content_moderation_tpu_torch.models.fusion import BACKENDS, FusionModel, config_field
 from multimodal_content_moderation_tpu_torch.models.generic import (
     GenericDualConfig,
     generic_params_from_torch,
@@ -114,15 +115,13 @@ def siglip_config_from_dict(d: Dict[str, Any]) -> SigLIPConfig:
     )
 
 
-BACKENDS = ("clip", "siglip", "auto", "generic")
-
-
 def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
     """Resolve ``backend: auto`` from the local encoder's ``config.json``
     ``model_type``, as the JAX package does: clip -> clip, siglip-family or
-    none -> siglip, another dual-encoder config (``text_config`` /
-    ``vision_config``, e.g. ``vision-text-dual-encoder``) -> generic. Other
-    names come back as they are."""
+    none -> siglip, deepseek_v2 -> deepseek_v2 (the port's own), another
+    dual-encoder config (``text_config`` / ``vision_config``, e.g.
+    ``vision-text-dual-encoder``) -> generic. Other names come back as they
+    are."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
     if backend != "auto":
@@ -131,8 +130,8 @@ def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
     if os.path.exists(cfg_path):
         d = load_json(cfg_path)
         model_type = d.get("model_type", "")
-        if model_type == "clip":
-            return "clip"
+        if model_type in ("clip", "deepseek_v2"):
+            return model_type
         if model_type and not model_type.startswith("siglip") and (
             "text_config" in d or "vision_config" in d
         ):
@@ -143,10 +142,12 @@ def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
 def load_encoder_config(encoder_dir: str, backend: str):
     """Parse a local HF ``config.json`` into the backend's config
     dataclasses (``CLIPConfig`` for clip, ``GenericDualConfig`` for generic,
-    ``SigLIPConfig`` for the SigLIP family), or the backend's canonical
-    architecture without one."""
+    ``DeepSeekV2Config`` for deepseek_v2, ``SigLIPConfig`` for the SigLIP
+    family), or the backend's canonical architecture without one."""
     cfg_path = os.path.join(encoder_dir, "config.json")
     d = load_json(cfg_path) if os.path.exists(cfg_path) else None
+    if backend == "deepseek_v2":
+        return DeepSeekV2Config.lite_siglip2_224() if d is None else DeepSeekV2Config.from_dict(d)
     if backend == "clip":
         return CLIPConfig.base_patch32() if d is None else clip_config_from_dict(d)
     if backend == "generic":
@@ -180,12 +181,16 @@ def build_model(
     head_hidden_dim: int = 0,
     learnable_task_weights: bool = False,
     generic_config: Optional[GenericDualConfig] = None,
+    deepseek_config: Optional[DeepSeekV2Config] = None,
 ):
     """A randomly initialised fusion or multi-task model (scripts/train.py's
     contract). The multi-task head maps the backend as the JAX package does:
     clip -> clip, generic -> generic, siglip / auto -> the shared "auto"
-    backbone."""
+    backbone; it has no deepseek_v2 backbone and refuses it."""
     if head == "mtl":
+        if backend == "deepseek_v2":
+            raise NotImplementedError("the multi-task head has no deepseek_v2 backbone: use "
+                                      "the fusion head (head: fusion)")
         return MultiTaskModel.create(
             backend=backend if backend in ("clip", "generic") else "auto",
             num_tasks=len(class_names),
@@ -211,6 +216,7 @@ def build_model(
         focal_gamma=focal_gamma,
         siglip_config=siglip_config,
         generic_config=generic_config,
+        deepseek_config=deepseek_config,
     )
 
 
@@ -224,7 +230,13 @@ def init_from_encoder_dir(model, encoder_dir: Optional[str]):
     sd = _find_state_dict(encoder_dir) if encoder_dir else None
     if sd is None:
         return model
-    if model.backend in ("clip", "generic"):
+    if model.backend == "deepseek_v2":
+        from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import (
+            deepseek_v2_params_from_torch,
+        )
+
+        backbone = deepseek_v2_params_from_torch(sd, model.deepseek_config)
+    elif model.backend in ("clip", "generic"):
         backbone = (convert.clip_params_from_torch(sd, model.clip_config)
                     if model.backend == "clip"
                     else generic_params_from_torch(sd, model.generic_config))
@@ -344,6 +356,9 @@ def load_checkpoint(
         raise FileNotFoundError(f"No model weights found in {checkpoint_dir}")
     conv_kw = {config_field(backend).replace("_config", "_cfg"): enc_cfg}
     if head == "mtl":
+        if backend == "deepseek_v2":
+            raise NotImplementedError(f"{checkpoint_dir}: the multi-task head has no "
+                                      "deepseek_v2 backbone")
         mtl_backend = backend if backend in ("clip", "generic") else "auto"
         params = convert.mtl_model_from_torch(sd, mtl_backend, len(class_names), **conv_kw)
         if dtype is not None:

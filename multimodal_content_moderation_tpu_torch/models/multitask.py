@@ -146,6 +146,16 @@ def mtl_loss(
     return torch.mean(torch.stack(per_task))
 
 
+def _mtl_backend(backend: str) -> str:
+    """A backend the multi-task head has a backbone for: every fusion
+    backend but "deepseek_v2", which this head does not take."""
+    backend = _check_backend(backend)
+    if backend == "deepseek_v2":
+        raise NotImplementedError("the multi-task head has no deepseek_v2 backbone: use the "
+                                  "fusion head (head: fusion)")
+    return backend
+
+
 class MultiTaskModel(DualEncoderModel):
     """Backbone + multi-task head, with ``FusionModel``'s surface:
     ``forward(batch) -> {"logits"}`` (and ``"loss"`` when the batch holds
@@ -168,10 +178,11 @@ class MultiTaskModel(DualEncoderModel):
         image_mean: Optional[tuple] = None,
         image_std: Optional[tuple] = None,
         generic_config: Optional[generic_mod.GenericDualConfig] = None,
+        deepseek_config=None,
     ):
         super().__init__()
-        self._set_encoder_config(_check_backend(backend), clip_config, siglip_config,
-                                 generic_config)
+        self._set_encoder_config(_mtl_backend(backend), clip_config, siglip_config,
+                                 generic_config, deepseek_config)
         self.num_tasks = num_tasks
         self.fusion_dim = fusion_dim
         self.head_hidden_dim = head_hidden_dim or 0
@@ -196,7 +207,7 @@ class MultiTaskModel(DualEncoderModel):
         generic_config: Optional[generic_mod.GenericDualConfig] = None,
     ) -> "MultiTaskModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
-        backend = _check_backend(backend)
+        backend = _mtl_backend(backend)
         cfgs = encoder_configs(backend, clip_config, siglip_config, generic_config)
         g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         if backend == "clip":

@@ -91,7 +91,6 @@ def siglip_init(g: torch.Generator, cfg: SigLIPConfig, dtype=torch.float32) -> d
     """Random-init a full SigLIP parameter tree on ``g.device`` (same
     distributions as the JAX package's ``siglip_init``, other numbers)."""
     t, v = cfg.text, cfg.vision
-    n_patches = (v.image_size // v.patch_size) ** 2
     text = {
         "token_embedding": _normal(g, (t.vocab_size, t.hidden_size), dtype, 0.02),
         "position_embedding": _normal(g, (t.max_positions, t.hidden_size), dtype, 0.01),
@@ -102,8 +101,21 @@ def siglip_init(g: torch.Generator, cfg: SigLIPConfig, dtype=torch.float32) -> d
         "final_ln": _ln_init(t.hidden_size, dtype, g.device),
         "head": _dense_init(g, t.hidden_size, t.projection_size, dtype),
     }
+    return {
+        "text_model": text,
+        "vision_model": siglip_vision_init(g, v, dtype),
+        # kept for checkpoint round trips (the heads do not use them)
+        "logit_scale": torch.tensor(1.0, dtype=dtype, device=g.device),
+        "logit_bias": torch.tensor(0.0, dtype=dtype, device=g.device),
+    }
+
+
+def siglip_vision_init(g: torch.Generator, v: SigLIPVisionConfig, dtype=torch.float32) -> dict:
+    """Random-init the SigLIP vision tower (patch embedding, blocks,
+    post-LN, MAP head) on ``g.device``."""
+    n_patches = (v.image_size // v.patch_size) ** 2
     d = v.hidden_size
-    vision = {
+    return {
         "patch_embedding": {
             "w": _normal(g, (v.num_channels * v.patch_size**2, d), dtype, 0.02),
             "b": torch.zeros((d,), dtype=dtype, device=g.device),
@@ -118,13 +130,6 @@ def siglip_init(g: torch.Generator, cfg: SigLIPConfig, dtype=torch.float32) -> d
             "fc1": _dense_init(g, d, v.intermediate_size, dtype),
             "fc2": _dense_init(g, v.intermediate_size, d, dtype),
         },
-    }
-    return {
-        "text_model": text,
-        "vision_model": vision,
-        # kept for checkpoint round trips (the heads do not use them)
-        "logit_scale": torch.tensor(1.0, dtype=dtype, device=g.device),
-        "logit_bias": torch.tensor(0.0, dtype=dtype, device=g.device),
     }
 
 

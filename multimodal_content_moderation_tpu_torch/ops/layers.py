@@ -19,7 +19,9 @@ is one launch of ``ops/cuda_norm.add_layer_norm``. Everything else (the
 CPU, fp32, training, a model split, int8 leaves) keeps the plain code.
 ``utils/profiling.count`` records which path each dense and LayerNorm took
 (``model.dense.fused`` / ``.plain``, ``model.add_ln.fused`` /
-``model.layer_norm.plain``).
+``model.layer_norm.plain``). An RMSNorm (the DeepSeek-V2 tower) is the same
+with ``ops/cuda_norm.add_rms_norm`` (``model.add_rms.fused`` /
+``model.rms_norm.plain``).
 
 Tensor parallelism (``parallel/sharding.py``) is read off the parameters:
 a weight that carries a ``model_split`` is this rank's shard. A column
@@ -34,6 +36,7 @@ heads its q shard holds.
 from __future__ import annotations
 
 import hashlib
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -200,6 +203,91 @@ def layer_norm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics (biased variance,
     eps inside the sqrt). ``p = {"scale": (d,), "bias": (d,)}``."""
     return add_layer_norm(x, None, p, eps)[1]
+
+
+def add_rms_norm(
+    x: torch.Tensor, delta: Optional[torch.Tensor], p, eps: float = 1e-6
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(s, y): the residual sum s = x + delta in x's dtype (x itself without
+    delta) and y = RMSNorm(s): an fp32 mean of squares, times the weight,
+    rounded once to x's dtype. ``p = {"scale": (d,)}``. On the ``fused``
+    schedule, for a width the kernel takes (``ops/cuda_norm.takes``), one
+    launch of its RMS instantiation; an operand whose layout it does not
+    read is copied to a contiguous one first."""
+    w = p["scale"]
+    if fused(x, delta, w) and cuda_norm.takes(x, delta, w, None):
+        count("model.add_rms.fused")
+        return cuda_norm.launch(*(cuda_norm.laid_out(t) for t in (x, delta, w)), None, eps)
+    count("model.rms_norm.plain")
+    return cuda_norm.add_rms_norm_reference(x, delta, w, eps)
+
+
+def rms_norm(x: torch.Tensor, p, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis (``add_rms_norm`` without the add)."""
+    return add_rms_norm(x, None, p, eps)[1]
+
+
+def swiglu(x: torch.Tensor, p) -> torch.Tensor:
+    """The SwiGLU MLP of a LLaMA-style decoder: ``p = {"gate_up": {"w": (d,
+    2f)}, "down": {"w": (f, d)}}`` with the gate's columns first; silu(gate)
+    * up in x's dtype (each rounded, as HF's ``act_fn(gate_proj(x)) *
+    up_proj(x)``), then the down projection."""
+    gu = dense(x, p["gate_up"])
+    f = gu.shape[-1] // 2
+    return dense(F.silu(gu[..., :f]) * gu[..., f:], p["down"])
+
+
+def _yarn_mscale(scale: float, mscale: float) -> float:
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_softmax_scale(head_dim: int, factor: float, mscale_all_dim: float) -> float:
+    """DeepSeek-V2's attention scale: head_dim^-0.5, times mscale^2 of YaRN's
+    ``mscale_all_dim`` (HF ``DeepseekV2Attention.softmax_scale``)."""
+    m = _yarn_mscale(factor, mscale_all_dim) if mscale_all_dim else 1.0
+    return head_dim ** -0.5 * m * m
+
+
+def yarn_rope_tables(dim: int, positions: int, theta: float, factor: float,
+                     original_max: int, beta_fast: float, beta_slow: float, mscale: float,
+                     mscale_all_dim: float, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) [positions, dim] in fp32 of HF's
+    ``DeepseekV2YarnRotaryEmbedding``: the inverse frequencies blended
+    between the interpolated (``/ factor``) and the original ones by a linear
+    ramp over the correction range of ``beta_fast`` / ``beta_slow``
+    rotations at ``original_max`` positions, both halves of ``dim`` the same
+    frequencies, times mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim)."""
+
+    def correction_dim(rotations):
+        return (dim * math.log(original_max / (rotations * 2 * math.pi))) / (2 * math.log(theta))
+
+    low = max(math.floor(correction_dim(beta_fast)), 0)
+    high = min(math.ceil(correction_dim(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    half = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    freq_extra = 1.0 / (theta ** half)
+    freq_inter = 1.0 / (factor * theta ** half)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp
+    inv_freq = freq_inter * (1 - keep) + freq_extra * keep
+    freqs = torch.outer(torch.arange(positions, dtype=torch.float32, device=device), inv_freq)
+    emb = torch.cat((freqs, freqs), dim=-1)
+    m = _yarn_mscale(factor, mscale) / _yarn_mscale(factor, mscale_all_dim)
+    return emb.cos() * m, emb.sin() * m
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF DeepSeek-V2's ``apply_rotary_pos_emb`` on x [..., dim]: the
+    interleaved pairs (2i, 2i+1) are first laid out as halves (i, i + dim/2),
+    then x * cos + rotate_half(x) * sin, in fp32, rounded once to x's dtype.
+    ``cos`` / ``sin`` broadcast against x ([..., dim] fp32)."""
+    d = x.shape[-1]
+    xf = x.float().unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
+    rot = torch.cat((-xf[..., d // 2:], xf[..., : d // 2]), dim=-1)
+    return (xf * cos + rot * sin).to(x.dtype)
 
 
 def dropout(

@@ -550,9 +550,10 @@ def test_wrappers_refuse_bad_inputs():
 
 NORM_SHAPES = [
     # R, D: the SigLIP2-B/16-224 vision tower (B=64 x 196), its text tower at
-    # the bucket widths 32 / 48 / 64, the fusion head's 512 and 5 x 512
+    # the bucket widths 32 / 48 / 64, the fusion head's 512 and 5 x 512; 2,048,
+    # the warp-per-row width the RMSNorm instantiation brought
     (64 * 196, 768), (64 * 32, 768), (64 * 48, 768), (64 * 64, 768),
-    (64, 512), (64, 2560), (77, 1024), (3, 24), (1, 3072),
+    (64, 512), (64, 2560), (77, 1024), (3, 24), (1, 3072), (4170, 2048),
 ]
 
 
