@@ -85,7 +85,12 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    text seq 64, 2 staged passes: 1 ``patch_embed_u8`` and 24
    ``attention_nhd`` (vision T=196 and text), all on the tensor cores, 53
    ``add_layer_norm`` and no ``flash_attention`` per batch, samples/s and a
-   profiler breakdown. Then DeepSeek-V2-Lite's text tower beside that
+   profiler breakdown; then the scoring prep (``score_prep_check``): three
+   passes of ``evaluate_logits_u8`` over a pixel cache of the JPEG fixtures
+   with a delay kernel before every copy, so that pinned buffers are freed
+   and taken again while copies from them are queued, each pass's logits
+   bit for bit the earlier prep's, the counters printed (the first pass
+   decodes every row, the others gather every row). Then DeepSeek-V2-Lite's text tower beside that
    vision tower at the published widths (``dsv2_phase``: 15.6 B parameters
    drawn in bf16 on the card) through ``evaluate_logits_u8`` at B=256 over
    the buckets 32 / 48 / 64, its launch counters zeroed first: 26
@@ -2249,6 +2254,128 @@ def siglip224_phase(torch, card: str):
         lambda: [engine(x, mask, patches[i % 2], ones, ones)
                  for i, x in enumerate(ids[:2])], 2,
     )
+    report["score_prep"] = score_prep_check(torch)
+    return report
+
+
+SCORE_PREP_ROWS = 37  # batches of 8, the last one padded
+SCORE_PREP_SLEEP_CYCLES = 20_000_000  # about 10 ms of the card's clock before each copy
+
+
+def score_prep_check(torch) -> dict:
+    """The host input of offline scoring (``fast_infer.score_batches``) on
+    the card: a two-layer SigLIP engine at 224 px in bf16 over a
+    ``CSVDataset`` of the JPEG fixtures with its pixel cache, three passes of
+    ``evaluate_logits_u8`` with a delay kernel queued before every
+    host-to-card copy, so that the prep thread frees and takes pinned
+    buffers while copies from earlier ones are still queued. Each pass's
+    logits equal, bit for bit, the engine's over the batches of the earlier
+    prep (the dataset's ``batches``, NumPy's patch rows, ``pin_memory``).
+    The first pass decodes every row and the next two gather every row from
+    the cache (``prep.decoded_rows``, ``prep.gathered_rows``)."""
+    import csv
+    import tempfile
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.data.dataset import CSVDataset
+    from multimodal_content_moderation_tpu_torch.data.images import (
+        SIGLIP_MEAN,
+        SIGLIP_STD,
+        ImagePreprocessor,
+    )
+    from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
+    from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models import siglip as tsig
+    from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_plain
+    from multimodal_content_moderation_tpu_torch.utils import profiling
+
+    classes, B, T, buckets = ["a", "b", "c"], 8, 16, (8, 12)
+
+    class WordIds:
+        """Ids from the words' characters: a stand-in tokenizer."""
+
+        def encode_batch(self, texts, max_len):
+            ids = np.zeros((len(texts), max_len), np.int32)
+            for i, t in enumerate(texts):
+                w = [2 + sum(map(ord, x)) % 598 for x in t.split()][:max_len]
+                ids[i, :len(w)] = w
+            return ids, (ids != 0).astype(np.int32)
+
+    tower = dict(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256)
+    cfg = tsig.SigLIPConfig(
+        text=tsig.SigLIPTextConfig(vocab_size=600, max_positions=T, projection_size=128, **tower),
+        vision=tsig.SigLIPVisionConfig(image_size=224, patch_size=16, **tower))
+    torch.manual_seed(0)
+    model = model_io.build_model("fusion", "siglip", classes, fusion_dim=16, device="cuda",
+                                 siglip_config=cfg)
+    model = model_io.with_performance_options(
+        model, compute_dtype="bfloat16", attention_impl="pallas").to(torch.bfloat16)
+    engine = fi.FastInferenceEngine(model, SIGLIP_MEAN, SIGLIP_STD)
+    jpegs = os.path.join(REPO, "multimodal_content_moderation_tpu_torch", "testdata", "jpeg")
+    images = sorted(f for f in os.listdir(jpegs) if f.endswith(".jpg") and f != "corrupt.jpg")
+    report = {"rows": SCORE_PREP_ROWS, "batch": B}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)  # not in a fresh checkout
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        csv_path = os.path.join(tmp, "rows.csv")
+        with open(csv_path, "w", newline="", encoding="utf-8") as f:
+            out = csv.writer(f)
+            out.writerow(["text", "image_path", "labels"])
+            for i in range(SCORE_PREP_ROWS):
+                text = " ".join(WORDS[(i * 7 + j) % len(WORDS)] for j in range(i % 15 + 1))
+                out.writerow([text, "" if i % 9 == 4 else images[i % len(images)],
+                              classes[i % 3]])
+        ds = CSVDataset(csv_path, jpegs, WordIds(),
+                        ImagePreprocessor(224, 224, SIGLIP_MEAN, SIGLIP_STD, output="uint8_hwc",
+                                          backend="native_scaled"),
+                        T, class_names=classes, cache_dir=os.path.join(tmp, "pixels"))
+
+        to_device, busy = engine.to_device, []
+
+        def held_back(x):
+            busy.append(not torch.cuda.current_stream().query())
+            torch.cuda._sleep(SCORE_PREP_SLEEP_CYCLES)
+            return to_device(x)
+
+        engine.to_device = held_back
+        passes = []
+        for _ in range(3):
+            with profiling.recording() as rec:
+                passes.append(fi.evaluate_logits_u8(engine, ds, B, num_workers=4,
+                                                    seq_buckets=buckets)[0])
+            c = rec.counters
+            report.setdefault("counters", []).append(
+                {k: c.get(k, 0) for k in ("score.rows", "prep.gathered_rows", "prep.decoded_rows")})
+        engine.to_device = to_device
+        report["copies_queued_behind_work"] = sum(busy)
+
+        # the earlier prep, one batch at a time
+        ladder = fi.bucket_ladder(buckets, T)
+        order = np.argsort(ds.attention_mask.sum(axis=1), kind="stable")
+        want = np.zeros_like(passes[0])
+        for s, batch in zip(range(0, len(ds), B),
+                            ds.batches(B, pad_to_batch=True, num_workers=4, indices=order)):
+            valid = int(batch.pop("_valid"))
+            patches = extract_patches_plain(batch.pop("pixel_values"), engine.patch_size)
+            width = fi.bucket_for(batch["attention_mask"], ladder, extra=1)
+            ids, mask, carry = fi.bucket_batch_text(batch["input_ids"], batch["attention_mask"],
+                                                    width, "siglip")
+            host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                    for a in (ids, mask, patches, batch["text_present"], batch["image_present"])]
+            want[order[s:s + valid]] = engine(*host, carry_pos=carry).cpu().numpy()[:valid]
+    print(f"score_prep: counters {report['counters']}, "
+          f"{report['copies_queued_behind_work']} copies queued behind work", flush=True)
+    n = SCORE_PREP_ROWS
+    check(report["counters"][0] == {"score.rows": n, "prep.gathered_rows": 0,
+                                    "prep.decoded_rows": n}
+          and all(c == {"score.rows": n, "prep.gathered_rows": n, "prep.decoded_rows": 0}
+                  for c in report["counters"][1:]),
+          f"score_prep: counters {report['counters']}")
+    check(report["copies_queued_behind_work"] > 0,
+          "score_prep: the prep never ran ahead of the card's copies")
+    report["max_abs_diff"] = [float(np.abs(p - want).max()) for p in passes]
+    check(all(np.array_equal(p, want) for p in passes),
+          f"score_prep: logits differ from the earlier prep's by {report['max_abs_diff']}")
     return report
 
 

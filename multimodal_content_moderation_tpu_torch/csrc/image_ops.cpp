@@ -19,6 +19,7 @@
 // Exported C ABI (every call is plain C, so ctypes releases the GIL):
 //   resize_bilinear_u8(src, h, w, c, dst, oh, ow)
 //   resize_shortest_edge_center_crop_u8(src, h, w, c, dst, out)
+//   gather_patches_u8(src, rows, B, H, W, C, p, dst, threads)
 //   ycc_to_rgb_u8(y, cb, cr, w, h, cw, ch, dst)
 //   decode_jpeg_resize_crop_u8(data, len, dst, out, scale_mode)  -> a code:
 //     0 decoded; 1-3 the bytes are not a JPEG this decoder takes (corrupt,
@@ -33,8 +34,14 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <exception>
 #include <new>
+#include <thread>
 #include <vector>
+
+#if defined(__x86_64__) || defined(__i386__)
+#include <immintrin.h>
+#endif
 
 namespace {
 
@@ -133,6 +140,107 @@ struct YccTables {
     }
   }
 };
+
+// One band of p image rows -> its (W / p) patch rows of C * p * p bytes,
+// channel-major ([C, p, p] a patch, the order of the folded embed GEMM).
+// The band is read once, row by row, and each pixel's channels are split
+// into their planes.
+void band_to_patches(const uint8_t* __restrict band, int w, int p, int c,
+                     uint8_t* __restrict dst) {
+  const size_t pp = static_cast<size_t>(p) * p, k = pp * c;
+  const size_t stride = static_cast<size_t>(w) * c;
+  const int nw = w / p;
+  for (int r = 0; r < p; ++r) {
+    const uint8_t* row = band + r * stride;
+    for (int j = 0; j < nw; ++j) {
+      const uint8_t* px = row + static_cast<size_t>(j) * p * c;
+      uint8_t* out = dst + j * k + static_cast<size_t>(r) * p;
+      for (int ci = 0; ci < c; ++ci)
+        for (int x = 0; x < p; ++x) out[ci * pp + x] = px[x * c + ci];
+    }
+  }
+}
+
+using BandFn = void (*)(const uint8_t*, int, int, int, uint8_t*);
+
+#if defined(__x86_64__) || defined(__i386__)
+// The same for RGB and p = 16 or 32, 16 pixels (48 bytes, three loads) at a
+// time: each plane is three byte shuffles ORed together. Built for SSSE3 and
+// taken only where the CPU has it (pick_band_fn).
+struct PlaneShuffles {
+  uint8_t m[3][3][16];  // [plane][load][lane]: the lane's byte of that load, or 0x80 (zero)
+  PlaneShuffles() {
+    for (int plane = 0; plane < 3; ++plane)
+      for (int load = 0; load < 3; ++load)
+        for (int i = 0; i < 16; ++i) {
+          const int k = 3 * i + plane - 16 * load;
+          m[plane][load][i] = k >= 0 && k < 16 ? static_cast<uint8_t>(k) : 0x80;
+        }
+  }
+};
+
+template <int P>
+__attribute__((target("ssse3"))) void band_to_patches_rgb16(const uint8_t* __restrict band,
+                                                            int w, int, int,
+                                                            uint8_t* __restrict dst) {
+  static const PlaneShuffles sh;
+  constexpr size_t pp = static_cast<size_t>(P) * P, k = pp * 3;
+  const size_t stride = static_cast<size_t>(w) * 3;
+  const int nw = w / P;
+  auto mask = [](const uint8_t* m) { return _mm_loadu_si128(reinterpret_cast<const __m128i*>(m)); };
+  for (int r = 0; r < P; ++r) {
+    for (int j = 0; j < nw; ++j) {
+      const uint8_t* px = band + r * stride + static_cast<size_t>(j) * P * 3;
+      uint8_t* out = dst + j * k + static_cast<size_t>(r) * P;
+      for (int x = 0; x < P; x += 16, px += 48) {
+        const __m128i a = _mm_loadu_si128(reinterpret_cast<const __m128i*>(px));
+        const __m128i b = _mm_loadu_si128(reinterpret_cast<const __m128i*>(px + 16));
+        const __m128i c = _mm_loadu_si128(reinterpret_cast<const __m128i*>(px + 32));
+        for (int plane = 0; plane < 3; ++plane) {
+          const __m128i v = _mm_or_si128(
+              _mm_or_si128(_mm_shuffle_epi8(a, mask(sh.m[plane][0])),
+                           _mm_shuffle_epi8(b, mask(sh.m[plane][1]))),
+              _mm_shuffle_epi8(c, mask(sh.m[plane][2])));
+          _mm_storeu_si128(reinterpret_cast<__m128i*>(out + plane * pp + x), v);
+        }
+      }
+    }
+  }
+}
+#endif
+
+// The routine for a (p, C): the shuffles for RGB at p = 16 or 32 where the
+// CPU has SSSE3, else the general loop.
+BandFn pick_band_fn(int p, int c) {
+#if defined(__x86_64__) || defined(__i386__)
+  if (c == 3 && __builtin_cpu_supports("ssse3")) {
+    if (p == 16) return band_to_patches_rgb16<16>;
+    if (p == 32) return band_to_patches_rgb16<32>;
+  }
+#endif
+  return band_to_patches;
+}
+
+// Bands [first, last) of the batch: band i is image i / nh's patch row i % nh.
+void gather_bands(const uint8_t* src, const int64_t* rows, int h, int w, int c, int p,
+                  uint8_t* dst, size_t first, size_t last, BandFn fn) {
+  const int nh = h / p;
+  const size_t image = static_cast<size_t>(h) * w * c;
+  const size_t band = static_cast<size_t>(p) * w * c;  // bytes in and out
+  for (size_t i = first; i < last; ++i) {
+    const int64_t row = rows[i / nh];
+    uint8_t* out = dst + i * band;
+    if (row < 0) {
+      std::memset(out, 0, band);
+      continue;
+    }
+    fn(src + static_cast<size_t>(row) * image + (i % nh) * band, w, p, c, out);
+  }
+}
+
+// A thread a batch's kBytesPerThread: a smaller share costs more to start
+// than it saves, and the threads share the host with the launching thread.
+constexpr size_t kBytesPerThread = size_t{8} << 20;
 
 }  // namespace
 
@@ -255,6 +363,37 @@ void resize_shortest_edge_center_crop_u8(const uint8_t* src, int h, int w,
                 resized.data() + (static_cast<size_t>(sy) * nw + sx0) * c,
                 static_cast<size_t>(span) * c);
   }
+}
+
+// [n, H, W, C] uint8 crops, rows `rows[0..B)` of them (a negative row is a
+// pad: zeros) -> [B, (H / p) * (W / p), C * p * p] channel-major patch rows,
+// the bytes of ops/cuda_image.extract_patches_plain. p must divide H and W;
+// the caller checks the shapes and that every row is below n. The bands are
+// split over at most `threads` threads (and the machine's cores), one for
+// each kBytesPerThread of the batch; the calling thread is one of them and
+// runs whatever a thread that could not start would have.
+void gather_patches_u8(const uint8_t* src, const int64_t* rows, int B, int h, int w, int c,
+                      int p, uint8_t* dst, int threads) {
+  const BandFn fn = pick_band_fn(p, c);
+  const size_t bands = static_cast<size_t>(B) * (h / p);
+  const size_t bytes = static_cast<size_t>(B) * h * w * c;
+  size_t n = std::max<size_t>(1, bytes / kBytesPerThread);
+  n = std::min({n, bands, static_cast<size_t>(std::max(threads, 1)),
+                static_cast<size_t>(std::max(1u, std::thread::hardware_concurrency()))});
+  std::vector<std::thread> pool;
+  size_t mine = bands;  // the calling thread runs bands [0, mine)
+  try {
+    pool.reserve(n);
+    for (size_t t = n; t-- > 1;) {
+      const size_t first = bands * t / n;
+      pool.emplace_back(gather_bands, src, rows, h, w, c, p, dst, first, mine, fn);
+      mine = first;
+    }
+  } catch (const std::exception&) {
+    // no more threads: the calling thread takes the bands left unassigned
+  }
+  gather_bands(src, rows, h, w, c, p, dst, 0, mine, fn);
+  for (auto& t : pool) t.join();
 }
 
 }  // extern "C"

@@ -66,7 +66,9 @@ class PixelCache:
 
     ``get(i)`` returns ``(array, present)`` or ``None`` on a cold entry;
     ``put(i, array, present)`` fills it. Arrays returned by ``get`` are
-    copies (safe to mutate / ship to device)."""
+    copies (safe to mutate / ship to device). ``lookup(rows)`` reads a
+    batch's flags at once and hands out the pixel array itself, for a
+    caller that gathers the rows in native code."""
 
     def __init__(
         self,
@@ -116,6 +118,15 @@ class PixelCache:
         if not self.filled[i]:
             return None
         return np.array(self.pixels[i]), float(self.present[i])
+
+    def lookup(self, rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(pixels, filled, present) for the entries ``rows``: the whole
+        cache's pixel array as a plain ndarray over the memmap (no copy, and
+        no object a row), and the rows' ``filled`` (bool) and ``present``
+        (float32) flags in one vectorised read each. A row's pixels are
+        valid where its ``filled`` flag is set."""
+        return (self.pixels.view(np.ndarray), self.filled[rows] != 0,
+                np.asarray(self.present[rows], np.float32))
 
     def put(self, i: int, arr: np.ndarray, present: float) -> None:
         self.pixels[i] = arr

@@ -38,7 +38,7 @@ import numpy as np
 from multimodal_content_moderation_tpu_torch.utils import compile_cache
 
 SRC = Path(__file__).resolve().parent.parent / "csrc" / "image_ops.cpp"
-CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-ffp-contract=off", "-pthread"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -113,6 +113,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.decode_jpeg_resize_crop_u8.restype = ctypes.c_int
     lib.ycc_to_rgb_u8.argtypes = [u8p, u8p, u8p, *[ctypes.c_int] * 4, u8p]
     lib.ycc_to_rgb_u8.restype = None
+    lib.gather_patches_u8.argtypes = [
+        u8p, ctypes.POINTER(ctypes.c_int64), *[ctypes.c_int] * 5, u8p, ctypes.c_int,
+    ]
+    lib.gather_patches_u8.restype = None
     lib.has_jpeg.argtypes = []
     lib.has_jpeg.restype = ctypes.c_int
     lib.jpeg_decoder.argtypes = []
@@ -218,6 +222,37 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     dst = np.empty((h, w, 3), np.uint8)
     lib.ycc_to_rgb_u8(_u8(y), _u8(cb), _u8(cr), w, h, cw, ch, _u8(dst))
     return dst
+
+
+def gather_patches_u8(src: np.ndarray, rows: np.ndarray, patch_size: int, out: np.ndarray,
+                      threads: int) -> np.ndarray:
+    """Rows ``rows`` of ``src`` ([n, H, W, C] uint8 crops; a row of -1 is a
+    pad of zeros) -> ``out`` ([len(rows), N, C*p*p] uint8, written in
+    place and returned), the channel-major patch rows of
+    ``ops/cuda_image.extract_patches_plain``, in one native call on up to
+    ``threads`` threads (fewer for a small batch). Raises ``ValueError`` for
+    shapes, dtypes or rows the call cannot take."""
+    lib = load()
+    p = int(patch_size)
+    if src.dtype != np.uint8 or src.ndim != 4 or not src.flags.c_contiguous:
+        raise ValueError(f"gather_patches_u8: want C-contiguous uint8 [n, H, W, C], got "
+                         f"{src.dtype} {src.shape}")
+    n, h, w, c = src.shape
+    if p <= 0 or h % p or w % p:
+        raise ValueError(f"gather_patches_u8: patch size {p} does not divide {h}x{w}")
+    rows = np.ascontiguousarray(rows, np.int64)
+    want = (len(rows), (h // p) * (w // p), c * p * p)
+    if (out.dtype != np.uint8 or out.shape != want or not out.flags.c_contiguous
+            or not out.flags.writeable):
+        raise ValueError(f"gather_patches_u8: want a writable C-contiguous uint8 {want} "
+                         f"output, got {out.dtype} {out.shape}")
+    if len(rows) and (rows.min() < -1 or rows.max() >= n):
+        raise ValueError(f"gather_patches_u8: rows {rows.min()}..{rows.max()} outside "
+                         f"-1..{n - 1}")
+    if out.size:
+        lib.gather_patches_u8(_u8(src), rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                              len(rows), h, w, c, p, _u8(out), int(threads))
+    return out
 
 
 def resize_bilinear(src: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

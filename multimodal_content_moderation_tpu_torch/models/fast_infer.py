@@ -3,10 +3,13 @@
 Raw uint8 patch rows cross to the device (4x fewer bytes than fp32
 pixels); the fused normalise + patch-embed kernel embeds them and the rest
 of the towers run as usual. ``evaluate_logits_u8`` streams a dataset
-through the engine with host preparation on a background thread, pinned
-host buffers, non-blocking copies and at most two batches in flight, with
-optional exact text-length buckets (with the SigLIP carry column; CLIP's
-and DeepSeek-V2's causal towers truncate).
+through the engine with host preparation (``score_batches``) on a
+background thread, pinned host buffers, non-blocking copies and at most two
+batches in flight, with optional exact text-length buckets (with the SigLIP
+carry column; CLIP's and DeepSeek-V2's causal towers truncate). Over a
+dataset's pixel cache a batch's patch rows are gathered from the cache
+straight into pinned memory by one native call outside the interpreter
+lock.
 
 Under a mesh (``parallel/mesh.py``) the rows are split over the data axis
 as the JAX engine's ``shard_map`` splits them: each data rank reads,
@@ -19,6 +22,7 @@ index on the grid, never its rank number or its device.
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import itertools
 from typing import List, Optional, Sequence, Tuple
 
@@ -26,7 +30,10 @@ import numpy as np
 import torch
 
 from multimodal_content_moderation_tpu_torch.models.u8wire import fold_for_model
-from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
+from multimodal_content_moderation_tpu_torch.ops.cuda_image import (
+    extract_patches_u8,
+    gather_patches_u8,
+)
 from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, count, is_recording
 
 
@@ -227,7 +234,7 @@ def _count_batch(model, host, valid: int, width: int) -> None:
     count("score.h2d_bytes", sum(v.numel() * v.element_size() for v in host.values()))
 
 
-def _readback(logits, host, batch: int, width: int, counters=None) -> np.ndarray:
+def _readback(logits, batch: int, width: int, counters=None) -> np.ndarray:
     """The batch's logits on the host, and the device counters its forward
     left (``FastInferenceEngine.last_counters``), read once the logits are."""
     with annotate("score.readback", batch=batch, width=width):
@@ -235,6 +242,117 @@ def _readback(logits, host, batch: int, width: int, counters=None) -> np.ndarray
         for name, value in (counters or {}).items():
             count(name, int(value))
         return out
+
+
+def _padded(a: np.ndarray, n: int) -> np.ndarray:
+    """``a`` with zero rows appended up to ``n`` rows."""
+    if len(a) == n:
+        return a
+    out = np.zeros((n,) + a.shape[1:], a.dtype)
+    out[: len(a)] = a
+    return out
+
+
+def _load_cached(dataset, idx: np.ndarray, batch_size: int, pool):
+    """``prep.load`` over a dataset's pixel cache: the rows the cache lacks
+    decoded (and cached) through ``pool`` first, then every row's flags in
+    one read. Returns (the batch's text, flags and labels as
+    ``CSVDataset.batches`` pads them, the cache's pixel array, the rows to
+    gather from it with -1 for each pad, the rows decoded)."""
+    cache = dataset.cache
+    src, filled, present = cache.lookup(idx)
+    cold = idx[~filled]
+    if len(cold):
+        list(pool.map(dataset.load_image, cold))
+        src, filled, present = cache.lookup(idx)
+    batch = {
+        "input_ids": _padded(dataset.input_ids[idx], batch_size),
+        "attention_mask": _padded(dataset.attention_mask[idx], batch_size),
+        "text_present": _padded(dataset.text_present[idx], batch_size),
+        "image_present": _padded(present, batch_size),
+        "labels": dataset.labels[idx],
+    }
+    rows = np.full(batch_size, -1, np.int64)
+    rows[: len(idx)] = idx
+    return batch, src, rows, len(cold)
+
+
+def score_batches(engine: FastInferenceEngine, dataset, batch_size: int,
+                  rows: Optional[np.ndarray] = None, ladder: Optional[Sequence[int]] = None,
+                  num_workers: int = 8, parent: Optional[int] = None):
+    """The host half of ``evaluate_logits_u8``: for each batch of
+    ``batch_size`` rows of ``dataset`` in the order ``rows`` (every row in
+    order where None; the last batch padded), ``(valid, labels, host, carry,
+    width)``. ``host`` holds the engine's inputs as tensors, pinned where the
+    engine is on the card; with a ``ladder`` the text shrinks to the batch's
+    bucket (``bucket_for``, ``bucket_batch_text``: ``carry`` and ``width``).
+
+    Over a pixel cache (a ``CSVDataset`` with ``cache_dir``) the rows the
+    cache lacks are decoded first on ``num_workers`` threads; then one
+    native call (``gather_patches_u8``, on up to ``num_workers`` threads,
+    outside the interpreter lock) writes every row's patch rows from the
+    cache into the pinned buffer. Any other dataset's ``batches`` stack its
+    crops, and the same call lays them out.
+
+    Spans (children of ``parent``): ``prep.load`` (the cache's flags and
+    any decode; the dataset's batch), ``prep.patches`` (the gather),
+    ``prep.bucket``, ``prep.pin`` (the small arrays into pinned memory).
+    Counters: ``prep.gathered_rows`` (rows taken from the cache without a
+    decode) and ``prep.decoded_rows`` (the others); they add up to the rows
+    scored. The pinned buffers come from PyTorch's caching host allocator,
+    which holds a freed buffer back until the copies recorded on it are
+    done, so nothing here keeps them alive."""
+    backend = engine.model.backend
+    pin = engine.device.type == "cuda"
+    order = np.arange(len(dataset)) if rows is None else np.asarray(rows)
+    cached = getattr(dataset, "cache", None) is not None
+    workers = max(int(num_workers), 1)
+    batches = None if cached else dataset.batches(
+        batch_size, pad_to_batch=True, num_workers=num_workers, indices=order)
+    pool = cf.ThreadPoolExecutor(max_workers=workers) if cached else None
+    try:
+        for i, start in enumerate(range(0, len(order), batch_size)):
+            idx = order[start: start + batch_size]
+            valid = len(idx)
+            with annotate("prep.load", parent=parent, batch=i) as load:
+                if cached:
+                    batch, src, pixel_rows, decoded = _load_cached(dataset, idx, batch_size, pool)
+                else:
+                    batch = next(batches)
+                    src, pixel_rows, decoded = batch.pop("pixel_values"), None, valid
+                    batch.pop("_valid")
+            labels = batch.pop("labels")[:valid]
+            with annotate("prep.patches", parent=parent, batch=i) as patch:
+                _, H, W, C = src.shape
+                p = engine.patch_size
+                patches = torch.empty((batch_size, (H // p) * (W // p), C * p * p),
+                                      dtype=torch.uint8, pin_memory=pin)
+                gather_patches_u8(src, pixel_rows, p, out=patches.numpy(), threads=workers)
+            carry, width = None, batch["input_ids"].shape[1]
+            with annotate("prep.bucket", parent=parent, batch=i) as bucket:
+                if ladder is not None:
+                    width = bucket_for(batch["attention_mask"], ladder,
+                                       extra=bucket_extra(backend))
+                    batch["input_ids"], batch["attention_mask"], carry = bucket_batch_text(
+                        batch["input_ids"], batch["attention_mask"], width, backend
+                    )
+            with annotate("prep.pin", parent=parent, batch=i, width=width):
+                host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+                if pin:
+                    host = {k: v.pin_memory() for k, v in host.items()}
+                host["patches_u8"] = patches
+            if is_recording():
+                for span in (load, patch, bucket):
+                    span.set(width=width)
+                count("prep.gathered_rows", valid - decoded)
+                count("prep.decoded_rows", decoded)
+                _count_batch(engine.model, host, valid, width)
+            yield valid, labels, host, carry, width
+    finally:
+        if batches is not None:
+            batches.close()  # the dataset's pool, as its end would
+        if pool is not None:
+            pool.shutdown(wait=False)
 
 
 def evaluate_logits_u8(
@@ -268,7 +386,7 @@ def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
     the parent of the prep thread's spans)."""
     from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_producer
 
-    indices = None
+    indices = ladder = None
     backend = engine.model.backend
     full_T = dataset.input_ids.shape[1]
     if seq_buckets and buckets_exact(backend):
@@ -281,44 +399,14 @@ def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
     split = rank_batch != batch_size  # several data ranks share the rows
     order = np.arange(n) if indices is None else indices
     rows = order[positions] if split or indices is not None else None
-    pin = engine.device.type == "cuda"
 
-    # Host preparation (decode, patch extraction, pinning) runs two batches
-    # ahead on a background thread, overlapping the device work.
-    n_batches = -(-(n if rows is None else len(rows)) // rank_batch)
-
-    def prep():
-        batches = dataset.batches(
-            rank_batch, pad_to_batch=True, num_workers=num_workers, indices=rows,
-        )
-        for i in range(n_batches):
-            with annotate("prep.load", parent=root, batch=i) as load:
-                batch = next(batches)
-            valid = int(batch.pop("_valid"))
-            labels = batch.pop("labels")[:valid]
-            with annotate("prep.patches", parent=root, batch=i) as patch:
-                patches = engine.patches_from_hwc(batch.pop("pixel_values"))
-            carry, width = None, batch["input_ids"].shape[1]
-            with annotate("prep.bucket", parent=root, batch=i) as bucket:
-                if indices is not None:
-                    width = bucket_for(batch["attention_mask"], ladder,
-                                       extra=bucket_extra(backend))
-                    batch["input_ids"], batch["attention_mask"], carry = bucket_batch_text(
-                        batch["input_ids"], batch["attention_mask"], width, backend
-                    )
-            with annotate("prep.pin", parent=root, batch=i, width=width):
-                host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
-                host["patches_u8"] = torch.from_numpy(patches)
-                if pin:
-                    host = {k: v.pin_memory() for k, v in host.items()}
-            if is_recording():
-                for span in (load, patch, bucket):
-                    span.set(width=width)
-                _count_batch(engine.model, host, valid, width)
-            yield valid, labels, host, carry, width
-        batches.close()  # the dataset's pool, as its end would
-
-    q, _END, err, cancel = bounded_producer(prep, size=2)
+    # the host input runs two batches ahead on a background thread,
+    # overlapping the device work
+    q, _END, err, cancel = bounded_producer(
+        lambda: score_batches(engine, dataset, rank_batch, rows=rows, ladder=ladder,
+                              num_workers=num_workers, parent=root),
+        size=2,
+    )
 
     all_logits, all_labels, valids, outs = [], [], [], []
     try:
@@ -338,8 +426,7 @@ def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
                     host["input_ids"], host["attention_mask"], host["patches_u8"],
                     host["text_present"], host["image_present"], carry_pos=carry,
                 )
-            # the pinned host buffers stay referenced until their batch is read
-            outs.append((logits, host, i, width, engine.last_counters))
+            outs.append((logits, i, width, engine.last_counters))
             if len(outs) > 2:
                 all_logits.append(_readback(*outs.pop(0)))
     finally:

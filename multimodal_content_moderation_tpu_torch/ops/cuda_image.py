@@ -51,15 +51,46 @@ def fold_norm_into_embed(
     return wf, bf
 
 
-def extract_patches_u8(images_hwc: np.ndarray, patch_size: int) -> np.ndarray:
-    """Host-side: [B, H, W, C] uint8 -> [B, N, C*p*p] patch rows in the
-    channel-major order the folded GEMM expects."""
+def extract_patches_plain(images_hwc: np.ndarray, patch_size: int) -> np.ndarray:
+    """Plain version of ``extract_patches_u8``: NumPy's strided copy."""
     B, H, W, C = images_hwc.shape
     p = patch_size
     nh, nw = H // p, W // p
     x = images_hwc.reshape(B, nh, p, nw, p, C)
     x = x.transpose(0, 1, 3, 5, 2, 4)  # [B, nh, nw, C, p, p]
     return np.ascontiguousarray(x.reshape(B, nh * nw, C * p * p))
+
+
+def gather_patches_u8(src: np.ndarray, rows: Optional[np.ndarray], patch_size: int,
+                      out: Optional[np.ndarray] = None, threads: int = 8) -> np.ndarray:
+    """Host-side: rows ``rows`` of ``src`` ([n, H, W, C] uint8 crops; all of
+    them where ``rows`` is None; a row of -1 is a pad of zeros) -> [B, N,
+    C*p*p] patch rows in the channel-major order the folded GEMM expects,
+    written into ``out`` where given (a pinned buffer's view, say).
+
+    One native call on up to ``threads`` threads, outside the interpreter
+    lock (``data/native.gather_patches_u8``), wherever the host library
+    loads; else ``extract_patches_plain`` of the gathered rows."""
+    from multimodal_content_moderation_tpu_torch.data import native
+
+    n, H, W, C = src.shape
+    p = patch_size
+    rows = np.arange(n, dtype=np.int64) if rows is None else np.asarray(rows, np.int64)
+    if out is None:
+        out = np.empty((len(rows), (H // p) * (W // p), C * p * p), np.uint8)
+    if native.available():
+        return native.gather_patches_u8(np.ascontiguousarray(src), rows, p, out, threads)
+    keep = rows >= 0
+    out[~keep] = 0
+    out[keep] = extract_patches_plain(src[rows[keep]], p)
+    return out
+
+
+def extract_patches_u8(images_hwc: np.ndarray, patch_size: int) -> np.ndarray:
+    """Host-side: [B, H, W, C] uint8 -> [B, N, C*p*p] patch rows in the
+    channel-major order the folded GEMM expects (``gather_patches_u8`` of
+    every row)."""
+    return gather_patches_u8(images_hwc, None, patch_size)
 
 
 def patch_embed_reference(
