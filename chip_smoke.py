@@ -1961,7 +1961,7 @@ def siglip224_train_phase(torch, card: str):
     val_ds = InMemoryDataset(64 - 7, seed=11, T=64, siglip=True, stats=stats)
 
     def new_model(seed=0, device="cuda", **perf):
-        m = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=seed,
+        m = FusionModel.create("siglip", num_labels=len(CLASSES), encoder_config=cfg, seed=seed,
                                device=device)
         return model_io.with_performance_options(m, **perf)
 
@@ -2034,7 +2034,7 @@ def siglip_phase(torch, card: str):
     shutil.rmtree(ckpt, ignore_errors=True)
     os.makedirs(ckpt)
     cfg = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_384)
-    src = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=0,
+    src = FusionModel.create("siglip", num_labels=len(CLASSES), encoder_config=cfg, seed=0,
                              device="cuda")
     torch.save(export.reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     with open(os.path.join(ckpt, "config.json"), "w") as f:
@@ -2046,7 +2046,7 @@ def siglip_phase(torch, card: str):
     t0 = time.perf_counter()
     model, _ = model_io.load_checkpoint(ckpt, device="cuda")
     report["load_checkpoint_s"] = time.perf_counter() - t0
-    check(model.backend == "siglip" and model.image_size == 384
+    check(model.backend == src.backend and model.image_size == 384
           and model.text_max_positions == 64, "load_checkpoint: not the SigLIP-384 config")
     src_sd, got_sd = src.state_dict(), model.state_dict()
     check(src_sd.keys() == got_sd.keys(), "load_checkpoint: parameter names differ")
@@ -2174,7 +2174,7 @@ def siglip224_phase(torch, card: str):
     shutil.rmtree(ckpt, ignore_errors=True)
     os.makedirs(ckpt)
     cfg = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224)
-    src = FusionModel.create("siglip", num_labels=len(CLASSES), siglip_config=cfg, seed=0,
+    src = FusionModel.create("siglip", num_labels=len(CLASSES), encoder_config=cfg, seed=0,
                              device="cuda")
     torch.save(export.reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     del src
@@ -2183,8 +2183,8 @@ def siglip224_phase(torch, card: str):
     with open(os.path.join(ckpt, "inference_config.json"), "w") as f:
         json.dump({"backend": "siglip", "head": "fusion", "fusion_dim": 512,
                    "class_names": CLASSES, "max_text_length": 64}, f)
-    model, _ = model_io.load_checkpoint(ckpt, device="cuda")
-    check(model.backend == "siglip" and model.image_size == 224
+    model, icfg = model_io.load_checkpoint(ckpt, device="cuda")
+    check(model.backend == icfg["backend"] and model.image_size == 224
           and model.text_max_positions == 64, "load_checkpoint: not the SigLIP-224 config")
 
     # fp32 on the card (kernels, TF32 off) against the same checkpoint on
@@ -2308,7 +2308,7 @@ def score_prep_check(torch) -> dict:
         vision=tsig.SigLIPVisionConfig(image_size=224, patch_size=16, **tower))
     torch.manual_seed(0)
     model = model_io.build_model("fusion", "siglip", classes, fusion_dim=16, device="cuda",
-                                 siglip_config=cfg)
+                                 encoder_config=cfg)
     model = model_io.with_performance_options(
         model, compute_dtype="bfloat16", attention_impl="pallas").to(torch.bfloat16)
     engine = fi.FastInferenceEngine(model, SIGLIP_MEAN, SIGLIP_STD)
@@ -2425,7 +2425,7 @@ def dsv2_phase(torch, card: str):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = FusionModel.create("deepseek_v2", num_labels=len(CLASSES), seed=0, device="cuda",
-                               dtype=torch.bfloat16, deepseek_config=cfg)
+                               dtype=torch.bfloat16, encoder_config=cfg)
     model = model_io.with_performance_options(model, compute_dtype="bfloat16",
                                               attention_impl="pallas")
     for p in model.parameters():
@@ -2434,7 +2434,7 @@ def dsv2_phase(torch, card: str):
     report["init_s"] = time.perf_counter() - t0
     report["parameters"] = sum(p.numel() for p in model.parameters())
     report["weights_gib"] = torch.cuda.memory_allocated() / 2**30
-    check(model.backend == "deepseek_v2" and report["parameters"] > 15.5e9,
+    check(isinstance(model.encoder_config, DeepSeekV2Config) and report["parameters"] > 15.5e9,
           f"dsv2: backend {model.backend}, {report['parameters']} parameters")
     engine = fi.FastInferenceEngine(model, SIGLIP_MEAN, SIGLIP_STD)
     data = InMemoryDataset(DSV2_BATCHES * DSV2_BATCH - 5, seed=12, T=64, siglip=True,
@@ -2598,7 +2598,7 @@ def write_serving_checkpoint(torch, root: str, hf_cfg: dict, device: str,
     os.makedirs(ckpt)
     mtl = MTL_HEAD if head == "mtl" else {}
     src = model_io.build_model(head, "clip", CLASSES, seed=3, device=device,
-                               clip_config=model_io.clip_config_from_dict(hf_cfg), **mtl)
+                               encoder_config=model_io.clip_config_from_dict(hf_cfg), **mtl)
     torch.save(export.reference_state_dict(src), os.path.join(ckpt, "pytorch_model.bin"))
     del src
     size = hf_cfg["vision_config"]["image_size"]
@@ -3220,7 +3220,7 @@ def mtl_train_phase(torch, card: str):
 
     def new_model(seed=0, device="cuda", **perf):
         m = model_io.build_model("mtl", "clip", CLASSES, seed=seed, device=device,
-                                 clip_config=model_io.clip_config_from_dict(HF_CLIP_B32),
+                                 encoder_config=model_io.clip_config_from_dict(HF_CLIP_B32),
                                  **MTL_HEAD)
         return model_io.with_performance_options(m, **perf).replace(
             image_mean=CLIP_MEAN, image_std=CLIP_STD)
@@ -3320,12 +3320,13 @@ def mtl_eval_phase(torch, card: str, root: str):
         CLIP_MEAN, CLIP_STD, SIGLIP_MEAN, SIGLIP_STD)
     from multimodal_content_moderation_tpu_torch.models import fast_infer as fi
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.backbones import multitask
     from multimodal_content_moderation_tpu_torch.models.multitask import MultiTaskModel
 
     report = {"card": card}
     ckpt = write_serving_checkpoint(torch, root, HF_CLIP_B32, "cuda", head="mtl")
     model, cfg = model_io.load_checkpoint(ckpt, device="cuda")
-    check(isinstance(model, MultiTaskModel) and model.backend == "clip"
+    check(isinstance(model, MultiTaskModel) and model.backend == cfg["backend"]
           and model.head_hidden_dim == MTL_HEAD["head_hidden_dim"] and model.learnable_task_weights
           and "text_projection" not in model.backbone,
           "load_checkpoint: not the multi-task CLIP model of the checkpoint")
@@ -3389,9 +3390,10 @@ def mtl_eval_phase(torch, card: str, root: str):
 
     # (c) SigLIP2-B/16-224, the shared "auto" backbone
     cfg224 = model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224)
-    auto = model_io.build_model("mtl", "siglip", CLASSES, siglip_config=cfg224, seed=4,
+    auto = model_io.build_model("mtl", "siglip", CLASSES, encoder_config=cfg224, seed=4,
                                 device="cuda", **MTL_HEAD)
-    check(auto.backend == "auto", f"build_model mtl siglip gave backend {auto.backend}")
+    check(auto.backend == multitask("siglip").backend,
+          f"build_model mtl siglip gave backend {auto.backend}")
     auto = model_io.with_performance_options(
         auto, compute_dtype="bfloat16", attention_impl="pallas").to(torch.bfloat16)
     engine = fi.FastInferenceEngine(auto, SIGLIP_MEAN, SIGLIP_STD)
@@ -3560,7 +3562,7 @@ def write_generic_dirs(torch, root: str):
         with open(path, "w") as f:
             json.dump(obj, f)
     src = FusionModel.create("generic", num_labels=len(CLASSES), seed=0, device="cuda",
-                             generic_config=GenericDualConfig.from_dict(HF_VTDE_B16))
+                             encoder_config=GenericDualConfig.from_dict(HF_VTDE_B16))
     export.export_safetensors(src, os.path.join(ckpt, "model.safetensors"))
     return enc, ckpt, src
 
@@ -3610,7 +3612,7 @@ def generic_eval_phase(torch, card: str, enc: str, ckpt: str, src):
     model, cfg = model_io.load_checkpoint(ckpt, device="cuda")
     report["load_checkpoint_s"] = time.perf_counter() - t0
     src_sd, got_sd = src.state_dict(), model.state_dict()
-    check(src_sd.keys() == got_sd.keys() and model.backend == "generic",
+    check(src_sd.keys() == got_sd.keys() and model.backend == src.backend,
           "load_checkpoint: not the generic model of the checkpoint")
     for name, x in src_sd.items():
         check(torch.equal(x, got_sd[name]), f"load_checkpoint: {name} differs")
@@ -3702,7 +3704,7 @@ def _generic_model(torch, head="fusion", seed=0, device="cuda", text=None, **per
 
     cfg = GenericDualConfig.from_dict({**HF_VTDE_B16, **({"text_config": text} if text else {})})
     m = model_io.build_model(head, "generic", CLASSES, seed=seed, device=device,
-                             generic_config=cfg, **(MTL_HEAD if head == "mtl" else {}))
+                             encoder_config=cfg, **(MTL_HEAD if head == "mtl" else {}))
     return model_io.with_performance_options(m, **perf).replace(
         image_mean=SIGLIP_MEAN, image_std=SIGLIP_STD)
 
@@ -3768,8 +3770,8 @@ def generic_train_phase(torch, card: str):
     grads = {}
     for device in ("cuda", "cpu"):
         m = _generic_model(torch, seed=3, device="cpu", attention_impl="pallas")
-        t = m.generic_config.text
-        m = m.replace(generic_config=dataclasses.replace(m.generic_config, text=dataclasses.replace(
+        t = m.encoder_config.text
+        m = m.replace(encoder_config=dataclasses.replace(m.encoder_config, text=dataclasses.replace(
             t, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0))).to(device)
         batch = _device_batch(torch, rows, np.arange(4), 16)
         if device == "cpu":
@@ -3837,6 +3839,7 @@ def generic_mtl_phase(torch, card: str):
     towers: ``Trainer.train`` for 2 u8 micro-steps (B=32 x 2, bf16, the
     kernels) and one eval batch: 1 / 12 / 12 launches per micro-step and 1 +
     24 per eval batch, on the tensor cores."""
+    from multimodal_content_moderation_tpu_torch.models.multitask import MultiTaskModel
     from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs
     from multimodal_content_moderation_tpu_torch.training.metrics import make_compute_metrics_mtl
 
@@ -3849,7 +3852,7 @@ def generic_mtl_phase(torch, card: str):
         early_stopping=False, wire="u8", num_workers=4, seed=0,
     )
     model = _generic_model(torch, head="mtl", compute_dtype="bfloat16", attention_impl="pallas")
-    check(model.backend == "generic" and "text_projection" not in model.backbone
+    check(isinstance(model, MultiTaskModel) and "text_projection" not in model.backbone
           and model.head["proj_t"]["w"].shape[0] == 768,
           "the multi-task generic model does not pool the raw towers")
 
@@ -4237,7 +4240,7 @@ def other_int8_phase(torch, card: str):
         if name == "siglip224":
             src = FusionModel.create(
                 "siglip", num_labels=len(CLASSES), seed=5, device="cuda",
-                siglip_config=model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224))
+                encoder_config=model_io.siglip_config_from_dict(HF_SIGLIP2_B16_224))
             data = InMemoryDataset(2 * B, seed=43, T=64, siglip=True)
         else:
             src = _generic_model(torch, seed=5)

@@ -6,13 +6,8 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional, Tuple
 
-from multimodal_content_moderation_tpu_torch.data.images import (
-    CLIP_MEAN,
-    CLIP_STD,
-    SIGLIP_MEAN,
-    SIGLIP_STD,
-    ImagePreprocessor,
-)
+from multimodal_content_moderation_tpu_torch.data.images import ImagePreprocessor
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone
 from multimodal_content_moderation_tpu_torch.utils.config import infer_size, load_json
 
 
@@ -31,10 +26,10 @@ def resolve_encoder_dir(model_cfg: Dict[str, Any]) -> Optional[str]:
 def image_stats_from_dir(
     encoder_dir: Optional[str], backend: str
 ) -> Tuple[Tuple[int, int], tuple, tuple]:
-    """((H, W), mean, std) from preprocessor_config.json, with per-backend
-    defaults (CLIP's stats, SigLIP's 0.5 / 0.5)."""
+    """((H, W), mean, std) from preprocessor_config.json, with the family's
+    defaults (``Backbone.image_stats``)."""
     size = (224, 224)
-    mean, std = (CLIP_MEAN, CLIP_STD) if backend == "clip" else (SIGLIP_MEAN, SIGLIP_STD)
+    mean, std = backbone(backend).image_stats
     if encoder_dir:
         p = os.path.join(encoder_dir, "preprocessor_config.json")
         if os.path.exists(p):

@@ -113,9 +113,9 @@ def main(argv=None):
     from multimodal_content_moderation_tpu_torch.data.images import ImagePreprocessor
     from multimodal_content_moderation_tpu_torch.data.tokenizer import load_tokenizer
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.backbones import backbone
     from multimodal_content_moderation_tpu_torch.models.fast_infer import (
         FastInferenceEngine,
-        buckets_exact,
         evaluate_logits_u8,
         parse_seq_buckets,
     )
@@ -174,7 +174,7 @@ def main(argv=None):
     print(f"Test samples: {len(test_ds)}")
 
     explicit = (args.seq_buckets or "off").strip().lower() not in ("auto", "off", "none", "")
-    full_width = args.engine != "fast" or not buckets_exact(model.backend)
+    full_width = args.engine != "fast" or not backbone(model.backend).exact_buckets
     if explicit and full_width:
         # an explicit ladder that does nothing would be a trap ("auto", the
         # default, stays quiet), as the JAX CLI says

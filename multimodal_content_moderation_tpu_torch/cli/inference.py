@@ -71,10 +71,10 @@ class MultiModalClassifier:
         import torch
 
         from multimodal_content_moderation_tpu_torch.models import model_io
+        from multimodal_content_moderation_tpu_torch.models.backbones import backbone
         from multimodal_content_moderation_tpu_torch.models.fast_infer import (
             FastInferenceEngine,
             bucket_ladder,
-            buckets_exact,
             parse_seq_buckets,
         )
 
@@ -115,6 +115,7 @@ class MultiModalClassifier:
         )
         self.batch_size = batch_size
         self.backend = self.config.get("backend", "clip")
+        self.family = backbone(model.backend)
 
         enc_dir = encoder_dir or self.config.get("encoder_dir") or checkpoint_dir
         self.tokenizer = load_tokenizer(enc_dir)
@@ -143,7 +144,7 @@ class MultiModalClassifier:
         self._bucket_ladder: Optional[List[int]] = None
         buckets = parse_seq_buckets(seq_buckets)
         if buckets is not None:
-            if self.engine is None or not buckets_exact(model.backend):
+            if self.engine is None or not self.family.exact_buckets:
                 # 'auto' is the default and silently inapplicable; an explicit
                 # ladder deserves a signal
                 if (seq_buckets or "").strip().lower() != "auto":
@@ -248,7 +249,6 @@ class MultiModalClassifier:
         if self.engine is not None:
             from multimodal_content_moderation_tpu_torch.models.fast_infer import (
                 bucket_batch_text,
-                bucket_extra,
                 bucket_for,
             )
 
@@ -256,7 +256,7 @@ class MultiModalClassifier:
             ids, mask = batch["input_ids"], batch["attention_mask"]
             carry = None
             if self._bucket_ladder:
-                b = bucket_for(mask, self._bucket_ladder, extra=bucket_extra(self.backend))
+                b = bucket_for(mask, self._bucket_ladder, extra=self.family.bucket_extra)
                 ids, mask, carry = bucket_batch_text(ids, mask, b, self.backend)
             logits = self.engine(
                 np.ascontiguousarray(ids), np.ascontiguousarray(mask), patches,
@@ -278,21 +278,17 @@ class MultiModalClassifier:
         """The kernels this classifier's forward can launch: ``patch_embed_u8``
         on the fast engine; with ``attention="pallas"``, ``attention_nhd``,
         and ``flash_attention`` where a tower runs past ``MAX_SEQ`` positions
-        (a SigLIP vision tower at 384 px; never CLIP at 224)."""
+        (a SigLIP vision tower at 384 px; never CLIP at 224); and the
+        family's own (``Backbone.kernels``)."""
         from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ
 
         kernels = ["patch_embed_u8"] if self.engine is not None else []
         if self.attention == "pallas":
-            vision = self.model.encoder_config.vision
-            # CLIP and the ViT prepend a class token; SigLIP does not
-            positions = ((vision.image_size // vision.patch_size) ** 2
-                         + (self.backend in ("clip", "generic")))
+            positions = self.family.vision_positions(self.model.encoder_config)
             kernels.append("attention_nhd")
             if max(positions, self.max_len) > MAX_SEQ:
                 kernels.append("flash_attention")
-        if self.backend == "deepseek_v2":  # its RMSNorms and its expert layer
-            kernels += ["add_layer_norm", "moe"]
-        return kernels
+        return kernels + list(self.family.kernels)
 
     def warmup(self) -> int:
         """Make the first request as fast as the later ones: on the card,
@@ -307,11 +303,9 @@ class MultiModalClassifier:
             _build.build(self.eval_kernels())
         self.preproc.warmup()
         widths = list(self._bucket_ladder) if self._bucket_ladder else [self.max_len]
-        from multimodal_content_moderation_tpu_torch.models.fast_infer import bucket_extra
-
         # SigLIP rungs reserve one carry column: a row of w-1 real tokens
         # lands exactly on rung w
-        extra = bucket_extra(self.backend)
+        extra = self.family.bucket_extra
         zero_pix = self.preproc.zero_output()
         for w in widths:
             mask = np.zeros((self.batch_size, self.max_len), np.int32)

@@ -169,7 +169,7 @@ def main(argv=None) -> Dict[str, Any]:
     )
     from multimodal_content_moderation_tpu_torch.data.dataset import CSVDataset
     from multimodal_content_moderation_tpu_torch.models import model_io
-    from multimodal_content_moderation_tpu_torch.models.fusion import config_field
+    from multimodal_content_moderation_tpu_torch.models.backbones import backbone
     from multimodal_content_moderation_tpu_torch.ops.losses import logit_adjust
     from multimodal_content_moderation_tpu_torch.parallel.mesh import local_device
     from multimodal_content_moderation_tpu_torch.training.loop import TrainArgs, Trainer
@@ -235,13 +235,13 @@ def main(argv=None) -> Dict[str, Any]:
     class_names = train_ds.class_names
 
     # training.text_fit: shrink the static text width to the data's longest
-    # row (a multiple of 8). Exact for CLIP: causal text tower + EOS pooling;
-    # SigLIP pools the last position, so its pads are not inert
+    # row (a multiple of 8), where that is exact (``Backbone.text_fit_exact``)
     text_fit = str(train_cfg.get("text_fit", "off") or "off").lower()
-    if text_fit in ("auto", "on", "true", "1") and model_cfg["backend"] != "clip":
+    if text_fit in ("auto", "on", "true", "1") and not backbone(
+            model_cfg["backend"]).text_fit_exact:
         logger.warning(
-            "training.text_fit ignored: requires the CLIP backend (causal + EOS "
-            "pooling); backend=%s pads are not inert", model_cfg["backend"],
+            "training.text_fit ignored: requires a causal text tower pooled at a real "
+            "token (CLIP); backend=%s pads are not inert", model_cfg["backend"],
         )
     elif text_fit in ("auto", "on", "true", "1"):
         splits = [d for d in (train_ds, val_ds, test_ds) if d is not None]
@@ -281,7 +281,7 @@ def main(argv=None) -> Dict[str, Any]:
         seed=seed, device=device,
         head_hidden_dim=model_cfg.get("head_hidden_dim", 0) or 0,
         learnable_task_weights=model_cfg.get("learnable_task_weights", False),
-        **{config_field(backend): enc_config},
+        encoder_config=enc_config,
     )
     if wire == "u8":
         # the normalisation stats live in the model, folded into the patch

@@ -3,24 +3,37 @@
 Semantics match HF ``transformers.CLIPModel``, as the JAX package's
 ``models/clip.py`` does: causal text tower pooled at the first EOS, ViT
 with a CLS token, pre-LN and post-LN on the CLS token, and both
-projections. The vision trunk starts from embedded patch tokens: the
-uint8 wire path of ``models/u8wire.py`` embeds them on the card, the pixel
-path (``clip_vision_hidden``) patchifies normalised fp32 NCHW pixels and
-applies the ``patch_embedding`` dense.
+projections. The vision trunk starts from embedded patch tokens, which
+``models/u8wire.image_tokens`` makes from either wire: uint8 patch rows
+embedded on the card, or normalised fp32 NCHW pixels patchified through the
+``patch_embedding`` dense. The reference (Hugging Face) layout
+is read and written at the end: ``CLIPModel`` names, the bare towers of the
+multi-task checkpoint under ``tower_txt.`` / ``tower_img.``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
+from multimodal_content_moderation_tpu_torch.models.params import (
+    _conv_out,
+    _conv_patch_embed,
+    _f32,
+    _linear,
+    _linear_out,
+    _ln,
+    _ln_out,
+    _strip_prefix,
+    _t,
+    _top_level_out,
+)
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import NEG_INF
 from multimodal_content_moderation_tpu_torch.ops.layers import (
     dense,
     layer_norm,
-    patchify,
     transformer_block,
 )
 from multimodal_content_moderation_tpu_torch.parallel.collectives import vocab_parallel_lookup
@@ -70,36 +83,6 @@ class CLIPConfig:
     def base_patch32() -> "CLIPConfig":
         """openai/clip-vit-base-patch32."""
         return CLIPConfig()
-
-    @staticmethod
-    def from_hf(cfg) -> "CLIPConfig":
-        """Build from a ``transformers.CLIPConfig``."""
-        t, v = cfg.text_config, cfg.vision_config
-        return CLIPConfig(
-            text=CLIPTextConfig(
-                vocab_size=t.vocab_size,
-                hidden_size=t.hidden_size,
-                num_layers=t.num_hidden_layers,
-                num_heads=t.num_attention_heads,
-                intermediate_size=t.intermediate_size,
-                max_positions=t.max_position_embeddings,
-                eos_token_id=t.eos_token_id,
-                hidden_act=t.hidden_act,
-                layer_norm_eps=t.layer_norm_eps,
-            ),
-            vision=CLIPVisionConfig(
-                hidden_size=v.hidden_size,
-                num_layers=v.num_hidden_layers,
-                num_heads=v.num_attention_heads,
-                intermediate_size=v.intermediate_size,
-                image_size=v.image_size,
-                patch_size=v.patch_size,
-                num_channels=v.num_channels,
-                hidden_act=v.hidden_act,
-                layer_norm_eps=v.layer_norm_eps,
-            ),
-            projection_dim=cfg.projection_dim,
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -266,21 +249,146 @@ def clip_image_features_from_tokens(params, tokens, cfg: CLIPConfig) -> torch.Te
     return dense(pooled, params["visual_projection"])
 
 
-def clip_vision_hidden(params, pixel_values: torch.Tensor, cfg: CLIPVisionConfig) -> torch.Tensor:
-    """Hidden states [B, 1+N, D] of the ViT (before post-LN) from normalised
-    [B, C, H, W] pixels, cast to the compute dtype before the patches."""
-    patches = patchify(pixel_values.to(getattr(torch, cfg.compute_dtype)), cfg.patch_size)
-    tokens = dense(patches, params["vision_model"]["patch_embedding"])
-    return clip_vision_encoder(params, tokens, cfg)
+# ---------------------------------------------------------------------------
+# Reference layout
+# ---------------------------------------------------------------------------
 
 
-def clip_vision_pooled(params, pixel_values: torch.Tensor, cfg: CLIPVisionConfig) -> torch.Tensor:
-    """Post-LN of the CLS token (= HF ``CLIPVisionModel.pooler_output``)."""
-    x = clip_vision_hidden(params, pixel_values, cfg)
-    return layer_norm(x[:, 0], params["vision_model"]["post_ln"], cfg.layer_norm_eps)
+def clip_config_from_dict(d: Dict[str, Any]) -> CLIPConfig:
+    """An HF ``config.json`` -> ``CLIPConfig``."""
+    t = d.get("text_config", {})
+    v = d.get("vision_config", {})
+    return CLIPConfig(
+        text=CLIPTextConfig(
+            vocab_size=t.get("vocab_size", 49408),
+            hidden_size=t.get("hidden_size", 512),
+            num_layers=t.get("num_hidden_layers", 12),
+            num_heads=t.get("num_attention_heads", 8),
+            intermediate_size=t.get("intermediate_size", 2048),
+            max_positions=t.get("max_position_embeddings", 77),
+            eos_token_id=t.get("eos_token_id", 49407),
+            hidden_act=t.get("hidden_act", "quick_gelu"),
+            layer_norm_eps=t.get("layer_norm_eps", 1e-5),
+        ),
+        vision=CLIPVisionConfig(
+            hidden_size=v.get("hidden_size", 768),
+            num_layers=v.get("num_hidden_layers", 12),
+            num_heads=v.get("num_attention_heads", 12),
+            intermediate_size=v.get("intermediate_size", 3072),
+            image_size=v.get("image_size", 224),
+            patch_size=v.get("patch_size", 32),
+            num_channels=v.get("num_channels", 3),
+            hidden_act=v.get("hidden_act", "quick_gelu"),
+            layer_norm_eps=v.get("layer_norm_eps", 1e-5),
+        ),
+        projection_dim=d.get("projection_dim", 512),
+    )
 
 
-def clip_image_features(params, pixel_values: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
-    """= HF ``CLIPModel.get_image_features`` (pooled -> visual_projection)."""
-    pooled = clip_vision_pooled(params, pixel_values, cfg.vision)
-    return dense(pooled, params["visual_projection"])
+def _encoder_layers(sd: Dict, prefix: str, num_layers: int) -> list:
+    """HF ``CLIPEncoderLayer`` names (SigLIP's too) -> the layer trees."""
+    layers = []
+    for i in range(num_layers):
+        b = f"{prefix}.layers.{i}"
+        layers.append(
+            {
+                "ln1": _ln(sd, f"{b}.layer_norm1"),
+                "attn": {
+                    "q": _linear(sd, f"{b}.self_attn.q_proj"),
+                    "k": _linear(sd, f"{b}.self_attn.k_proj"),
+                    "v": _linear(sd, f"{b}.self_attn.v_proj"),
+                    "o": _linear(sd, f"{b}.self_attn.out_proj"),
+                },
+                "ln2": _ln(sd, f"{b}.layer_norm2"),
+                "fc1": _linear(sd, f"{b}.mlp.fc1"),
+                "fc2": _linear(sd, f"{b}.mlp.fc2"),
+            }
+        )
+    return layers
+
+
+def clip_text_tower_from_torch(sd: Dict, cfg: CLIPConfig, prefix: str = "text_model.") -> dict:
+    t = _strip_prefix(sd, prefix)
+    return {
+        "token_embedding": _t(t["embeddings.token_embedding.weight"]),
+        "position_embedding": _t(t["embeddings.position_embedding.weight"]),
+        "layers": _encoder_layers(t, "encoder", cfg.text.num_layers),
+        "final_ln": _ln(t, "final_layer_norm"),
+    }
+
+
+def clip_vision_tower_from_torch(sd: Dict, cfg: CLIPConfig, prefix: str = "vision_model.") -> dict:
+    v = _strip_prefix(sd, prefix)
+    return {
+        "class_embedding": _t(v["embeddings.class_embedding"]),
+        "patch_embedding": _conv_patch_embed(v, "embeddings.patch_embedding", bias=False),
+        "position_embedding": _t(v["embeddings.position_embedding.weight"]),
+        # NB: HF spells it "pre_layrnorm"
+        "pre_ln": _ln(v, "pre_layrnorm"),
+        "layers": _encoder_layers(v, "encoder", cfg.vision.num_layers),
+        "post_ln": _ln(v, "post_layernorm"),
+    }
+
+
+def clip_params_from_torch(sd: Dict, cfg: CLIPConfig, prefix: str = "") -> dict:
+    """Full CLIPModel state dict -> parameter tree (with projections)."""
+    s = _strip_prefix(sd, prefix)
+    out = {
+        "text_model": clip_text_tower_from_torch(s, cfg),
+        "vision_model": clip_vision_tower_from_torch(s, cfg),
+        "text_projection": _linear(s, "text_projection", bias=False),
+        "visual_projection": _linear(s, "visual_projection", bias=False),
+    }
+    if "logit_scale" in s:
+        out["logit_scale"] = _t(s["logit_scale"]).reshape(())
+    return out
+
+
+def clip_towers_from_torch(sd: Dict, cfg: CLIPConfig) -> dict:
+    """The multi-task checkpoint's bare towers (``tower_txt.text_model.*``,
+    ``tower_img.vision_model.*``) -> the backbone tree."""
+    return {
+        "text_model": clip_text_tower_from_torch(sd, cfg, prefix="tower_txt.text_model."),
+        "vision_model": clip_vision_tower_from_torch(sd, cfg, prefix="tower_img.vision_model."),
+    }
+
+
+def _encoder_layers_out(sd: Dict, prefix: str, layers) -> None:
+    """CLIP / SigLIP encoder layers (HF ``CLIPEncoderLayer`` names)."""
+    for i, lp in enumerate(layers):
+        b = f"{prefix}.layers.{i}"
+        _ln_out(sd, f"{b}.layer_norm1", lp["ln1"])
+        for n, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "out_proj")):
+            _linear_out(sd, f"{b}.self_attn.{hf}", lp["attn"][n])
+        _ln_out(sd, f"{b}.layer_norm2", lp["ln2"])
+        _linear_out(sd, f"{b}.mlp.fc1", lp["fc1"])
+        _linear_out(sd, f"{b}.mlp.fc2", lp["fc2"])
+
+
+def _text_out(sd: Dict, prefix: str, t, head: bool) -> None:
+    """A CLIP (``head`` False) or SigLIP (``head`` True) text tower."""
+    sd[f"{prefix}.embeddings.token_embedding.weight"] = _f32(t["token_embedding"])
+    sd[f"{prefix}.embeddings.position_embedding.weight"] = _f32(t["position_embedding"])
+    _encoder_layers_out(sd, f"{prefix}.encoder", t["layers"])
+    _ln_out(sd, f"{prefix}.final_layer_norm", t["final_ln"])
+    if head:
+        _linear_out(sd, f"{prefix}.head", t["head"])
+
+
+def clip_to_torch(bp, cfg: CLIPConfig, prefix: str = "", text: str = "text_model",
+                  vision: str = "vision_model") -> Dict:
+    """The inverse of ``clip_params_from_torch``: HF names under ``prefix``,
+    fp32 CPU tensors; the towers under ``text`` and ``vision`` (the
+    multi-task checkpoint's ``tower_txt.text_model`` and
+    ``tower_img.vision_model``)."""
+    sd: Dict = {}
+    _text_out(sd, f"{prefix}{text}", bp["text_model"], head=False)
+    v, p = bp["vision_model"], f"{prefix}{vision}"
+    sd[f"{p}.embeddings.class_embedding"] = _f32(v["class_embedding"])
+    sd[f"{p}.embeddings.patch_embedding.weight"] = _conv_out(v["patch_embedding"], cfg.vision)
+    sd[f"{p}.embeddings.position_embedding.weight"] = _f32(v["position_embedding"])
+    _ln_out(sd, f"{p}.pre_layrnorm", v["pre_ln"])
+    _encoder_layers_out(sd, f"{p}.encoder", v["layers"])
+    _ln_out(sd, f"{p}.post_layernorm", v["post_ln"])
+    _top_level_out(sd, bp, prefix, scalar_logits=True)
+    return sd

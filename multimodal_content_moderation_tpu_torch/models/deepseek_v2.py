@@ -46,7 +46,9 @@ import torch.nn.functional as F
 from multimodal_content_moderation_tpu_torch.models.clip import _normal
 from multimodal_content_moderation_tpu_torch.models.siglip import (
     SigLIPVisionConfig,
+    siglip_vision_from_torch,
     siglip_vision_init,
+    siglip_vision_to_torch,
 )
 from multimodal_content_moderation_tpu_torch.ops.layers import (
     add_rms_norm,
@@ -59,8 +61,6 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
 )
 from multimodal_content_moderation_tpu_torch.ops.moe import moe_layer, split_gate_up
 from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, count
-
-BACKEND = "deepseek_v2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,8 +291,6 @@ def deepseek_v2_params_from_torch(sd: Dict, cfg: DeepSeekV2Config, prefix: str =
     leaves lie (on the card for a drawn checkpoint), one layer at a time, each
     leaf copied once into its new layout: loading holds the state dict, the
     tree built so far and no more."""
-    from multimodal_content_moderation_tpu_torch.models.convert import siglip_vision_from_torch
-
     n = len(prefix)
     s = {k[n:]: v for k, v in sd.items() if k.startswith(prefix)}
     tp = "text_model."
@@ -339,9 +337,10 @@ def _split_out(w: torch.Tensor, *widths):
     return out
 
 
-def deepseek_v2_text_to_torch(bp, cfg: DeepSeekV2Config, prefix: str = "") -> Dict:
-    """The inverse of ``deepseek_v2_params_from_torch`` for the text tower and
-    ``text_projection``: HF names under ``prefix``, fp32 CPU tensors."""
+def deepseek_v2_to_torch(bp, cfg: DeepSeekV2Config, prefix: str = "") -> Dict:
+    """The inverse of ``deepseek_v2_params_from_torch``: the text tower,
+    ``text_projection`` and SigLIP's vision tower in HF names under
+    ``prefix``, fp32 CPU tensors."""
     c = cfg.text
     f32 = lambda x: x.detach().to("cpu", torch.float32)  # noqa: E731
     p = bp["text_model"]
@@ -378,6 +377,7 @@ def deepseek_v2_text_to_torch(bp, cfg: DeepSeekV2Config, prefix: str = "") -> Di
                 out[f"{e}.up_proj.weight"] = up[j].contiguous()
                 out[f"{e}.down_proj.weight"] = down[j].contiguous()
     out[f"{prefix}text_projection.weight"] = f32(bp["text_projection"]["w"]).t().contiguous()
+    siglip_vision_to_torch(out, f"{prefix}vision_model", bp["vision_model"], cfg.vision)
     return out
 
 

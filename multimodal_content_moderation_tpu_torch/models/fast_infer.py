@@ -29,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone
 from multimodal_content_moderation_tpu_torch.models.u8wire import fold_for_model
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import (
     extract_patches_u8,
@@ -61,6 +62,7 @@ class FastInferenceEngine:
         # every call (the fold's stats cross to the card synchronously)
         with torch.no_grad():
             self.model = model.replace(patch_fold=fold_for_model(model, model.backbone))
+        self.family = backbone(model.backend)
         self.device = model.device
         self.patch_size = self.model.encoder_config.vision.patch_size
 
@@ -97,7 +99,7 @@ class FastInferenceEngine:
             pos = torch.arange(T, device=self.device)
             pos[-1:].fill_(carry_pos)  # an assignment would copy the int over, synchronously
             batch["position_ids"] = pos
-        if packs_text(self.model.backend):
+        if self.family.count_packing is not None:
             # the packed tower's token count, from the host's mask where it
             # is on the host (a read of the card's copy would wait for it)
             if not (isinstance(mask, torch.Tensor) and mask.device.type != "cpu"):
@@ -126,32 +128,6 @@ def parse_seq_buckets(spec: Optional[str]) -> Optional[Tuple[int, ...]]:
         ) from None
 
 
-def buckets_exact(backend: str) -> bool:
-    """Whether text buckets leave a backend's logits as they are: CLIP,
-    SigLIP and DeepSeek-V2, not the generic towers (a mean over every
-    position, pads included)."""
-    return backend != "generic"
-
-
-def truncates(backend: str) -> bool:
-    """Whether a backend's bucket is a plain truncation (a causal tower
-    pooled at a real token never sees the dropped trailing pads: CLIP,
-    DeepSeek-V2) rather than SigLIP's carry column."""
-    return backend in ("clip", "deepseek_v2")
-
-
-def bucket_extra(backend: str) -> int:
-    """The columns a bucket reserves beside the longest row: SigLIP's carry
-    column, none where the bucket truncates."""
-    return 0 if truncates(backend) else 1
-
-
-def packs_text(backend: str) -> bool:
-    """Whether the text tower packs the kept tokens (DeepSeek-V2), so the
-    engine hands it the mask's sum from the host."""
-    return backend == "deepseek_v2"
-
-
 def bucket_ladder(buckets: Sequence[int], full_T: int) -> Optional[List[int]]:
     """Sorted, deduplicated widths below ``full_T`` with ``full_T`` as the
     terminal rung, or None when no bucket is below ``full_T``."""
@@ -176,16 +152,17 @@ def bucket_batch_text(
     """Shrink a right-padded [B, T] ids/mask pair to bucket width ``b``:
     (ids_b, mask_b, carry_pos).
 
-    CLIP and DeepSeek-V2 (``truncates``): plain truncation (a causal tower
-    pooled at the first EOS or the last kept token never sees the dropped
-    columns), carry_pos None. SigLIP: b-1 real columns plus
+    A family whose ``bucket_extra`` is 0 (CLIP, DeepSeek-V2): plain
+    truncation (a causal tower pooled at the first EOS or the last kept
+    token never sees the dropped columns), carry_pos None. SigLIP: b-1 real
+    columns plus
     a carry column, the row's last column (a PAD, since ``bucket_for(...,
     extra=1)`` fits every row in b-1) with mask 0, embedded at position T-1
     (carry_pos): the tower pools the last column and masked keys are inert
     at any width, so this is exact."""
     if b >= ids.shape[1]:
         return ids, mask, None
-    if truncates(backend):
+    if not backbone(backend).bucket_extra:
         return np.ascontiguousarray(ids[:, :b]), np.ascontiguousarray(mask[:, :b]), None
     ids_b = np.concatenate([ids[:, : b - 1], ids[:, -1:]], axis=1)
     mask_b = np.concatenate([mask[:, : b - 1], np.zeros((mask.shape[0], 1), mask.dtype)], axis=1)
@@ -217,14 +194,12 @@ def gather_rank_rows(mesh, logits: List[np.ndarray], labels: List[np.ndarray],
     return full[:, :width], full[:, width:]
 
 
-def _count_batch(model, host, valid: int, width: int) -> None:
+def _count_batch(family, model, host, valid: int, width: int) -> None:
     """A recorded batch's counters (``utils/profiling.count``); a packing
-    tower's from the host's mask too (``deepseek_v2.count_packing``)."""
+    tower's from the host's mask too (``Backbone.count_packing``)."""
     mask = host["attention_mask"]
-    if packs_text(model.backend):
-        from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import count_packing
-
-        count_packing(model.encoder_config, mask)
+    if family.count_packing is not None:
+        family.count_packing(model.encoder_config, mask)
     count("score.batches")
     count("score.rows", valid)
     count("score.pad_rows", mask.shape[0] - valid)
@@ -303,6 +278,7 @@ def score_batches(engine: FastInferenceEngine, dataset, batch_size: int,
     which holds a freed buffer back until the copies recorded on it are
     done, so nothing here keeps them alive."""
     backend = engine.model.backend
+    family = backbone(backend)
     pin = engine.device.type == "cuda"
     order = np.arange(len(dataset)) if rows is None else np.asarray(rows)
     cached = getattr(dataset, "cache", None) is not None
@@ -332,7 +308,7 @@ def score_batches(engine: FastInferenceEngine, dataset, batch_size: int,
             with annotate("prep.bucket", parent=parent, batch=i) as bucket:
                 if ladder is not None:
                     width = bucket_for(batch["attention_mask"], ladder,
-                                       extra=bucket_extra(backend))
+                                       extra=family.bucket_extra)
                     batch["input_ids"], batch["attention_mask"], carry = bucket_batch_text(
                         batch["input_ids"], batch["attention_mask"], width, backend
                     )
@@ -346,7 +322,7 @@ def score_batches(engine: FastInferenceEngine, dataset, batch_size: int,
                     span.set(width=width)
                 count("prep.gathered_rows", valid - decoded)
                 count("prep.decoded_rows", decoded)
-                _count_batch(engine.model, host, valid, width)
+                _count_batch(family, engine.model, host, valid, width)
             yield valid, labels, host, carry, width
     finally:
         if batches is not None:
@@ -368,11 +344,12 @@ def evaluate_logits_u8(
 
     ``seq_buckets`` enables length-sorted bucketed evaluation: rows are
     visited in token-length order and each batch's ids/mask shrink to the
-    smallest bucket covering its longest row. Exact for CLIP (causal text
-    tower, first-EOS pooling) and SigLIP (masked keys, the carry column).
-    The generic backend runs at the full width whatever ``seq_buckets``
-    says, as in the JAX engine: its tower may mean-pool over every
-    position, pads included, so a narrower batch changes its features.
+    smallest bucket covering its longest row, where the family's buckets
+    are exact (``Backbone.exact_buckets``: CLIP's and DeepSeek-V2's causal
+    towers, SigLIP's masked keys with the carry column). The generic backend
+    runs at the full width whatever ``seq_buckets`` says, as in the JAX
+    engine: its tower may mean-pool over every position, pads included, so
+    a narrower batch changes its features.
 
     Under the engine's mesh each data rank runs its slice of every global
     batch of ``batch_size`` rows (of the length-sorted order with buckets)
@@ -387,9 +364,8 @@ def _evaluate(engine, dataset, batch_size, num_workers, seq_buckets, root):
     from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_producer
 
     indices = ladder = None
-    backend = engine.model.backend
     full_T = dataset.input_ids.shape[1]
-    if seq_buckets and buckets_exact(backend):
+    if seq_buckets and backbone(engine.model.backend).exact_buckets:
         ladder = bucket_ladder(seq_buckets, full_T)
         if ladder is not None:
             lengths = dataset.attention_mask.sum(axis=1)

@@ -1,6 +1,6 @@
-"""Gated late-fusion multi-label classifier over the CLIP, SigLIP, generic
-(BERT-family + ViT) or DeepSeek-V2 (a sparse decoder beside SigLIP's vision
-tower) dual encoder.
+"""Gated late-fusion multi-label classifier over a dual encoder of any
+family of ``models/backbones.py``: CLIP, SigLIP, generic (BERT-family +
+ViT) or DeepSeek-V2 (a sparse decoder beside SigLIP's vision tower).
 
 Same math as the JAX package's ``models/fusion.py`` (the reference
 ``MultiModalFusionClassifier``): L2-normalised encoder features masked by
@@ -21,11 +21,9 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from multimodal_content_moderation_tpu_torch.models import clip as clip_mod
-from multimodal_content_moderation_tpu_torch.models import deepseek_v2 as ds_mod
-from multimodal_content_moderation_tpu_torch.models import generic as generic_mod
-from multimodal_content_moderation_tpu_torch.models import siglip as siglip_mod
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone
 from multimodal_content_moderation_tpu_torch.models.params import ParamTree
+from multimodal_content_moderation_tpu_torch.models.u8wire import image_tokens
 from multimodal_content_moderation_tpu_torch.ops.layers import (
     dense,
     dropout,
@@ -110,53 +108,29 @@ def fusion_head_apply(
     return dense(y, params["cls_fc2"])
 
 
-BACKENDS = ("clip", "siglip", "auto", "generic", "deepseek_v2")
-# each backend's config field; "siglip" and "auto" share SigLIP's
-CONFIG_FIELDS = {"clip": "clip_config", "siglip": "siglip_config", "auto": "siglip_config",
-                 "generic": "generic_config", "deepseek_v2": "deepseek_config"}
-
-
-def _check_backend(backend: str) -> str:
-    backend = backend.lower()
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r}: want one of {', '.join(BACKENDS)}")
-    return backend
-
-
 def config_field(backend: str) -> str:
-    """The model field that holds a backend's encoder config."""
-    return CONFIG_FIELDS[_check_backend(backend)]
-
-
-def encoder_configs(backend, clip_config=None, siglip_config=None, generic_config=None,
-                    deepseek_config=None):
-    """The four config fields of a model: the backend's (its canonical
-    architecture where none is given), the others None."""
-    cfgs = dict.fromkeys(("clip_config", "siglip_config", "generic_config", "deepseek_config"))
-    field = config_field(backend)
-    given = {"clip_config": clip_config, "siglip_config": siglip_config,
-             "generic_config": generic_config, "deepseek_config": deepseek_config}[field]
-    canonical = {"clip_config": clip_mod.CLIPConfig.base_patch32,
-                 "siglip_config": siglip_mod.SigLIPConfig.base_patch16_224,
-                 "generic_config": generic_mod.GenericDualConfig,
-                 "deepseek_config": ds_mod.DeepSeekV2Config.lite_siglip2_224}[field]
-    cfgs[field] = given or canonical()
-    return cfgs
+    """The model field that holds a backend's encoder config:
+    ``"encoder_config"`` for every backend (another name raises). Kept for
+    ``benchmark/harness/port.py``, which splats ``{config_field(backend):
+    cfg}`` into the model and its ``_cfg`` form into the loader."""
+    backbone(backend)
+    return "encoder_config"
 
 
 def encoder_generator(backend: str, generator: Optional[torch.Generator]):
-    """The encoder's dropout generator: forked off the head's for the
-    generic towers (the only ones with dropout), else None."""
-    if generator is None or backend != "generic":
+    """The encoder's dropout generator: forked off the head's where the
+    family's towers have dropout (``Backbone.dropout_fork``), else None."""
+    if generator is None or not backbone(backend).dropout_fork:
         return None
     return fork_generator(generator)
 
 
 class DualEncoderModel(nn.Module):
-    """What the fusion and the multi-task model share: a CLIP, SigLIP or
-    generic backbone (``clip_config`` / ``siglip_config`` /
-    ``generic_config``), a head whose ``proj_t`` holds the device, and
-    config fields that ``replace`` swaps."""
+    """What the fusion and the multi-task model share: a backbone whose
+    family ``backend`` names (``models/backbones.py``) with its
+    ``encoder_config``, a head whose ``proj_t`` holds the device, config
+    fields that ``replace`` swaps, and ``encode`` over the ``towers`` the
+    head reads."""
 
     # the u8 wire's folded patch embedding (``models/u8wire.fold_for_model``),
     # stored by a ``FastInferenceEngine`` on its own copy; None: folded on
@@ -173,12 +147,6 @@ class DualEncoderModel(nn.Module):
         return new
 
     @property
-    def encoder_config(self):
-        """The backbone's config: a ``CLIPConfig``, a ``SigLIPConfig``, a
-        ``GenericDualConfig`` or a ``DeepSeekV2Config``."""
-        return getattr(self, config_field(self.backend))
-
-    @property
     def image_size(self) -> int:
         return self.encoder_config.vision.image_size
 
@@ -190,29 +158,18 @@ class DualEncoderModel(nn.Module):
     def device(self) -> torch.device:
         return self.head["proj_t"]["w"].device
 
-    def _set_encoder_config(self, backend, clip_config, siglip_config, generic_config,
-                            deepseek_config=None):
-        self.backend = backend
-        for name, cfg in encoder_configs(backend, clip_config, siglip_config,
-                                         generic_config, deepseek_config).items():
-            setattr(self, name, cfg)
-
-
-def fusion_feature_dim(backend, clip_config=None, siglip_config=None, generic_config=None,
-                       deepseek_config=None):
-    """The width of the features the fusion head takes."""
-    if backend == "clip":
-        return clip_config.projection_dim
-    if backend == "deepseek_v2":
-        # text_projection's width, which SigLIP's MAP feature has too
-        return deepseek_config.projection_dim
-    if backend == "generic":
-        # the reference's probe: projection_dim, else the text width, else
-        # the vision width
-        g = generic_config
-        return g.projection_dim or g.text.hidden_size or g.vision.hidden_size
-    # SigLIP: the text head's projection_size == the vision hidden size
-    return siglip_config.text.projection_size
+    def encode(self, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator] = None):
+        """(text features, image features) of the head's ``towers``: the
+        image from ``patches_u8`` (the uint8 wire) where the batch carries
+        them, else from ``pixel_values`` (normalised fp32 [B, C, H, W], the
+        pixel path). ``generator`` turns on the generic text tower's dropout.
+        The DeepSeek-V2 tower reads the batch's ``text_kept`` (the mask's
+        sum, from the host) and fills its ``counters`` dict where it has
+        one."""
+        towers, bp, cfg = self.towers, self.backbone, self.encoder_config
+        t = towers.text(bp, batch, cfg, generator)
+        return t, towers.image(bp, image_tokens(self, bp, batch), cfg)
 
 
 class FusionModel(DualEncoderModel):
@@ -223,12 +180,13 @@ class FusionModel(DualEncoderModel):
     image_present (and, for SigLIP, optionally the text ``position_ids`` of
     a bucket's carry column).
 
-    ``backend`` is "clip", "siglip" ("auto" is SigLIP, as in the JAX
-    package, for a checkpoint whose inference config kept it), "generic"
-    (``generic_config``: a BERT-family text tower and a ViT) or
-    "deepseek_v2" (``deepseek_config``: ``models/deepseek_v2.py``'s sparse
-    decoder beside a SigLIP vision tower; the port's own, no JAX
-    counterpart).
+    ``backend`` names the family (``models/backbones.py``): "clip", "siglip"
+    ("auto" is SigLIP, as in the JAX package, for a checkpoint whose
+    inference config kept it), "generic" (a BERT-family text tower and a
+    ViT) or "deepseek_v2" (``models/deepseek_v2.py``'s sparse decoder beside
+    a SigLIP vision tower; the port's own, no JAX counterpart);
+    ``encoder_config`` is its config, the canonical architecture where
+    none is given.
 
     Parameters live in ``backbone`` and ``head`` (``ParamTree``s), so the
     ``state_dict`` keys are the JAX pytree paths
@@ -238,20 +196,18 @@ class FusionModel(DualEncoderModel):
         self,
         params: Dict,
         backend: str = "clip",
-        clip_config: Optional[clip_mod.CLIPConfig] = None,
+        encoder_config=None,
         num_labels: int = 5,
         fusion_dim: int = 512,
         image_mean: Optional[tuple] = None,
         image_std: Optional[tuple] = None,
         loss_type: str = "bce",
         focal_gamma: float = 1.5,
-        siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
-        generic_config: Optional[generic_mod.GenericDualConfig] = None,
-        deepseek_config: Optional[ds_mod.DeepSeekV2Config] = None,
     ):
         super().__init__()
-        self._set_encoder_config(_check_backend(backend), clip_config, siglip_config,
-                                 generic_config, deepseek_config)
+        family = backbone(backend)
+        self.backend = backend.lower()
+        self.encoder_config = encoder_config or family.default()
         self.num_labels = num_labels
         self.fusion_dim = fusion_dim
         self.image_mean = image_mean
@@ -266,100 +222,30 @@ class FusionModel(DualEncoderModel):
         backend: str = "clip",
         num_labels: int = 5,
         fusion_dim: int = 512,
-        clip_config: Optional[clip_mod.CLIPConfig] = None,
+        encoder_config=None,
         seed: int = 0,
         device="cuda",
         dtype=torch.float32,
         loss_type: str = "bce",
         focal_gamma: float = 1.5,
-        siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
-        generic_config: Optional[generic_mod.GenericDualConfig] = None,
-        deepseek_config: Optional[ds_mod.DeepSeekV2Config] = None,
     ) -> "FusionModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
-        backend = _check_backend(backend)
-        cfgs = encoder_configs(backend, clip_config, siglip_config, generic_config,
-                               deepseek_config)
+        family = backbone(backend)
+        cfg = encoder_config or family.default()
         g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        if backend == "clip":
-            backbone = clip_mod.clip_init(g, cfgs["clip_config"], dtype)
-        elif backend == "generic":
-            backbone = generic_mod.generic_init(g, cfgs["generic_config"], dtype)
-        elif backend == "deepseek_v2":
-            backbone = ds_mod.deepseek_v2_init(g, cfgs["deepseek_config"], dtype)
-        else:
-            backbone = siglip_mod.siglip_init(g, cfgs["siglip_config"], dtype)
-        head = fusion_head_init(g, fusion_feature_dim(backend, **cfgs), num_labels, fusion_dim,
-                                dtype)
-        return FusionModel(
-            {"backbone": backbone, "head": head}, backend, num_labels=num_labels,
-            fusion_dim=fusion_dim, loss_type=loss_type, focal_gamma=focal_gamma, **cfgs,
-        )
+        params = {"backbone": family.init(g, cfg, dtype)}
+        params["head"] = fusion_head_init(g, family.feature_dim(cfg), num_labels, fusion_dim,
+                                          dtype)
+        return FusionModel(params, backend, cfg, num_labels=num_labels, fusion_dim=fusion_dim,
+                           loss_type=loss_type, focal_gamma=focal_gamma)
+
+    @property
+    def towers(self):
+        return backbone(self.backend)
 
     @property
     def feature_dim(self) -> int:
-        return fusion_feature_dim(self.backend, self.clip_config, self.siglip_config,
-                                  self.generic_config, self.deepseek_config)
-
-    def encode(self, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None):
-        """(text features, image features): the image from ``patches_u8``
-        (the uint8 wire) where the batch carries them, else from
-        ``pixel_values`` (normalised fp32 [B, C, H, W], the pixel path).
-        ``generator`` turns on the generic text tower's dropout. The
-        DeepSeek-V2 tower reads the batch's ``text_kept`` (the mask's sum,
-        from the host) and fills its ``counters`` dict where it has one."""
-        from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
-
-        bp = self.backbone
-        u8 = batch.get("patches_u8")
-        if self.backend == "deepseek_v2":
-            cfg = self.deepseek_config
-            t = ds_mod.deepseek_text_features(
-                bp, batch["input_ids"], batch.get("attention_mask"), cfg,
-                kept=batch.get("text_kept"), counters=batch.get("counters"),
-            )
-            if u8 is not None:  # SigLIP's vision tower reads cfg.vision alone
-                v = siglip_mod.siglip_image_features_from_tokens(
-                    bp, embed_for_model(self, bp, u8), cfg
-                )
-            else:
-                v = siglip_mod.siglip_image_features(bp, batch["pixel_values"], cfg)
-            return t, v
-        if self.backend == "generic":
-            cfg = self.generic_config
-            t = generic_mod.generic_text_features(
-                bp, batch["input_ids"], batch.get("attention_mask"), cfg, generator
-            )
-            if u8 is not None:
-                v = generic_mod.generic_image_features_from_tokens(
-                    bp, embed_for_model(self, bp, u8), cfg
-                )
-            else:
-                v = generic_mod.generic_image_features(bp, batch["pixel_values"], cfg)
-            return t, v
-        if self.backend == "clip":
-            t = clip_mod.clip_text_features(
-                bp, batch["input_ids"], batch.get("attention_mask"), self.clip_config
-            )
-            if u8 is not None:
-                v = clip_mod.clip_image_features_from_tokens(
-                    bp, embed_for_model(self, bp, u8), self.clip_config
-                )
-            else:
-                v = clip_mod.clip_image_features(bp, batch["pixel_values"], self.clip_config)
-            return t, v
-        t = siglip_mod.siglip_text_features(
-            bp, batch["input_ids"], batch.get("attention_mask"), self.siglip_config,
-            position_ids=batch.get("position_ids"),
-        )
-        if u8 is not None:
-            v = siglip_mod.siglip_image_features_from_tokens(
-                bp, embed_for_model(self, bp, u8), self.siglip_config
-            )
-        else:
-            v = siglip_mod.siglip_image_features(bp, batch["pixel_values"], self.siglip_config)
-        return t, v
+        return backbone(self.backend).feature_dim(self.encoder_config)
 
     def forward(
         self,

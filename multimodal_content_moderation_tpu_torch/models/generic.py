@@ -7,9 +7,9 @@ path for a ``VisionTextDualEncoderModel`` checkpoint (the JAX package's
   ids; ``distilbert`` with its own key names, no token-type embeddings and
   no pooler. Word + position (+ token type 0) embeddings -> LN, post-LN
   layers, an optional tanh pooler over the first position.
-- Vision: pre-LN ViT towers (``transformer_block``): patchify + dense (the
-  patch conv as one GEMM), a class token, learned positions, a final LN and
-  an optional tanh pooler. At 224 px in 16-pixel patches the tower runs 197
+- Vision: pre-LN ViT towers (``transformer_block``) over embedded patch
+  tokens (``models/u8wire.image_tokens``: the patch conv as one GEMM), a
+  class token, learned positions, a final LN and an optional tanh pooler. At 224 px in 16-pixel patches the tower runs 197
   positions.
 
 Pooling follows the reference's fallback: the pooler where the tower has
@@ -32,7 +32,17 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from multimodal_content_moderation_tpu_torch.models.convert import _linear, _ln, _t
+from multimodal_content_moderation_tpu_torch.models.params import (
+    _conv_out,
+    _f32,
+    _linear,
+    _linear_out,
+    _ln,
+    _ln_out,
+    TOP_LEVEL,
+    _t,
+    _top_level_out,
+)
 from multimodal_content_moderation_tpu_torch.ops.layers import (
     ACTIVATIONS,
     add_layer_norm,
@@ -42,13 +52,15 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     dropout,
     layer_norm,
     mha,
-    patchify,
     transformer_block,
 )
 from multimodal_content_moderation_tpu_torch.parallel.collectives import vocab_parallel_lookup
 
 # the generic towers' additive key bias for a padded position (JAX's)
 NEG_INF = -1e9
+# HF VisionTextDualEncoderConfig's defaults
+VTDE_PROJECTION_DIM = 512
+VTDE_LOGIT_SCALE = 2.6592
 ROBERTA_FAMILY = ("roberta", "camembert", "xlm-roberta")
 
 
@@ -343,15 +355,6 @@ def _with_class_token(params, tokens: torch.Tensor, cfg: GenericVisionConfig):
     return torch.cat([cls, tokens], dim=1) + p["position_embeddings"].to(tokens.dtype)[None]
 
 
-def generic_vision_tokens(params, pixel_values: torch.Tensor, cfg: GenericVisionConfig):
-    """Normalised [B, C, H, W] pixels -> the trunk's input tokens [B, 1+N, D]
-    in the compute dtype: patchify + the ``patch_embedding`` dense, the
-    class token, the positions."""
-    patches = patchify(pixel_values.to(getattr(torch, cfg.compute_dtype)), cfg.patch_size)
-    tokens = dense(patches, params["vision_model"]["patch_embedding"])
-    return _with_class_token(params, tokens, cfg)
-
-
 def generic_vision_hidden_from_tokens(params, x: torch.Tensor,
                                       cfg: GenericVisionConfig) -> torch.Tensor:
     """The trunk's input [B, 1+N, D] -> the final-LN'd hidden states: pre-LN
@@ -366,16 +369,9 @@ def generic_vision_hidden_from_tokens(params, x: torch.Tensor,
 
 
 def generic_vision_pooled_from_tokens(params, tokens, cfg: GenericVisionConfig) -> torch.Tensor:
-    """Pooled ViT features from embedded patch tokens [B, N, D] (the u8
-    wire)."""
+    """Pooled ViT features from embedded patch tokens [B, N, D]."""
     hidden = generic_vision_hidden_from_tokens(params, _with_class_token(params, tokens, cfg),
                                                cfg)
-    return _pool(hidden, params["vision_model"], cfg.pooling)
-
-
-def generic_vision_pooled(params, pixel_values, cfg: GenericVisionConfig) -> torch.Tensor:
-    hidden = generic_vision_hidden_from_tokens(
-        params, generic_vision_tokens(params, pixel_values, cfg), cfg)
     return _pool(hidden, params["vision_model"], cfg.pooling)
 
 
@@ -392,15 +388,8 @@ def generic_text_features(params, input_ids, attention_mask, cfg: GenericDualCon
 
 
 def generic_image_features_from_tokens(params, tokens, cfg: GenericDualConfig) -> torch.Tensor:
-    """= ``get_image_features`` from embedded patch tokens (the u8 wire)."""
+    """= ``get_image_features`` from embedded patch tokens."""
     pooled = generic_vision_pooled_from_tokens(params, tokens, cfg.vision)
-    return _project(pooled,
-                    params["visual_projection"] if "visual_projection" in params else None)
-
-
-def generic_image_features(params, pixel_values, cfg: GenericDualConfig) -> torch.Tensor:
-    """= ``get_image_features`` from normalised pixels."""
-    pooled = generic_vision_pooled(params, pixel_values, cfg.vision)
     return _project(pooled,
                     params["visual_projection"] if "visual_projection" in params else None)
 
@@ -522,3 +511,93 @@ def generic_params_from_torch(sd, cfg: GenericDualConfig, prefix: str = "") -> d
     if f"{prefix}logit_scale" in sd:
         params["logit_scale"] = _t(sd[f"{prefix}logit_scale"]).reshape(())
     return params
+
+
+def generic_bare_from_torch(sd, cfg: GenericDualConfig) -> dict:
+    """The multi-task checkpoint's ``backbone.*`` without its projections
+    and ``logit_scale``: the multi-task model pools the raw towers."""
+    params = generic_params_from_torch(sd, cfg, prefix="backbone.")
+    for name in TOP_LEVEL:
+        params.pop(name, None)
+    return params
+
+
+def _bert_text_out(sd, prefix: str, t, arch: str) -> None:
+    """A BERT / RoBERTa (HF ``BertModel`` names) or DistilBERT text tower."""
+    p = prefix
+    sd[f"{p}.embeddings.word_embeddings.weight"] = _f32(t["word_embeddings"])
+    sd[f"{p}.embeddings.position_embeddings.weight"] = _f32(t["position_embeddings"])
+    if "token_type_embeddings" in t:
+        sd[f"{p}.embeddings.token_type_embeddings.weight"] = _f32(t["token_type_embeddings"])
+    _ln_out(sd, f"{p}.embeddings.LayerNorm", t["emb_ln"])
+    for i, lp in enumerate(t["layers"]):
+        if arch == "distilbert":
+            b = f"{p}.transformer.layer.{i}"
+            for n, hf in (("q", "q_lin"), ("k", "k_lin"), ("v", "v_lin"), ("o", "out_lin")):
+                _linear_out(sd, f"{b}.attention.{hf}", lp["attn"][n])
+            _ln_out(sd, f"{b}.sa_layer_norm", lp["ln1"])
+            _linear_out(sd, f"{b}.ffn.lin1", lp["fc1"])
+            _linear_out(sd, f"{b}.ffn.lin2", lp["fc2"])
+            _ln_out(sd, f"{b}.output_layer_norm", lp["ln2"])
+        else:
+            b = f"{p}.encoder.layer.{i}"
+            for n, hf in (("q", "query"), ("k", "key"), ("v", "value")):
+                _linear_out(sd, f"{b}.attention.self.{hf}", lp["attn"][n])
+            _linear_out(sd, f"{b}.attention.output.dense", lp["attn"]["o"])
+            _ln_out(sd, f"{b}.attention.output.LayerNorm", lp["ln1"])
+            _linear_out(sd, f"{b}.intermediate.dense", lp["fc1"])
+            _linear_out(sd, f"{b}.output.dense", lp["fc2"])
+            _ln_out(sd, f"{b}.output.LayerNorm", lp["ln2"])
+    if "pooler" in t:
+        _linear_out(sd, f"{p}.pooler.dense", t["pooler"])
+
+
+def _vit_vision_out(sd, prefix: str, v, cfg: GenericVisionConfig) -> None:
+    """The ViT (HF ``ViTModel`` names)."""
+    p = prefix
+    sd[f"{p}.embeddings.cls_token"] = _f32(v["cls_token"])
+    sd[f"{p}.embeddings.position_embeddings"] = _f32(v["position_embeddings"])[None]
+    sd[f"{p}.embeddings.patch_embeddings.projection.weight"] = _conv_out(
+        v["patch_embedding"], cfg)
+    sd[f"{p}.embeddings.patch_embeddings.projection.bias"] = _f32(v["patch_embedding"]["b"])
+    for i, lp in enumerate(v["layers"]):
+        b = f"{p}.encoder.layer.{i}"
+        _ln_out(sd, f"{b}.layernorm_before", lp["ln1"])
+        for n, hf in (("q", "query"), ("k", "key"), ("v", "value")):
+            _linear_out(sd, f"{b}.attention.attention.{hf}", lp["attn"][n])
+        _linear_out(sd, f"{b}.attention.output.dense", lp["attn"]["o"])
+        _ln_out(sd, f"{b}.layernorm_after", lp["ln2"])
+        _linear_out(sd, f"{b}.intermediate.dense", lp["fc1"])
+        _linear_out(sd, f"{b}.output.dense", lp["fc2"])
+    _ln_out(sd, f"{p}.layernorm", v["post_ln"])
+    if "pooler" in v:
+        _linear_out(sd, f"{p}.pooler.dense", v["pooler"])
+
+
+def generic_to_torch(bp, cfg: GenericDualConfig, prefix: str = "") -> Dict:
+    """The inverse of ``generic_params_from_torch``: HF names under
+    ``prefix``, fp32 CPU tensors."""
+    sd: Dict = {}
+    _bert_text_out(sd, f"{prefix}text_model", bp["text_model"], cfg.text.arch)
+    _vit_vision_out(sd, f"{prefix}vision_model", bp["vision_model"], cfg.vision)
+    _top_level_out(sd, bp, prefix, scalar_logits=True)
+    return sd
+
+
+def generic_bare_to_torch(bp, cfg: GenericDualConfig, encoder_json=None) -> Dict:
+    """A multi-task model's bare towers under ``backbone.``, with the three
+    leaves its forward never reads: the reference's generic multi-task
+    model holds a whole ``VisionTextDualEncoderModel``, so its strict load
+    wants them (the JAX package's export drops them and that load fails).
+    Zero projections to ``projection_dim`` and ``logit_scale`` from
+    ``encoder_json`` (the encoder's ``config.json``), else from the config
+    and HF's defaults: no logit changes."""
+    sd = generic_to_torch(bp, cfg, "backbone.")
+    enc = encoder_json or {}
+    dim = enc.get("projection_dim") or cfg.projection_dim or VTDE_PROJECTION_DIM
+    for name, width in (("text_projection", cfg.text.hidden_size),
+                        ("visual_projection", cfg.vision.hidden_size)):
+        sd.setdefault(f"backbone.{name}.weight", torch.zeros(dim, width))
+    sd.setdefault("backbone.logit_scale", torch.tensor(
+        float(enc.get("logit_scale_init_value", VTDE_LOGIT_SCALE))))
+    return sd

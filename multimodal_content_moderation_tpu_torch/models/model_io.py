@@ -31,88 +31,18 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from multimodal_content_moderation_tpu_torch.models import convert
-from multimodal_content_moderation_tpu_torch.models.clip import (
-    CLIPConfig,
-    CLIPTextConfig,
-    CLIPVisionConfig,
-)
-from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import DeepSeekV2Config
-from multimodal_content_moderation_tpu_torch.models.fusion import BACKENDS, FusionModel, config_field
-from multimodal_content_moderation_tpu_torch.models.generic import (
-    GenericDualConfig,
-    generic_params_from_torch,
-)
-from multimodal_content_moderation_tpu_torch.models.multitask import (
-    CLIP_TOP_LEVEL,
-    MultiTaskModel,
-)
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone, multitask
+
+# re-exported: callers read the CLIP and SigLIP ``config.json`` parsers here
+from multimodal_content_moderation_tpu_torch.models.clip import clip_config_from_dict  # noqa: F401
+from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
+from multimodal_content_moderation_tpu_torch.models.multitask import MultiTaskModel
 from multimodal_content_moderation_tpu_torch.models.params import flatten
-from multimodal_content_moderation_tpu_torch.models.siglip import (
-    SigLIPConfig,
-    SigLIPTextConfig,
-    SigLIPVisionConfig,
+from multimodal_content_moderation_tpu_torch.models.siglip import (  # noqa: F401
+    siglip_config_from_dict,
 )
 from multimodal_content_moderation_tpu_torch.utils.config import load_json
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
-
-
-def clip_config_from_dict(d: Dict[str, Any]) -> CLIPConfig:
-    t = d.get("text_config", {})
-    v = d.get("vision_config", {})
-    return CLIPConfig(
-        text=CLIPTextConfig(
-            vocab_size=t.get("vocab_size", 49408),
-            hidden_size=t.get("hidden_size", 512),
-            num_layers=t.get("num_hidden_layers", 12),
-            num_heads=t.get("num_attention_heads", 8),
-            intermediate_size=t.get("intermediate_size", 2048),
-            max_positions=t.get("max_position_embeddings", 77),
-            eos_token_id=t.get("eos_token_id", 49407),
-            hidden_act=t.get("hidden_act", "quick_gelu"),
-            layer_norm_eps=t.get("layer_norm_eps", 1e-5),
-        ),
-        vision=CLIPVisionConfig(
-            hidden_size=v.get("hidden_size", 768),
-            num_layers=v.get("num_hidden_layers", 12),
-            num_heads=v.get("num_attention_heads", 12),
-            intermediate_size=v.get("intermediate_size", 3072),
-            image_size=v.get("image_size", 224),
-            patch_size=v.get("patch_size", 32),
-            num_channels=v.get("num_channels", 3),
-            hidden_act=v.get("hidden_act", "quick_gelu"),
-            layer_norm_eps=v.get("layer_norm_eps", 1e-5),
-        ),
-        projection_dim=d.get("projection_dim", 512),
-    )
-
-
-def siglip_config_from_dict(d: Dict[str, Any]) -> SigLIPConfig:
-    t = d.get("text_config", {})
-    v = d.get("vision_config", {})
-    return SigLIPConfig(
-        text=SigLIPTextConfig(
-            vocab_size=t.get("vocab_size", 256000),
-            hidden_size=t.get("hidden_size", 768),
-            num_layers=t.get("num_hidden_layers", 12),
-            num_heads=t.get("num_attention_heads", 12),
-            intermediate_size=t.get("intermediate_size", 3072),
-            max_positions=t.get("max_position_embeddings", 64),
-            projection_size=t.get("projection_size", t.get("hidden_size", 768)),
-            hidden_act=t.get("hidden_act", "gelu_pytorch_tanh"),
-            layer_norm_eps=t.get("layer_norm_eps", 1e-6),
-        ),
-        vision=SigLIPVisionConfig(
-            hidden_size=v.get("hidden_size", 768),
-            num_layers=v.get("num_hidden_layers", 12),
-            num_heads=v.get("num_attention_heads", 12),
-            intermediate_size=v.get("intermediate_size", 3072),
-            image_size=v.get("image_size", 224),
-            patch_size=v.get("patch_size", 16),
-            num_channels=v.get("num_channels", 3),
-            hidden_act=v.get("hidden_act", "gelu_pytorch_tanh"),
-            layer_norm_eps=v.get("layer_norm_eps", 1e-6),
-        ),
-    )
 
 
 def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
@@ -121,9 +51,8 @@ def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
     none -> siglip, deepseek_v2 -> deepseek_v2 (the port's own), another
     dual-encoder config (``text_config`` / ``vision_config``, e.g.
     ``vision-text-dual-encoder``) -> generic. Other names come back as they
-    are."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
+    are; a name outside ``models/backbones.py``'s table raises."""
+    backbone(backend)
     if backend != "auto":
         return backend
     cfg_path = os.path.join(encoder_dir or "", "config.json")
@@ -141,18 +70,12 @@ def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
 
 def load_encoder_config(encoder_dir: str, backend: str):
     """Parse a local HF ``config.json`` into the backend's config
-    dataclasses (``CLIPConfig`` for clip, ``GenericDualConfig`` for generic,
-    ``DeepSeekV2Config`` for deepseek_v2, ``SigLIPConfig`` for the SigLIP
-    family), or the backend's canonical architecture without one."""
+    (``Backbone.from_dict``: ``CLIPConfig``, ``SigLIPConfig``,
+    ``GenericDualConfig`` or ``DeepSeekV2Config``), or the backend's
+    canonical architecture without one."""
+    family = backbone(backend)
     cfg_path = os.path.join(encoder_dir, "config.json")
-    d = load_json(cfg_path) if os.path.exists(cfg_path) else None
-    if backend == "deepseek_v2":
-        return DeepSeekV2Config.lite_siglip2_224() if d is None else DeepSeekV2Config.from_dict(d)
-    if backend == "clip":
-        return CLIPConfig.base_patch32() if d is None else clip_config_from_dict(d)
-    if backend == "generic":
-        return GenericDualConfig() if d is None else GenericDualConfig.from_dict(d)
-    return SigLIPConfig.base_patch16_224() if d is None else siglip_config_from_dict(d)
+    return family.from_dict(load_json(cfg_path)) if os.path.exists(cfg_path) else family.default()
 
 
 def _find_state_dict(directory: str) -> Optional[Dict]:
@@ -174,32 +97,25 @@ def build_model(
     fusion_dim: int = 512,
     loss_type: str = "bce",
     focal_gamma: float = 1.5,
-    clip_config: Optional[CLIPConfig] = None,
+    encoder_config=None,
     seed: int = 0,
     device="cuda",
-    siglip_config: Optional[SigLIPConfig] = None,
     head_hidden_dim: int = 0,
     learnable_task_weights: bool = False,
-    generic_config: Optional[GenericDualConfig] = None,
-    deepseek_config: Optional[DeepSeekV2Config] = None,
 ):
     """A randomly initialised fusion or multi-task model (scripts/train.py's
-    contract). The multi-task head maps the backend as the JAX package does:
-    clip -> clip, generic -> generic, siglip / auto -> the shared "auto"
-    backbone; it has no deepseek_v2 backbone and refuses it."""
+    contract). The multi-task head maps the backend as the JAX package does
+    (``MultiTask.backend``): clip -> clip, generic -> generic, siglip / auto
+    -> the shared "auto" backbone; it has no deepseek_v2 backbone and
+    refuses it."""
     if head == "mtl":
-        if backend == "deepseek_v2":
-            raise NotImplementedError("the multi-task head has no deepseek_v2 backbone: use "
-                                      "the fusion head (head: fusion)")
         return MultiTaskModel.create(
-            backend=backend if backend in ("clip", "generic") else "auto",
+            backend=multitask(backend).backend,
             num_tasks=len(class_names),
             fusion_dim=fusion_dim,
             head_hidden_dim=head_hidden_dim or 0,
             learnable_task_weights=learnable_task_weights,
-            clip_config=clip_config,
-            siglip_config=siglip_config,
-            generic_config=generic_config,
+            encoder_config=encoder_config,
             seed=seed,
             device=device,
         )
@@ -209,14 +125,11 @@ def build_model(
         backend=backend,
         num_labels=len(class_names),
         fusion_dim=fusion_dim,
-        clip_config=clip_config,
+        encoder_config=encoder_config,
         seed=seed,
         device=device,
         loss_type=loss_type,
         focal_gamma=focal_gamma,
-        siglip_config=siglip_config,
-        generic_config=generic_config,
-        deepseek_config=deepseek_config,
     )
 
 
@@ -230,22 +143,7 @@ def init_from_encoder_dir(model, encoder_dir: Optional[str]):
     sd = _find_state_dict(encoder_dir) if encoder_dir else None
     if sd is None:
         return model
-    if model.backend == "deepseek_v2":
-        from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import (
-            deepseek_v2_params_from_torch,
-        )
-
-        backbone = deepseek_v2_params_from_torch(sd, model.deepseek_config)
-    elif model.backend in ("clip", "generic"):
-        backbone = (convert.clip_params_from_torch(sd, model.clip_config)
-                    if model.backend == "clip"
-                    else generic_params_from_torch(sd, model.generic_config))
-        if isinstance(model, MultiTaskModel):
-            for name in CLIP_TOP_LEVEL:
-                backbone.pop(name, None)
-    else:
-        backbone = convert.siglip_params_from_torch(sd, model.siglip_config)
-    flat = flatten(backbone)
+    flat = flatten(backbone(model.backend).from_torch(sd, model.encoder_config, ""))
     own = model.backbone.state_dict()
     missing = sorted(set(own) - set(flat))
     if missing:
@@ -283,7 +181,7 @@ def with_performance_options(
         text=dataclasses.replace(cfg.text, **overrides),
         vision=dataclasses.replace(cfg.vision, **overrides),
     )
-    return model.replace(**{config_field(model.backend): new_cfg})
+    return model.replace(encoder_config=new_cfg)
 
 
 def find_inference_config(checkpoint_dir: str) -> Tuple[Dict[str, Any], str]:
@@ -321,8 +219,7 @@ def load_checkpoint(
     head = cfg.get("head", "fusion")
     if head not in ("fusion", "mtl"):
         raise ValueError(f"{checkpoint_dir}: head {head!r}: want 'fusion' or 'mtl'")
-    if backend not in BACKENDS:
-        raise ValueError(f"{checkpoint_dir}: backend {backend!r}: want one of {BACKENDS}")
+    backbone(backend)
     if cfg.get("format") == "orbax":
         raise NotImplementedError(
             "an Orbax run directory is the JAX package's own format: convert it "
@@ -331,7 +228,6 @@ def load_checkpoint(
     class_names = cfg.get("class_names", ["harmful"])
     enc_src = encoder_dir or cfg.get("encoder_dir") or checkpoint_dir
     enc_cfg = load_encoder_config(enc_src, backend)
-    cfg_kw = {config_field(backend): enc_cfg}
 
     if cfg.get("format") == "torch":
         from multimodal_content_moderation_tpu_torch.training.checkpoints import (
@@ -344,7 +240,7 @@ def load_checkpoint(
             head, backend, class_names, cfg.get("fusion_dim", 512), device="cpu",
             head_hidden_dim=cfg.get("head_hidden_dim", 0) or 0,
             learnable_task_weights=bool(cfg.get("learnable_task_weights", False)),
-            **cfg_kw,
+            encoder_config=enc_cfg,
         )
         model.load_state_dict(load_params(checkpoint_dir), strict=True)
         if dtype is not None:
@@ -354,32 +250,27 @@ def load_checkpoint(
     sd = _find_state_dict(checkpoint_dir)
     if sd is None:
         raise FileNotFoundError(f"No model weights found in {checkpoint_dir}")
-    conv_kw = {config_field(backend).replace("_config", "_cfg"): enc_cfg}
     if head == "mtl":
-        if backend == "deepseek_v2":
-            raise NotImplementedError(f"{checkpoint_dir}: the multi-task head has no "
-                                      "deepseek_v2 backbone")
-        mtl_backend = backend if backend in ("clip", "generic") else "auto"
-        params = convert.mtl_model_from_torch(sd, mtl_backend, len(class_names), **conv_kw)
+        mtl_backend = multitask(backend).backend
+        params = convert.mtl_model_from_torch(sd, mtl_backend, len(class_names), enc_cfg)
         if dtype is not None:
             params = convert.to_dtype(params, dtype)
         first = params["head"]["heads"][0]
         model = MultiTaskModel(
-            params, mtl_backend, num_tasks=len(class_names),
+            params, mtl_backend, enc_cfg, num_tasks=len(class_names),
             fusion_dim=cfg.get("fusion_dim", 512),
             head_hidden_dim=int(first["fc1"]["w"].shape[1]) if "fc1" in first else 0,
             learnable_task_weights="log_vars" in params["head"],
-            **cfg_kw,
         )
         return model.to(dev), cfg
-    params = convert.fusion_model_from_torch(sd, backend, **conv_kw)
+    params = convert.fusion_model_from_torch(sd, backend, enc_cfg)
     if dtype is not None:
         params = convert.to_dtype(params, dtype)
     model = FusionModel(
         params,
         backend,
+        enc_cfg,
         num_labels=len(class_names),
         fusion_dim=cfg.get("fusion_dim", 512),
-        **cfg_kw,
     ).to(dev)
     return model, cfg

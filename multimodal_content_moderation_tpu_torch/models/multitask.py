@@ -11,7 +11,7 @@ the mean over tasks of each task's BCE with its ``pos_weight``, weighted by
 the learned uncertainties ``exp(-s) L + s / 2`` when the head has
 ``log_vars``.
 
-Backends:
+Backends (each family's ``Backbone.multitask`` in ``models/backbones.py``):
 - "clip": bare CLIP towers (no projections, no ``logit_scale``); the text
   feature is the hidden state at the first EOS, the image feature the
   post-LN class token;
@@ -22,33 +22,25 @@ Backends:
   no ``logit_scale``), each pooled by the reference's fallback (its tanh
   pooler, else the plain mean), the text tower with HF's dropout from a
   generator forked off the head's.
+DeepSeek-V2 has no multi-task backbone and is refused.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Optional
 
 import torch
 
-from multimodal_content_moderation_tpu_torch.models import clip as clip_mod
-from multimodal_content_moderation_tpu_torch.models import generic as generic_mod
-from multimodal_content_moderation_tpu_torch.models import siglip as siglip_mod
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone, multitask
 from multimodal_content_moderation_tpu_torch.models.fusion import (
     DualEncoderModel,
-    _check_backend,
     _head_dense_init,
-    encoder_configs,
     encoder_generator,
 )
 from multimodal_content_moderation_tpu_torch.models.params import ParamTree
 from multimodal_content_moderation_tpu_torch.ops.layers import dense, dropout, gelu_exact
 from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits
 from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
-
-# the CLIP and generic entries a multi-task model does not hold: its towers
-# are bare
-CLIP_TOP_LEVEL = ("text_projection", "visual_projection", "logit_scale")
 
 
 def mtl_head_init(
@@ -146,16 +138,6 @@ def mtl_loss(
     return torch.mean(torch.stack(per_task))
 
 
-def _mtl_backend(backend: str) -> str:
-    """A backend the multi-task head has a backbone for: every fusion
-    backend but "deepseek_v2", which this head does not take."""
-    backend = _check_backend(backend)
-    if backend == "deepseek_v2":
-        raise NotImplementedError("the multi-task head has no deepseek_v2 backbone: use the "
-                                  "fusion head (head: fusion)")
-    return backend
-
-
 class MultiTaskModel(DualEncoderModel):
     """Backbone + multi-task head, with ``FusionModel``'s surface:
     ``forward(batch) -> {"logits"}`` (and ``"loss"`` when the batch holds
@@ -169,20 +151,18 @@ class MultiTaskModel(DualEncoderModel):
         self,
         params: Dict,
         backend: str = "clip",
-        clip_config: Optional[clip_mod.CLIPConfig] = None,
-        siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
+        encoder_config=None,
         num_tasks: int = 5,
         fusion_dim: int = 512,
         head_hidden_dim: int = 0,
         learnable_task_weights: bool = False,
         image_mean: Optional[tuple] = None,
         image_std: Optional[tuple] = None,
-        generic_config: Optional[generic_mod.GenericDualConfig] = None,
-        deepseek_config=None,
     ):
         super().__init__()
-        self._set_encoder_config(_mtl_backend(backend), clip_config, siglip_config,
-                                 generic_config, deepseek_config)
+        multitask(backend)
+        self.backend = backend.lower()
+        self.encoder_config = encoder_config or backbone(backend).default()
         self.num_tasks = num_tasks
         self.fusion_dim = fusion_dim
         self.head_hidden_dim = head_hidden_dim or 0
@@ -199,87 +179,27 @@ class MultiTaskModel(DualEncoderModel):
         fusion_dim: int = 512,
         head_hidden_dim: int = 0,
         learnable_task_weights: bool = False,
-        clip_config: Optional[clip_mod.CLIPConfig] = None,
-        siglip_config: Optional[siglip_mod.SigLIPConfig] = None,
+        encoder_config=None,
         seed: int = 0,
         device="cuda",
         dtype=torch.float32,
-        generic_config: Optional[generic_mod.GenericDualConfig] = None,
     ) -> "MultiTaskModel":
         """A randomly initialised model on ``device`` (a seeded generator)."""
-        backend = _mtl_backend(backend)
-        cfgs = encoder_configs(backend, clip_config, siglip_config, generic_config)
+        towers = multitask(backend)
+        cfg = encoder_config or backbone(backend).default()
         g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        if backend == "clip":
-            cfg = cfgs["clip_config"]
-            backbone = clip_mod.clip_init(g, cfg, dtype)
-            for name in CLIP_TOP_LEVEL:
-                backbone.pop(name, None)
-            dims = (cfg.text.hidden_size, cfg.vision.hidden_size)
-        elif backend == "generic":
-            # the raw towers: no projections, no logit_scale
-            cfg = cfgs["generic_config"]
-            backbone = generic_mod.generic_init(
-                g, dataclasses.replace(cfg, projection_dim=0), dtype)
-            dims = (cfg.text.hidden_size, cfg.vision.hidden_size)
-        else:
-            cfg = cfgs["siglip_config"]
-            backbone = siglip_mod.siglip_init(g, cfg, dtype)
-            dims = (cfg.text.projection_size, cfg.vision.hidden_size)
-        head = mtl_head_init(
-            g, *dims, num_tasks, fusion_dim, head_hidden_dim, learnable_task_weights, dtype
-        )
+        params = {"backbone": towers.init(g, cfg, dtype)}
+        params["head"] = mtl_head_init(g, *towers.widths(cfg), num_tasks, fusion_dim,
+                                       head_hidden_dim, learnable_task_weights, dtype)
         return MultiTaskModel(
-            {"backbone": backbone, "head": head}, backend, num_tasks=num_tasks,
-            fusion_dim=fusion_dim, head_hidden_dim=head_hidden_dim,
-            learnable_task_weights=learnable_task_weights, **cfgs,
+            params, backend, cfg, num_tasks=num_tasks, fusion_dim=fusion_dim,
+            head_hidden_dim=head_hidden_dim, learnable_task_weights=learnable_task_weights,
         )
 
-    def encode(self, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator] = None):
-        """(text features, image features), pooled from the bare towers: the
-        image from ``patches_u8`` (the uint8 wire) where the batch carries
-        them, else from ``pixel_values`` (normalised fp32 [B, C, H, W]).
-        ``generator`` turns on the generic text tower's dropout."""
-        from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
-
-        bp = self.backbone
-        u8 = batch.get("patches_u8")
-        if self.backend == "generic":
-            cfg = self.generic_config
-            t = generic_mod.generic_text_pooled(
-                bp, batch["input_ids"], batch.get("attention_mask"), cfg.text, generator
-            )
-            if u8 is not None:
-                v = generic_mod.generic_vision_pooled_from_tokens(
-                    bp, embed_for_model(self, bp, u8), cfg.vision
-                )
-            else:
-                v = generic_mod.generic_vision_pooled(bp, batch["pixel_values"], cfg.vision)
-            return t, v
-        if self.backend == "clip":
-            cfg = self.clip_config
-            t = clip_mod.clip_text_pooled(
-                bp, batch["input_ids"], batch.get("attention_mask"), cfg.text
-            )
-            if u8 is not None:
-                v = clip_mod.clip_vision_pooled_from_tokens(
-                    bp, embed_for_model(self, bp, u8), cfg.vision
-                )
-            else:
-                v = clip_mod.clip_vision_pooled(bp, batch["pixel_values"], cfg.vision)
-            return t, v
-        t = siglip_mod.siglip_text_features(
-            bp, batch["input_ids"], batch.get("attention_mask"), self.siglip_config,
-            position_ids=batch.get("position_ids"),
-        )
-        if u8 is not None:
-            v = siglip_mod.siglip_image_features_from_tokens(
-                bp, embed_for_model(self, bp, u8), self.siglip_config
-            )
-        else:
-            v = siglip_mod.siglip_image_features(bp, batch["pixel_values"], self.siglip_config)
-        return t, v
+    @property
+    def towers(self):
+        """The bare towers the head pools (``Backbone.multitask``)."""
+        return multitask(self.backend)
 
     def forward(
         self,

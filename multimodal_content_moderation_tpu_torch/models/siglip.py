@@ -10,24 +10,39 @@ Semantics match HF ``transformers.SiglipModel``, as the JAX package's
 - the activation is tanh-approximate GELU and LayerNorm's eps is 1e-6;
 - text attention is bidirectional with key padding (no causal mask).
 
-The vision trunk starts from embedded patch tokens: the uint8 wire of
-``models/u8wire.py`` embeds them on the card, the pixel path
-(``siglip_vision_hidden``) patchifies normalised fp32 NCHW pixels and applies
-the ``patch_embedding`` dense with its bias.
+The vision trunk starts from embedded patch tokens (``models/u8wire.py``'s
+``image_tokens``, from either wire; the ``patch_embedding`` dense has a
+bias). The reference (Hugging Face)
+layout, ``SiglipModel`` names, is read and written at the end.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from multimodal_content_moderation_tpu_torch.models.clip import (
     _block_init,
     _dense_init,
+    _encoder_layers,
+    _encoder_layers_out,
     _ln_init,
     _normal,
+    _text_out,
+)
+from multimodal_content_moderation_tpu_torch.models.params import (
+    _conv_out,
+    _conv_patch_embed,
+    _f32,
+    _linear,
+    _linear_out,
+    _ln,
+    _ln_out,
+    _strip_prefix,
+    _t,
+    _top_level_out,
 )
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import NEG_INF
 from multimodal_content_moderation_tpu_torch.ops.layers import (
@@ -36,7 +51,6 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     dense_maybe_int8,
     layer_norm,
     mha,
-    patchify,
     transformer_block,
 )
 from multimodal_content_moderation_tpu_torch.parallel.collectives import vocab_parallel_lookup
@@ -209,15 +223,117 @@ def siglip_image_features_from_tokens(params, tokens: torch.Tensor, cfg: SigLIPC
     return _map_head(hidden, params["vision_model"]["map_head"], cfg.vision)
 
 
-def siglip_vision_hidden(params, pixel_values: torch.Tensor, cfg: SigLIPVisionConfig) -> torch.Tensor:
-    """Post-LN hidden states [B, N, D] of the SigLIP ViT from normalised
-    [B, C, H, W] pixels, cast to the compute dtype before the patches."""
-    patches = patchify(pixel_values.to(getattr(torch, cfg.compute_dtype)), cfg.patch_size)
-    tokens = dense(patches, params["vision_model"]["patch_embedding"])
-    return siglip_vision_encoder(params, tokens, cfg)
+# ---------------------------------------------------------------------------
+# Reference layout
+# ---------------------------------------------------------------------------
 
 
-def siglip_image_features(params, pixel_values: torch.Tensor, cfg: SigLIPConfig) -> torch.Tensor:
-    """= HF ``SiglipModel.get_image_features`` (MAP-head pooled)."""
-    hidden = siglip_vision_hidden(params, pixel_values, cfg.vision)
-    return _map_head(hidden, params["vision_model"]["map_head"], cfg.vision)
+def siglip_config_from_dict(d: Dict[str, Any]) -> SigLIPConfig:
+    """An HF ``config.json`` -> ``SigLIPConfig`` (a SigLIP2 checkpoint's
+    ``image_size`` sizes the position table)."""
+    t = d.get("text_config", {})
+    v = d.get("vision_config", {})
+    return SigLIPConfig(
+        text=SigLIPTextConfig(
+            vocab_size=t.get("vocab_size", 256000),
+            hidden_size=t.get("hidden_size", 768),
+            num_layers=t.get("num_hidden_layers", 12),
+            num_heads=t.get("num_attention_heads", 12),
+            intermediate_size=t.get("intermediate_size", 3072),
+            max_positions=t.get("max_position_embeddings", 64),
+            projection_size=t.get("projection_size", t.get("hidden_size", 768)),
+            hidden_act=t.get("hidden_act", "gelu_pytorch_tanh"),
+            layer_norm_eps=t.get("layer_norm_eps", 1e-6),
+        ),
+        vision=SigLIPVisionConfig(
+            hidden_size=v.get("hidden_size", 768),
+            num_layers=v.get("num_hidden_layers", 12),
+            num_heads=v.get("num_attention_heads", 12),
+            intermediate_size=v.get("intermediate_size", 3072),
+            image_size=v.get("image_size", 224),
+            patch_size=v.get("patch_size", 16),
+            num_channels=v.get("num_channels", 3),
+            hidden_act=v.get("hidden_act", "gelu_pytorch_tanh"),
+            layer_norm_eps=v.get("layer_norm_eps", 1e-6),
+        ),
+    )
+
+
+def siglip_params_from_torch(sd: Dict, cfg: SigLIPConfig, prefix: str = "") -> dict:
+    """Full SiglipModel state dict -> parameter tree."""
+    s = _strip_prefix(sd, prefix)
+    t = _strip_prefix(s, "text_model.")
+    out = {
+        "text_model": {
+            "token_embedding": _t(t["embeddings.token_embedding.weight"]),
+            "position_embedding": _t(t["embeddings.position_embedding.weight"]),
+            "layers": _encoder_layers(t, "encoder", cfg.text.num_layers),
+            "final_ln": _ln(t, "final_layer_norm"),
+            "head": _linear(t, "head"),
+        },
+        "vision_model": siglip_vision_from_torch(s, cfg.vision.num_layers),
+    }
+    # HF SigLIP stores these as shape-(1,) parameters: scalars here
+    for name in ("logit_scale", "logit_bias"):
+        if name in s:
+            out[name] = _t(s[name]).reshape(())
+    return out
+
+
+def siglip_vision_from_torch(sd: Dict, num_layers: int, prefix: str = "vision_model.") -> dict:
+    """A SigLIP vision tower (``SiglipVisionTransformer`` names under
+    ``prefix``) -> its parameter tree."""
+    v = _strip_prefix(sd, prefix)
+    in_w = _t(v["head.attention.in_proj_weight"])  # (3d, d)
+    in_b = _t(v["head.attention.in_proj_bias"])  # (3d,)
+    d = in_w.shape[1]
+    attn = {
+        n: {"w": in_w[i * d : (i + 1) * d].t().contiguous(), "b": in_b[i * d : (i + 1) * d].clone()}
+        for i, n in enumerate(("q", "k", "v"))
+    }
+    attn["o"] = _linear(v, "head.attention.out_proj")
+    return {
+        "patch_embedding": _conv_patch_embed(v, "embeddings.patch_embedding", bias=True),
+        "position_embedding": _t(v["embeddings.position_embedding.weight"]),
+        "layers": _encoder_layers(v, "encoder", num_layers),
+        "post_ln": _ln(v, "post_layernorm"),
+        "map_head": {
+            "probe": _t(v["head.probe"]),
+            "attn": attn,
+            "ln": _ln(v, "head.layernorm"),
+            "fc1": _linear(v, "head.mlp.fc1"),
+            "fc2": _linear(v, "head.mlp.fc2"),
+        },
+    }
+
+
+def siglip_vision_to_torch(sd: Dict, prefix: str, v, cfg: SigLIPVisionConfig) -> None:
+    """The SigLIP ViT, with the MAP head's q / k / v re-assembled into
+    ``nn.MultiheadAttention``'s fused ``in_proj``."""
+    sd[f"{prefix}.embeddings.patch_embedding.weight"] = _conv_out(v["patch_embedding"], cfg)
+    sd[f"{prefix}.embeddings.patch_embedding.bias"] = _f32(v["patch_embedding"]["b"])
+    sd[f"{prefix}.embeddings.position_embedding.weight"] = _f32(v["position_embedding"])
+    _encoder_layers_out(sd, f"{prefix}.encoder", v["layers"])
+    _ln_out(sd, f"{prefix}.post_layernorm", v["post_ln"])
+    m = v["map_head"]
+    a = m["attn"]
+    sd[f"{prefix}.head.probe"] = _f32(m["probe"])
+    sd[f"{prefix}.head.attention.in_proj_weight"] = torch.cat(
+        [_f32(a[n]["w"]).t() for n in ("q", "k", "v")]).contiguous()
+    sd[f"{prefix}.head.attention.in_proj_bias"] = torch.cat(
+        [_f32(a[n]["b"]) for n in ("q", "k", "v")])
+    _linear_out(sd, f"{prefix}.head.attention.out_proj", a["o"])
+    _ln_out(sd, f"{prefix}.head.layernorm", m["ln"])
+    _linear_out(sd, f"{prefix}.head.mlp.fc1", m["fc1"])
+    _linear_out(sd, f"{prefix}.head.mlp.fc2", m["fc2"])
+
+
+def siglip_to_torch(bp, cfg: SigLIPConfig, prefix: str = "") -> Dict:
+    """The inverse of ``siglip_params_from_torch``: HF names under
+    ``prefix``, fp32 CPU tensors, ``logit_scale`` / ``logit_bias`` of shape
+    (1,)."""
+    sd: Dict = {}
+    _text_out(sd, f"{prefix}text_model", bp["text_model"], head=True)
+    siglip_vision_to_torch(sd, f"{prefix}vision_model", bp["vision_model"], cfg.vision)
+    _top_level_out(sd, bp, prefix, scalar_logits=False)
+    return sd

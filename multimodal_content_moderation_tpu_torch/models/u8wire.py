@@ -3,7 +3,8 @@ embed the patch rows (``ops/cuda_image.patch_embed_u8``: the kernel on the
 card, its plain version on the CPU, through the autograd Function
 ``patch_embed_u8_train``). The fold runs inside the autograd graph, so
 when gradients are recorded they reach the embedding weight and bias
-themselves: the u8 wire trains as well as it evaluates."""
+themselves: the u8 wire trains as well as it evaluates. ``image_tokens``
+embeds a batch's image by the wire it came on."""
 
 from __future__ import annotations
 
@@ -11,21 +12,12 @@ from typing import NamedTuple
 
 import torch
 
-from multimodal_content_moderation_tpu_torch.data.images import (
-    CLIP_MEAN,
-    CLIP_STD,
-    SIGLIP_MEAN,
-    SIGLIP_STD,
-)
+from multimodal_content_moderation_tpu_torch.models import backbones
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import (
     fold_norm_into_embed,
     patch_embed_u8_train,
 )
-
-
-def default_stats(backend: str):
-    """The backend's normalisation stats: CLIP's, else SigLIP's 0.5 / 0.5."""
-    return (CLIP_MEAN, CLIP_STD) if backend == "clip" else (SIGLIP_MEAN, SIGLIP_STD)
+from multimodal_content_moderation_tpu_torch.ops.layers import dense, patchify
 
 
 class PatchFold(NamedTuple):
@@ -48,10 +40,9 @@ def _stamp(model, pe) -> tuple:
 def fold_for_model(model, backbone) -> PatchFold:
     """The model's normalisation folded into its patch embedding: fp32
     (w_folded, b_folded) from the stored weight and bias (``fold_norm_into_embed``),
-    with the model's stats (model fields, else the backend's defaults;
-    "auto", the multi-task SigLIP backbone, and the generic ViT take
-    SigLIP's 0.5 / 0.5)."""
-    dmean, dstd = default_stats(model.backend)
+    with the model's stats (model fields, else the family's
+    ``image_stats``)."""
+    dmean, dstd = backbones.backbone(model.backend).image_stats
     vision = model.encoder_config.vision
     pe = backbone["vision_model"]["patch_embedding"]
     wf, bf = fold_norm_into_embed(
@@ -78,3 +69,21 @@ def embed_for_model(model, backbone, patches_u8: torch.Tensor) -> torch.Tensor:
     return patch_embed_u8_train(
         patches_u8, fold.w, fold.b, getattr(torch, model.encoder_config.vision.compute_dtype)
     )
+
+
+def embed_pixels(backbone, pixel_values: torch.Tensor, vision) -> torch.Tensor:
+    """The f32 wire's embed: normalised fp32 [B, C, H, W] pixels, cast to
+    the compute dtype, ``patchify``'d and through the ``patch_embedding``
+    dense -> tokens [B, N, D]."""
+    patches = patchify(pixel_values.to(getattr(torch, vision.compute_dtype)), vision.patch_size)
+    return dense(patches, backbone["vision_model"]["patch_embedding"])
+
+
+def image_tokens(model, backbone, batch) -> torch.Tensor:
+    """A batch's embedded patch tokens [B, N, D] in the vision tower's
+    compute dtype: from ``patches_u8`` (``embed_for_model``) where the batch
+    carries them, else from ``pixel_values`` (``embed_pixels``)."""
+    u8 = batch.get("patches_u8")
+    if u8 is not None:
+        return embed_for_model(model, backbone, u8)
+    return embed_pixels(backbone, batch["pixel_values"], model.encoder_config.vision)

@@ -94,7 +94,7 @@ def worker(n: int, rank: int, port: int, timeout_s: float) -> dict:
         vision=tclip.CLIPVisionConfig(image_size=IMAGE, patch_size=16, **tower),
         projection_dim=D,
     )
-    model = FusionModel.create("clip", num_labels=5, fusion_dim=32, clip_config=cfg,
+    model = FusionModel.create("clip", num_labels=5, fusion_dim=32, encoder_config=cfg,
                                device="cpu").replace(image_mean=(0.5,) * 3, image_std=(0.5,) * 3)
     mesh.replicate(model)
     shard_params(model, mesh)
@@ -112,7 +112,7 @@ def worker(n: int, rank: int, port: int, timeout_s: float) -> dict:
         raise AssertionError(f"non-finite loss {loss}")
 
     eval_mesh = build_mesh(n, 1)
-    plain = FusionModel.create("clip", num_labels=5, fusion_dim=32, clip_config=cfg,
+    plain = FusionModel.create("clip", num_labels=5, fusion_dim=32, encoder_config=cfg,
                                device="cpu")
     engine = FastInferenceEngine(plain, (0.5,) * 3, (0.5,) * 3, mesh=eval_mesh)
     logits, _ = evaluate_logits_u8(engine, _Rows(4 * n + 1, 1), batch_size=2 * n,

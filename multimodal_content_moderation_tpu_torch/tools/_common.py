@@ -166,36 +166,20 @@ def encoder_config(backend: str, tiny: bool = False):
     ``tiny`` two-layer towers of width 64 (224 px images in 32 px patches)."""
     from multimodal_content_moderation_tpu_torch.models import clip, generic, siglip
 
-    if backend == "clip":
-        if not tiny:
-            return clip.CLIPConfig.base_patch32()
-        return clip.CLIPConfig(
-            text=clip.CLIPTextConfig(hidden_size=64, num_layers=2, num_heads=4,
-                                     intermediate_size=128),
-            vision=clip.CLIPVisionConfig(hidden_size=64, num_layers=2, num_heads=4,
-                                         intermediate_size=128),
-            projection_dim=64,
-        )
-    if backend == "generic":
-        if not tiny:
-            return generic.GenericDualConfig(projection_dim=512)
-        return generic.GenericDualConfig(
-            text=generic.GenericTextConfig(vocab_size=1000, hidden_size=64, num_layers=2,
-                                           num_heads=4, intermediate_size=128,
-                                           max_positions=128),
-            vision=generic.GenericVisionConfig(hidden_size=64, num_layers=2, num_heads=4,
-                                               intermediate_size=128, patch_size=32),
-            projection_dim=64,
-        )
-    if not tiny:
-        return siglip.SigLIPConfig.base_patch16_224()
-    return siglip.SigLIPConfig(
-        text=siglip.SigLIPTextConfig(vocab_size=1000, hidden_size=64, num_layers=2,
-                                     num_heads=4, intermediate_size=128,
-                                     projection_size=64),
-        vision=siglip.SigLIPVisionConfig(hidden_size=64, num_layers=2, num_heads=4,
-                                         intermediate_size=128, patch_size=32),
-    )
+    tower = dict(hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128)
+    configs = {
+        "clip": (clip.CLIPConfig.base_patch32, lambda: clip.CLIPConfig(
+            text=clip.CLIPTextConfig(**tower), vision=clip.CLIPVisionConfig(**tower),
+            projection_dim=64)),
+        "siglip": (siglip.SigLIPConfig.base_patch16_224, lambda: siglip.SigLIPConfig(
+            text=siglip.SigLIPTextConfig(vocab_size=1000, projection_size=64, **tower),
+            vision=siglip.SigLIPVisionConfig(patch_size=32, **tower))),
+        "generic": (lambda: generic.GenericDualConfig(projection_dim=512),
+                    lambda: generic.GenericDualConfig(
+            text=generic.GenericTextConfig(vocab_size=1000, max_positions=128, **tower),
+            vision=generic.GenericVisionConfig(patch_size=32, **tower), projection_dim=64)),
+    }
+    return configs[backend][tiny]()
 
 
 def hf_features(out) -> torch.Tensor:
@@ -204,14 +188,6 @@ def hf_features(out) -> torch.Tensor:
     transformers 5 a ``BaseModelOutputWithPooling`` whose ``pooler_output``
     holds it."""
     return out if isinstance(out, torch.Tensor) else out.pooler_output
-
-
-def config_kwargs(backend: str, cfg) -> dict:
-    """``{"clip_config": cfg}`` (or siglip / generic) for the model
-    constructors."""
-    from multimodal_content_moderation_tpu_torch.models.fusion import config_field
-
-    return {config_field(backend): cfg}
 
 
 def hf_clip_config(cfg) -> dict:
@@ -344,11 +320,11 @@ def write_reference_checkpoint(model, directory: str, inference: dict) -> str:
     here, which the port refuses; this is the layout it reads."""
     from multimodal_content_moderation_tpu_torch.models import export
 
-    write_clip_encoder_dir(directory, hf_clip_config(model.clip_config))
+    write_clip_encoder_dir(directory, hf_clip_config(model.encoder_config))
     export.export_safetensors(model, os.path.join(directory, "model.safetensors"))
     cfg = {"backend": "clip", "head": "fusion", "fusion_dim": model.fusion_dim,
            "class_names": CLASSES, "thresholds": [0.5] * len(CLASSES),
-           "max_text_length": model.clip_config.text.max_positions, **inference}
+           "max_text_length": model.encoder_config.text.max_positions, **inference}
     with open(os.path.join(directory, "inference_config.json"), "w") as f:
         json.dump(cfg, f)
     return directory

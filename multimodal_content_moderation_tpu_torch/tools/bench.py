@@ -66,7 +66,7 @@ def build_model(tiny: bool, seed: int, device):
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
 
     return FusionModel.create("clip", num_labels=len(c.CLASSES), seed=seed, device=device,
-                              clip_config=c.encoder_config("clip", tiny))
+                              encoder_config=c.encoder_config("clip", tiny))
 
 
 def make_engine(model, dtype: str = "bfloat16", attention: str = "pallas"):
@@ -89,7 +89,7 @@ def staged_inputs(engine, batch: int, n_ids: int, seed: int, id_base: int = 1000
     and ``n_ids`` batches of token ids (``make_ids`` of sub-seeds
     ``id_base + k``, cut to ``width`` columns). At seed 0 these are the JAX
     bench's draws."""
-    text = engine.model.clip_config.text
+    text = engine.model.encoder_config.text
     g = np.random.default_rng(seed)
     img = engine.model.image_size
     patches = [engine.patches_from_hwc(c.crops(g, batch, img)) for _ in range(N_STAGED)]
@@ -128,7 +128,7 @@ def bench_e2e(engine, batch: int, rows: int) -> dict:
     try:
         csv_path = c.write_e2e_csv(tmp, rows)
         n_images = len(c.fixture_jpegs())
-        seq = engine.model.clip_config.text.max_positions
+        seq = engine.model.encoder_config.text.max_positions
         img = engine.model.image_size
 
         def timed_pass(ds) -> float:

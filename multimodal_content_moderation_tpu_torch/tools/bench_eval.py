@@ -46,8 +46,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sweep", type=str, default="",
                     help="comma-separated batch sizes to sweep (e.g. 48,96,144)")
     ap.add_argument("--image_size", type=int, default=0,
-                    help="SigLIP's image size (384: google/siglip2-base-patch16-384, whose "
-                    "576 patch tokens take flash_attention); 0 keeps the config's")
+                    help="the vision tower's image size (384 for SigLIP: "
+                    "google/siglip2-base-patch16-384, whose 576 patch tokens take "
+                    "flash_attention); 0 keeps the config's")
     ap.add_argument("--vision_attention", choices=["xla", "pallas"], default="xla",
                     help="the vision tower's attention core (pallas = the attention_nhd "
                     "kernel up to 256 positions, flash_attention above)")
@@ -76,16 +77,15 @@ def build_engine(args, device, dtype: str = "bfloat16"):
     """The fast engine over a randomly initialised model of ``args``'
     backend and head, towers in ``dtype`` with their attention cores."""
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.backbones import backbone
     from multimodal_content_moderation_tpu_torch.models.fast_infer import FastInferenceEngine
-    from multimodal_content_moderation_tpu_torch.models.fusion import config_field
-    from multimodal_content_moderation_tpu_torch.models.u8wire import default_stats
 
     cfg = c.encoder_config(args.backend, args.tiny)
-    if args.image_size and args.backend == "siglip":
+    if args.image_size:
         cfg = dataclasses.replace(
             cfg, vision=dataclasses.replace(cfg.vision, image_size=args.image_size))
     model = model_io.build_model(args.head, args.backend, c.CLASSES, seed=args.seed,
-                                 device=device, **c.config_kwargs(args.backend, cfg))
+                                 device=device, encoder_config=cfg)
     cfg = model.encoder_config
     perf = {"compute_dtype": dtype, "scores_dtype": dtype}
     cfg = dataclasses.replace(
@@ -93,7 +93,7 @@ def build_engine(args, device, dtype: str = "bfloat16"):
         text=dataclasses.replace(cfg.text, attention_impl=args.text_attention, **perf),
         vision=dataclasses.replace(cfg.vision, attention_impl=args.vision_attention, **perf),
     )
-    model = model.replace(**{config_field(model.backend): cfg})
+    model = model.replace(encoder_config=cfg)
     if dtype == "bfloat16":
         model = model.to(torch.bfloat16)
     if args.int8_mlp:
@@ -101,7 +101,7 @@ def build_engine(args, device, dtype: str = "bfloat16"):
 
         model, n = quantize_fc1_layers(model)
         c.warn("bench-eval", f"int8 fc1 layers: {n}")
-    return FastInferenceEngine(model, *default_stats(args.backend))
+    return FastInferenceEngine(model, *backbone(args.backend).image_stats)
 
 
 def text_shape(engine):
@@ -115,16 +115,14 @@ def text_shape(engine):
 def run_b(engine, args, B: int, device) -> dict:
     """Staged samples/s at batch ``B`` (distinct ids for every batch of a
     pass, ``N_STAGED`` patch batches in turn) and the launches."""
-    from multimodal_content_moderation_tpu_torch.models.fast_infer import buckets_exact
-
     seq, vocab, eos = text_shape(engine)
     n_batches = -(-args.n_samples // B)
     T = args.bucket if args.bucket and args.bucket < seq else seq
     carry = None
-    if T < seq and not buckets_exact(args.backend):
+    if T < seq and not engine.family.exact_buckets:
         raise SystemExit(f"bench-eval: --bucket {args.bucket}: the {args.backend} backend's "
                          "text buckets are not exact (its towers pool over every position)")
-    if T < seq and args.backend != "clip":
+    if T < seq and engine.family.bucket_extra:
         # SigLIP: T-1 real columns + a PAD carry column at the full width's
         # last position (models/fast_infer.bucket_batch_text)
         carry = seq - 1
@@ -158,32 +156,24 @@ def run_b(engine, args, B: int, device) -> dict:
 
 def towers(engine):
     """{part: fn(inputs) -> output} of the engine's model: "text" (ids,
-    mask), "vision" (u8 patch rows) and, for SigLIP, "map_head" (the vision
-    tower's last hidden states [B, N, D])."""
-    from multimodal_content_moderation_tpu_torch.models import clip, generic, siglip
+    mask), "vision" (u8 patch rows) and, for a tower with a MAP head
+    (SigLIP's), "map_head" (the vision tower's last hidden states
+    [B, N, D])."""
+    from multimodal_content_moderation_tpu_torch.models import siglip
     from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
 
     model = engine.model
-    bp = model.backbone
-    cfg = model.encoder_config
-    tokens = lambda p: embed_for_model(model, bp, p)  # noqa: E731
-    if model.backend == "clip":
-        return {
-            "text": lambda ids, m: clip.clip_text_features(bp, ids, m, cfg),
-            "vision": lambda p: clip.clip_image_features_from_tokens(bp, tokens(p), cfg),
-        }
-    if model.backend == "generic":
-        return {
-            "text": lambda ids, m: generic.generic_text_features(bp, ids, m, cfg),
-            "vision": lambda p: generic.generic_image_features_from_tokens(bp, tokens(p), cfg),
-        }
-    return {
-        "text": lambda ids, m: siglip.siglip_text_features(bp, ids, m, cfg),
-        "vision": lambda p: siglip.siglip_image_features_from_tokens(bp, tokens(p), cfg),
-        "map_head": lambda h: siglip._map_head(
-            h.to(getattr(torch, cfg.vision.compute_dtype)), bp["vision_model"]["map_head"],
-            cfg.vision),
+    bp, cfg, family = model.backbone, model.encoder_config, model.towers
+    parts = {
+        "text": lambda ids, m: family.text(bp, {"input_ids": ids, "attention_mask": m}, cfg,
+                                           None),
+        "vision": lambda p: family.image(bp, embed_for_model(model, bp, p), cfg),
     }
+    if "map_head" in bp["vision_model"]:
+        parts["map_head"] = lambda h: siglip._map_head(
+            h.to(getattr(torch, cfg.vision.compute_dtype)), bp["vision_model"]["map_head"],
+            cfg.vision)
+    return parts
 
 
 @torch.inference_mode()

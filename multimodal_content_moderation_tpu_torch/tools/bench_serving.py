@@ -81,7 +81,7 @@ def build_checkpoint(root: str, tiny: bool, seed: int, device) -> str:
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
 
     model = FusionModel.create("clip", num_labels=len(c.CLASSES), seed=seed, device=device,
-                               clip_config=c.encoder_config("clip", tiny))
+                               encoder_config=c.encoder_config("clip", tiny))
     return c.write_reference_checkpoint(model, os.path.join(root, "checkpoint"), {})
 
 

@@ -61,17 +61,17 @@ def build(args, device):
     and score dtype (and, on the u8 wire, the backend's stats folded into
     the embed)."""
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.backbones import backbone
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
-    from multimodal_content_moderation_tpu_torch.models.u8wire import default_stats
 
-    cfg = c.encoder_config(args.backend, args.tiny)
     model = FusionModel.create(args.backend, num_labels=len(c.CLASSES), seed=args.seed,
-                               device=device, **c.config_kwargs(args.backend, cfg))
+                               device=device,
+                               encoder_config=c.encoder_config(args.backend, args.tiny))
     model = model_io.with_performance_options(
         model, compute_dtype="bfloat16", scores_dtype=args.scores_dtype,
         attention_impl=args.attention)
     if args.wire == "u8":
-        mean, std = default_stats(args.backend)
+        mean, std = backbone(args.backend).image_stats
         model = model.replace(image_mean=mean, image_std=std)
     return model
 

@@ -42,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def inputs(model, n: int):
     """(ids [n, T] int64 with EOS at T // 2, an all-ones mask, normal
     pixels [n, 3, H, W]): the JAX tool's draws from ``default_rng(0)``."""
-    tcfg = model.clip_config.text
+    tcfg = model.encoder_config.text
     g = np.random.default_rng(0)
     T = tcfg.max_positions
     ids = g.integers(1, tcfg.vocab_size - 2, size=(n, T)).astype(np.int64)
@@ -55,16 +55,11 @@ def inputs(model, n: int):
 
 def port_features(model, ids, mask, px):
     """The port's CLIP text and image features (fp32 numpy)."""
-    from multimodal_content_moderation_tpu_torch.models.clip import (
-        clip_image_features,
-        clip_text_features,
-    )
-
     dev = model.device
+    batch = {k: torch.from_numpy(a).to(dev)
+             for k, a in (("input_ids", ids), ("attention_mask", mask), ("pixel_values", px))}
     with torch.no_grad():
-        t = clip_text_features(model.backbone, torch.from_numpy(ids).to(dev),
-                               torch.from_numpy(mask).to(dev), model.clip_config)
-        v = clip_image_features(model.backbone, torch.from_numpy(px).to(dev), model.clip_config)
+        t, v = model.encode(batch)
     return t.float().cpu().numpy(), v.float().cpu().numpy()
 
 
@@ -77,15 +72,15 @@ def main(argv=None) -> int:
                          "it compares against), which is not installed here") from None
 
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.clip import CLIPConfig
     from multimodal_content_moderation_tpu_torch.tools._common import hf_features, open_device
 
     device = open_device(args.device, "parity_check")
     model, cfg = model_io.load_checkpoint(args.checkpoint, args.encoder_dir, device=device)
     enc_dir = args.encoder_dir or cfg.get("encoder_dir") or args.checkpoint
 
-    backend = cfg.get("backend", "clip")
-    head = cfg.get("head", "fusion")
-    if backend != "clip" or head != "fusion":
+    # CLIP's features against transformers' CLIPModel, as the JAX tool does
+    if not isinstance(model.encoder_config, CLIPConfig) or cfg.get("head", "fusion") != "fusion":
         raise SystemExit(
             "parity_check currently drives the clip+fusion flagship; other "
             "combos are covered by the unit suite (tests/test_head_parity.py)"

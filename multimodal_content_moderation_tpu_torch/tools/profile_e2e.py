@@ -70,7 +70,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device = c.open_device(args.device, "profile-e2e")
     engine = bench.make_engine(bench.build_model(args.tiny, args.seed, device))
-    seq = engine.model.clip_config.text.max_positions
+    seq = engine.model.encoder_config.text.max_positions
     tmp = tempfile.mkdtemp(prefix="profile_e2e_")
     try:
         csv_path = c.write_e2e_csv(tmp, args.rows)

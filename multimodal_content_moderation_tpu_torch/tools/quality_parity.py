@@ -145,16 +145,22 @@ def _import_transformers():
     return transformers
 
 
+# the modules of the reference multi-task model that hold each family's text
+# and vision towers: CLIP's bare towers apart, SigLIP's one shared encoder
+# (the reference's AutoModel path, src/models/multitask.py:130-154)
+MTL_TOWERS = {"clip": ("tower_txt", "tower_img"), "siglip": ("backbone", "backbone")}
+
+
 def build_torch_fusion(
     encoder_dir: str, num_labels: int, fusion_dim: int, seed: int,
-    backend: str = "clip",
 ):
-    """Reference-shaped torch fusion classifier over a local HF encoder dir.
-
-    ``backend="clip"`` mirrors the reference's CLIP path
-    (``CLIPModel.get_text/image_features``); ``backend="siglip"`` mirrors its
-    "auto" path (AutoModel submodule pooler outputs: text pooler head,
-    vision MAP head — reference src/models/fusion.py:100-111)."""
+    """Reference-shaped torch fusion classifier over a local HF encoder dir:
+    the encoder ``AutoModel`` makes of it and its ``get_text_features`` /
+    ``get_image_features``, which are ``CLIPModel``'s projected features (the
+    reference's CLIP path) and ``SiglipModel``'s towers' pooler outputs (its
+    "auto" path: text pooler head, vision MAP head — reference
+    src/models/fusion.py:100-111), sized by the reference's probe
+    (``projection_dim``, else the text width)."""
     import torch.nn.functional as F
     from torch import nn
 
@@ -163,23 +169,15 @@ def build_torch_fusion(
     class TorchFusion(nn.Module):
         def __init__(self):
             super().__init__()
-            if backend == "clip":
-                cfg = transformers.CLIPConfig.from_pretrained(encoder_dir)
-                self.backbone = transformers.CLIPModel.from_pretrained(encoder_dir)
-                d = cfg.projection_dim
-            else:
-                self.backbone = transformers.SiglipModel.from_pretrained(encoder_dir)
-                d = self.backbone.config.text_config.hidden_size
+            self.backbone = transformers.AutoModel.from_pretrained(encoder_dir)
+            cfg = self.backbone.config
+            d = getattr(cfg, "projection_dim", None) or cfg.text_config.hidden_size
             add_fusion_head(self, d, num_labels, fusion_dim)
 
         def forward(self, ids, mask, px, tpres, ipres):
-            if backend == "clip":
-                t = c.hf_features(self.backbone.get_text_features(input_ids=ids,
-                                                                  attention_mask=mask))
-                v = c.hf_features(self.backbone.get_image_features(pixel_values=px))
-            else:
-                t = self.backbone.text_model(input_ids=ids, attention_mask=mask).pooler_output
-                v = self.backbone.vision_model(pixel_values=px).pooler_output
+            t = c.hf_features(self.backbone.get_text_features(input_ids=ids,
+                                                              attention_mask=mask))
+            v = c.hf_features(self.backbone.get_image_features(pixel_values=px))
             t = F.normalize(t, dim=-1) * tpres.unsqueeze(1)
             v = F.normalize(v, dim=-1) * ipres.unsqueeze(1)
             tp, vp = self.proj_t(t), self.proj_i(v)
@@ -196,36 +194,33 @@ def build_torch_mtl(
     seed: int, backend: str = "clip",
 ):
     """Reference-shaped torch MTL classifier (pooler outputs + shared trunk +
-    per-task heads, src/models/multitask.py). ``backend="clip"`` uses the
-    separate tower_txt/tower_img layout; ``backend="siglip"`` the shared
-    AutoModel backbone layout (multitask.py:130-154)."""
+    per-task heads, src/models/multitask.py), its towers where
+    ``MTL_TOWERS`` puts the family's: ``tower_txt.text_model`` /
+    ``tower_img.vision_model`` apart, or one shared ``backbone``."""
     from torch import nn
 
     transformers = _import_transformers()
+    txt, img = MTL_TOWERS[backend]
 
     class TorchMTL(nn.Module):
         def __init__(self):
             super().__init__()
-            if backend == "clip":
-                cfg = transformers.CLIPConfig.from_pretrained(encoder_dir)
-                self.tower_txt = transformers.CLIPTextModel.from_pretrained(encoder_dir)
-                self.tower_img = transformers.CLIPVisionModel.from_pretrained(encoder_dir)
-                tdim = cfg.text_config.hidden_size
-                idim = cfg.vision_config.hidden_size
+            encoder = transformers.AutoModel.from_pretrained(encoder_dir)
+            if txt == img:
+                setattr(self, txt, encoder)
             else:
-                self.backbone = transformers.SiglipModel.from_pretrained(encoder_dir)
-                tdim = self.backbone.config.text_config.hidden_size
-                idim = self.backbone.config.vision_config.hidden_size
-            add_mtl_head(self, tdim, idim, num_tasks, fusion_dim, head_hidden_dim)
+                setattr(self, txt, nn.Module())
+                setattr(self, img, nn.Module())
+                getattr(self, txt).text_model = encoder.text_model
+                getattr(self, img).vision_model = encoder.vision_model
+            add_mtl_head(self, encoder.config.text_config.hidden_size,
+                         encoder.config.vision_config.hidden_size, num_tasks, fusion_dim,
+                         head_hidden_dim)
 
         def forward(self, ids, mask, px, tpres, ipres):
-            if backend == "clip":
-                tfeat = self.tower_txt(input_ids=ids, attention_mask=mask).pooler_output
-                vfeat = self.tower_img(pixel_values=px).pooler_output
-            else:
-                tfeat = self.backbone.text_model(
-                    input_ids=ids, attention_mask=mask).pooler_output
-                vfeat = self.backbone.vision_model(pixel_values=px).pooler_output
+            tfeat = getattr(self, txt).text_model(input_ids=ids,
+                                                  attention_mask=mask).pooler_output
+            vfeat = getattr(self, img).vision_model(pixel_values=px).pooler_output
             tp, vp = self.proj_t(tfeat), self.proj_i(vfeat)
             fused = _fuse(tp, vp, tpres, ipres, self.g_t, self.g_i, self.gate)
             shared = self.shared_head(fused)
@@ -365,38 +360,34 @@ def reference_head_state(head: str, backend: str, enc_cfg, num_labels: int,
     backbone the reference builds first consumes the generator too)."""
     from torch import nn
 
-    from multimodal_content_moderation_tpu_torch.models.fusion import (
-        config_field,
-        fusion_feature_dim,
-    )
+    from multimodal_content_moderation_tpu_torch.models.backbones import backbone, multitask
 
     module = nn.Module()
     torch.manual_seed(seed)
     if head == "mtl":
-        add_mtl_head(module, enc_cfg.text.hidden_size, enc_cfg.vision.hidden_size, num_labels,
-                     fusion_dim, head_hidden_dim)
+        add_mtl_head(module, *multitask(backend).widths(enc_cfg), num_labels, fusion_dim,
+                     head_hidden_dim)
     else:
-        add_fusion_head(module, fusion_feature_dim(backend, **{config_field(backend): enc_cfg}),
-                        num_labels, fusion_dim)
+        add_fusion_head(module, backbone(backend).feature_dim(enc_cfg), num_labels, fusion_dim)
     return module.state_dict()
 
 
 def encoder_reference_state(encoder_dir: str, head: str, backend: str) -> dict:
     """The encoder directory's weights under the reference model's names:
-    ``backbone.*``, or CLIP's bare ``tower_txt.*`` / ``tower_img.*`` towers
-    of the multi-task model."""
+    ``backbone.*``, or the multi-task model's towers where ``MTL_TOWERS``
+    keeps them apart (CLIP's bare ``tower_txt.*`` / ``tower_img.*``)."""
     from multimodal_content_moderation_tpu_torch.models import model_io
 
     sd = model_io._find_state_dict(encoder_dir)
     if sd is None:
         raise FileNotFoundError(f"{encoder_dir}: no encoder weights (model.safetensors or "
                                 "pytorch_model.bin)")
-    if head == "mtl" and backend == "clip":
-        out = {f"tower_txt.{k}": v for k, v in sd.items() if k.startswith("text_model.")}
-        out.update({f"tower_img.{k}": v for k, v in sd.items()
-                    if k.startswith("vision_model.")})
-        return out
-    return {f"backbone.{k}": v for k, v in sd.items()}
+    txt, img = MTL_TOWERS[backend] if head == "mtl" else ("backbone", "backbone")
+    if txt == img:
+        return {f"{txt}.{k}": v for k, v in sd.items()}
+    out = {f"{txt}.{k}": v for k, v in sd.items() if k.startswith("text_model.")}
+    out.update({f"{img}.{k}": v for k, v in sd.items() if k.startswith("vision_model.")})
+    return out
 
 
 class PortModels:
@@ -405,13 +396,10 @@ class PortModels:
 
     def __init__(self, head, backend, enc_cfg, num_labels, fusion_dim, head_hidden_dim,
                  device):
-        from multimodal_content_moderation_tpu_torch.models.fusion import config_field
-
         self.head, self.backend, self.device = head, backend, device
         self.num_labels, self.fusion_dim = num_labels, fusion_dim
         self.head_hidden_dim = head_hidden_dim
-        self.cfg_kw = {config_field(backend): enc_cfg}
-        self.conv_kw = {config_field(backend).replace("_config", "_cfg"): enc_cfg}
+        self.enc_cfg = enc_cfg
 
     def from_state(self, sd: dict):
         from multimodal_content_moderation_tpu_torch.models import convert
@@ -421,14 +409,14 @@ class PortModels:
         sd = {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in sd.items()}
         if self.head == "mtl":
             params = convert.mtl_model_from_torch(sd, self.backend, self.num_labels,
-                                                  **self.conv_kw)
-            model = MultiTaskModel(params, self.backend, num_tasks=self.num_labels,
+                                                  self.enc_cfg)
+            model = MultiTaskModel(params, self.backend, self.enc_cfg, num_tasks=self.num_labels,
                                    fusion_dim=self.fusion_dim,
-                                   head_hidden_dim=self.head_hidden_dim, **self.cfg_kw)
+                                   head_hidden_dim=self.head_hidden_dim)
         else:
-            params = convert.fusion_model_from_torch(sd, self.backend, **self.conv_kw)
-            model = FusionModel(params, self.backend, num_labels=self.num_labels,
-                                fusion_dim=self.fusion_dim, **self.cfg_kw)
+            params = convert.fusion_model_from_torch(sd, self.backend, self.enc_cfg)
+            model = FusionModel(params, self.backend, self.enc_cfg, num_labels=self.num_labels,
+                                fusion_dim=self.fusion_dim)
         return model.to(self.device)
 
     def seeded(self, seed: int):
@@ -437,7 +425,7 @@ class PortModels:
         return model_io.build_model(
             self.head, self.backend, list(range(self.num_labels)), self.fusion_dim,
             seed=seed, device=self.device, head_hidden_dim=self.head_hidden_dim,
-            **self.cfg_kw)
+            encoder_config=self.enc_cfg)
 
 
 def configured(model, recipe: dict):
@@ -507,6 +495,7 @@ def run(
     from multimodal_content_moderation_tpu_torch.data.images import ImagePreprocessor
     from multimodal_content_moderation_tpu_torch.data.tokenizer import load_tokenizer
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.backbones import backbone
     from multimodal_content_moderation_tpu_torch.training.metrics import (
         make_compute_metrics_multi,
     )
@@ -544,8 +533,7 @@ def run(
         if oracle == "reference":
             ref = (build_torch_mtl(encoder_dir, len(class_names), fusion_dim, head_hidden_dim,
                                    seed, backend=backend) if head == "mtl"
-                   else build_torch_fusion(encoder_dir, len(class_names), fusion_dim, seed,
-                                           backend=backend))
+                   else build_torch_fusion(encoder_dir, len(class_names), fusion_dim, seed))
             if init_state is not None:
                 ref.load_state_dict(init_state)
             start = models.from_state(ref.state_dict())
@@ -572,7 +560,7 @@ def run(
             feed["patch_size"] = enc_cfg.vision.patch_size
             port = port.replace(image_mean=tuple(float(m) for m in mean),
                                 image_std=tuple(float(s) for s in std))
-        if recipe["text_fit"] and backend == "clip":  # exact for CLIP (causal + EOS pool)
+        if recipe["text_fit"] and backbone(backend).text_fit_exact:
             longest = max(int(d.attention_mask.sum(axis=1).max(initial=1))
                           for d in (p_train_ds, p_val_ds))
             feed["text_width"] = min(max_text_length, max(8, -(-longest // 8) * 8))

@@ -42,6 +42,7 @@ import json
 import os
 import tempfile
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -54,15 +55,38 @@ TINY_ROWS = {"n_train": 16, "n_val": 8}
 TOLERANCE = 0.005
 
 
+def _siglip_32k():
+    from multimodal_content_moderation_tpu_torch.models import siglip
+
+    return siglip.SigLIPConfig(text=siglip.SigLIPTextConfig(vocab_size=32000),
+                               vision=siglip.SigLIPVisionConfig())
+
+
+class Fixture(NamedTuple):
+    """A family's fixture: its full-width config, the writer of its encoder
+    directory's config, its vision tower's name in the report, its text
+    width and its report's file-name suffix."""
+
+    config: Callable
+    write_dir: Callable
+    vision: str
+    text_width: int
+    suffix: str
+
+
+FIXTURES = {
+    "clip": Fixture(lambda: c.encoder_config("clip"),
+                    lambda d, cfg: c.write_clip_encoder_dir(d, c.hf_clip_config(cfg)),
+                    "ViT-B/{patch}", 77, ""),
+    "siglip": Fixture(_siglip_32k, c.write_siglip_encoder_dir,
+                      "SigLIP-B/{patch} ({patches} patches, MAP head)", 64, "_siglip"),
+}
+
+
 def encoder_config(backend: str, tiny: bool):
     """ViT-B/32 CLIP, SigLIP-B/16-224 with a 32,000-entry vocabulary, or
     their two-layer width-64 forms."""
-    from multimodal_content_moderation_tpu_torch.models import siglip
-
-    if backend == "clip" or tiny:
-        return c.encoder_config(backend, tiny)
-    return siglip.SigLIPConfig(text=siglip.SigLIPTextConfig(vocab_size=32000),
-                               vision=siglip.SigLIPVisionConfig())
+    return c.encoder_config(backend, tiny) if tiny else FIXTURES[backend].config()
 
 
 def build_encoder(directory: str, backend: str, tiny: bool = False, seed: int = 0):
@@ -72,12 +96,9 @@ def build_encoder(directory: str, backend: str, tiny: bool = False, seed: int = 
     from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
 
     cfg = encoder_config(backend, tiny)
-    if backend == "clip":
-        c.write_clip_encoder_dir(directory, c.hf_clip_config(cfg))
-    else:
-        c.write_siglip_encoder_dir(directory, cfg)
+    FIXTURES[backend].write_dir(directory, cfg)
     model = FusionModel.create(backend, num_labels=len(c.CLASSES), seed=seed, device="cpu",
-                               **c.config_kwargs(backend, cfg))
+                               encoder_config=cfg)
     c.write_encoder_weights(model, directory)
     return cfg
 
@@ -117,17 +138,16 @@ def _tower(t) -> str:
 
 def scale(cfg, backend: str, args) -> dict:
     v = cfg.vision
-    patches = (v.image_size // v.patch_size) ** 2
-    vision = (f"{_tower(v)} ViT-B/{v.patch_size}" if backend == "clip"
-              else f"{_tower(v)} SigLIP-B/{v.patch_size} ({patches} patches, MAP head)")
-    return {"text": _tower(cfg.text), "vision": vision, "vocab": cfg.text.vocab_size,
+    vision = FIXTURES[backend].vision.format(patch=v.patch_size,
+                                         patches=(v.image_size // v.patch_size) ** 2)
+    return {"text": _tower(cfg.text), "vision": f"{_tower(v)} {vision}", "vocab": cfg.text.vocab_size,
             "image": v.image_size, "fusion_dim": 512, "n_train": args.n_train,
             "n_val": args.n_val, "epochs": args.epochs, "batch_size": args.batch_size,
             "tiny": args.tiny}
 
 
 def default_output(args) -> str:
-    suffix = "" if args.backend == "clip" else f"_{args.backend}"
+    suffix = FIXTURES[args.backend].suffix
     suffix += "_mtl" if args.head == "mtl" else ""
     suffix += "_fast" if args.fast else ""
     suffix += "_int8" if args.int8_eval else ""
@@ -163,7 +183,7 @@ def run_settings(backend: str, head: str) -> dict:
     decay 0.01, fusion_dim 512, text width 77 (CLIP) or 64 (SigLIP), the
     multi-task head's hidden width 256."""
     return {"mode": "locked", "lr": 1e-4, "weight_decay": 0.01, "fusion_dim": 512,
-            "max_text_length": 64 if backend == "siglip" else 77, "head": head,
+            "max_text_length": FIXTURES[backend].text_width, "head": head,
             "head_hidden_dim": 256 if head == "mtl" else 0, "backend": backend}
 
 

@@ -64,7 +64,7 @@ def host_batch(engine, seed: int, batch: int) -> dict:
     """One staged host batch (JAX's ``host_batch``): ids from
     ``default_rng(seed)`` in [1, vocab - 2) with EOS at 30, then uint8
     crops from the same generator, cut into patch rows."""
-    text = engine.model.clip_config.text
+    text = engine.model.encoder_config.text
     g = np.random.default_rng(seed)
     ids = g.integers(1, text.vocab_size - 2, size=(batch, SEQ)).astype(np.int32)
     ids[:, EOS_POS] = text.eos_token_id

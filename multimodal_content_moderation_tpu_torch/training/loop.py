@@ -54,13 +54,13 @@ import numpy as np
 import torch
 
 from multimodal_content_moderation_tpu_torch.data.pipeline import bounded_producer
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone
 from multimodal_content_moderation_tpu_torch.models.fast_infer import (
     FastInferenceEngine,
     evaluate_logits_u8,
     gather_rank_rows,
     rank_positions,
 )
-from multimodal_content_moderation_tpu_torch.models.u8wire import default_stats
 from multimodal_content_moderation_tpu_torch.ops.cuda_attention import MAX_SEQ
 from multimodal_content_moderation_tpu_torch.ops.cuda_image import extract_patches_u8
 from multimodal_content_moderation_tpu_torch.ops.losses import bce_with_logits
@@ -257,7 +257,7 @@ def evaluate_logits(model, dataset, batch_size: int, num_workers: int = 8, mesh=
     the u8-wire eval engine (``models/fast_infer``, a dataset of uint8 HWC
     crops): the last batch padded to ``batch_size`` and the pads trimmed on
     the host, two batches in flight; over the ``mesh``'s data axis."""
-    mean, std = default_stats(model.backend)
+    mean, std = backbone(model.backend).image_stats
     engine = FastInferenceEngine(model, model.image_mean or mean, model.image_std or std,
                                  mesh=mesh)
     return evaluate_logits_u8(engine, dataset, batch_size, num_workers=num_workers)
@@ -280,16 +280,14 @@ class Trainer:
         device="cuda",
         mesh=None,
     ):
-        if model.backend == "deepseek_v2":
-            raise NotImplementedError(
-                "training the deepseek_v2 backend is not supported: its 15.7 B parameters "
-                "take about 250 GB with AdamW's state, more than one card; it scores only")
+        family = backbone(model.backend)
+        if family.training_refused:
+            raise NotImplementedError(f"training the {model.backend} backend is not "
+                                      f"supported: {family.training_refused}")
         if args.wire not in ("u8", "f32"):
             raise ValueError(f"wire {args.wire!r}: want 'f32' or 'u8'")
         vision = model.encoder_config.vision
-        # CLIP's and the ViT's class token
-        n_vision = ((vision.image_size // vision.patch_size) ** 2
-                    + int(model.backend in ("clip", "generic")))
+        n_vision = family.vision_positions(model.encoder_config)
         if vision.attention_impl == "pallas" and n_vision > MAX_SEQ:
             # the text towers stop at 77 (CLIP) and 64 (SigLIP) positions;
             # a generic one runs at the data's width

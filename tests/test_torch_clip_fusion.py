@@ -52,7 +52,7 @@ def _pair(seed=0):
         text=tclip.CLIPTextConfig(**TEXT), vision=tclip.CLIPVisionConfig(**VISION),
         projection_dim=32,
     )
-    tmodel = FusionModel.create("clip", num_labels=3, fusion_dim=16, clip_config=tcfg,
+    tmodel = FusionModel.create("clip", num_labels=3, fusion_dim=16, encoder_config=tcfg,
                                 device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, jparams))
     return jmodel, jparams, tmodel
@@ -119,7 +119,7 @@ def test_clip_text_truncation_exact():
         ids[i, : n - 1] = g.integers(1, 62, size=n - 1)
         ids[i, n - 1] = 63
         mask[i, :n] = 1
-    cfg = tmodel.clip_config
+    cfg = tmodel.encoder_config
     with torch.inference_mode():
         full = tclip.clip_text_features(
             tmodel.backbone, torch.from_numpy(ids), torch.from_numpy(mask), cfg
@@ -136,6 +136,6 @@ def test_entry_points_refuse_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        FusionModel.create("clip", clip_config=tclip.CLIPConfig(
+        FusionModel.create("clip", encoder_config=tclip.CLIPConfig(
             text=tclip.CLIPTextConfig(**TEXT), vision=tclip.CLIPVisionConfig(**VISION),
         ))

@@ -70,7 +70,7 @@ def test_dataset_batches_and_truncate_text_match_jax(encoder_dir, data_dir):
 def test_init_from_encoder_dir_matches_jax(encoder_dir):
     assert model_io.resolve_backend(encoder_dir, "auto") == "clip"
     cfg = model_io.load_encoder_config(encoder_dir, "clip")
-    model = model_io.build_model("fusion", "clip", CLASSES, fusion_dim=16, clip_config=cfg,
+    model = model_io.build_model("fusion", "clip", CLASSES, fusion_dim=16, encoder_config=cfg,
                                  device="cpu")
     before = {k: v.clone() for k, v in model.head.state_dict().items()}
     model_io.init_from_encoder_dir(model, encoder_dir)

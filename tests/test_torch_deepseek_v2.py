@@ -28,8 +28,10 @@ from multimodal_content_moderation_tpu_torch.data.tokenizer import load_tokenize
 from multimodal_content_moderation_tpu_torch.models import convert, deepseek_v2 as ds
 from multimodal_content_moderation_tpu_torch.models import fast_infer as tfi
 from multimodal_content_moderation_tpu_torch.models import fusion, model_io
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone
 from multimodal_content_moderation_tpu_torch.models import siglip as siglip_mod
 from multimodal_content_moderation_tpu_torch.models.export import fusion_model_to_torch
+from multimodal_content_moderation_tpu_torch.models.u8wire import embed_pixels
 from multimodal_content_moderation_tpu_torch.ops import moe
 from multimodal_content_moderation_tpu_torch.utils import profiling
 
@@ -61,7 +63,7 @@ def _hf_state_dict(seed=0):
     norm weights drawn around 1."""
     cfg = ds.DeepSeekV2Config.from_dict(ENCODER)
     model = fusion.FusionModel.create("deepseek_v2", num_labels=5, fusion_dim=16,
-                                      deepseek_config=cfg, seed=seed, device="cpu")
+                                      encoder_config=cfg, seed=seed, device="cpu")
     sd = fusion_model_to_torch(model)
     g = torch.Generator().manual_seed(seed + 1)
     for k in sd:
@@ -72,9 +74,9 @@ def _hf_state_dict(seed=0):
 
 def _model(seed=0):
     cfg, sd = _hf_state_dict(seed)
-    params = convert.fusion_model_from_torch(sd, "deepseek_v2", deepseek_cfg=cfg)
+    params = convert.fusion_model_from_torch(sd, "deepseek_v2", encoder_cfg=cfg)
     return fusion.FusionModel(params, "deepseek_v2", num_labels=5, fusion_dim=16,
-                              deepseek_config=cfg), sd
+                              encoder_config=cfg), sd
 
 
 def _rows(seed, B=5, T=16, lo=1):
@@ -92,7 +94,7 @@ def test_tower_matches_the_plain_reference(seed):
     model, sd = _model(seed)
     ids, mask = _rows(seed)
     with torch.no_grad():
-        got = ds.deepseek_text_features(model.backbone, ids, mask, model.deepseek_config)
+        got = ds.deepseek_text_features(model.backbone, ids, mask, model.encoder_config)
         want = plain.text_features(sd, TEXT, ids, mask)
     torch.testing.assert_close(got, want, **TOL)
 
@@ -108,7 +110,9 @@ def test_fusion_logits_use_the_deepseek_text_feature():
     with torch.no_grad():
         got = model(batch)["logits"]
         tfeat = plain.text_features(sd, TEXT, ids, mask)
-        vfeat = siglip_mod.siglip_image_features(model.backbone, pix, model.deepseek_config)
+        cfg = model.encoder_config
+        vfeat = siglip_mod.siglip_image_features_from_tokens(
+            model.backbone, embed_pixels(model.backbone, pix, cfg.vision), cfg)
         want = fusion.fusion_head_apply(model.head, tfeat, vfeat, batch["text_present"],
                                         batch["image_present"])
     torch.testing.assert_close(got, want, **TOL)
@@ -198,7 +202,7 @@ def test_packing_changes_nothing(width):
     wide_ids = torch.ones(ids.shape[0], width, dtype=ids.dtype)
     wide_mask = torch.zeros_like(wide_ids)
     wide_ids[:, :16], wide_mask[:, :16] = ids, mask
-    cfg = model.deepseek_config
+    cfg = model.encoder_config
     with torch.no_grad():
         a = ds.deepseek_text_features(model.backbone, ids, mask, cfg)
         b = ds.deepseek_text_features(model.backbone, wide_ids, wide_mask, cfg,
@@ -219,7 +223,7 @@ def test_pool_is_the_last_kept_token():
     changes nothing, the last kept token's changes it, and a row alone at
     its own length gives the same feature."""
     model, _ = _model(5)
-    cfg = model.deepseek_config
+    cfg = model.encoder_config
     ids, mask = _rows(5, B=4, T=12, lo=3)
     n = mask.sum(1)
     with torch.no_grad():
@@ -290,8 +294,8 @@ def test_bucketed_logits_equal_full_width(width):
     mask[:, width:] = 0
     ids[:, width:] = 1
     full = engine(ids, mask, patches, tp, ip)
-    assert tfi.bucket_for(mask.numpy(), [8, 12, 16], extra=tfi.bucket_extra("deepseek_v2")) \
-        == width
+    assert tfi.bucket_for(mask.numpy(), [8, 12, 16],
+                          extra=backbone("deepseek_v2").bucket_extra) == width
     ids_b, mask_b, carry = tfi.bucket_batch_text(ids.numpy(), mask.numpy(), width,
                                                  "deepseek_v2")
     assert carry is None and ids_b.shape == (6, width)
@@ -348,18 +352,19 @@ def test_backend_never_reaches_siglip_text_path(monkeypatch, tmp_path):
     model, _ = _model(10)
     engine = _engine(model)
     engine(*_u8_batch(10, 3, 8))
-    assert fusion.config_field("deepseek_v2") == "deepseek_config"
-    assert model.encoder_config is model.deepseek_config and model.siglip_config is None
+    assert fusion.config_field("deepseek_v2") == "encoder_config"
+    assert isinstance(model.encoder_config, ds.DeepSeekV2Config)
+    assert not hasattr(model, "siglip_config")
     assert model.feature_dim == 32
-    assert tfi.bucket_extra("deepseek_v2") == 0 and tfi.buckets_exact("deepseek_v2")
+    assert backbone("deepseek_v2").bucket_extra == 0 and backbone("deepseek_v2").exact_buckets
     (tmp_path / "config.json").write_text(json.dumps(ENCODER))
     assert model_io.resolve_backend(str(tmp_path), "auto") == "deepseek_v2"
     enc = model_io.load_encoder_config(str(tmp_path), "deepseek_v2")
-    assert enc == model.deepseek_config
+    assert enc == model.encoder_config
     perf = model_io.with_performance_options(model, compute_dtype="bfloat16",
                                              attention_impl="pallas")
-    assert perf.deepseek_config.text.compute_dtype == "bfloat16"
-    assert perf.deepseek_config.vision.attention_impl == "pallas"
+    assert perf.encoder_config.text.compute_dtype == "bfloat16"
+    assert perf.encoder_config.vision.attention_impl == "pallas"
     with pytest.raises(NotImplementedError, match="deepseek_v2"):
         model_io.build_model("mtl", "deepseek_v2", CLASSES, device="cpu")
     with pytest.raises(ValueError, match="deepseek_v3"):

@@ -108,13 +108,13 @@ def _pair(name, head, enc, seed=0):
     if kind == "fusion":
         jmodel = JFusion.create(backend, num_labels=N, fusion_dim=16, **{field: jcfg})
         tmodel = FusionModel.create(backend, num_labels=N, fusion_dim=16, device="cpu",
-                                    **{field: tcfg})
+                                    encoder_config=tcfg)
     else:
         mb = "auto" if backend == "siglip" else backend
         kw = dict(num_tasks=N, fusion_dim=16, head_hidden_dim=hidden,
                   learnable_task_weights=task_weights)
         jmodel = JMTL.create(mb, **kw, **{field: jcfg})
-        tmodel = MultiTaskModel.create(mb, device="cpu", **kw, **{field: tcfg})
+        tmodel = MultiTaskModel.create(mb, device="cpu", **kw, encoder_config=tcfg)
     jparams = jmodel.init(jax.random.key(seed))
     if task_weights:  # off zero, so that a lost log_vars shows
         jparams["head"]["log_vars"] = jax.numpy.asarray(
@@ -147,7 +147,7 @@ def test_export_matches_jax_key_for_key(name, head, encoders):
     if name == "clip" and head == "fusion":
         assert got["backbone.logit_scale"].shape == ()
     if extra:
-        dim = tmodel.generic_config.projection_dim
+        dim = tmodel.encoder_config.projection_dim
         assert got["backbone.text_projection.weight"].shape == (dim, 32)
         assert not got["backbone.visual_projection.weight"].any()
         assert float(got["backbone.logit_scale"]) == pytest.approx(2.6592)

@@ -64,7 +64,7 @@ def test_evaluate_logits_u8_matches_jax(encoder_dir, data_dir, buckets, impl):
 
     tcfg = model_io.load_encoder_config(encoder_dir, "clip")
     tmodel = model_io.build_model("fusion", "clip", CLASSES, fusion_dim=16,
-                                  clip_config=tcfg, device="cpu")
+                                  encoder_config=tcfg, device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, jparams))
     tmodel = model_io.with_performance_options(tmodel, attention_impl=impl)
     tds = CSVDataset(
@@ -105,7 +105,8 @@ def test_bucket_helpers_match_jax():
 def _tiny_engine(backend, encoder_dir):
     if backend == "clip":
         model = model_io.build_model("fusion", "clip", CLASSES, fusion_dim=16, device="cpu",
-                                     clip_config=model_io.load_encoder_config(encoder_dir, "clip"))
+                                     encoder_config=model_io.load_encoder_config(encoder_dir,
+                                                                                  "clip"))
     else:
         tower = dict(hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64)
         cfg = tsig.SigLIPConfig(
@@ -113,7 +114,7 @@ def _tiny_engine(backend, encoder_dir):
                                        **tower),
             vision=tsig.SigLIPVisionConfig(image_size=32, patch_size=8, **tower))
         model = model_io.build_model("fusion", "siglip", CLASSES, fusion_dim=16, device="cpu",
-                                     siglip_config=cfg)
+                                     encoder_config=cfg)
     return tfi.FastInferenceEngine(model, MEAN, STD)
 
 

@@ -26,6 +26,7 @@ import run_fullscale_quality_parity as jax_fs  # noqa: E402  (the JAX package's 
 from multimodal_content_moderation_tpu_torch.models import clip, model_io, siglip  # noqa: E402
 from multimodal_content_moderation_tpu_torch.models.convert import read_safetensors  # noqa: E402
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel  # noqa: E402
+from multimodal_content_moderation_tpu_torch.models.u8wire import embed_pixels  # noqa: E402
 from multimodal_content_moderation_tpu_torch.tools import _common  # noqa: E402
 from multimodal_content_moderation_tpu_torch.tools import (  # noqa: E402
     run_fullscale_quality_parity as fs,
@@ -46,8 +47,7 @@ def test_encoder_dir_loads_strictly_into_hf(tmp_path, backend):
     hf.load_state_dict(sd, strict=True)
     hf.eval()
     # the same seeded weights the tool drew, through both stacks
-    model = FusionModel.create(backend, seed=0, device="cpu",
-                               **_common.config_kwargs(backend, cfg))
+    model = FusionModel.create(backend, seed=0, device="cpu", encoder_config=cfg)
     g = np.random.default_rng(0)
     T = 16
     ids = g.integers(1, cfg.text.vocab_size - 2, size=(2, T)).astype(np.int64)
@@ -60,12 +60,14 @@ def test_encoder_dir_loads_strictly_into_hf(tmp_path, backend):
             want_t = hf.get_text_features(input_ids=t_ids, attention_mask=t_mask)
             want_v = hf.get_image_features(pixel_values=t_px)
             got_t = clip.clip_text_features(model.backbone, t_ids, t_mask, cfg)
-            got_v = clip.clip_image_features(model.backbone, t_px, cfg)
+            got_v = clip.clip_image_features_from_tokens(
+                model.backbone, embed_pixels(model.backbone, t_px, cfg.vision), cfg)
         else:
             want_t = hf.text_model(input_ids=t_ids).pooler_output
             want_v = hf.vision_model(pixel_values=t_px).pooler_output
             got_t = siglip.siglip_text_features(model.backbone, t_ids, None, cfg)
-            got_v = siglip.siglip_image_features(model.backbone, t_px, cfg)
+            got_v = siglip.siglip_image_features_from_tokens(
+                model.backbone, embed_pixels(model.backbone, t_px, cfg.vision), cfg)
     torch.testing.assert_close(got_t, want_t, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_v, want_v, atol=1e-4, rtol=1e-4)
 

@@ -58,7 +58,7 @@ def siglip_logits_match_jax(config: dict, B: int = 2, atol: float = 1e-4) -> Non
     want = np.asarray(jmodel.apply(jparams, batch)["logits"])
 
     tmodel = FusionModel.create("siglip", num_labels=5, device="cpu",
-                                siglip_config=model_io.siglip_config_from_dict(config))
+                                encoder_config=model_io.siglip_config_from_dict(config))
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, jparams))
     tbatch = {k: torch.from_numpy(a) for k, a in batch.items()}
     for impl in ("xla", "pallas"):

@@ -68,6 +68,7 @@ from multimodal_content_moderation_tpu_torch.models.convert import (  # noqa: E4
 )
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel  # noqa: E402
 from multimodal_content_moderation_tpu_torch.models.multitask import MultiTaskModel  # noqa: E402
+from multimodal_content_moderation_tpu_torch.models.u8wire import embed_pixels  # noqa: E402
 from multimodal_content_moderation_tpu_torch.models.params import flatten, map_leaves  # noqa: E402
 from multimodal_content_moderation_tpu_torch.ops import layers  # noqa: E402
 from multimodal_content_moderation_tpu_torch.training.loop import make_train_step  # noqa: E402
@@ -243,7 +244,8 @@ def test_vit_tower_matches_jax(impl):
     px = _batch("f32", B=3, seed=2)["pixel_values"]
     want = np.asarray(jgen.generic_image_features(jp, jnp.asarray(px), jcfg))
     with torch.inference_mode():
-        got = tgen.generic_image_features(tp, torch.from_numpy(px), tcfg)
+        got = tgen.generic_image_features_from_tokens(
+            tp, embed_pixels(tp, torch.from_numpy(px), tcfg.vision), tcfg)
     assert got.shape == (3, 24)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
@@ -264,8 +266,9 @@ def test_vit_at_197_positions_matches_jax_interpret_mode():
     assert tokens.shape == (2, 197, 32)
     want = np.asarray(jgen.generic_vision_hidden_from_tokens(jp, tokens, jcfg.vision))
     with torch.inference_mode():
+        tokens = embed_pixels(tp, torch.from_numpy(px), tcfg.vision)
         got = tgen.generic_vision_hidden_from_tokens(
-            tp, tgen.generic_vision_tokens(tp, torch.from_numpy(px), tcfg.vision), tcfg.vision)
+            tp, tgen._with_class_token(tp, tokens, tcfg.vision), tcfg.vision)
     assert got.shape == (2, 197, 32)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
@@ -320,9 +323,10 @@ def test_converters_match_transformers(vtde):
         tp_ref = model.text_model(input_ids=ti, attention_mask=tm).pooler_output
         vp_ref = model.vision_model(pixel_values=tpx).pooler_output
         t = tgen.generic_text_features(params, ti, tm, cfg)
-        v = tgen.generic_image_features(params, tpx, cfg)
+        tokens = embed_pixels(params, tpx, cfg.vision)
+        v = tgen.generic_image_features_from_tokens(params, tokens, cfg)
         tp = tgen.generic_text_pooled(params, ti, tm, cfg.text)
-        vp = tgen.generic_vision_pooled(params, tpx, cfg.vision)
+        vp = tgen.generic_vision_pooled_from_tokens(params, tokens, cfg.vision)
     for a, b in ((t, t_ref), (v, v_ref), (tp, tp_ref), (vp, vp_ref)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=1e-5)
 
@@ -366,13 +370,13 @@ def _pair(head, seed=0, arch="bert", **tower):
     if head == "fusion":
         jmodel = JFusion.create("generic", num_labels=N, fusion_dim=16, generic_config=jcfg)
         tmodel = FusionModel.create("generic", num_labels=N, fusion_dim=16,
-                                    generic_config=tcfg, device="cpu")
+                                    encoder_config=tcfg, device="cpu")
     else:
         jmodel = JMTL.create("generic", num_tasks=N, fusion_dim=16, head_hidden_dim=8,
                              learnable_task_weights=True, generic_config=jcfg)
         tmodel = MultiTaskModel.create("generic", num_tasks=N, fusion_dim=16,
                                        head_hidden_dim=8, learnable_task_weights=True,
-                                       generic_config=tcfg, device="cpu")
+                                       encoder_config=tcfg, device="cpu")
     jmodel = dataclasses.replace(jmodel, image_mean=HALF[0], image_std=HALF[1],
                                  embed_impl="reference")
     jparams = jmodel.init(jax.random.key(seed))
@@ -515,9 +519,9 @@ def test_training_dropout_only_with_a_generator_and_head_stream_independent(monk
         torch.testing.assert_close(ev1, ev2, atol=0, rtol=0)
         tr = tmodel(batch, generator=torch.Generator().manual_seed(0))["logits"]
         assert not torch.allclose(tr, ev1)
-    zero = tmodel.replace(generic_config=dataclasses.replace(
-        tmodel.generic_config, text=dataclasses.replace(
-            tmodel.generic_config.text, hidden_dropout_prob=0.0,
+    zero = tmodel.replace(encoder_config=dataclasses.replace(
+        tmodel.encoder_config, text=dataclasses.replace(
+            tmodel.encoder_config.text, hidden_dropout_prob=0.0,
             attention_probs_dropout_prob=0.0)))
     from multimodal_content_moderation_tpu_torch.models import fusion as fusion_mod
 
@@ -578,7 +582,7 @@ def test_trainer_counts_the_class_token_against_the_kernels_limit(tmp_path):
     for size, refused in ((256, True), (240, False)):
         _, tcfg = _configs(vision=dict(VIT, image_size=size), attention_impl="pallas")
         model = FusionModel.create("generic", num_labels=N, fusion_dim=16,
-                                   generic_config=tcfg, device="cpu")
+                                   encoder_config=tcfg, device="cpu")
         args = TrainArgs(output_dir=str(tmp_path / str(size)), wire="u8", num_workers=0)
         rows = _Rows(4, seed=8)
         if refused:
@@ -696,10 +700,10 @@ def test_reference_checkpoint_converts_and_loads_as_jax(generic_checkpoint):
     jcfg, tcfg = j_configs_from(enc), model_io.load_encoder_config(enc, "generic")
     if head == "fusion":
         want = j_fusion_from_torch(sd, "generic", generic_cfg=jcfg)
-        got = fusion_model_from_torch(sd, "generic", generic_cfg=tcfg)
+        got = fusion_model_from_torch(sd, "generic", encoder_cfg=tcfg)
     else:
         want = j_mtl_from_torch(sd, "generic", N, generic_cfg=jcfg)
-        got = mtl_model_from_torch(sd, "generic", N, generic_cfg=tcfg)
+        got = mtl_model_from_torch(sd, "generic", N, encoder_cfg=tcfg)
     want, got = flatten(jax.tree_util.tree_map(np.asarray, want)), flatten(got)
     assert set(got) == set(want)
     for k, w in want.items():
@@ -820,7 +824,7 @@ def test_train_cli_auto_on_a_vtde_dir(vtde, data_dir, tmp_path, head, wire, capl
     assert icfg["backend"] == "generic" and icfg["head"] == head
     assert result["result"]["global_step"] == 2
     loaded, _ = model_io.load_checkpoint(result["result"]["best_checkpoint"], device="cpu")
-    assert loaded.backend == "generic" and loaded.generic_config.projection_dim == 24
+    assert loaded.backend == "generic" and loaded.encoder_config.projection_dim == 24
     assert isinstance(loaded, FusionModel if head == "fusion" else MultiTaskModel)
     clf = t_inf.MultiModalClassifier(result["result"]["best_checkpoint"], batch_size=4,
                                      device="cpu")

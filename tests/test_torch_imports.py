@@ -52,6 +52,7 @@ CARD_PATH_MODULES = [
     "multimodal_content_moderation_tpu_torch.ops.cuda_flash",
     "multimodal_content_moderation_tpu_torch.ops.layers",
     "multimodal_content_moderation_tpu_torch.ops.quant",
+    "multimodal_content_moderation_tpu_torch.models.backbones",
     "multimodal_content_moderation_tpu_torch.models.clip",
     "multimodal_content_moderation_tpu_torch.models.siglip",
     "multimodal_content_moderation_tpu_torch.models.generic",

@@ -666,17 +666,17 @@ def _engine(backend="siglip", seed=0):
     (random bf16 weights from ``seed``): SigLIP2-B/16-224, CLIP ViT-B/32, or
     ViT-B/16 + BERT-base ("generic")."""
     from multimodal_content_moderation_tpu_torch.models import model_io
+    from multimodal_content_moderation_tpu_torch.models.backbones import backbone
     from multimodal_content_moderation_tpu_torch.models.fast_infer import FastInferenceEngine
-    from multimodal_content_moderation_tpu_torch.models.u8wire import default_stats
     from multimodal_content_moderation_tpu_torch.tools import _common
 
     model = model_io.build_model(
         "fusion", backend, _common.CLASSES, seed=seed, device="cuda",
-        **_common.config_kwargs(backend, _common.encoder_config(backend)))
+        encoder_config=_common.encoder_config(backend))
     model = model_io.with_performance_options(
         model, compute_dtype="bfloat16", scores_dtype="bfloat16", attention_impl="pallas",
     ).to(torch.bfloat16)
-    return FastInferenceEngine(model, *default_stats(backend))
+    return FastInferenceEngine(model, *backbone(backend).image_stats)
 
 
 # text widths a backend's batches run at: SigLIP's buckets (the carry column

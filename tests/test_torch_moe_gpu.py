@@ -207,7 +207,7 @@ def test_engine_call_does_not_synchronise():
     cfg = DeepSeekV2Config.lite_siglip2_224()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=3))
     model = model_io.build_model("fusion", "deepseek_v2", ["a", "b", "c", "d", "e"],
-                                 device="cuda", deepseek_config=cfg)
+                                 device="cuda", encoder_config=cfg)
     model = model_io.with_performance_options(
         model, compute_dtype="bfloat16", scores_dtype="bfloat16", attention_impl="pallas",
     ).to(torch.bfloat16)

@@ -79,7 +79,7 @@ def tiny_model(kind="clip", seed=0):
                                             intermediate_size=64, image_size=32,
                                             patch_size=16),
             projection_dim=24)
-        return FusionModel.create("generic", num_labels=3, fusion_dim=16, generic_config=cfg,
+        return FusionModel.create("generic", num_labels=3, fusion_dim=16, encoder_config=cfg,
                                   seed=seed, device="cpu")
     # "clip_pallas": the kernels' dispatch (their plain versions on the CPU)
     core = {"attention_impl": "pallas"} if kind == "clip_pallas" else {}
@@ -91,7 +91,7 @@ def tiny_model(kind="clip", seed=0):
                                       intermediate_size=64, image_size=32, patch_size=16,
                                       **core),
         projection_dim=32)
-    return FusionModel.create("clip", num_labels=3, fusion_dim=16, clip_config=cfg,
+    return FusionModel.create("clip", num_labels=3, fusion_dim=16, encoder_config=cfg,
                               seed=seed, device="cpu")
 
 

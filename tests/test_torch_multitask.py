@@ -67,7 +67,12 @@ from multimodal_content_moderation_tpu_torch.models import multitask as tmt
 from multimodal_content_moderation_tpu_torch.models import siglip as tsig
 from multimodal_content_moderation_tpu_torch.models.bridge import load_jax_params
 from multimodal_content_moderation_tpu_torch.models.convert import mtl_model_from_torch
-from multimodal_content_moderation_tpu_torch.models.params import ParamTree, flatten, map_leaves
+from multimodal_content_moderation_tpu_torch.models.params import (
+    TOP_LEVEL,
+    ParamTree,
+    flatten,
+    map_leaves,
+)
 from multimodal_content_moderation_tpu_torch.training import checkpoints as ckpt_lib
 from multimodal_content_moderation_tpu_torch.training.loop import (
     TrainArgs,
@@ -134,7 +139,7 @@ def _pair(backend, seed=0, hidden=8, task_weights=True, wire="f32", **tower):
         jparams["head"]["log_vars"] = jnp.asarray(g.normal(size=N).astype(np.float32) * 0.5)
     tmodel = tmt.MultiTaskModel.create(
         backend, num_tasks=N, fusion_dim=16, head_hidden_dim=hidden,
-        learnable_task_weights=task_weights, device="cpu", **_kw(backend, tcfg),
+        learnable_task_weights=task_weights, device="cpu", encoder_config=tcfg,
     ).replace(image_mean=mean, image_std=std)
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, jparams))
     return jmodel, jparams, tmodel
@@ -275,7 +280,7 @@ def test_mtl_logits_match_jax(backend, wire):
 
 def test_clip_towers_are_bare_and_auto_shares_one_backbone():
     _, _, clip = _pair("clip")
-    assert not any(k in clip.backbone for k in tmt.CLIP_TOP_LEVEL)
+    assert not any(k in clip.backbone for k in TOP_LEVEL)
     assert set(clip.backbone.state_dict()) == set(
         flatten(jax.tree_util.tree_map(np.asarray, JMTL.create(
             "clip", num_tasks=N, fusion_dim=16, clip_config=_configs("clip")[0],
@@ -416,7 +421,7 @@ def test_mtl_model_from_torch_matches_jax(backend, hidden, task_weights):
     cfg_kw = "clip_cfg" if backend == "clip" else "siglip_cfg"
     want = flatten(jax.tree_util.tree_map(
         np.asarray, j_mtl_from_torch(sd, backend, N, **{cfg_kw: jcfg})))
-    got = flatten(mtl_model_from_torch(sd, backend, N, **{cfg_kw: tcfg}))
+    got = flatten(mtl_model_from_torch(sd, backend, N, encoder_cfg=tcfg))
     assert set(got) == set(want)
     for name, w in want.items():
         np.testing.assert_array_equal(got[name].numpy(), w, err_msg=name)
@@ -491,12 +496,12 @@ def test_load_checkpoint_reference_and_torch_formats(backend, tmp_path):
 def test_build_model_maps_backends_and_refuses_generic():
     _, tcfg = _configs("auto")
     for backend in ("siglip", "auto"):
-        m = model_io.build_model("mtl", backend, TASKS, 16, siglip_config=tcfg, device="cpu",
+        m = model_io.build_model("mtl", backend, TASKS, 16, encoder_config=tcfg, device="cpu",
                                  head_hidden_dim=8, learnable_task_weights=True)
         assert isinstance(m, tmt.MultiTaskModel) and m.backend == "auto"
         assert m.head["heads"][0]["fc1"]["w"].shape == (16, 8) and "log_vars" in m.head
     _, ccfg = _configs("clip")
-    m = model_io.build_model("mtl", "clip", TASKS[:3], 16, clip_config=ccfg, device="cpu")
+    m = model_io.build_model("mtl", "clip", TASKS[:3], 16, encoder_config=ccfg, device="cpu")
     assert m.backend == "clip" and "fc" in m.head["heads"][2] and "log_vars" not in m.head
     # the generic backend keeps its name and pools its raw towers; a name
     # that is no backend is refused
@@ -510,7 +515,7 @@ def test_build_model_maps_backends_and_refuses_generic():
                           "num_attention_heads": 2, "intermediate_size": 64,
                           "image_size": 32, "patch_size": 16},
         "projection_dim": 24})
-    m = model_io.build_model("mtl", "generic", TASKS, 16, generic_config=small, device="cpu")
+    m = model_io.build_model("mtl", "generic", TASKS, 16, encoder_config=small, device="cpu")
     assert m.backend == "generic" and "text_projection" not in m.backbone
     assert m.head["proj_t"]["w"].shape[0] == 32 and m.head["proj_i"]["w"].shape[0] == 48
     with pytest.raises(ValueError, match="backend"):
@@ -519,11 +524,11 @@ def test_build_model_maps_backends_and_refuses_generic():
 
 def test_init_from_encoder_dir_drops_clip_projections(encoder_dir):
     cfg = model_io.load_encoder_config(encoder_dir, "clip")
-    m = model_io.build_model("mtl", "clip", TASKS, 16, clip_config=cfg, device="cpu")
+    m = model_io.build_model("mtl", "clip", TASKS, 16, encoder_config=cfg, device="cpu")
     m = model_io.init_from_encoder_dir(m, encoder_dir)
-    from multimodal_content_moderation_tpu_torch.models import convert
+    from multimodal_content_moderation_tpu_torch.models import clip, convert
 
-    hf = convert.clip_params_from_torch(
+    hf = clip.clip_params_from_torch(
         convert.load_safetensors(os.path.join(encoder_dir, "model.safetensors")), cfg)
     assert "text_projection" in hf and "text_projection" not in m.backbone
     torch.testing.assert_close(m.backbone["text_model"]["token_embedding"],

@@ -36,7 +36,7 @@ from multimodal_content_moderation_tpu_torch.tools import parity_check as pc  # 
 
 def _clip_model(seed=0):
     return FusionModel.create("clip", seed=seed, device="cpu",
-                              clip_config=_common.encoder_config("clip", tiny=True))
+                              encoder_config=_common.encoder_config("clip", tiny=True))
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def assets(tmp_path_factory):
     model = _clip_model()
     ckpt = _common.write_reference_checkpoint(model, str(root / "ckpt"), {})
     enc = _common.write_clip_encoder_dir(str(root / "enc"),
-                                         _common.hf_clip_config(model.clip_config))
+                                         _common.hf_clip_config(model.encoder_config))
     _common.write_encoder_weights(model, enc)
     return ckpt, enc
 
@@ -101,12 +101,12 @@ def _refused_checkpoint(root, kind):
     fusion model or a CLIP multi-task model."""
     if kind == "siglip":
         cfg = _common.encoder_config("siglip", tiny=True)
-        model = FusionModel.create("siglip", seed=0, device="cpu", siglip_config=cfg)
+        model = FusionModel.create("siglip", seed=0, device="cpu", encoder_config=cfg)
         _common.write_siglip_encoder_dir(root, cfg)
         inference = {"backend": "siglip", "head": "fusion"}
     else:
         cfg = _common.encoder_config("clip", tiny=True)
-        model = MultiTaskModel.create("clip", seed=0, device="cpu", clip_config=cfg)
+        model = MultiTaskModel.create("clip", seed=0, device="cpu", encoder_config=cfg)
         _common.write_clip_encoder_dir(root, _common.hf_clip_config(cfg))
         inference = {"backend": "clip", "head": "mtl"}
     export.export_safetensors(model, os.path.join(root, "model.safetensors"))

@@ -104,7 +104,7 @@ def _pair(backend, seed=0, **tower):
     jmodel = JFusion.create(backend, num_labels=3, fusion_dim=16, **_kw(backend, jcfg))
     jparams = jmodel.init(jax.random.key(seed))
     tmodel = FusionModel.create(backend, num_labels=3, fusion_dim=16, device="cpu",
-                                **_kw(backend, tcfg))
+                                encoder_config=tcfg)
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, jparams))
     return jmodel, jparams, tmodel
 
@@ -411,7 +411,7 @@ def test_trainer_refuses_to_train_through_flash_attention(tmp_path):
     tcfg = dataclasses.replace(tcfg, vision=dataclasses.replace(tcfg.vision, image_size=68,
                                                                 patch_size=4))
     model = FusionModel.create("siglip", num_labels=3, fusion_dim=16, device="cpu",
-                               siglip_config=tcfg)
+                               encoder_config=tcfg)
     ds = PixelDataset("siglip", 4, 0)
     args = TrainArgs(output_dir=str(tmp_path), wire="f32", num_workers=1)
     with pytest.raises(NotImplementedError, match=r"vision tower at 289 positions through "

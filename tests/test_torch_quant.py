@@ -229,12 +229,12 @@ def _pair(backend, head, seed=0):
     if head == "fusion":
         jmodel = JFusion.create(backend, num_labels=N, fusion_dim=16, **{field: jcfg})
         tmodel = FusionModel.create(backend, num_labels=N, fusion_dim=16, device="cpu",
-                                    **{field: tcfg})
+                                    encoder_config=tcfg)
     else:
         mb = "auto" if backend == "siglip" else backend
         kw = dict(num_tasks=N, fusion_dim=16, head_hidden_dim=8, learnable_task_weights=True)
         jmodel = JMTL.create(mb, **kw, **{field: jcfg})
-        tmodel = MultiTaskModel.create(mb, device="cpu", **kw, **{field: tcfg})
+        tmodel = MultiTaskModel.create(mb, device="cpu", **kw, encoder_config=tcfg)
     jparams = jmodel.init(jax.random.key(seed))
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, jparams))
     return jmodel, jparams, tmodel

@@ -28,6 +28,7 @@ from multimodal_content_moderation_tpu_torch.data.dataset import CSVDataset
 from multimodal_content_moderation_tpu_torch.data.images import ImagePreprocessor
 from multimodal_content_moderation_tpu_torch.data.tokenizer import load_tokenizer
 from multimodal_content_moderation_tpu_torch.models import fast_infer as tfi
+from multimodal_content_moderation_tpu_torch.models.backbones import backbone
 from multimodal_content_moderation_tpu_torch.models import model_io
 from multimodal_content_moderation_tpu_torch.ops import cuda_image as ci
 from multimodal_content_moderation_tpu_torch.utils import profiling
@@ -106,7 +107,7 @@ def _parent_batches(engine, dataset, batch_size, rows, ladder, num_workers=2):
         carry, width = None, batch["input_ids"].shape[1]
         if ladder is not None:
             width = tfi.bucket_for(batch["attention_mask"], ladder,
-                                   extra=tfi.bucket_extra(backend))
+                                   extra=backbone(backend).bucket_extra)
             batch["input_ids"], batch["attention_mask"], carry = tfi.bucket_batch_text(
                 batch["input_ids"], batch["attention_mask"], width, backend)
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
@@ -191,7 +192,7 @@ def test_score_batches_match_parent(rows_csv, data_dir, encoder_dir, tmp_path, c
 def test_score_counters_add_up(rows_csv, data_dir, encoder_dir, tmp_path, cache):
     model = model_io.build_model(
         "fusion", "clip", CLASSES, fusion_dim=16, device="cpu",
-        clip_config=model_io.load_encoder_config(encoder_dir, "clip"))
+        encoder_config=model_io.load_encoder_config(encoder_dir, "clip"))
     engine = tfi.FastInferenceEngine(model, MEAN, STD)
     ds = _dataset(rows_csv, data_dir, encoder_dir,
                   None if cache == "none" else str(tmp_path / "cache"))

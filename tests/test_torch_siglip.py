@@ -39,7 +39,7 @@ from multimodal_content_moderation_tpu_torch.models import fast_infer as tfi
 from multimodal_content_moderation_tpu_torch.models import model_io
 from multimodal_content_moderation_tpu_torch.models import siglip as tsig
 from multimodal_content_moderation_tpu_torch.models.bridge import load_jax_params
-from multimodal_content_moderation_tpu_torch.models.convert import siglip_params_from_torch
+from multimodal_content_moderation_tpu_torch.models.siglip import siglip_params_from_torch
 from multimodal_content_moderation_tpu_torch.models.fusion import FusionModel
 from multimodal_content_moderation_tpu_torch.models.params import flatten
 from multimodal_content_moderation_tpu_torch.models.u8wire import embed_for_model
@@ -75,7 +75,7 @@ def _pair(seed=0, num_labels=3):
     jmodel = JFusion.create("siglip", num_labels=num_labels, fusion_dim=16, siglip_config=jcfg)
     jparams = jmodel.init(jax.random.key(seed))
     tmodel = FusionModel.create("siglip", num_labels=num_labels, fusion_dim=16,
-                                siglip_config=tcfg, device="cpu")
+                                encoder_config=tcfg, device="cpu")
     load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, jparams))
     return jmodel, jparams, tmodel
 
@@ -149,11 +149,11 @@ def test_siglip_features_match_jax(impl):
     tb = _torch_batch(batch)
     with torch.inference_mode():
         got_t = tsig.siglip_text_features(tm.backbone, tb["input_ids"], tb["attention_mask"],
-                                          tm.siglip_config).numpy()
+                                          tm.encoder_config).numpy()
         tokens = embed_for_model(tm, tm.backbone, tb["patches_u8"])
         assert tokens.shape == (4, 289, 32)
         got_v = tsig.siglip_image_features_from_tokens(tm.backbone, tokens,
-                                                       tm.siglip_config).numpy()
+                                                       tm.encoder_config).numpy()
     np.testing.assert_allclose(got_t, want_t, atol=1e-4, rtol=0)
     np.testing.assert_allclose(got_v, want_v, atol=1e-4, rtol=0)
 
@@ -192,7 +192,7 @@ def test_siglip_text_carry_column_exact(impl):
     g = np.random.default_rng(8)
     B, T = 4, 12  # T < max_positions: the carry must use position T-1
     ids, mask = _text(g, B, T, [3, 5, 6, 7])
-    cfg = model_io.with_performance_options(tmodel, attention_impl=impl).siglip_config
+    cfg = model_io.with_performance_options(tmodel, attention_impl=impl).encoder_config
     with torch.inference_mode():
         full = tsig.siglip_text_features(tmodel.backbone, torch.from_numpy(ids),
                                          torch.from_numpy(mask), cfg).numpy()

@@ -32,8 +32,8 @@ def staged(engine):
 
 
 def test_staged_batches_are_jax_host_batch(engine, staged):
-    text = engine.model.clip_config.text
-    img, patch = engine.model.image_size, engine.model.clip_config.vision.patch_size
+    text = engine.model.encoder_config.text
+    img, patch = engine.model.image_size, engine.model.encoder_config.vision.patch_size
     for seed, b in enumerate(staged):
         g = np.random.default_rng(seed)  # JAX's host_batch(seed)
         ids = g.integers(1, text.vocab_size - 2, size=(B, 77)).astype(np.int32)

@@ -75,7 +75,7 @@ def _port_model(seed=0, **tower):
         text=tclip.CLIPTextConfig(**{**TEXT, **tower}),
         vision=tclip.CLIPVisionConfig(**{**VISION, **tower}), projection_dim=32,
     )
-    m = FusionModel.create("clip", num_labels=3, fusion_dim=16, clip_config=cfg,
+    m = FusionModel.create("clip", num_labels=3, fusion_dim=16, encoder_config=cfg,
                            seed=seed, device="cpu")
     return m.replace(image_mean=MEAN, image_std=STD)
 
@@ -377,7 +377,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
         Trainer(_port_model(), _args(tmp_path, wire="u16"), TinyDataset(4, 0),
                 TinyDataset(4, 0), make_compute_metrics_multi(3), device="cpu")
     siglip = FusionModel.create("siglip", num_labels=3, fusion_dim=16, device="cpu",
-                                siglip_config=_tiny_siglip())
+                                encoder_config=_tiny_siglip())
     trainer = Trainer(siglip, _args(tmp_path), TinyDataset(4, 0), TinyDataset(4, 0),
                       make_compute_metrics_multi(3), device="cpu")
     assert trainer.patch_size == 16 and trainer.eval_logits is evaluate_logits
