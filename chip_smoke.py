@@ -985,14 +985,17 @@ def moe_cases(torch, g):
     ``route_reference`` (the same top-k), the two ``moe_grouped`` launches
     against the plain per-expert path (bf16 rtol 2^-7 + atol 1e-3), the
     layer against ``moe_reference`` (atol 3e-3). Timed: the two grouped
-    launches (kernel), the plain per-expert path, and ``torch._grouped_mm``
+    launches (kernel; each product on its own beside it), the plain
+    per-expert path, and ``torch._grouped_mm``
     over the same sorted rows (the gather, gate+up, the SiLU product, down)
     as the yardstick, which the port never calls; the route + permutation
     and the combine on their own. Bound: max(operations / 989 TFLOP/s, bytes
     / 3.35 TB/s) of the routed work as ``benchmark/flops/moe_grouped.py``
     counts it (every expert's weights read once, each slot's rows in and
-    out)."""
-    from multimodal_content_moderation_tpu_torch.ops import moe
+    out). The case keeps nvcc's ``-Xptxas -v`` report of both
+    instantiations of ``moe_grouped_kernel`` (registers, spills, shared
+    memory), printed here."""
+    from multimodal_content_moderation_tpu_torch.ops import _build, moe
 
     D, F, E, k = DSV2_MOE
     N = DSV2_TOKENS
@@ -1028,7 +1031,12 @@ def moe_cases(torch, g):
             "per_unit": None, "bound_ms": bms, "bound_by": by,
             "counts_max_min": [int(c) for c in torch.bincount(idx.reshape(-1), minlength=E)
                                .aminmax()][::-1]}
+    case["ptxas"] = ptxas_report(_build.ptxas_reports.get("moe", ""), "moe_grouped")
+    for line in case["ptxas"]:
+        print(f"ptxas moe: {line}")
     timed(case, "ms", lambda: moe.grouped(False, moe.grouped(True, x, r, w_gu), r, w_down))
+    timed(case, "gate_up_ms", lambda: moe.grouped(True, x, r, w_gu))
+    timed(case, "down_ms", lambda: moe.grouped(False, h, r, w_down))
     timed(case, "plain_ms", lambda: moe.experts_reference(x, idx, weight, w_gu, w_down), iters=3)
     offs = r.offsets[1:]
     w_gu_t, w_down_t = w_gu.transpose(1, 2), w_down.transpose(1, 2)
@@ -1047,6 +1055,21 @@ def moe_cases(torch, g):
     timed(case, "route_ms", route)
     timed(case, "combine_ms", lambda: moe.combine(y, r.slot_pos, None))
     return [case]
+
+
+def ptxas_report(log: str, fragment: str):
+    """The lines of an nvcc ``-Xptxas -v`` log about the entry functions
+    whose name holds ``fragment``: each one's name, stack and spills,
+    registers and shared memory, and ptxas's warnings."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = fragment in line
+        elif "Function properties for" in line:
+            continue
+        if keep or "warning" in line:
+            out.append(line.strip())
+    return out
 
 
 def dsv2_entries(cases, dsv2):
@@ -1077,7 +1100,7 @@ def dsv2_entries(cases, dsv2):
         unit = {key: (None if any(c[key] is None for c in main)
                       else sum(c["per_unit"] * c[key] for c in main)) for key in keys}
         entry = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{source}",
-                 "headers": [f"{PKG}/csrc/mma_common.cuh"] if name == "moe_grouped" else [],
+                 "headers": [],
                  "replaces": "none: the JAX package has no DeepSeek-V2 tower",
                  "launches": dsv2["main_path_launches"][name],
                  "launches_per_batch": per_batch[name],
@@ -1087,6 +1110,9 @@ def dsv2_entries(cases, dsv2):
                               for k in keys if k != "bound_ms"},
                  "work": f"one DeepSeek-V2-Lite forward, bf16, B=256: {work}"}
         if name == "moe_grouped":
+            entry["gate_up_ms"] = layers * main[0]["gate_up_ms"]
+            entry["down_ms"] = layers * main[0]["down_ms"]
+            entry["ptxas"] = main[0]["ptxas"]
             entry["route_ms"] = layers * main[0]["route_ms"]
             entry["combine_ms"] = per_batch["moe_combine"] * main[0]["combine_ms"]
         out.append(entry)

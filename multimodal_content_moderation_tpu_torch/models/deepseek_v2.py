@@ -59,7 +59,7 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     yarn_rope_tables,
     yarn_softmax_scale,
 )
-from multimodal_content_moderation_tpu_torch.ops.moe import moe_layer, split_gate_up
+from multimodal_content_moderation_tpu_torch.ops.moe import HALF, moe_layer, split_gate_up
 from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, count
 
 
@@ -511,8 +511,11 @@ def deepseek_text_features(
 
     ``kept`` is the mask's sum where the caller has it on the host (the
     engine); without it it is read from the mask, which waits for the card.
-    ``counters`` (a dict) receives ``moe.max_expert_slots``: the largest
-    expert's slots in each expert layer, summed, as a device scalar."""
+    ``counters`` (a dict) receives, as device scalars summed over the
+    expert layers, ``moe.max_expert_slots`` (the largest expert's slots in
+    each layer) and ``moe.grouped_pad_rows`` (the rows the grouped products
+    compute beyond each expert's slots, at their row granularity
+    ``ops/moe.HALF``)."""
     c = cfg.text
     p = params["text_model"]
     B, T = input_ids.shape
@@ -546,5 +549,6 @@ def deepseek_text_features(
     y = add_rms_norm(last_x, last_d, p["norm"], c.rms_norm_eps)[1]
     if hist is not None:
         counters["moe.max_expert_slots"] = hist.amax(1).sum()
+        counters["moe.grouped_pad_rows"] = (-hist % HALF).sum()
     return dense(y, params["text_projection"])
 

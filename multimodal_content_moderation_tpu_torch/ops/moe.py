@@ -40,11 +40,12 @@ from multimodal_content_moderation_tpu_torch.ops import _build
 from multimodal_content_moderation_tpu_torch.ops.layers import _matmul_f32, fused, swiglu
 from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, count
 
-BM = 128  # slots an m-tile of moe_grouped (csrc/moe.cu)
-BN = 128  # its n-tile
-BK = 64  # its k step
+# moe_grouped's tile (csrc/moe.cu)
+BM = 128  # slots an m-tile, the unit of the permutation's tile offsets
+HALF = 64  # rows a consumer warpgroup computes: the products' row granularity
+BN = 256  # columns an n-tile (a last one may be half as wide)
+BK = 64  # the k step
 MAX_EXPERTS = 256
-MAX_TILES = 65535  # the grid's y extent
 
 
 def split_gate_up(w: torch.Tensor):
@@ -107,17 +108,18 @@ def moe_reference(x: torch.Tensor, p, k: int, scaling: float,
 
 def takes(x: torch.Tensor, w_gu: torch.Tensor, w_down: torch.Tensor, k: int) -> bool:
     """Whether the kernels take the layer: contiguous [N, d] activations, d
-    and 2F multiples of 128 and F of 64 (whole n-tiles and k steps), at most
-    256 experts, contiguous expert weights, and a grid of at most
-    ``MAX_TILES`` m-tiles."""
+    and 2F multiples of 128 (whole or half n-tiles) and F of 64 (whole k
+    steps), at most 256 experts, fewer than 2^31 slots, and contiguous
+    expert weights; every tensor 16-byte aligned (TMA and 16-byte cp.async
+    read them)."""
     if x.dim() != 2 or not x.is_contiguous():
         return False
     N, d = x.shape
     E, f2, dk = w_gu.shape
-    return (dk == d and w_down.shape == (E, d, f2 // 2) and d % BN == 0 and f2 % BN == 0
-            and (f2 // 2) % BK == 0 and 0 < k <= E <= MAX_EXPERTS
-            and -(-N * k // BM) + E <= MAX_TILES
-            and w_gu.is_contiguous() and w_down.is_contiguous())
+    return (dk == d and w_down.shape == (E, d, f2 // 2) and d % (BN // 2) == 0
+            and f2 % (BN // 2) == 0 and (f2 // 2) % BK == 0 and 0 < k <= E <= MAX_EXPERTS
+            and N * k < 2 ** 31 and w_gu.is_contiguous() and w_down.is_contiguous()
+            and all(t.data_ptr() % 16 == 0 for t in (x, w_gu, w_down)))
 
 
 def _lib():
@@ -179,17 +181,17 @@ route.launches = 0
 
 
 def grouped(gate_up: bool, a: torch.Tensor, r: Routing, w: torch.Tensor) -> torch.Tensor:
-    """One ``moe_grouped_kernel`` launch over every expert: gate+up (``a`` =
-    x [N, d], rows through ``r.rows``) -> h [S, F], or down (``a`` = h [S,
-    F]) -> y [S, d] times each slot's weight. Counted in
-    ``grouped.launches``."""
+    """One ``moe_grouped_kernel`` launch over every expert, a block an SM
+    walking the (expert, n-tile, m-tile) work that ``r.tiles`` gives on the
+    card: gate+up (``a`` = x [N, d], rows through ``r.rows``) -> h [S, F],
+    or down (``a`` = h [S, F]) -> y [S, d] times each slot's weight. Counted
+    in ``grouped.launches``."""
     E, NW, K = w.shape
     S = r.rows.shape[0]
     out = a.new_empty(S, NW // 2 if gate_up else NW)
-    max_tiles = -(-S // BM) + E
     _check(_lib().moe_grouped_launch(
         int(gate_up), a.data_ptr(), r.rows.data_ptr(), w.data_ptr(), r.wsorted.data_ptr(),
-        r.offsets.data_ptr(), r.tiles.data_ptr(), out.data_ptr(), E, K, NW, max_tiles,
+        r.offsets.data_ptr(), r.tiles.data_ptr(), out.data_ptr(), E, K, NW, S,
         _build.stream_ptr(a.device)))
     grouped.launches += 1
     return out
@@ -235,8 +237,8 @@ def moe_layer(x: torch.Tensor, p, k: int, scaling: float,
         if not takes(x, w_gu, w_down, k):
             raise ValueError(
                 f"moe_layer: the kernels take x [N, d], contiguous gate_up [E, 2F, d] and down "
-                f"[E, d, F] with d and 2F multiples of {BN}, F of {BK}, 0 < k <= E <= "
-                f"{MAX_EXPERTS} and at most {MAX_TILES} m-tiles; got x {tuple(x.shape)}, "
+                f"[E, d, F], 16-byte aligned, with d and 2F multiples of {BN // 2}, F of {BK}, "
+                f"0 < k <= E <= {MAX_EXPERTS} and N k < 2^31; got x {tuple(x.shape)}, "
                 f"gate_up {tuple(w_gu.shape)}, down {tuple(w_down.shape)}, k {k}")
     else:
         count("moe.plain")

@@ -314,16 +314,28 @@ def _dataset(tmp_path, data_dir, encoder_dir):
                       class_names=CLASSES)
 
 
-def test_evaluate_buckets_exactly_and_counts(tmp_path, data_dir, encoder_dir):
+def test_evaluate_buckets_exactly_and_counts(tmp_path, data_dir, encoder_dir, monkeypatch):
     """``evaluate_logits_u8`` with buckets gives the logits without them; a
     recorded pass counts the packing (kept tokens, positions, routed slots),
-    the expert layers, the plain attention core and the largest expert's
-    slots, and holds the spans of the tower."""
+    the expert layers, the plain attention core, the largest expert's slots
+    and the grouped products' pad rows (each expert's slots up to a whole
+    number of 64-row halves, from every layer's counts read here), and holds
+    the spans of the tower."""
     model, _ = _model(9)
     engine = _engine(model)
     ds_ = _dataset(tmp_path, data_dir, encoder_dir)
     B = 6
     off, _ = tfi.evaluate_logits_u8(engine, ds_, B, num_workers=2)
+    layer_counts = []
+    real_layer = ds.moe_layer
+
+    def counting_layer(x, p, k, scaling, hist=None):
+        out = real_layer(x, p, k, scaling, hist)
+        if hist is not None:
+            layer_counts.append(hist.tolist())
+        return out
+
+    monkeypatch.setattr(ds, "moe_layer", counting_layer)
     with profiling.recording() as rec:
         on, _ = tfi.evaluate_logits_u8(engine, ds_, B, num_workers=2, seq_buckets=(8, 12))
     np.testing.assert_allclose(on, off, atol=1e-5, rtol=1e-5)
@@ -337,6 +349,10 @@ def test_evaluate_buckets_exactly_and_counts(tmp_path, data_dir, encoder_dir):
     assert c["model.attention.plain"] == 3 * batches
     # padded rows of the last batch are kept tokens of their own
     assert kept * 2 // 8 <= c["moe.max_expert_slots"] / 2 <= c["moe.routed_slots"] / 2
+    assert len(layer_counts) == c["moe.layers"]
+    assert c["moe.grouped_pad_rows"] == sum(-(-n // 64) * 64 - n for row in layer_counts
+                                            for n in row)
+    assert 0 < c["moe.grouped_pad_rows"] < 64 * len(layer_counts) * len(layer_counts[0])
     names = {s.name for s in rec.spans}
     assert {"text.pack", "mla.attention", "moe.route", "moe.experts", "moe.combine"} <= names
 

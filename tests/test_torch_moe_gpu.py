@@ -64,7 +64,7 @@ def _layer(N, load, seed=0, k=K):
 
 
 LOADS = [(1, "uniform"), (7, "uniform"), (100, "zipf"), (333, "empty"), (1000, "one"),
-         (4170, "uniform"), (4170, "zipf"), (8192, "uniform")]
+         (4170, "uniform"), (4170, "zipf"), (8192, "uniform"), (16384, "uniform")]
 
 
 @pytest.mark.parametrize("N,load", LOADS)
@@ -93,13 +93,21 @@ def test_route_and_grouped_products(N, load):
     if load == "one":
         assert int(counts[7]) == N
 
+    _check_products(x, r, idx, weight, w_gu, w_down)
+
+
+def _check_products(x, r, idx, weight, w_gu, w_down):
+    """The two ``moe_grouped`` launches against the plain path: h an expert
+    at a time in expert order, y in slot order against
+    ``experts_reference``."""
+    off = r.offsets.long()
     before = moe.grouped.launches
     h = moe.grouped(True, x, r, w_gu)
     y = moe.grouped(False, h, r, w_down)
     assert moe.grouped.launches == before + 2
-    want = moe.experts_reference(x, idx, weight, w_gu, w_down)  # [N, K, D], slot order
+    want = moe.experts_reference(x, idx, weight, w_gu, w_down)  # [N, k, D], slot order
     gate, up = moe.split_gate_up(w_gu)
-    for e in range(E):  # h in expert order, an expert at a time
+    for e in range(w_gu.shape[0]):  # h in expert order, an expert at a time
         tok = r.rows[off[e]:off[e + 1]].long()
         if tok.numel():
             xe = x[tok]
@@ -109,6 +117,57 @@ def test_route_and_grouped_products(N, load):
                                        rtol=2.0 ** -7)
     got_y = y[r.slot_pos.long()]  # back in slot order
     torch.testing.assert_close(got_y.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
+    return h, y
+
+
+# slots an expert around the products' row granularity (64-row halves of a
+# 128-row m-tile) and one expert of 2.59 times the cell's mean of 390
+RAGGED = [1, 63, 64, 65, 127, 128, 129, 1010]
+
+
+@pytest.mark.parametrize("first", [0, E - len(RAGGED)])
+def test_grouped_products_ragged_counts(first):
+    """Top-1 routing that gives experts ``first`` .. ``first`` + 7 exactly
+    ``RAGGED`` slots (the others none; at the last experts the weight tiles
+    end at the tensor's end): every row against the plain path."""
+    _need_card()
+    x, p = _layer(sum(RAGGED), "uniform", seed=7)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    counts = torch.tensor(RAGGED, device="cuda")
+    assign = torch.repeat_interleave(torch.arange(first, first + len(RAGGED), device="cuda"), counts)
+    assign = assign[torch.randperm(assign.numel(), generator=g, device="cuda")]
+    logits = torch.zeros(assign.numel(), E, device="cuda")
+    logits[torch.arange(assign.numel(), device="cuda"), assign] = 8.0
+    got = torch.zeros(E, dtype=torch.int32, device="cuda")
+    r = moe.route(logits, 1, 1.0, got)
+    idx, weight = moe.route_reference(logits, 1, 1.0)
+    want = torch.zeros(E, dtype=torch.int32, device="cuda")
+    want[first:first + len(RAGGED)] = counts.int()
+    assert torch.equal(got, want)
+    _check_products(x, r, idx, weight, p["experts"]["gate_up"], p["experts"]["down"])
+
+
+def test_grouped_products_repeat_and_are_named():
+    """Two launches of each product give the same bits (no split-K, no
+    atomics), and every device kernel a product launches is named
+    ``moe_grouped`` (what ``moe_grouped_roofline.score`` reads)."""
+    _need_card()
+    x, p = _layer(4170, "zipf", seed=9)
+    w_gu, w_down = p["experts"]["gate_up"], p["experts"]["down"]
+    logits = torch.mm(x, p["gate"]["w"], out_dtype=torch.float32)
+    r = moe.route(logits, K, 1.0, torch.zeros(E, dtype=torch.int32, device="cuda"))
+    h = moe.grouped(True, x, r, w_gu)
+    y = moe.grouped(False, h, r, w_down)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h2 = moe.grouped(True, x, r, w_gu)
+        y2 = moe.grouped(False, h2, r, w_down)
+        torch.cuda.synchronize()
+    assert torch.equal(h, h2) and torch.equal(y, y2)
+    kernels = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2 and all("moe_grouped" in name for name in kernels), kernels
 
 
 @pytest.mark.parametrize("N,load", [(1, "uniform"), (4170, "uniform"), (4170, "one"),
@@ -190,11 +249,10 @@ def test_layer_does_not_synchronise():
     assert bool(out.isfinite().all()) and int(hist.sum()) == 2 * 4170 * K
 
 
-def test_engine_call_does_not_synchronise():
-    """An engine call of the deepseek_v2 backend at the published widths (3
-    layers: the dense one and two expert layers) on pinned host inputs
-    enqueues its copies, the packing, the routing and the forward without a
-    synchronising operation."""
+def _engine_and_batch():
+    """An engine of the deepseek_v2 backend at the published widths (3
+    layers: the dense one and two expert layers) and a batch of 64 rows on
+    pinned host buffers."""
     import dataclasses
 
     import numpy as np
@@ -203,7 +261,6 @@ def test_engine_call_does_not_synchronise():
     from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import DeepSeekV2Config
     from multimodal_content_moderation_tpu_torch.models.fast_infer import FastInferenceEngine
 
-    _need_card()
     cfg = DeepSeekV2Config.lite_siglip2_224()
     cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_layers=3))
     model = model_io.build_model("fusion", "deepseek_v2", ["a", "b", "c", "d", "e"],
@@ -220,6 +277,15 @@ def test_engine_call_does_not_synchronise():
     patches = engine.patches_from_hwc(g.integers(0, 256, size=(B, 224, 224, 3), dtype=np.uint8))
     host = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
             for a in (ids, mask, patches, np.ones(B, np.float32), np.ones(B, np.float32))]
+    return engine, host
+
+
+def test_engine_call_does_not_synchronise():
+    """An engine call of the deepseek_v2 backend at the published widths on
+    pinned host inputs enqueues its copies, the packing, the routing and the
+    forward without a synchronising operation."""
+    _need_card()
+    engine, host = _engine_and_batch()
     engine(*host)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -228,6 +294,32 @@ def test_engine_call_does_not_synchronise():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(logits.isfinite().all())
+
+
+def test_engine_counts_grouped_pad_rows(monkeypatch):
+    """A recorded engine call leaves ``moe.grouped_pad_rows``: each expert
+    layer's per-expert slots up to whole 64-row halves, as the host counts
+    them from the layers' counts."""
+    from multimodal_content_moderation_tpu_torch.models import deepseek_v2 as ds
+
+    _need_card()
+    engine, host = _engine_and_batch()
+    layer_counts = []
+    real_layer = ds.moe_layer
+
+    def counting_layer(x, p, k, scaling, hist=None):
+        out = real_layer(x, p, k, scaling, hist)
+        layer_counts.append(hist.tolist())
+        return out
+
+    monkeypatch.setattr(ds, "moe_layer", counting_layer)
+    with profiling.recording():
+        engine(*host)
+    counters = engine.last_counters
+    assert len(layer_counts) == 2
+    want = sum(-(-n // moe.HALF) * moe.HALF - n for row in layer_counts for n in row)
+    assert int(counters["moe.grouped_pad_rows"]) == want
+    assert int(counters["moe.max_expert_slots"]) == sum(max(row) for row in layer_counts)
 
 
 @pytest.mark.parametrize("R,Dn,add", [(4170, 2048, True), (4170, 2048, False), (4170, 512, False),
