@@ -39,7 +39,15 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    the plain per-expert path, the layer against ``moe_reference``) at its
    published widths over 4,170 tokens, timed beside ``torch._grouped_mm``
    as the yardstick; ``dsv2_entries`` put both in the ``kernels`` line for
-   one DeepSeek-V2-Lite forward, timed by the launches phase 5 counts.
+   one DeepSeek-V2-Lite forward, timed by the launches phase 5 counts; the
+   same layer at Kimi-Linear-48B-A3B's widths (``kimi_moe_case``: the
+   sigmoid router with its bias over 256 experts, 64 held, the dropped
+   slots and their count, the layer with the shared expert) over the
+   Kimi-Linear cell's 13,084 kept tokens. The KDA core of ``csrc/kda.cu``
+   (``kda_cases``: ``kda_conv`` and ``kda_out`` against their plain
+   versions, ``kda_chunk`` + ``kda_state`` against the plain chunked form,
+   at the published init's decays and at the cell's) at Kimi-Linear-48B-A3B's
+   widths over a batch of the Kimi-Linear cell's shape, each launch timed.
 3. The full-width CLIP ViT-B/32 fusion model (random weights from a seed):
    written as a reference-format checkpoint (``models/export.py``, as every
    reference checkpoint of this script), loaded with ``load_checkpoint``,
@@ -97,8 +105,13 @@ Phases, each of which fails the run (non-zero exit) on a miss:
    ``moe_route``, 52 ``moe_grouped``, 26 ``moe_combine``, 82 RMSNorms and 28
    LayerNorms, 1 ``patch_embed_u8`` and 12 ``attention_nhd`` a batch, no
    plain expert layer or RMSNorm; its first batch's logits against the plain
-   path's (every layer's plain version) within the cell's 0.15. Then
-   ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
+   path's (every layer's plain version) within the cell's 0.15. Then one
+   Kimi-Linear-48B-A3B text forward at the published widths and layer
+   pattern (``kimi_phase``: 8 experts held, a small vocabulary) over a batch
+   of the Kimi-Linear cell's shape, its launch counters zeroed first: 20
+   each of ``kda_conv``, ``kda_chunk``, ``kda_state`` and ``kda_out``, 26
+   ``moe_route``, 52 ``moe_grouped``, 26 ``moe_combine``, no plain KDA core.
+   Then ``ops.layers.mha(impl="pallas")`` with a dense mask, which must launch
    ``attention_small`` once per call (the bf16 call on the tensor cores),
    against the "xla" core.
 6. The shipped fine-tuning configs on the f32 wire through ``Trainer``:
@@ -1054,7 +1067,250 @@ def moe_cases(torch, g):
         case["library_ms"], case["library_error"] = None, repr(exc)[:200]
     timed(case, "route_ms", route)
     timed(case, "combine_ms", lambda: moe.combine(y, r.slot_pos, None))
+    return [case, kimi_moe_case(torch, g)]
+
+
+KIMI_MOE = (2304, 1024, 256, 64, 8)  # d, F, the router's experts, those held, k
+KIMI_TOKENS = 13084  # the Kimi-Linear cell's kept tokens a batch
+
+
+def kimi_moe_case(torch, g):
+    """``ops/moe`` on the card at Kimi-Linear-48B-A3B's widths over the
+    cell's ``KIMI_TOKENS`` kept tokens: the sigmoid router with its
+    score-correction bias over all 256 experts, top-8, the layer holding
+    experts 0-63 (the cell's share). ``moe_route`` against
+    ``route_reference`` through ``held_slots`` (the same held experts, the
+    same dropped slots and their count in ``remote``, the weights to 1e-6
+    relative); the two ``moe_grouped`` launches against the plain
+    per-expert path on the held slots (bf16 rtol 2^-7 + atol 1e-3); the
+    layer with the shared expert against ``moe_reference`` (atol 3e-3), so
+    ``moe_combine`` skips the dropped slots. Timed: the two grouped
+    launches, the route and the combine; the bound as ``moe_cases``' over
+    the held slots."""
+    from multimodal_content_moderation_tpu_torch.ops import moe
+    from multimodal_content_moderation_tpu_torch.ops.layers import swiglu
+
+    D, F, W, E, k = KIMI_MOE
+    N = KIMI_TOKENS
+    router = moe.Router(sigmoid=True, first=0)
+    x = torch.randn(N, D, generator=g, device="cuda").bfloat16()
+    gate = (torch.randn(D, W, generator=g, device="cuda") * D ** -0.5).bfloat16()
+    bias = torch.randn(W, generator=g, device="cuda") * 0.02
+    w_gu = (torch.randn(E, 2 * F, D, generator=g, device="cuda") * D ** -0.5).bfloat16()
+    w_down = (torch.randn(E, D, F, generator=g, device="cuda") * F ** -0.5).bfloat16()
+    shared = {"gate_up": {"w": (torch.randn(D, 2 * F, generator=g, device="cuda")
+                                * D ** -0.5).bfloat16()},
+              "down": {"w": (torch.randn(F, D, generator=g, device="cuda") * F ** -0.5)
+                       .bfloat16()}}
+    p = {"gate": {"w": gate, "bias": bias}, "experts": {"gate_up": w_gu, "down": w_down},
+         "shared": shared}
+    logits = torch.mm(x, gate, out_dtype=torch.float32)
+    scaling = 2.446
+
+    def route(remote=None):
+        return moe.route(logits, k, scaling, torch.zeros(E, dtype=torch.int32, device="cuda"),
+                         router, bias, remote)
+
+    remote = torch.zeros((), dtype=torch.int32, device="cuda")
+    r = route(remote)
+    idx, weight = moe.route_reference(logits, k, scaling, router, bias)
+    local, dropped = moe.held_slots(idx, router.first, E)
+    check(torch.equal(r.idx.long(), local),
+          "moe_route (sigmoid, held 64 of 256): another top-k than route_reference")
+    check(int(remote) == int(dropped),
+          f"moe_route: {int(remote)} dropped slots counted, route_reference {int(dropped)}")
+    werr = float(((r.weight - weight).abs() / weight.abs()).max())
+    check(werr <= 1e-6, f"moe_route (sigmoid): weights {werr} relative from route_reference")
+    h = moe.grouped(True, x, r, w_gu)
+    y = moe.grouped(False, h, r, w_down)
+    want = moe.experts_reference(x, local, weight, w_gu, w_down)
+    mine = r.slot_pos >= 0
+    err, ok = max_err_within(y[r.slot_pos[mine].long()], want[mine], 1e-3, 2.0**-7)
+    check(ok, f"moe_grouped (d {D}, F {F}): max abs err {err} beyond atol 1e-3 + rtol 2^-7")
+    with torch.inference_mode():
+        layer_err, layer_ok = max_err_within(
+            moe.moe_layer(x, p, k, scaling, router=router),
+            moe.moe_reference(x, p, k, scaling, router=router), 3e-3, 2.0**-7)
+    check(layer_ok, f"moe layer (sigmoid, held share): max abs err {layer_err} beyond atol "
+          f"3e-3 + rtol 2^-7")
+    S = int(mine.sum())
+    flops = 6.0 * D * F * S
+    nbytes = 2.0 * E * 3 * D * F + 2.0 * S * (2 * D + 2 * F)
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    case = {"kernel": "moe_grouped", "case": f"gate+up and down, sigmoid router over {W}, "
+            f"{E} held: N={N} tokens, k={k}, {S} held slots, d={D}, F={F}",
+            "dtype": "bfloat16", "max_abs_err": err, "atol": 1e-3, "rtol": 2.0**-7,
+            "route_weight_rel_err": werr, "remote_slots": int(remote),
+            "layer_max_abs_err": layer_err, "paths": ["kimi"], "per_unit": None,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    timed(case, "ms", lambda: moe.grouped(False, moe.grouped(True, x, r, w_gu), r, w_down))
+    timed(case, "plain_ms", lambda: moe.experts_reference(x, local, weight, w_gu, w_down),
+          iters=3)
+    timed(case, "route_ms", route)
+    sh = swiglu(x, shared)
+    timed(case, "combine_ms", lambda: moe.combine(y, r.slot_pos, sh))
+    return case
+
+
+KDA_ROWS = (56, 48, 480)  # the Kimi-Linear cell's batch: rows, fewest and most kept tokens
+KDA_HEADS, KDA_HEAD = 32, 128
+
+
+def kda_cases(torch, g):
+    """``ops/kda`` on the card at Kimi-Linear-48B-A3B's widths (32 heads of
+    dk = dv = 128) over a batch of the cell's shape (``KDA_ROWS``: 56
+    right-padded rows of 48-480 kept tokens, packed): ``kda_conv`` and
+    ``kda_out`` against their plain versions (bf16 rtol 2^-7 + atol 1e-3),
+    ``kda_chunk`` + ``kda_state`` against the plain chunked form in fp32
+    from the same convolved inputs (an error under 2% of the largest
+    output: the tensor cores' bf16 operands), once at the published
+    init's decays (A_log = log U(1, 16), dt_bias N(0, 0.25): -1 to -11 a
+    token, so the state carried between chunks is tiny) and once at the
+    cell's (A_log about 1, dt_bias -4: about -0.1 a token, so it is not).
+    Timed: the four launches of one layer's core, each launch alone, and
+    the plain form in fp32; no
+    PyTorch call computes the core, so there is no yardstick. Bound:
+    max(operations / 989 TFLOP/s, bytes / 3.35 TB/s) as
+    ``benchmark/flops/kda.py`` counts one layer (the recurrent form's three
+    dk x dv products a token and head and the convolution's taps; the
+    core's bf16 inputs read once and its output written once)."""
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.models.deepseek_v2 import pack
+    from multimodal_content_moderation_tpu_torch.ops import _build, kda
+
+    _build.build(["kda"])
+    B, lo, hi = KDA_ROWS
+    H, hd = KDA_HEADS, KDA_HEAD
+    C = H * hd
+    lengths = np.random.default_rng(0).integers(lo, hi + 1, size=B)
+    T = int(lengths.max())
+    mask = torch.from_numpy((np.arange(T)[None] < lengths[:, None]).astype(np.int64)).cuda()
+    N = int(lengths.sum())
+    pk = pack(mask, N)
+    r = kda.rows(mask, pk.src, N)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale).bfloat16()
+
+    qkv, f, gate = randn(N, 3 * C), randn(N, C), randn(N, C)
+    b = randn(N, 288)[:, 256:]
+    p = {"conv": randn(3 * C, kda.TAPS, scale=0.5),
+         "A_log": torch.log(torch.rand(H, generator=g, device="cuda") * 15 + 1).bfloat16(),
+         "dt_bias": randn(C, scale=0.5), "o_norm": {"scale": 1 + randn(hd, scale=0.2)}}
+    x = kda.conv(qkv, p["conv"], r, H)
+    conv_err, conv_ok = max_err_within(x, kda.conv_reference(qkv, p["conv"], r.row, H, hd),
+                                       1e-3, 2.0**-7)
+    check(conv_ok, f"kda_conv: max abs err {conv_err} beyond atol 1e-3 + rtol 2^-7")
+
+    def core_error(p):
+        o = kda.state(kda.chunk(x, f, b, p["A_log"], p["dt_bias"], r, H), r, H)
+        want = kda.delta_rule_reference(x, f, b, p, r, pk.src, T, H, hd)
+        return o, float((o.float() - want).abs().max()), float(want.abs().max())
+
+    o, core_err, largest = core_error(p)
+    check(core_err <= 0.02 * largest,
+          f"kda_chunk + kda_state: max abs err {core_err} beyond 2% of {largest}")
+    # the cell's draws (benchmark/families/kimi_linear.py): A_log about 1,
+    # dt_bias -4, a decay of about -0.1 a token, so the state carried over
+    # from earlier chunks is most of each output
+    cell = dict(p, A_log=(1 + 0.7 * torch.randn(H, generator=g, device="cuda")).bfloat16(),
+                dt_bias=torch.full((C,), -4.0, device="cuda").bfloat16())
+    _, cell_err, cell_largest = core_error(cell)
+    check(cell_err <= 0.02 * cell_largest,
+          f"kda_chunk + kda_state at the cell's decay: max abs err {cell_err} beyond 2% of "
+          f"{cell_largest}")
+
+    def plain_core():
+        return kda.delta_rule_reference(x, f, b, p, r, pk.src, T, H, hd)
+    y = kda.out_norm(o, gate, p["o_norm"]["scale"], 1e-5)
+    out_err, out_ok = max_err_within(
+        y, kda.out_reference(o, gate, p["o_norm"]["scale"], 1e-5, hd), 1e-3, 2.0**-7)
+    check(out_ok, f"kda_out: max abs err {out_err} beyond atol 1e-3 + rtol 2^-7")
+    flops = 2.0 * N * (3 * H * hd * hd + kda.TAPS * 3 * C)
+    nbytes = 2.0 * N * (6 * C + H)
+    bms, by = bound_ms(nbytes, flops, "bfloat16")
+    case = {"kernel": "kda", "case": f"one layer's core: {B} rows, {N} kept tokens, H={H}, "
+            f"dk=dv={hd}", "dtype": "bfloat16", "max_abs_err": core_err, "atol": 0.02 * largest,
+            "rtol": 0.0, "conv_max_abs_err": conv_err, "out_max_abs_err": out_err,
+            "cell_decay_max_abs_err": cell_err, "cell_decay_atol": 0.02 * cell_largest,
+            "paths": ["kimi"], "per_unit": None, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
+    case["ptxas"] = ptxas_report(_build.ptxas_reports.get("kda", ""), "kda_")
+    for line in case["ptxas"]:
+        print(f"ptxas kda: {line}")
+    ch = kda.chunk(x, f, b, p["A_log"], p["dt_bias"], r, H)
+    timed(case, "ms", lambda: kda.out_norm(kda.state(kda.chunk(
+        kda.conv(qkv, p["conv"], r, H), f, b, p["A_log"], p["dt_bias"], r, H), r, H), gate,
+        p["o_norm"]["scale"], 1e-5))
+    timed(case, "conv_ms", lambda: kda.conv(qkv, p["conv"], r, H))
+    timed(case, "chunk_ms", lambda: kda.chunk(x, f, b, p["A_log"], p["dt_bias"], r, H))
+    timed(case, "state_ms", lambda: kda.state(ch, r, H))
+    timed(case, "out_ms", lambda: kda.out_norm(o, gate, p["o_norm"]["scale"], 1e-5))
+    timed(case, "plain_ms", plain_core, iters=3)
     return [case]
+
+
+KIMI_LAUNCHES = {"kda_conv": 20, "kda_chunk": 20, "kda_state": 20, "kda_out": 20,
+                 "moe_route": 26, "moe_grouped": 52, "moe_combine": 26}
+
+
+def kimi_launches(torch, n_held=8, vocab=4096):
+    """The ``kda_`` and ``moe_`` launches of one Kimi-Linear-48B-A3B text
+    forward in bf16 on the card over a batch of the cell's shape
+    (``KDA_ROWS``), the counters zeroed just before it, with the span
+    recording on: the published widths and layer pattern (20 KDA, 7 MLA,
+    26 expert layers), ``n_held`` of the router's 256 experts held and a
+    ``vocab``-entry embedding (the launches depend on neither). Returns
+    (launches, the recording's counters)."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_content_moderation_tpu_torch.models import kimi_linear as kl
+    from multimodal_content_moderation_tpu_torch.ops import kda, moe
+    from multimodal_content_moderation_tpu_torch.utils import profiling
+
+    text = dataclasses.replace(kl.KimiLinearTextConfig(), n_held=n_held, vocab_size=vocab,
+                               compute_dtype="bfloat16")
+    cfg = dataclasses.replace(kl.KimiLinearConfig(), text=text)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bp = kl.kimi_linear_init(g, cfg, torch.bfloat16)
+    B, lo, hi = KDA_ROWS
+    lengths = np.random.default_rng(1).integers(lo, hi + 1, size=B)
+    T = int(lengths.max())
+    mask = (np.arange(T)[None] < lengths[:, None]).astype(np.int64)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(2, vocab, size=(B, T)) * mask)
+    ids, mask_d = ids.cuda(), torch.from_numpy(mask).cuda()
+    kept = int(mask.sum())
+    with torch.inference_mode():
+        kl.kimi_text_features(bp, ids, mask_d, cfg, kept=kept)  # builds and warms up
+        torch.cuda.synchronize()
+        fns = {"kda_conv": kda.conv, "kda_chunk": kda.chunk, "kda_state": kda.state,
+               "kda_out": kda.out_norm, "moe_route": moe.route, "moe_grouped": moe.grouped,
+               "moe_combine": moe.combine}
+        for fn in fns.values():
+            fn.launches = 0
+        with profiling.recording() as rec:
+            kl.kimi_text_features(bp, ids, mask_d, cfg, kept=kept)
+        torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in fns.items()}
+    del bp
+    torch.cuda.empty_cache()
+    return launches, dict(rec.counters)
+
+
+def kimi_phase(torch, card):
+    """One Kimi-Linear text forward's launches (``kimi_launches``): each
+    kernel's count must be ``KIMI_LAUNCHES`` (4 a KDA layer, 4 an expert
+    layer), and no KDA core may take the plain form (``kda.plain``)."""
+    launches, counters = kimi_launches(torch)
+    check(launches == KIMI_LAUNCHES, f"kimi: launches {launches}, want {KIMI_LAUNCHES}")
+    check(counters.get("kda.plain", 0) == 0 and counters.get("kda.layers") == 20,
+          f"kimi: counters {counters}: want 20 KDA layers, none plain")
+    return {"card": card, "launches_per_forward": launches,
+            "kda_layers": counters.get("kda.layers"), "kda_plain": counters.get("kda.plain", 0),
+            "moe_layers": counters.get("moe.layers")}
 
 
 def ptxas_report(log: str, fragment: str):
@@ -1086,7 +1342,7 @@ def dsv2_entries(cases, dsv2):
           f"counted {per_batch['add_rms_norm']}")
     layers = per_batch["moe_route"]
     for c in cases:
-        if c["kernel"] == "moe_grouped":
+        if c["kernel"] == "moe_grouped" and "dsv2" in c["paths"]:
             c["per_unit"] = per_batch["moe_grouped"] // 2
     out = []
     for name, source, work in (
@@ -1095,7 +1351,7 @@ def dsv2_entries(cases, dsv2):
              "[4170, 2048] x 53 with the add, x 1 without, [4170, 512] x 27, [256, 2048] x 1"),
             ("moe_grouped", "moe.cu", f"{layers} expert layers x 2 launches over "
              f"{DSV2_TOKENS} tokens x 6 slots")):
-        main = [c for c in cases if c["kernel"] == name]
+        main = [c for c in cases if c["kernel"] == name and "dsv2" in c["paths"]]
         keys = ["ms", "plain_ms", "library_ms", "bound_ms"]
         unit = {key: (None if any(c[key] is None for c in main)
                       else sum(c["per_unit"] * c[key] for c in main)) for key in keys}
@@ -5862,7 +6118,7 @@ def main() -> int:
     cases = (patch_embed_cases(torch, g) + attention_cases(torch, g) + flash_cases(torch, g)
              + small_cases(torch, g) + attention_bwd_cases(torch, g)
              + add_layer_norm_cases(torch, g) + add_rms_norm_cases(torch, g)
-             + moe_cases(torch, g))
+             + moe_cases(torch, g) + kda_cases(torch, g))
     for c in cases:
         print(
             f"{c['kernel']:17s} {c['dtype']:8s} {c['case']:60s} err {c['max_abs_err']:.3g} "
@@ -5885,6 +6141,7 @@ def main() -> int:
         (5, "siglip", lambda: siglip_phase(torch, card)),  # SigLIP-384 eval
         (5, "siglip224", lambda: siglip224_phase(torch, card)),  # SigLIP-224 eval
         (5, "dsv2", lambda: dsv2_phase(torch, card)),  # DeepSeek-V2-Lite + SigLIP-224 eval
+        (5, "kimi", lambda: kimi_phase(torch, card)),  # Kimi-Linear's text tower: launches
         (5, "mha_dense_mask", lambda: mha_dense_mask_phase(torch)),  # attention_small
         (6, "clip_f32_train", lambda: clip_f32_train_phase(torch, card)),
         (6, "siglip224_train", lambda: siglip224_train_phase(torch, card)),

@@ -1,6 +1,7 @@
-// The sparse expert layer of DeepSeek-V2 (models/deepseek_v2.py) for Hopper
-// (sm_90a): routing, the permutation of token slots by expert, two grouped
-// GEMMs over every expert in one launch each, and the combine.
+// The sparse expert layer of DeepSeek-V2 (models/deepseek_v2.py) and of
+// Kimi-Linear (models/kimi_linear.py) for Hopper (sm_90a): routing, the
+// permutation of token slots by expert, two grouped GEMMs over every expert
+// in one launch each, and the combine.
 //
 // Replaces no TPU kernel: the JAX package has no expert layer. Written
 // because a loop over 64 experts x 3 products x 26 layers is about 5,000
@@ -13,9 +14,17 @@
 //   moe_route_kernel     one warp a token: softmax over the E fp32 gate
 //                        logits, greedy top-k (ties to the lower expert),
 //                        the weights are the probabilities (not
-//                        renormalised) times the scaling factor; per-expert
+//                        renormalised) times the scaling factor; or
+//                        (SIGMOID, Kimi-Linear) the top-k of sigmoid scores
+//                        plus a bias that chooses and does not weigh, the
+//                        weights the scores renormalised over the k
+//                        times the scaling factor. Per held expert
 //                        slot counts by integer atomics (their sum does not
-//                        depend on the order).
+//                        depend on the order). The layer may hold experts
+//                        [first, first + held) of the E it routes over
+//                        (expert parallelism's share of one card): a slot
+//                        of another expert gets idx and slot_pos -1, is
+//                        counted in remote and computes nothing.
 //   moe_permute_kernel   one block an expert: its slot offset and m-tile
 //                        offset (prefix sums of the counts), then its slots
 //                        in slot order (a block-wide scan: the same
@@ -27,7 +36,7 @@
 //                        <down> y = w_slot * (h W_d^T), rounded once.
 //                        One persistent launch covers every expert (below).
 //   moe_combine_kernel   out[t] = bf16(sum_j y[pos(t, j)] + shared[t]): the k
-//                        rows in top-k order, then the shared experts, in
+//                        rows in top-k order (the held ones), then the shared experts, in
 //                        fp32; no atomics, so the output repeats bit for bit.
 //
 // Bound on an H100 at the benchmark's batch (N about 4,170 kept tokens, D
@@ -123,63 +132,132 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// EPL: experts a lane holds (E <= 32 EPL)
-template <int EPL>
+// EPL: experts a lane holds (E <= 32 EPL); SIGMOID: Kimi-Linear's scoring
+template <int EPL, bool SIGMOID>
 __global__ void __launch_bounds__(256)
 moe_route_kernel(const float* __restrict__ logits, int N, int E, int k, float scaling,
-                 int* __restrict__ idx, float* __restrict__ weight, int* __restrict__ counts) {
+                 const float* __restrict__ bias, int first, int held,
+                 int* __restrict__ idx, float* __restrict__ weight, int* __restrict__ counts,
+                 int* __restrict__ remote, int* __restrict__ slot_pos) {
   const long long token = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (token >= N) return;
   const float* l = logits + token * E;
   float v[EPL];
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) {
-    const int e = lane + 32 * j;
-    v[j] = e < E ? l[e] : -INFINITY;
-    mx = fmaxf(mx, v[j]);
-  }
-  mx = warp_max(mx);
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) {
-    v[j] = lane + 32 * j < E ? expf(v[j] - mx) : 0.f;
-    sum += v[j];
-  }
-  sum = warp_sum(sum);
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) v[j] = lane + 32 * j < E ? v[j] / sum : -1.f;
-  for (int t = 0; t < k; ++t) {
-    // this lane's best untaken expert (a probability is >= 0, a taken or
-    // absent one -1); ties keep the lower expert
-    float bv = -1.f;
-    int be = 0x7fffffff;
+  if constexpr (SIGMOID) {
+    // v: the choice (score + bias), s: the score that weighs
+    float s[EPL];
 #pragma unroll
     for (int j = 0; j < EPL; ++j) {
-      if (v[j] > bv) {
-        bv = v[j];
-        be = lane + 32 * j;
-      }
+      const int e = lane + 32 * j;
+      s[j] = e < E ? 1.f / (1.f + expf(-l[e])) : 0.f;
+      v[j] = e < E ? s[j] + (bias ? bias[e] : 0.f) : -INFINITY;
     }
+    float total = 0.f;
+    for (int t = 0; t < k; ++t) {
+      float bv = -INFINITY, bs = 0.f;
+      int be = 0x7fffffff;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oe = __shfl_xor_sync(0xffffffffu, be, o);
-      if (ov > bv || (ov == bv && oe < be)) {
-        bv = ov;
-        be = oe;
+      for (int j = 0; j < EPL; ++j) {
+        if (v[j] > bv) {
+          bv = v[j];
+          be = lane + 32 * j;
+          bs = s[j];
+        }
       }
-    }
-    if (lane == be % 32) {
 #pragma unroll
-      for (int j = 0; j < EPL; ++j)
-        if (be / 32 == j) v[j] = -1.f;
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int oe = __shfl_xor_sync(0xffffffffu, be, o);
+        const float os = __shfl_xor_sync(0xffffffffu, bs, o);
+        if (ov > bv || (ov == bv && oe < be)) {
+          bv = ov;
+          be = oe;
+          bs = os;
+        }
+      }
+      if (lane == be % 32) {
+#pragma unroll
+        for (int j = 0; j < EPL; ++j)
+          if (be / 32 == j) v[j] = -INFINITY;
+      }
+      if (lane == 0) {
+        const long long slot = token * k + t;
+        total += bs;
+        weight[slot] = bs;
+        if (be >= first && be < first + held) {
+          idx[slot] = be - first;
+          atomicAdd(&counts[be - first], 1);
+        } else {
+          idx[slot] = -1;
+          slot_pos[slot] = -1;
+          if (remote) atomicAdd(remote, 1);
+        }
+      }
     }
     if (lane == 0) {
-      idx[token * k + t] = be;
-      weight[token * k + t] = bv * scaling;
-      atomicAdd(&counts[be], 1);
+      for (int t = 0; t < k; ++t) {
+        const long long slot = token * k + t;
+        weight[slot] = weight[slot] / (total + 1e-20f) * scaling;
+      }
+    }
+    return;
+  } else {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      const int e = lane + 32 * j;
+      v[j] = e < E ? l[e] : -INFINITY;
+      mx = fmaxf(mx, v[j]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) {
+      v[j] = lane + 32 * j < E ? expf(v[j] - mx) : 0.f;
+      sum += v[j];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int j = 0; j < EPL; ++j) v[j] = lane + 32 * j < E ? v[j] / sum : -1.f;
+    for (int t = 0; t < k; ++t) {
+      // this lane's best untaken expert (a probability is >= 0, a taken or
+      // absent one -1); ties keep the lower expert
+      float bv = -1.f;
+      int be = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < EPL; ++j) {
+        if (v[j] > bv) {
+          bv = v[j];
+          be = lane + 32 * j;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int oe = __shfl_xor_sync(0xffffffffu, be, o);
+        if (ov > bv || (ov == bv && oe < be)) {
+          bv = ov;
+          be = oe;
+        }
+      }
+      if (lane == be % 32) {
+#pragma unroll
+        for (int j = 0; j < EPL; ++j)
+          if (be / 32 == j) v[j] = -1.f;
+      }
+      if (lane == 0) {
+        const long long slot = token * k + t;
+        weight[slot] = bv * scaling;
+        if (be >= first && be < first + held) {
+          idx[slot] = be - first;
+          atomicAdd(&counts[be - first], 1);
+        } else {
+          idx[slot] = -1;
+          slot_pos[slot] = -1;
+          if (remote) atomicAdd(remote, 1);
+        }
+      }
     }
   }
 }
@@ -532,8 +610,10 @@ moe_combine_kernel(const bf16* __restrict__ y, const int* __restrict__ slot_pos,
   const long long t = blockIdx.x;
   for (int v = threadIdx.x; v < D / 8; v += blockDim.x) {
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int j = 0; j < k; ++j)
-      add8(y + static_cast<long long>(slot_pos[t * k + j]) * D + 8 * v, acc);
+    for (int j = 0; j < k; ++j) {
+      const int pos = slot_pos[t * k + j];
+      if (pos >= 0) add8(y + static_cast<long long>(pos) * D + 8 * v, acc);
+    }
     if (shared) add8(shared + t * D + 8 * v, acc);
     uint4 u;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
@@ -544,30 +624,49 @@ moe_combine_kernel(const bf16* __restrict__ y, const int* __restrict__ slot_pos,
 }
 
 }  // namespace
-// logits: fp32 [N, E]; idx: int32 [N, k], weight: fp32 [N, k]; counts: int32
-// [E], zero on entry (the layer's row of the per-expert histogram); offsets,
-// tiles: int32 [E + 1]; rows: int32 [N k], wsorted: fp32 [N k], slot_pos:
-// int32 [N k]. E up to 256, k up to E, N >= 1.
-extern "C" int moe_route_launch(const void* logits, int N, int E, int k, float scaling, void* idx,
-                                void* weight, void* counts, void* offsets, void* tiles,
-                                void* rows, void* wsorted, void* slot_pos, void* stream) {
-  if (N <= 0 || E <= 0 || E > MAX_EXPERTS || k <= 0 || k > E) return cudaErrorInvalidValue;
+// logits: fp32 [N, E]; sigmoid 0 (softmax) or 1 (renormalised), bias fp32
+// [E] or null (sigmoid only); the layer holds experts [first, first +
+// held); idx: int32 [N, k] (held expert, or -1), weight: fp32 [N, k]; counts:
+// int32 [held], zero on entry (the layer's row of the per-expert histogram);
+// remote: an int32 the dropped slots are added to, or null; offsets, tiles:
+// int32 [held + 1]; rows: int32 [N k], wsorted: fp32 [N k], slot_pos: int32
+// [N k] (-1 for a dropped slot). E up to 256, k up to E, N >= 1.
+extern "C" int moe_route_launch(const void* logits, int N, int E, int k, float scaling,
+                                int sigmoid, const void* bias, int first,
+                                int held, void* idx, void* weight, void* counts, void* remote,
+                                void* offsets, void* tiles, void* rows, void* wsorted,
+                                void* slot_pos, void* stream) {
+  if (N <= 0 || E <= 0 || E > MAX_EXPERTS || k <= 0 || k > E || held <= 0 || first < 0 ||
+      first + held > E)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* l = static_cast<const float*>(logits);
+  const auto* bp = static_cast<const float*>(bias);
   auto* ip = static_cast<int*>(idx);
   auto* wp = static_cast<float*>(weight);
   auto* cp = static_cast<int*>(counts);
+  auto* rp = static_cast<int*>(remote);
+  auto* sp = static_cast<int*>(slot_pos);
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(N) * 32 + 255) / 256);
-  if (E <= 64) {
-    moe_route_kernel<2><<<blocks, 256, 0, st>>>(l, N, E, k, scaling, ip, wp, cp);
+  if (sigmoid) {
+    if (E <= 64)
+      moe_route_kernel<2, true><<<blocks, 256, 0, st>>>(l, N, E, k, scaling, bp, first, held,
+                                                        ip, wp, cp, rp, sp);
+    else
+      moe_route_kernel<8, true><<<blocks, 256, 0, st>>>(l, N, E, k, scaling, bp, first, held,
+                                                        ip, wp, cp, rp, sp);
+  } else if (E <= 64) {
+    moe_route_kernel<2, false><<<blocks, 256, 0, st>>>(l, N, E, k, scaling, bp, first, held,
+                                                       ip, wp, cp, rp, sp);
   } else {
-    moe_route_kernel<8><<<blocks, 256, 0, st>>>(l, N, E, k, scaling, ip, wp, cp);
+    moe_route_kernel<8, false><<<blocks, 256, 0, st>>>(l, N, E, k, scaling, bp, first, held,
+                                                       ip, wp, cp, rp, sp);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  moe_permute_kernel<<<E, PERMUTE_THREADS, 0, st>>>(
-      ip, wp, cp, N * k, k, E, static_cast<int*>(offsets), static_cast<int*>(tiles),
-      static_cast<int*>(rows), static_cast<float*>(wsorted), static_cast<int*>(slot_pos));
+  moe_permute_kernel<<<held, PERMUTE_THREADS, 0, st>>>(
+      ip, wp, cp, N * k, k, held, static_cast<int*>(offsets), static_cast<int*>(tiles),
+      static_cast<int*>(rows), static_cast<float*>(wsorted), sp);
   return static_cast<int>(cudaGetLastError());
 }
 

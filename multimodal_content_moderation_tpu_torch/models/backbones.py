@@ -1,6 +1,7 @@
 """The port's model families in one table: everything that differs between
-CLIP, SigLIP, the generic towers (a BERT-family text tower beside a ViT) and
-DeepSeek-V2 (a sparse decoder beside SigLIP's vision tower).
+CLIP, SigLIP, the generic towers (a BERT-family text tower beside a ViT),
+DeepSeek-V2 and Kimi-Linear (sparse decoders beside SigLIP's vision
+tower).
 
 ``backbone(name)`` returns a family's ``Backbone``. "auto" is SigLIP's
 record, as in the JAX package, for a checkpoint whose inference config kept
@@ -24,7 +25,13 @@ from multimodal_content_moderation_tpu_torch.data.images import (
     SIGLIP_MEAN,
     SIGLIP_STD,
 )
-from multimodal_content_moderation_tpu_torch.models import clip, deepseek_v2, generic, siglip
+from multimodal_content_moderation_tpu_torch.models import (
+    clip,
+    deepseek_v2,
+    generic,
+    kimi_linear,
+    siglip,
+)
 from multimodal_content_moderation_tpu_torch.models.params import TOP_LEVEL
 
 
@@ -113,6 +120,12 @@ def _generic_text_pooled(bp, batch, cfg, generator):
 
 def _deepseek_text(bp, batch, cfg, generator):
     return deepseek_v2.deepseek_text_features(
+        bp, batch["input_ids"], batch.get("attention_mask"), cfg,
+        kept=batch.get("text_kept"), counters=batch.get("counters"))
+
+
+def _kimi_text(bp, batch, cfg, generator):
+    return kimi_linear.kimi_text_features(
         bp, batch["input_ids"], batch.get("attention_mask"), cfg,
         kept=batch.get("text_kept"), counters=batch.get("counters"))
 
@@ -223,8 +236,30 @@ _DEEPSEEK_V2 = Backbone(
     kernels=("add_layer_norm", "moe"),  # its RMSNorms and its expert layer
 )
 
+_KIMI_LINEAR = Backbone(
+    default=kimi_linear.KimiLinearConfig.published_siglip2_224,
+    from_dict=kimi_linear.KimiLinearConfig.from_dict,
+    init=kimi_linear.kimi_linear_init,
+    from_torch=kimi_linear.kimi_linear_params_from_torch,
+    to_torch=kimi_linear.kimi_linear_to_torch,
+    feature_dim=lambda c: c.projection_dim,
+    text=_kimi_text,
+    image=siglip.siglip_image_features_from_tokens,
+    multitask=None,
+    image_stats=(SIGLIP_MEAN, SIGLIP_STD),
+    class_token=False,
+    # a causal tower (KDA's recurrence and causal MLA) pooled at the last
+    # kept token never sees the dropped pads
+    exact_buckets=True,
+    bucket_extra=0,
+    count_packing=kimi_linear.count_packing,
+    training_refused=("its 48.7 B parameters take about 780 GB with AdamW's state, more "
+                      "than one card; it scores only"),
+    kernels=("add_layer_norm", "moe", "kda"),  # its RMSNorms, expert layer and KDA core
+)
+
 BACKBONES = {"clip": _CLIP, "siglip": _SIGLIP, "auto": _SIGLIP, "generic": _GENERIC,
-             "deepseek_v2": _DEEPSEEK_V2}
+             "deepseek_v2": _DEEPSEEK_V2, "kimi_linear": _KIMI_LINEAR}
 
 
 def backbone(name: str) -> Backbone:

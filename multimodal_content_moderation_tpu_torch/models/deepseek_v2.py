@@ -37,7 +37,7 @@ the experts keep HF's (out, in), stacked (``ops/moe.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,7 +59,13 @@ from multimodal_content_moderation_tpu_torch.ops.layers import (
     yarn_rope_tables,
     yarn_softmax_scale,
 )
-from multimodal_content_moderation_tpu_torch.ops.moe import HALF, moe_layer, split_gate_up
+from multimodal_content_moderation_tpu_torch.ops.moe import (
+    HALF,
+    SOFTMAX,
+    Router,
+    moe_layer,
+    split_gate_up,
+)
 from multimodal_content_moderation_tpu_torch.utils.profiling import annotate, count
 
 
@@ -210,20 +216,25 @@ def _swiglu_init(g, d, f, dtype):
     return {"gate_up": _w(g, d, 2 * f, dtype), "down": _w(g, f, d, dtype)}
 
 
+def _mla_init(g, t, dtype) -> dict:
+    d, H, r = t.hidden_size, t.num_heads, t.kv_lora_rank
+    return {
+        "qkv_a": _w(g, d, H * t.q_head_dim + r + t.qk_rope_head_dim, dtype),
+        "kv_a_ln": _ones(r, dtype, g.device),
+        "kv_b": _w(g, r, H * (t.qk_nope_head_dim + t.v_head_dim), dtype),
+        "o": _w(g, H * t.v_head_dim, d, dtype),
+    }
+
+
 def deepseek_v2_init(g: torch.Generator, cfg: DeepSeekV2Config, dtype=torch.float32) -> dict:
     """Random-init the backbone tree on ``g.device`` (dense weights with
     std 1/sqrt(fan in), the embedding 0.02, norms 1)."""
     t = cfg.text
-    d, H, r = t.hidden_size, t.num_heads, t.kv_lora_rank
+    d = t.hidden_size
     dev = g.device
     layers = []
     for i in range(t.num_layers):
-        attn = {
-            "qkv_a": _w(g, d, H * t.q_head_dim + r + t.qk_rope_head_dim, dtype),
-            "kv_a_ln": _ones(r, dtype, dev),
-            "kv_b": _w(g, r, H * (t.qk_nope_head_dim + t.v_head_dim), dtype),
-            "o": _w(g, H * t.v_head_dim, d, dtype),
-        }
+        attn = _mla_init(g, t, dtype)
         if t.is_moe(i):
             E, f = t.n_routed_experts, t.moe_intermediate_size
             mlp = {
@@ -263,25 +274,40 @@ def _linear_in_out(*weights) -> torch.Tensor:
     return out
 
 
-def _experts(t: Dict, b: str, E: int) -> dict:
-    """A layer's E experts stacked in place: gate+up [E, 2F, d] interleaved by
-    8 rows, down [E, d, F], copied expert by expert into the new tensors."""
-    g0 = _leaf(t[f"{b}.experts.0.gate_proj.weight"])
+EXPERT_NAMES = ("gate_proj", "up_proj", "down_proj")  # an HF expert's (gate, up, down)
+
+
+def _experts(t: Dict, b: str, E: int, first: int = 0, names=EXPERT_NAMES) -> dict:
+    """A layer's E experts from ``first`` stacked in place: gate+up [E, 2F,
+    d] interleaved by 8 rows, down [E, d, F], copied expert by expert into
+    the new tensors."""
+    gn, un, dn = names
+    g0 = _leaf(t[f"{b}.experts.{first}.{gn}.weight"])
     f, d = g0.shape
     gate_up = torch.empty(E, 2 * f, d, dtype=g0.dtype, device=g0.device)
     down = torch.empty(E, d, f, dtype=g0.dtype, device=g0.device)
     view = gate_up.view(E, f // 8, 2, 8, d)
     for j in range(E):
-        e = f"{b}.experts.{j}"
-        view[j, :, 0].copy_(_leaf(t[f"{e}.gate_proj.weight"]).view(f // 8, 8, d))
-        view[j, :, 1].copy_(_leaf(t[f"{e}.up_proj.weight"]).view(f // 8, 8, d))
-        down[j].copy_(_leaf(t[f"{e}.down_proj.weight"]))
+        e = f"{b}.experts.{first + j}"
+        view[j, :, 0].copy_(_leaf(t[f"{e}.{gn}.weight"]).view(f // 8, 8, d))
+        view[j, :, 1].copy_(_leaf(t[f"{e}.{un}.weight"]).view(f // 8, 8, d))
+        down[j].copy_(_leaf(t[f"{e}.{dn}.weight"]))
     return {"gate_up": gate_up, "down": down}
 
 
 def _swiglu_from_torch(t: Dict, b: str) -> dict:
     return {"gate_up": {"w": _linear_in_out(t[f"{b}.gate_proj.weight"], t[f"{b}.up_proj.weight"])},
             "down": {"w": _linear_in_out(t[f"{b}.down_proj.weight"])}}
+
+
+def _mla_from_torch(t: Dict, a: str) -> dict:
+    return {
+        "qkv_a": {"w": _linear_in_out(t[f"{a}.q_proj.weight"],
+                                      t[f"{a}.kv_a_proj_with_mqa.weight"])},
+        "kv_a_ln": {"scale": _leaf(t[f"{a}.kv_a_layernorm.weight"]).clone()},
+        "kv_b": {"w": _linear_in_out(t[f"{a}.kv_b_proj.weight"])},
+        "o": {"w": _linear_in_out(t[f"{a}.o_proj.weight"])},
+    }
 
 
 def deepseek_v2_params_from_torch(sd: Dict, cfg: DeepSeekV2Config, prefix: str = "") -> dict:
@@ -300,14 +326,7 @@ def deepseek_v2_params_from_torch(sd: Dict, cfg: DeepSeekV2Config, prefix: str =
     with torch.no_grad():
         for i in range(c.num_layers):
             b = f"layers.{i}"
-            a = f"{b}.self_attn"
-            attn = {
-                "qkv_a": {"w": _linear_in_out(t[f"{a}.q_proj.weight"],
-                                              t[f"{a}.kv_a_proj_with_mqa.weight"])},
-                "kv_a_ln": {"scale": _leaf(t[f"{a}.kv_a_layernorm.weight"]).clone()},
-                "kv_b": {"w": _linear_in_out(t[f"{a}.kv_b_proj.weight"])},
-                "o": {"w": _linear_in_out(t[f"{a}.o_proj.weight"])},
-            }
+            attn = _mla_from_torch(t, f"{b}.self_attn")
             if c.is_moe(i):
                 mlp = {"gate": {"w": _linear_in_out(t[f"{b}.mlp.gate.weight"])},
                        "experts": _experts(t, f"{b}.mlp", c.n_routed_experts)}
@@ -337,6 +356,34 @@ def _split_out(w: torch.Tensor, *widths):
     return out
 
 
+def _swiglu_to_torch(out: Dict, name: str, sw, f32) -> None:
+    gu = f32(sw["gate_up"]["w"])
+    gate, up = _split_out(gu, gu.shape[1] // 2, gu.shape[1] // 2)
+    out[f"{name}.gate_proj.weight"] = gate
+    out[f"{name}.up_proj.weight"] = up
+    out[f"{name}.down_proj.weight"] = f32(sw["down"]["w"]).t().contiguous()
+
+
+def _mla_to_torch(out: Dict, a: str, at, c, f32) -> None:
+    q, kv_a = _split_out(f32(at["qkv_a"]["w"]), c.num_heads * c.q_head_dim,
+                         c.kv_lora_rank + c.qk_rope_head_dim)
+    out[f"{a}.q_proj.weight"] = q
+    out[f"{a}.kv_a_proj_with_mqa.weight"] = kv_a
+    out[f"{a}.kv_a_layernorm.weight"] = f32(at["kv_a_ln"]["scale"])
+    out[f"{a}.kv_b_proj.weight"] = f32(at["kv_b"]["w"]).t().contiguous()
+    out[f"{a}.o_proj.weight"] = f32(at["o"]["w"]).t().contiguous()
+
+
+def _experts_to_torch(out: Dict, b: str, experts, f32, first: int = 0,
+                      names=EXPERT_NAMES) -> None:
+    gate, up = split_gate_up(f32(experts["gate_up"]))
+    down = f32(experts["down"])
+    for j in range(gate.shape[0]):
+        e = f"{b}.experts.{first + j}"
+        for name, w in zip(names, (gate[j], up[j], down[j])):
+            out[f"{e}.{name}.weight"] = w.contiguous()
+
+
 def deepseek_v2_to_torch(bp, cfg: DeepSeekV2Config, prefix: str = "") -> Dict:
     """The inverse of ``deepseek_v2_params_from_torch``: the text tower,
     ``text_projection`` and SigLIP's vision tower in HF names under
@@ -346,36 +393,19 @@ def deepseek_v2_to_torch(bp, cfg: DeepSeekV2Config, prefix: str = "") -> Dict:
     p = bp["text_model"]
     out = {f"{prefix}text_model.embed_tokens.weight": f32(p["embed_tokens"]),
            f"{prefix}text_model.norm.weight": f32(p["norm"]["scale"])}
-    nq = c.num_heads * c.q_head_dim
     for i, layer in enumerate(p["layers"]):
         b = f"{prefix}text_model.layers.{i}"
-        a, at = f"{b}.self_attn", layer["attn"]
-        q, kv_a = _split_out(f32(at["qkv_a"]["w"]), nq, c.kv_lora_rank + c.qk_rope_head_dim)
-        out[f"{a}.q_proj.weight"] = q
-        out[f"{a}.kv_a_proj_with_mqa.weight"] = kv_a
-        out[f"{a}.kv_a_layernorm.weight"] = f32(at["kv_a_ln"]["scale"])
-        out[f"{a}.kv_b_proj.weight"] = f32(at["kv_b"]["w"]).t().contiguous()
-        out[f"{a}.o_proj.weight"] = f32(at["o"]["w"]).t().contiguous()
+        _mla_to_torch(out, f"{b}.self_attn", layer["attn"], c, f32)
         out[f"{b}.input_layernorm.weight"] = f32(layer["input_ln"]["scale"])
         out[f"{b}.post_attention_layernorm.weight"] = f32(layer["post_ln"]["scale"])
         mlp = layer["mlp"]
         swiglus = [(f"{b}.mlp", mlp)] if not c.is_moe(i) else (
             [(f"{b}.mlp.shared_experts", mlp["shared"])] if "shared" in mlp else [])
         for name, sw in swiglus:
-            gu = f32(sw["gate_up"]["w"])
-            gate, up = _split_out(gu, gu.shape[1] // 2, gu.shape[1] // 2)
-            out[f"{name}.gate_proj.weight"] = gate
-            out[f"{name}.up_proj.weight"] = up
-            out[f"{name}.down_proj.weight"] = f32(sw["down"]["w"]).t().contiguous()
+            _swiglu_to_torch(out, name, sw, f32)
         if c.is_moe(i):
             out[f"{b}.mlp.gate.weight"] = f32(mlp["gate"]["w"]).t().contiguous()
-            gate, up = split_gate_up(f32(mlp["experts"]["gate_up"]))
-            down = f32(mlp["experts"]["down"])
-            for j in range(gate.shape[0]):
-                e = f"{b}.mlp.experts.{j}"
-                out[f"{e}.gate_proj.weight"] = gate[j].contiguous()
-                out[f"{e}.up_proj.weight"] = up[j].contiguous()
-                out[f"{e}.down_proj.weight"] = down[j].contiguous()
+            _experts_to_torch(out, f"{b}.mlp", mlp["experts"], f32)
     out[f"{prefix}text_projection.weight"] = f32(bp["text_projection"]["w"]).t().contiguous()
     siglip_vision_to_torch(out, f"{prefix}vision_model", bp["vision_model"], cfg.vision)
     return out
@@ -468,8 +498,11 @@ def attention_packed(q, k, v, pk: Packing, mask: torch.Tensor, scale: float) -> 
 
 
 def mla(h: torch.Tensor, p, c: DeepSeekV2TextConfig, pk: Packing, mask: torch.Tensor,
-        cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """HF ``DeepseekV2Attention`` without q LoRA on packed tokens [N, d]."""
+        cos: Optional[torch.Tensor], sin: Optional[torch.Tensor]) -> torch.Tensor:
+    """HF ``DeepseekV2Attention`` without q LoRA on packed tokens [N, d];
+    with ``cos`` None the NoPE variant (Kimi-Linear's ``mla_use_nope``): the
+    "rotary" columns of q and of the shared key are used as they are. The
+    scale is ``c.softmax_scale``."""
     N = h.shape[0]
     H, dn, dr, dv, r = (c.num_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim,
                         c.kv_lora_rank)
@@ -478,8 +511,11 @@ def mla(h: torch.Tensor, p, c: DeepSeekV2TextConfig, pk: Packing, mask: torch.Te
         qa = dense(h, p["qkv_a"])  # q | latent | shared rotary key
         q = qa[:, :nq].view(N, H, dn + dr)
         latent = rms_norm(qa[:, nq:nq + r], p["kv_a_ln"], c.rms_norm_eps)
-        k_pe = apply_rope_interleaved(qa[:, nq + r:], cos, sin)
-        q_pe = apply_rope_interleaved(q[..., dn:], cos[:, None], sin[:, None])
+        if cos is None:
+            k_pe, q_pe = qa[:, nq + r:], q[..., dn:]
+        else:
+            k_pe = apply_rope_interleaved(qa[:, nq + r:], cos, sin)
+            q_pe = apply_rope_interleaved(q[..., dn:], cos[:, None], sin[:, None])
         kv = dense(latent, p["kv_b"]).view(N, H, dn + dv)
         qf = torch.cat([q[..., :dn], q_pe], dim=-1)
         kf = torch.cat([kv[..., :dn], k_pe[:, None].expand(N, H, dr)], dim=-1)
@@ -497,26 +533,38 @@ def count_packing(cfg: DeepSeekV2Config, mask) -> None:
     count("moe.routed_slots", kept * t.num_experts_per_tok * t.moe_layers)
 
 
-def deepseek_text_features(
+def decoder_features(
     params,
     input_ids: torch.Tensor,
     attention_mask: Optional[torch.Tensor],
-    cfg: DeepSeekV2Config,
+    c,
+    projection_dim: int,
+    attention: Callable,
+    held: int,
     kept: Optional[int] = None,
     counters: Optional[Dict] = None,
+    router: Router = SOFTMAX,
+    remote: bool = False,
 ) -> torch.Tensor:
-    """The text feature [B, projection_dim]: the decoder over the kept
-    tokens, the final RMSNorm at each row's last kept token,
-    ``text_projection``.
+    """The text feature [B, projection_dim] of a sparse pre-norm decoder
+    (DeepSeek-V2's, Kimi-Linear's): the layers over the kept tokens, the
+    final RMSNorm at each row's last kept token, ``text_projection``.
+
+    ``c`` is the text config (``rms_norm_eps``, ``compute_dtype``,
+    ``is_moe``, ``moe_layers``, ``num_experts_per_tok``,
+    ``routed_scaling_factor``); ``attention(pk, mask, T)``, called once
+    under ``text.pack``, gives the layers' attention ``attend(i, h,
+    p_attn)`` on the packed tokens; an expert layer holds ``held`` experts
+    and routes with ``router``.
 
     ``kept`` is the mask's sum where the caller has it on the host (the
     engine); without it it is read from the mask, which waits for the card.
     ``counters`` (a dict) receives, as device scalars summed over the
-    expert layers, ``moe.max_expert_slots`` (the largest expert's slots in
-    each layer) and ``moe.grouped_pad_rows`` (the rows the grouped products
-    compute beyond each expert's slots, at their row granularity
-    ``ops/moe.HALF``)."""
-    c = cfg.text
+    expert layers, ``moe.max_expert_slots`` (the largest held expert's
+    slots in each layer), ``moe.grouped_pad_rows`` (the rows the grouped
+    products compute beyond each expert's slots, at their row granularity
+    ``ops/moe.HALF``) and, with ``remote``, ``moe.remote_slots`` (the slots
+    routed to experts held elsewhere)."""
     p = params["text_model"]
     B, T = input_ids.shape
     mask = torch.ones_like(input_ids) if attention_mask is None else attention_mask
@@ -524,23 +572,25 @@ def deepseek_text_features(
     if kept is None:
         kept = int(mask.sum())
     if kept == 0:
-        return torch.zeros(B, cfg.projection_dim, dtype=dtype, device=input_ids.device)
+        return torch.zeros(B, projection_dim, dtype=dtype, device=input_ids.device)
     with annotate("text.pack"):
         pk = pack(mask, kept)
         x = F.embedding(input_ids.reshape(-1).index_select(0, pk.src),
                         p["embed_tokens"]).to(dtype)
-        cos, sin = _rope_rows(c, pk.pos, T)
-    hist = None
+        attend = attention(pk, mask, T)
+    hist = slots = None
     if counters is not None and c.moe_layers:
-        hist = torch.zeros(c.moe_layers, c.n_routed_experts, dtype=torch.int32, device=x.device)
+        hist = torch.zeros(c.moe_layers, held, dtype=torch.int32, device=x.device)
+        if remote:
+            slots = torch.zeros((), dtype=torch.int32, device=x.device)
     delta, m = None, 0
     for i, layer in enumerate(p["layers"]):
         x, h = add_rms_norm(x, delta, layer["input_ln"], c.rms_norm_eps)
-        a = mla(h, layer["attn"], c, pk, mask, cos, sin)
+        a = attend(i, h, layer["attn"])
         x, h = add_rms_norm(x, a, layer["post_ln"], c.rms_norm_eps)
         if c.is_moe(i):
             delta = moe_layer(h, layer["mlp"], c.num_experts_per_tok, c.routed_scaling_factor,
-                              None if hist is None else hist[m])
+                              None if hist is None else hist[m], router, slots)
             m += 1
         else:
             delta = swiglu(h, layer["mlp"])
@@ -550,5 +600,27 @@ def deepseek_text_features(
     if hist is not None:
         counters["moe.max_expert_slots"] = hist.amax(1).sum()
         counters["moe.grouped_pad_rows"] = (-hist % HALF).sum()
+        if slots is not None:
+            counters["moe.remote_slots"] = slots
     return dense(y, params["text_projection"])
+
+
+def deepseek_text_features(
+    params,
+    input_ids: torch.Tensor,
+    attention_mask: Optional[torch.Tensor],
+    cfg: DeepSeekV2Config,
+    kept: Optional[int] = None,
+    counters: Optional[Dict] = None,
+) -> torch.Tensor:
+    """DeepSeek-V2's text feature (``decoder_features``): MLA with YaRN
+    rotation in every layer, every routed expert held."""
+    c = cfg.text
+
+    def attention(pk, mask, T):
+        cos, sin = _rope_rows(c, pk.pos, T)
+        return lambda i, h, p: mla(h, p, c, pk, mask, cos, sin)
+
+    return decoder_features(params, input_ids, attention_mask, c, cfg.projection_dim,
+                            attention, c.n_routed_experts, kept, counters)
 

@@ -48,9 +48,9 @@ from multimodal_content_moderation_tpu_torch.utils.device import resolve_device
 def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
     """Resolve ``backend: auto`` from the local encoder's ``config.json``
     ``model_type``, as the JAX package does: clip -> clip, siglip-family or
-    none -> siglip, deepseek_v2 -> deepseek_v2 (the port's own), another
-    dual-encoder config (``text_config`` / ``vision_config``, e.g.
-    ``vision-text-dual-encoder``) -> generic. Other names come back as they
+    none -> siglip, deepseek_v2 and kimi_linear -> themselves (the port's
+    own), another dual-encoder config (``text_config`` / ``vision_config``,
+    e.g. ``vision-text-dual-encoder``) -> generic. Other names come back as they
     are; a name outside ``models/backbones.py``'s table raises."""
     backbone(backend)
     if backend != "auto":
@@ -59,7 +59,7 @@ def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
     if os.path.exists(cfg_path):
         d = load_json(cfg_path)
         model_type = d.get("model_type", "")
-        if model_type in ("clip", "deepseek_v2"):
+        if model_type in ("clip", "deepseek_v2", "kimi_linear"):
             return model_type
         if model_type and not model_type.startswith("siglip") and (
             "text_config" in d or "vision_config" in d
@@ -71,7 +71,7 @@ def resolve_backend(encoder_dir: Optional[str], backend: str) -> str:
 def load_encoder_config(encoder_dir: str, backend: str):
     """Parse a local HF ``config.json`` into the backend's config
     (``Backbone.from_dict``: ``CLIPConfig``, ``SigLIPConfig``,
-    ``GenericDualConfig`` or ``DeepSeekV2Config``), or the backend's
+    ``GenericDualConfig``, ``DeepSeekV2Config`` or ``KimiLinearConfig``), or the backend's
     canonical architecture without one."""
     family = backbone(backend)
     cfg_path = os.path.join(encoder_dir, "config.json")

@@ -17,7 +17,13 @@ from multimodal_content_moderation_tpu_torch.data.images import (
     SIGLIP_MEAN,
     SIGLIP_STD,
 )
-from multimodal_content_moderation_tpu_torch.models import clip, deepseek_v2, generic, siglip
+from multimodal_content_moderation_tpu_torch.models import (
+    clip,
+    deepseek_v2,
+    generic,
+    kimi_linear,
+    siglip,
+)
 from multimodal_content_moderation_tpu_torch.models.backbones import (
     BACKBONES,
     backbone,
@@ -41,6 +47,9 @@ FACTS = {
                 "generic", False, True, ()),
     "deepseek_v2": (deepseek_v2.DeepSeekV2Config, True, 0, True, False,
                     (SIGLIP_MEAN, SIGLIP_STD), None, True, False, ("add_layer_norm", "moe")),
+    "kimi_linear": (kimi_linear.KimiLinearConfig, True, 0, True, False,
+                    (SIGLIP_MEAN, SIGLIP_STD), None, True, False,
+                    ("add_layer_norm", "moe", "kda")),
 }
 
 
@@ -69,7 +78,8 @@ def test_record_facts(name):
 
 
 def test_table_holds_the_five_names_and_refuses_others():
-    assert list(BACKBONES) == ["clip", "siglip", "auto", "generic", "deepseek_v2"]
+    assert list(BACKBONES) == ["clip", "siglip", "auto", "generic", "deepseek_v2",
+                               "kimi_linear"]
     assert backbone("auto") is backbone("siglip")
     with pytest.raises(ValueError, match="'deepseek_v3': want one of clip, siglip, auto"):
         backbone("deepseek_v3")

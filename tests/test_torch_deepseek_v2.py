@@ -329,8 +329,8 @@ def test_evaluate_buckets_exactly_and_counts(tmp_path, data_dir, encoder_dir, mo
     layer_counts = []
     real_layer = ds.moe_layer
 
-    def counting_layer(x, p, k, scaling, hist=None):
-        out = real_layer(x, p, k, scaling, hist)
+    def counting_layer(x, p, k, scaling, hist=None, *rest):
+        out = real_layer(x, p, k, scaling, hist, *rest)
         if hist is not None:
             layer_counts.append(hist.tolist())
         return out

@@ -2,7 +2,7 @@
 add + RMSNorm instantiation of ``csrc/add_layer_norm.cu`` (behind
 ``ops/cuda_norm.py``) against their plain versions on the card, at
 DeepSeek-V2-Lite's published widths (d 2,048, experts of 1,408, 64 experts,
-top-6).
+top-6), and ``moe_grouped`` at Kimi-Linear's (d 2,304, experts of 1,024).
 
 Marked ``gpu``: they skip where no card is present (decided inside each
 test). On the card machine: ``python -m pytest --noconftest -m gpu
@@ -115,9 +115,34 @@ def _check_products(x, r, idx, weight, w_gu, w_down):
                       * torch.mm(xe, up[e].t(), out_dtype=torch.float32)).bfloat16()
             torch.testing.assert_close(h[off[e]:off[e + 1]].float(), want_h.float(), atol=1e-3,
                                        rtol=2.0 ** -7)
-    got_y = y[r.slot_pos.long()]  # back in slot order
-    torch.testing.assert_close(got_y.float(), want.float(), atol=1e-3, rtol=2.0 ** -7)
+    held = r.slot_pos >= 0  # every slot, but where the layer holds a share of the experts
+    got_y = y[r.slot_pos.clamp(min=0).long()]  # back in slot order
+    torch.testing.assert_close(got_y[held].float(), want[held].float(), atol=1e-3,
+                               rtol=2.0 ** -7)
     return h, y
+
+
+@pytest.mark.parametrize("N", [333, 13000])
+def test_grouped_products_at_kimi_linear_widths(N):
+    """``moe_grouped`` at Kimi-Linear's expert widths (d 2,304, F 1,024) over
+    the 64 experts a card holds of a 256-wide sigmoid router at top-8 (about
+    a quarter of the slots held): every held row against the plain path."""
+    _need_card()
+    Dk, Fk, Ek, width, k = 2304, 1024, 64, 256, 8
+    g = torch.Generator(device="cuda").manual_seed(N)
+    x = torch.randn(N, Dk, generator=g, device="cuda").bfloat16()
+    gate = (torch.randn(Dk, width, generator=g, device="cuda") * Dk ** -0.5).bfloat16()
+    w_gu = (torch.randn(Ek, 2 * Fk, Dk, generator=g, device="cuda") * Dk ** -0.5).bfloat16()
+    w_down = (torch.randn(Ek, Dk, Fk, generator=g, device="cuda") * Fk ** -0.5).bfloat16()
+    assert moe.takes(x, w_gu, w_down, k, width, 0)
+    logits = torch.mm(x, gate, out_dtype=torch.float32)
+    router = moe.Router(sigmoid=True, first=0)
+    counts = torch.zeros(Ek, dtype=torch.int32, device="cuda")
+    r = moe.route(logits, k, 2.446, counts, router)
+    idx, weight = moe.route_reference(logits, k, 2.446, router)
+    local = moe.held_slots(idx, 0, Ek)[0]
+    assert torch.equal(r.idx.long(), local)
+    _check_products(x, r, local, weight, w_gu, w_down)
 
 
 # slots an expert around the products' row granularity (64-row halves of a
@@ -307,8 +332,8 @@ def test_engine_counts_grouped_pad_rows(monkeypatch):
     layer_counts = []
     real_layer = ds.moe_layer
 
-    def counting_layer(x, p, k, scaling, hist=None):
-        out = real_layer(x, p, k, scaling, hist)
+    def counting_layer(x, p, k, scaling, hist=None, *rest):
+        out = real_layer(x, p, k, scaling, hist, *rest)
         layer_counts.append(hist.tolist())
         return out
 

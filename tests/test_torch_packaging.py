@@ -71,7 +71,7 @@ def test_package_data_ships_every_kernel_source_and_fixture(port):
             rel = p.relative_to(root).as_posix()
             assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
     cu = [p.name for p in (root / "csrc").glob("*.cu")]
-    assert len(cu) == 7  # the five ported kernels, add_layer_norm (and RMSNorm), moe
+    assert len(cu) == 8  # the five ported kernels, add_layer_norm (and RMSNorm), moe, kda
 
 
 def test_requirements_are_torch_and_numpy(port):
